@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
+from .build import LAUNCHES, build_all, launch_counts, reset_launches  # noqa: F401
+from .ops import (  # noqa: F401
+    chain_copy_op,
+    descriptor_copy_op,
+    quantize_copy_op,
+)
+from .descriptor_copy import (  # noqa: F401
+    descriptor_copy_bucketed,
+    descriptor_copy_plain,
+)
+from .quantize_copy import (  # noqa: F401
+    quantize_copy,
+    quantize_copy_bucketed,
+    quantize_copy_plain,
+)

@@ -1,0 +1,135 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``. The
+library's file name carries a hash of its source and flags, so an edited
+kernel is rebuilt and an unchanged one is reused. Libraries go to
+``build/repro_torch/`` at the root of the checkout (``build/`` is
+git-ignored), or to ``$REPRO_TORCH_BUILD_DIR`` when that is set.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
+calls into a library's launch function, and nowhere else, so a run can
+show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: Launch function of each library: (C symbol, argtypes).
+_SYMBOLS = {
+    "descriptor_copy": ("descriptor_copy_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                        + [ctypes.c_void_p]),
+    "quantize_copy": ("quantize_copy_launch",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_int, ctypes.c_void_p]),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in _SYMBOLS}
+BUILD_LOG: Dict[str, str] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit on the machine with the GPU")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{key}.so"
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: List[str] = None) -> None:
+    """Compile every kernel library not built yet, one nvcc each, in
+    parallel; raises if any build fails."""
+    names = list(_SYMBOLS) if names is None else names
+    with _LOCK:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            _finish(n, job)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _LOCK:
+        lib = ctypes.CDLL(str(_target(name)))
+        sym, argtypes = _SYMBOLS[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s launch function, count it, raise on error."""
+    sym, _ = _SYMBOLS[name]
+    err = getattr(library(name), sym)(*args)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -1,0 +1,9 @@
+"""Virtual page addressing (DESIGN.md §11): the page table.
+
+:class:`PageTable` maps virtual page ids to (shard, physical slot) with
+per-page generation counters, the substrate for remap-based
+defragmentation. The IOTLB cycle model is not ported yet.
+"""
+from .page_table import PageTable
+
+__all__ = ["PageTable"]

@@ -1,0 +1,88 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where there is no GPU: a
+CUDA kernel has no CPU mode. The file imports neither JAX nor the JAX
+package, so it runs on a machine that has only PyTorch and the CUDA
+toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel must be bit-identical to its plain version.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.descriptor_copy import (  # noqa: E402
+    descriptor_copy,
+    descriptor_copy_bucketed,
+    descriptor_copy_plain,
+)
+from repro_torch.kernels.quantize_copy import (  # noqa: E402
+    quantize_copy_bucketed,
+    quantize_copy_plain,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rows(shape, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 50
+    return x.to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,unit,offset", [
+    (torch.float32, 4096, 0),      # 16-byte vector path
+    (torch.bfloat16, 4096, 0),
+    (torch.int32, 3, 0),           # 12-byte rows: 4-byte words
+    (torch.int32, 4, 1),           # misaligned base pointer: 4-byte words
+    (torch.uint8, 7, 0),           # 7-byte rows: the byte path
+])
+def test_cuda_descriptor_copy_matches_plain(cuda, dtype, unit, offset):
+    flat_s = _rows((64 * unit + offset,), dtype, cuda, 0)
+    flat_d = _rows((64 * unit + offset,), dtype, cuda, 1)
+    src = flat_s[offset:].view(64, unit)
+    dst = flat_d[offset:].view(64, unit)
+    sidx = np.array([3, -1, 7, 0, 9, 2, 5, 5], np.int64)
+    didx = np.array([0, 4, 9, 63, 9, 6, -1, 1], np.int64)
+    want = descriptor_copy_plain(sidx, didx, src, dst.clone())
+    before = build.launch_counts()["descriptor_copy"]
+    got = descriptor_copy_bucketed(sidx, didx, src, dst, n_bucket=16)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["descriptor_copy"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_descriptor_copy_aliased_move_chain(cuda):
+    pool = _rows((256, 1024), torch.float32, cuda, 2)
+    sidx, didx = np.arange(0, 128), np.arange(64, 192)   # overlapping rows
+    # Every descriptor reads the pool as it was before the call.
+    want = descriptor_copy_plain(sidx, didx, pool.clone(), pool.clone())
+    got = descriptor_copy(sidx, didx, pool, pool)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_copy_matches_plain(cuda, dtype):
+    src = (_rows((32, 1024), torch.float32, cuda, 3) / 10).to(dtype)
+    src[1, :256] = 0                                  # scale floor
+    src[2, :256] = torch.arange(256, device=cuda) % 254 - 126.5
+    src[2, 0] = 127.0                    # scale exactly 1: exact .5 ties
+    dst = _rows((32, 1024), dtype, cuda, 4)
+    sidx, didx = np.arange(0, 16), np.arange(16, 32)[::-1].copy()
+    want = quantize_copy_plain(sidx, didx, src, dst.clone())
+    got = quantize_copy_bucketed(sidx, didx, src, dst, n_bucket=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
