@@ -17,18 +17,39 @@ Phases:
 2. ``descriptor_copy`` and ``quantize_copy`` against their plain versions
    (fp32, bf16 and integer rows; -1 entries, bucket padding, duplicate
    destinations, an aliased move chain, an all-zero block, exact .5 ties,
-   mixed magnitudes), with their times, the bytes they move and the bound.
+   mixed magnitudes); ``prefetched_chain_copy`` bit for bit (the same
+   pools, -1 on both sides, duplicate destinations, depths 2-8, chains of
+   0, 1, 3 and 512, an aliased move chain); ``paged_attention`` within
+   rtol = atol = 2e-5 (fp32) and 2e-2 (bf16) (H/KV 40/8 and 8/8, ragged
+   lengths with 0 and a partial page, -1 inside and past the length).
+   Each with its times at the main path's shapes, the bytes it moves and
+   its bound; the paged decode also with a yardstick the port never calls
+   (``index_select`` of the dense K/V, then
+   ``scaled_dot_product_attention``).
 3. The main path: one layer's paged KV cache in the KV geometry of
    qwen3-14b (8 KV heads, head dim 128, pages of 16 tokens, fp32; 8,192
-   pages of 64 KiB per pool), 64 sequences grown interleaved, then
+   pages of 64 KiB per pool), 64 sequences of 1,024 tokens grown
+   interleaved, q of its 40 query heads, then
+   (f) decode over all 64 sequences (``paged_attention``), held against
+   the plain version,
    (a) ``move_pages`` of a 512-page burst through a 4-channel blocked_2d
    runtime (fused drain -> ``descriptor_copy_bucketed``),
    (b) ``defragment(mode="copy")`` of a fragmented sequence,
    (c) the burst on a ``use_kernel=True`` channel (``descriptor_copy``),
+   then decode again, bit-identical,
    (d) a kv_int8 serial chain of page-aligned rows over the flat pool
-   (``quantize_copy_bucketed``), and (e) the same chain as an identity
-   transfer (``descriptor_copy_bucketed``). Each phase checks its pools,
-   its §II-D writebacks and that its kernel launched.
+   (``quantize_copy_bucketed``), (e) the same chain as an identity
+   transfer (``descriptor_copy_bucketed``),
+   (g) ``defragment(mode="remap")`` of another sequence, then decode,
+   bit-identical,
+   (h) §II-C swap-out of 8 sequences: their virtual chains lowered by
+   ``translate_chain`` and copied to cold pools by
+   ``prefetched_chain_copy_op``, held against the plain version and each
+   sequence's dense view, and
+   (i) swap-in: the hot pages zeroed (decode must change) and copied back
+   (decode bit-identical again).
+   Each phase checks its pools (and (a)-(e) their §II-D writebacks) and
+   that its kernel launched.
 4. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -51,6 +72,7 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 QUANT_OPS_PER_ELEM = 7         # abs, max, div, round, 2x clamp, mul
 
 PAGE, KV_HEADS, HEAD_DIM, NUM_PAGES = 16, 8, 128, 8192
+HEADS = 40                                # qwen3-14b query heads
 ROW = PAGE * KV_HEADS * HEAD_DIM          # 16,384 floats = 64 KiB
 SEQS, TOKENS, BURST = 64, 1024, 512
 
@@ -213,6 +235,205 @@ def check_kernels(torch, np, dev, rng) -> dict:
     return out
 
 
+def check_prefetch(torch, np, dev, rng) -> dict:
+    """``prefetched_chain_copy`` against its plain version, and its times."""
+    from repro_torch.core.speculation import DEFAULT_POLICY, static_depth
+    from repro_torch.kernels import build
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy, prefetched_chain_copy_plain)
+
+    depth_main = static_depth(DEFAULT_POLICY)     # what the op resolves
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def indices(rows, n):
+        """n descriptors; duplicate destinations and -1 on both sides."""
+        sidx = rng.choice(rows, n, replace=False).astype(np.int64)
+        didx = rng.choice(rows, n, replace=False).astype(np.int64)
+        if n >= 64:
+            didx[rng.choice(n, 16, replace=False)] = didx[0]
+            sidx[rng.choice(n, 8, replace=False)] = -1
+            didx[rng.choice(n, 8, replace=False)] = -1
+        return sidx, didx
+
+    depths = iter(range(2, 9))
+    for dtype, rows, unit in ((torch.float32, NUM_PAGES, ROW),
+                              (torch.bfloat16, 2048, ROW),
+                              (torch.int32, 4096, 3), (torch.uint8, 4096, 7)):
+        src = (torch.randn((rows, unit), device=dev, generator=g) * 100
+               ).to(dtype)
+        dst = torch.zeros((rows, unit), device=dev, dtype=dtype)
+        for n in (0, 1, 3, BURST):
+            depth = next(depths, 4)
+            sidx, didx = indices(rows, n)
+            want = prefetched_chain_copy_plain(sidx, didx, src, dst.clone())
+            got = prefetched_chain_copy(sidx, didx, src, dst.clone(),
+                                        depth=depth)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"prefetched_chain_copy disagrees: "
+                                     f"{dtype} ({rows}, {unit}), n {n}, "
+                                     f"depth {depth}")
+            log({"check": "prefetched_chain_copy", "dtype": str(dtype),
+                 "rows": rows, "unit": unit, "n": n, "depth": depth,
+                 "equal": True})
+            del want, got
+        del src, dst
+    pool = torch.randn((2048, ROW), device=dev, generator=g)
+    sidx, didx = np.arange(0, 512), np.arange(256, 768)
+    want = prefetched_chain_copy_plain(sidx, didx, pool.clone(), pool.clone())
+    got = prefetched_chain_copy(sidx, didx, pool, pool, depth=4)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("prefetched_chain_copy aliased move disagrees")
+    log({"check": "prefetched_chain_copy", "case": "src is dst, "
+         "overlapping rows", "equal": True})
+    del pool, got, want
+
+    # Times at the main path's shapes: a 512-row swap of 64 KiB rows out of
+    # a full pool, at the default depth.
+    src = torch.randn((NUM_PAGES, ROW), device=dev, generator=g)
+    dst = torch.zeros((BURST, ROW), device=dev)
+    sidx = rng.choice(NUM_PAGES, BURST, replace=False).astype(np.int64)
+    didx = np.arange(BURST, dtype=np.int64)
+    s_dev = torch.from_numpy(sidx).to(dev)
+    d_dev = torch.from_numpy(didx).to(dev)
+    s32, d32 = s_dev.to(torch.int32), d_dev.to(torch.int32)
+    row_bytes = ROW * 4
+    moved = 2 * BURST * row_bytes
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(torch, lambda: prefetched_chain_copy(sidx, didx, src, dst,
+                                                      depth=depth_main))
+    kernel_ms = time_ms(torch, lambda: build.launch(
+        "prefetch_pipeline", src.data_ptr(), dst.data_ptr(), s32.data_ptr(),
+        d32.data_ptr(), BURST, row_bytes, depth_main, stream))
+    plain_ms = time_ms(torch, lambda: prefetched_chain_copy_plain(
+        sidx, didx, src, dst))
+    library_ms = time_ms(torch, lambda: dst.index_copy_(
+        0, d_dev, src.index_select(0, s_dev)))
+    b_ms, b_by = bound_ms(moved, 0)
+    out = {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": moved}
+    log({"time": "prefetched_chain_copy", "rows": BURST,
+         "row_bytes": row_bytes, "depth": depth_main, **out,
+         "share_of_bound": b_ms / ms, "kernel_share_of_bound": b_ms / kernel_ms})
+    del src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_inputs(torch, dev, g, dtype, b, h, kv, pool, maxp, *,
+                 ragged=True):
+    """q, pools, tables and lengths of a decode batch over random pages."""
+    q = torch.randn((b, h, HEAD_DIM), device=dev, generator=g).to(dtype)
+    kp = torch.randn((pool, PAGE, kv, HEAD_DIM), device=dev,
+                     generator=g).to(dtype)
+    vp = torch.randn((pool, PAGE, kv, HEAD_DIM), device=dev,
+                     generator=g).to(dtype)
+    tables = torch.randperm(pool, device=dev, generator=g)[:b * maxp]
+    tables = tables.view(b, maxp)
+    lengths = torch.full((b,), maxp * PAGE, device=dev)
+    if ragged:
+        lengths = torch.randint(0, maxp * PAGE + 1, (b,), device=dev,
+                                generator=g)
+        lengths[0], lengths[1] = 0, maxp * PAGE - 5    # empty; partial page
+        pos = torch.arange(maxp, device=dev)[None, :] * PAGE
+        tables = torch.where(pos < lengths[:, None], tables, -1)
+        tables[1, 2] = -1                              # a hole in the length
+        if int(lengths[2]) <= (maxp - 1) * PAGE:
+            tables[2, -1] = 7                          # past the length
+    return (q, kp, vp, tables.to(torch.int32).contiguous(),
+            lengths.to(torch.int32))
+
+
+def paged_work(torch, q, kp, tables, lengths) -> tuple:
+    """(bytes, operations) the decode needs for these inputs: each valid
+    token's K and V row read once, q read and the output written once;
+    4 * H * D operations per valid token (q.k and p.v)."""
+    _, h, d = q.shape
+    page, kv = kp.shape[1], kp.shape[2]
+    pos = torch.arange(tables.shape[1] * page, device=q.device)
+    valid = (pos[None, :] < lengths.long()[:, None]) \
+        & (tables >= 0).repeat_interleave(page, dim=1)
+    tokens = int(valid.sum())
+    elem = q.element_size()
+    n_bytes = (2 * tokens * kv * d * elem + 2 * q.numel() * elem
+               + 4 * (tables.numel() + lengths.numel()))
+    return n_bytes, 4 * tokens * h * d
+
+
+def check_paged(torch, np, dev, rng) -> dict:
+    """``paged_attention`` against its plain version, and its times."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    err = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for h, kv in ((40, 8), (8, 8)):
+            args = paged_inputs(torch, dev, g, dtype, 16, h, kv, 1024, 64)
+            want = paged_attention_plain(*args)
+            got = paged_attention(*args)
+            torch.cuda.synchronize()
+            e = max_err(torch, got, want)
+            lim = tol + tol * want.float().abs()
+            if not bool(((got.float() - want.float()).abs() <= lim).all()) \
+                    or got[0].float().any():
+                raise AssertionError(f"paged_attention disagrees: {dtype} "
+                                     f"H/KV {h}/{kv}, max abs err {e}")
+            err = max(err, e)
+            log({"check": "paged_attention", "dtype": str(dtype), "H": h,
+                 "KV": kv, "max_abs_err": e, "rtol": tol, "atol": tol})
+            del args, want, got
+
+    # Times at the main path's shapes: 64 sequences of 1,024 tokens, q of
+    # qwen3-14b (40 heads over 8 KV heads), fp32 pools of 8,192 pages.
+    q, kp, vp, tables, lengths = paged_inputs(
+        torch, dev, g, torch.float32, SEQS, HEADS, KV_HEADS, NUM_PAGES,
+        TOKENS // PAGE, ragged=False)
+    out_t = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, tables, lengths))
+    kernel_ms = time_ms(torch, lambda: build.launch(
+        "paged_attention", q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        tables.data_ptr(), lengths.data_ptr(), out_t.data_ptr(), SEQS,
+        KV_HEADS, HEADS // KV_HEADS, HEAD_DIM, PAGE, TOKENS // PAGE, 0,
+        stream))
+    plain_ms = time_ms(torch, lambda: paged_attention_plain(
+        q, kp, vp, tables, lengths))
+    # Yardstick (the port never calls it): gather the dense K/V through the
+    # block table, then scaled_dot_product_attention over that view.
+    flat = tables.long().view(-1)
+
+    def dense():
+        k = kp.index_select(0, flat).view(SEQS, TOKENS, KV_HEADS, HEAD_DIM)
+        v = vp.index_select(0, flat).view(SEQS, TOKENS, KV_HEADS, HEAD_DIM)
+        return k.transpose(1, 2), v.transpose(1, 2)
+
+    kd, vd = dense()
+    q4 = q.view(SEQS, HEADS, 1, HEAD_DIM)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gather_ms = time_ms(torch, dense)
+    attn_ms = time_ms(torch, lambda: sdpa(q4, kd, vd, enable_gqa=True))
+    yard = sdpa(q4, kd, vd, enable_gqa=True).view_as(q)
+    n_bytes, n_ops = paged_work(torch, q, kp, tables, lengths)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    ours = paged_attention(q, kp, vp, tables, lengths)
+    out = {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": n_bytes, "operations": n_ops}
+    log({"time": "paged_attention", "B": SEQS, "H": HEADS, "KV": KV_HEADS,
+         "D": HEAD_DIM, "tokens_each": TOKENS, **out,
+         "share_of_bound": b_ms / ms, "kernel_share_of_bound": b_ms / kernel_ms})
+    log({"yardstick": "paged_attention", "index_select_kv_ms": gather_ms,
+         "sdpa_enable_gqa_ms": attn_ms, "sum_ms": gather_ms + attn_ms,
+         "max_abs_diff_to_kernel": max_err(torch, ours, yard)})
+    del q, kp, vp, kd, vd, out_t
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -265,14 +486,38 @@ def run_phase(torch, name, fn, expect, pools, kernels, n_bytes):
     return launches
 
 
+def run_step(torch, name, fn, kernels, n_bytes, **extra):
+    """Drive one phase without runtime tickets; check its kernels launched."""
+    from repro_torch.kernels import build
+    before = build.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v - before[k] for k, v in build.launch_counts().items()}
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"phase {name}: {k} was not launched")
+    log({"phase": name, "ms": ms, "bytes": n_bytes, **extra,
+         "launches": launches})
+    return out
+
+
 def main_path(torch, np, dev, rng) -> dict:
     from repro_torch.core.chain import from_segments
     from repro_torch.core.pageref import PageRef
     from repro_torch.kernels import build
     from repro_torch.kernels.descriptor_copy import descriptor_copy_plain
+    from repro_torch.kernels.ops import (
+        paged_attention_op, prefetched_chain_copy_op)
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy_plain)
     from repro_torch.kernels.quantize_copy import quantize_copy_plain
     from repro_torch.runtime import (
         ChannelConfig, DMARuntime, SubmitRequest, default_runtime)
+    from repro_torch.runtime.lowering import translate_chain
     from repro_torch.serve.kv_cache import PagedKVCache
 
     cache = PagedKVCache(page=PAGE, num_pages=NUM_PAGES, max_seqs=SEQS,
@@ -324,7 +569,34 @@ def main_path(torch, np, dev, rng) -> dict:
     def slots(vids):
         return [cache._slot(p) for p in vids]
 
+    q = torch.randn((SEQS, HEADS, HEAD_DIM), device=dev, generator=g)
+
+    def decode(name, **extra):
+        """One decode step over every sequence, through the kernel."""
+        args = cache.kernel_args()
+        n_bytes, _ = paged_work(torch, q, args[0], args[2], args[3])
+        out = run_step(torch, name, lambda: paged_attention_op(q, *args),
+                       ["paged_attention"], n_bytes, **extra)
+        return out, args
+
     build.reset_launches()                    # the main path starts here
+
+    # (f) decode over the full pool, against the plain version.
+    o0, args = decode("f_decode")
+    want = paged_attention_plain(q, *args)
+    err = max_err(torch, o0, want)
+    if not bool(((o0 - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()):
+        raise AssertionError(f"decode disagrees with the plain version: "
+                             f"max abs err {err}")
+    log({"check": "f_decode", "max_abs_err": err, "rtol": 2e-5,
+         "atol": 2e-5})
+    del want, args
+
+    def same_decode(name, **extra):
+        out, _ = decode(name, **extra)
+        if not torch.equal(out, o0):
+            raise AssertionError(f"{name}: decode changed")
+        return out
 
     # (a) move_pages burst through the fused rows2d route.
     rt_a = default_runtime(4, tier="blocked_2d", ring_capacity=BURST,
@@ -380,6 +652,9 @@ def main_path(torch, np, dev, rng) -> dict:
               lambda: (kp(), vp()), ["descriptor_copy"],
               2 * 2 * BURST * page_bytes)
     del exp
+    # The moves wrote only free pages, and copy-defragmentation moved a
+    # sequence without changing its logical KV: decode is bit-identical.
+    same_decode("f_decode_after_moves")
 
     # (d) kv_int8 serial chain over the flat pool; (e) the same, identity.
     rt_d = DMARuntime([ChannelConfig(name="q0", tier="serial", max_len=ROW,
@@ -422,6 +697,87 @@ def main_path(torch, np, dev, rng) -> dict:
     if stats["translation.misses"] != 2 or stats["translation.lookups"] != 2:
         raise AssertionError(f"serial chains were not lowered: {stats}")
 
+    # (g) A finished request's slot is reused: sequence 8 is evicted and
+    # refilled with the same tokens. Its new pages land on the holes that
+    # (b) left, so it is fragmented again; remap-defragment compacts it
+    # without moving a byte. The logical KV is unchanged, so decode is
+    # bit-identical while every page of the sequence sits elsewhere.
+    slot_g = slot_b
+    k8, v8 = (torch.from_numpy(x).to(dev) for x in cache.dense_view(slot_g))
+    cache.evict(slot_g)
+    cache.admit(slot_g)
+    for t in range(len(k8)):
+        cache.append(slot_g, k8[t], v8[t])
+    rate0 = cache.alloc.speculation_hit_rate(slot_g)
+    remaps0 = cache.page_table.remaps
+    rate = run_step(torch, "g_defragment_remap",
+                    lambda: cache.defragment(slot_g, mode="remap"), [], 0,
+                    hit_rate_before=rate0)
+    if not rate > rate0:
+        raise AssertionError(f"remap defragment left hit rate {rate}")
+    log({"check": "g_defragment_remap", "hit_rate_after": rate,
+         "remaps": cache.page_table.remaps - remaps0})
+    same_decode("g_decode_after_refill_and_remap")
+    del k8, v8
+
+    # (h) §II-C swap-out: 8 sequences' virtual chains lowered through the
+    # page table, copied K and V into cold pools by the prefetched copy.
+    # Only the sources are virtual: the cold pools are addressed directly,
+    # sequence n at rows n * per_seq onwards (translate_dst=False).
+    swap = list(range(40, 48))
+    per_seq = TOKENS // PAGE
+    hot, cold_rows = [], []
+    for n, s in enumerate(swap):
+        phys = translate_chain(cache.chain(s), cache.page_table, ROW,
+                               translate_dst=False)
+        hot.append(np.asarray(phys.src, np.int64) // ROW)
+        cold_rows.append(n * per_seq + np.asarray(phys.dst, np.int64) // ROW)
+    hot, cold_rows = np.concatenate(hot), np.concatenate(cold_rows)
+    cold = [torch.zeros((len(swap) * per_seq, ROW), device=dev)
+            for _ in range(2)]
+    exp = [prefetched_chain_copy_plain(hot, cold_rows, pool, c.clone())
+           for pool, c in zip((kp(), vp()), cold)]
+
+    def swap_out():
+        for pool, c in zip((kp(), vp()), cold):
+            prefetched_chain_copy_op(hot, cold_rows, pool, c)
+    run_step(torch, "h_swap_out_prefetched", swap_out,
+             ["prefetch_pipeline"], 2 * 2 * hot.size * page_bytes,
+             descriptors=int(hot.size))
+    for got, want in zip(cold, exp):
+        if not torch.equal(got, want):
+            raise AssertionError("swap-out differs from the plain version")
+    for n, s in enumerate(swap):
+        k, v = cache.dense_view(s)
+        for c, dense in zip(cold, (k, v)):
+            rows = c[n * per_seq:(n + 1) * per_seq].view(-1, KV_HEADS,
+                                                         HEAD_DIM)
+            if not np.array_equal(rows[:len(dense)].cpu().numpy(), dense):
+                raise AssertionError(f"swap-out of sequence {s} differs "
+                                     "from its dense view")
+    del exp
+
+    # (i) swap-in: evict the hot pages, decode must change; copy them back
+    # through the prefetched copy, decode must be bit-identical again.
+    hot_dev = torch.from_numpy(hot).to(dev)
+    kp()[hot_dev] = 0
+    vp()[hot_dev] = 0
+    evicted, _ = decode("i_decode_evicted")
+    if torch.equal(evicted, o0):
+        raise AssertionError("decode did not read the evicted pages")
+
+    def swap_in():
+        for pool, c in zip((kp(), vp()), cold):
+            prefetched_chain_copy_op(cold_rows, hot, c, pool)
+    run_step(torch, "i_swap_in_prefetched", swap_in, ["prefetch_pipeline"],
+             2 * 2 * hot.size * page_bytes, descriptors=int(hot.size))
+    for pool, c in zip((kp(), vp()), cold):
+        if not torch.equal(pool[hot_dev], c[torch.from_numpy(cold_rows).to(
+                dev)]):
+            raise AssertionError("swap-in differs from the cold pool")
+    same_decode("i_decode_after_swap_in")
+    del cold, evicted
+
     counts = build.launch_counts()            # the main path ends here
     log({"main_path_launches": counts})
     for k, v in counts.items():
@@ -452,9 +808,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     log(smi)
-    log({"device": name, "torch": torch.__version__,
+    log({"device": kind, "torch": torch.__version__,
          "cuda": torch.version.cuda})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -469,17 +825,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     timing = check_kernels(torch, np, dev, rng)
+    timing["prefetch_pipeline"] = check_prefetch(torch, np, dev, rng)
+    timing["paged_attention"] = check_paged(torch, np, dev, rng)
     launches = main_path(torch, np, dev, rng)
 
-    src = {"descriptor_copy": ("src/repro_torch/kernels/csrc/descriptor_copy.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    src = {"descriptor_copy": ("descriptor_copy",
                                "src/repro/kernels/descriptor_copy.py:39"),
-           "quantize_copy": ("src/repro_torch/kernels/csrc/quantize_copy.cu",
-                             "src/repro/kernels/quantize_copy.py:52")}
+           "quantize_copy": ("quantize_copy",
+                             "src/repro/kernels/quantize_copy.py:52"),
+           "prefetched_chain_copy": ("prefetch_pipeline",
+                                     "src/repro/kernels/prefetch_pipeline.py:61"),
+           "paged_attention": ("paged_attention",
+                               "src/repro/kernels/paged_attention.py:69")}
     kernels = []
-    for k, (path, replaces) in src.items():
-        t = timing[k]
-        kernels.append({"name": k, "route": "cuda", "source": path,
-                        "replaces": replaces, "launches": launches[k],
+    for name, (lib, replaces) in src.items():
+        t = timing[lib]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}{lib}.cu",
+                        "replaces": replaces, "launches": launches[lib],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "kernel_ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -487,7 +851,7 @@ def main() -> int:
                         "library_ms": t["library_ms"]})
     log(smi)
     log({"kernels": kernels})
-    log({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
     return 0
 

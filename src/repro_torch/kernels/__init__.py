@@ -3,11 +3,21 @@ from .build import LAUNCHES, build_all, launch_counts, reset_launches  # noqa: F
 from .ops import (  # noqa: F401
     chain_copy_op,
     descriptor_copy_op,
+    paged_attention_op,
+    prefetched_chain_copy_op,
     quantize_copy_op,
 )
 from .descriptor_copy import (  # noqa: F401
     descriptor_copy_bucketed,
     descriptor_copy_plain,
+)
+from .paged_attention import (  # noqa: F401
+    paged_attention,
+    paged_attention_plain,
+)
+from .prefetch_pipeline import (  # noqa: F401
+    prefetched_chain_copy,
+    prefetched_chain_copy_plain,
 )
 from .quantize_copy import (  # noqa: F401
     quantize_copy,

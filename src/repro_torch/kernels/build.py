@@ -38,6 +38,12 @@ _SYMBOLS = {
     "quantize_copy": ("quantize_copy_launch",
                       [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                       + [ctypes.c_int, ctypes.c_void_p]),
+    "prefetch_pipeline": ("prefetch_pipeline_launch",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int, ctypes.c_void_p]),
+    "paged_attention": ("paged_attention_launch",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SYMBOLS}

@@ -6,8 +6,16 @@ device, never the machine.
 """
 from __future__ import annotations
 
+from repro_torch.core.speculation import (
+    DEFAULT_POLICY,
+    PolicyLike,
+    static_depth,
+)
+
 from . import ref  # noqa: F401  (re-exported oracles)
 from .descriptor_copy import chain_copy, descriptor_copy
+from .paged_attention import paged_attention
+from .prefetch_pipeline import prefetched_chain_copy
 from .quantize_copy import quantize_copy
 
 
@@ -21,3 +29,20 @@ def chain_copy_op(descs, src, dst, head: int = 0):
 
 def quantize_copy_op(src_idx, dst_idx, src, dst):
     return quantize_copy(src_idx, dst_idx, src, dst)
+
+
+def paged_attention_op(q, k_pages, v_pages, block_tables, lengths):
+    return paged_attention(q, k_pages, v_pages, block_tables, lengths)
+
+
+def prefetched_chain_copy_op(src_idx, dst_idx, src, dst,
+                             depth: "PolicyLike | None" = None):
+    """Chain copy through the explicit prefetch pipeline (§II-C).
+
+    ``depth`` accepts an int, any
+    :class:`repro_torch.core.speculation.SpeculationPolicy`, or ``None``
+    for the shared :data:`repro_torch.core.speculation.DEFAULT_POLICY`,
+    the same source the cycle model's speculation config reads.
+    """
+    resolved = static_depth(DEFAULT_POLICY if depth is None else depth)
+    return prefetched_chain_copy(src_idx, dst_idx, src, dst, depth=resolved)

@@ -386,6 +386,39 @@ def disabled_stats() -> Dict[str, object]:
             "transform_fusion_hit_rate": 0.0}
 
 
+def translate_chain(d: DescriptorArray, table, row_elems: int,
+                    *, translate_dst: bool = True) -> DescriptorArray:
+    """Lower a *virtual* page chain onto physical slots (DESIGN.md §11).
+
+    Each descriptor's src/dst offset is split into (vpage, in-page
+    offset) at ``row_elems`` granularity and the vpage is rewritten to
+    the owning :class:`repro_torch.mmu.PageTable` slot. Chain structure
+    (order, lengths, config, links) is untouched, so the *virtual* chain's
+    :class:`~repro_torch.core.signature.CanonicalChain` digest is stable
+    across remaps. Pending (slot ``-1``) pages must be resolved by the
+    pool before translation; they raise here rather than corrupt an
+    address.
+    """
+    if row_elems < 1:
+        raise ValueError("row_elems must be >= 1")
+
+    def _xlate(off) -> np.ndarray:
+        vp, rem = np.divmod(np.asarray(off, np.int64), row_elems)
+        slots = table.slots_of(vp)
+        if np.any(slots < 0):
+            bad = sorted(np.asarray(vp)[slots < 0].tolist())
+            raise RuntimeError(
+                f"translate_chain: vpages {bad[:8]} are pending an "
+                "ownership pull; resolve residency before lowering")
+        return slots * row_elems + rem
+
+    src = _xlate(d.src)
+    dst = _xlate(d.dst) if translate_dst else np.asarray(d.dst, np.int64)
+    return DescriptorArray.create(src, dst, np.asarray(d.length, np.int64),
+                                  nxt=np.asarray(d.nxt, np.int64),
+                                  config=np.asarray(d.config, np.int64))
+
+
 class TranslationCache:
     """Signature-keyed artifact LRU + digest-keyed plan memo."""
 

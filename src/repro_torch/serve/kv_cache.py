@@ -182,7 +182,8 @@ class PagedKVCache:
 
     def chain(self, slot: int) -> DescriptorArray:
         """`slot`'s block table as a *virtual* descriptor chain — the
-        layout the speculator sees."""
+        layout the speculator sees; lower through
+        :func:`repro_torch.runtime.lowering.translate_chain` to execute."""
         pages = [int(p) for p in self.tables[slot] if p >= 0]
         return from_pages(pages, self.page * self.kv_heads * self.head_dim)
 

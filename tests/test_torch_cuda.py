@@ -86,3 +86,96 @@ def test_cuda_quantize_copy_matches_plain(cuda, dtype):
     got = quantize_copy_bucketed(sidx, didx, src, dst, n_bucket=32)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,unit,offset", [
+    (torch.float32, 4096, 0),      # cp.async 16-byte path
+    (torch.bfloat16, 4096, 0),
+    (torch.int32, 3, 0),           # 12-byte rows: cp.async 4-byte path
+    (torch.int32, 4, 1),           # misaligned base pointer: 4-byte path
+    (torch.uint8, 7, 0),           # 7-byte rows: the byte path
+])
+@pytest.mark.parametrize("depth", [2, 4, 8])
+def test_cuda_prefetched_chain_copy_matches_plain(cuda, dtype, unit, offset,
+                                                  depth):
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy, prefetched_chain_copy_plain)
+    flat_s = _rows((64 * unit + offset,), dtype, cuda, 5)
+    flat_d = _rows((64 * unit + offset,), dtype, cuda, 6)
+    src = flat_s[offset:].view(64, unit)
+    dst = flat_d[offset:].view(64, unit)
+    sidx = np.array([3, -1, 7, 0, 9, 2, 5, 5, 11, 12, 13], np.int64)
+    didx = np.array([0, 4, 9, 63, 9, 6, -1, 1, 40, 41, 42], np.int64)
+    want = prefetched_chain_copy_plain(sidx, didx, src, dst.clone())
+    before = build.launch_counts()["prefetch_pipeline"]
+    got = prefetched_chain_copy(sidx, didx, src, dst, depth=depth)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["prefetch_pipeline"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 40])
+def test_cuda_prefetched_chain_copy_short_and_aliased(cuda, n):
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy, prefetched_chain_copy_plain)
+    pool = _rows((128, 1024), torch.float32, cuda, 7)
+    sidx, didx = np.arange(0, n), np.arange(n // 2, n // 2 + n)  # overlap
+    want = prefetched_chain_copy_plain(sidx, didx, pool.clone(),
+                                       pool.clone())
+    got = prefetched_chain_copy(sidx, didx, pool, pool, depth=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _paged_inputs(device, dtype, b, h, kv, d, page, pool, maxp, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g).to(dtype).to(device)
+    kp = torch.randn((pool, page, kv, d), generator=g).to(dtype).to(device)
+    vp = torch.randn((pool, page, kv, d), generator=g).to(dtype).to(device)
+    tables = torch.randperm(pool, generator=g)[:b * maxp].view(b, maxp)
+    lengths = torch.randint(0, maxp * page + 1, (b,), generator=g)
+    lengths[0], lengths[1] = 0, maxp * page - 3    # empty; partial page
+    pos = torch.arange(maxp)[None, :] * page
+    tables = torch.where(pos < lengths[:, None], tables, -1)
+    tables[1, 1] = -1                              # a hole inside the length
+    return (q, kp, vp, tables.to(torch.int32).to(device),
+            lengths.to(torch.int32).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kv,d", [(40, 8, 128), (8, 8, 128), (6, 2, 256),
+                                    (5, 1, 64)])
+def test_cuda_paged_attention_matches_plain(cuda, dtype, tol, h, kv, d):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+    args = _paged_inputs(cuda, dtype, 6, h, kv, d, 16, 64, 8, 11)
+    want = paged_attention_plain(*args)
+    before = build.launch_counts()["paged_attention"]
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["paged_attention"] == before + 1
+    assert not got[0].float().any()                # length 0: zeros
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_is_deterministic_wherever_pages_sit(cuda):
+    from repro_torch.kernels.paged_attention import paged_attention
+    q, kp, vp, tables, lengths = _paged_inputs(cuda, torch.float32, 8, 40,
+                                               8, 128, 16, 96, 8, 12)
+    a = paged_attention(q, kp, vp, tables, lengths)
+    b = paged_attention(q, kp, vp, tables, lengths)
+    # Move every page to another slot: the logical KV is the same.
+    perm = torch.randperm(96, device=cuda)
+    kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+    kp2[perm], vp2[perm] = kp, vp
+    moved = torch.where(tables >= 0, perm[tables.long().clamp_min(0)],
+                        -1).to(torch.int32)
+    c = paged_attention(q, kp2, vp2, moved, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)

@@ -207,9 +207,18 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_cpu_tensors_never_launch_a_kernel():
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.prefetch_pipeline import prefetched_chain_copy
     build.reset_launches()
     f = torch.ones((4, 256))
     descriptor_copy([0], [1], f, f.clone())
     quantize_copy([0], [1], f, f.clone())
+    prefetched_chain_copy([0], [1], f, f.clone())
+    paged_attention(torch.ones((1, 2, 8)), torch.ones((2, 4, 2, 8)),
+                    torch.ones((2, 4, 2, 8)),
+                    torch.zeros((1, 1), dtype=torch.int32),
+                    torch.full((1,), 3, dtype=torch.int32))
     assert build.launch_counts() == {"descriptor_copy": 0,
-                                     "quantize_copy": 0}
+                                     "quantize_copy": 0,
+                                     "prefetch_pipeline": 0,
+                                     "paged_attention": 0}
