@@ -50,7 +50,32 @@ Phases:
    (decode bit-identical again).
    Each phase checks its pools (and (a)-(e) their §II-D writebacks) and
    that its kernel launched.
-4. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+   ``moe_gather`` and ``moe_combine`` bit for bit (main-path shapes from a
+   real dispatch plan, all -1, no -1, fp32 and bf16, rows of widths that
+   are not a multiple of 8, k of 1, 4 and 6, tokens with every copy
+   dropped) and ``flash_attention`` within rtol = atol = 2e-5 (fp32) and
+   2e-2 (bf16) (causal and not, window 64, H/KV 48/8 and 8/8, S 2,048 and
+   200, D 64 and 128); their times with the yardsticks ``index_select``
+   (gather), ``index_select`` + ``bmm`` (combine, several calls) and SDPA
+   with ``is_causal`` and ``enable_gqa`` in bf16 (flash).
+4. (j) The model path, after the pools of phase 3 are freed: dbrx-132b at
+   its published widths (d 6,144, 48/8 heads of 128, 16 experts top-4 of
+   d_ff 10,752, vocab 100,352) cut to 2 layers, weights from
+   ``init_params`` with a seeded generator on the card (about 31.7 GB in
+   fp32), prefilled with 4 prompts of 2,048 token ids from ``--seed``:
+   ``forward`` through ``flash_attention``, ``moe_gather`` and
+   ``moe_combine`` (2 launches each), then each prompt's greedy next
+   token. Held against the same forward with the three ops replaced by
+   their plain versions (inside this script, with the first run's
+   dispatch plans replayed so that both route alike; the count of token
+   copies the plain run would have routed elsewhere is printed), within
+   rtol = atol = 6e-2 on the bf16 logits (about 4 bf16 ulps at the
+   largest logits); the greedy tokens must agree wherever the top-2
+   margin exceeds that. Prints the phase time, tokens/s, the dropped
+   tokens and empty slots (both > 0, so both -1 rules run) and the peak
+   device memory; then times the same forward again (set up already) and
+   profiles a third one for its device time by kernel name.
+5. A ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -69,12 +94,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989.4e12   # H100 SXM dense bf16 tensor cores
 QUANT_OPS_PER_ELEM = 7         # abs, max, div, round, 2x clamp, mul
 
 PAGE, KV_HEADS, HEAD_DIM, NUM_PAGES = 16, 8, 128, 8192
 HEADS = 40                                # qwen3-14b query heads
 ROW = PAGE * KV_HEADS * HEAD_DIM          # 16,384 floats = 64 KiB
 SEQS, TOKENS, BURST = 64, 1024, 512
+
+PREFILL_ARCH, PREFILL_LAYERS = "dbrx-132b", 2   # published widths, 2 of 40
+PROMPTS, PROMPT_LEN = 4, 2048
+LOGIT_TOL = 6e-2
+FLASH_CASES = [  # B, S, H, KV, D, causal, window
+    (PROMPTS, PROMPT_LEN, 48, 8, 128, True, None),
+    (1, PROMPT_LEN, 48, 8, 128, False, None),
+    (1, PROMPT_LEN, 8, 8, 128, True, 64),
+    (2, 200, 8, 8, 64, False, None),
+    (2, 200, 48, 8, 64, True, 64),
+    (2, 200, 48, 8, 128, False, 64),
+]
 
 
 def log(obj) -> None:
@@ -98,9 +136,12 @@ def time_ms(torch, fn, reps: int = 9, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple:
+def bound_ms(n_bytes: int, n_ops: int,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
+    """The least time for the work: bytes at the memory rate or operations
+    at ``ops_per_s`` (the peak for their type), whichever is larger."""
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -434,9 +475,242 @@ def check_paged(torch, np, dev, rng) -> dict:
     return out
 
 
+def main_plan(torch, dev, g):
+    """A dispatch plan at the prefill's shapes: 8,192 tokens routed by a
+    skewed random router to dbrx-132b's 16 experts, top-4, capacity 2,560."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity, moe_dispatch_plan
+
+    m = get_config(PREFILL_ARCH).moe
+    t = PROMPTS * PROMPT_LEN
+    # A skewed router: the popular experts overflow (dropped copies) and
+    # the unpopular ones leave slots empty, so both -1 rules run.
+    skew = torch.linspace(-1.5, 1.5, m.num_experts, device=dev)
+    probs = torch.softmax(torch.randn((t, m.num_experts), device=dev,
+                                      generator=g) + skew, dim=-1)
+    return moe_dispatch_plan(probs, m, capacity(t, m))
+
+
+def check_moe(torch, np, dev, rng) -> dict:
+    """``moe_gather`` and ``moe_combine`` against their plain versions (bit
+    for bit), and their times at the prefill's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_dispatch import (
+        moe_combine, moe_combine_plain, moe_gather, moe_gather_plain)
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    d = get_config(PREFILL_ARCH).d_model
+    t = PROMPTS * PROMPT_LEN
+    plan = main_plan(torch, dev, g)
+    n = plan.token_idx.shape[0]
+
+    def same(name, got, want, **case):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{case}")
+        log({"check": name, **case, "equal": True})
+
+    def rows(shape, dtype):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    # moe_gather: the plan's -1 pattern, all -1, no -1, fp32 and bf16, a
+    # width that is not a multiple of 8 (4-byte words) and one of 7 (bytes).
+    tokens = rows((t, d), torch.bfloat16)
+    for kind, idx in (("plan", plan.token_idx),
+                      ("all -1", torch.full_like(plan.token_idx, -1)),
+                      ("no -1", plan.token_idx.clamp_min(0))):
+        same("moe_gather", moe_gather(idx, tokens),
+             moe_gather_plain(idx, tokens), idx=kind, dtype="bfloat16",
+             T=t, d=d)
+    for dtype, width in ((torch.float32, d), (torch.bfloat16, 100),
+                         (torch.bfloat16, 7)):
+        small = rows((1024, width), dtype)
+        idx = torch.randint(-1, 1024, (4096,), device=dev, generator=g,
+                            dtype=torch.int32)
+        same("moe_gather", moe_gather(idx, small),
+             moe_gather_plain(idx, small), idx="random", dtype=str(dtype),
+             T=1024, d=width)
+        del small
+
+    # moe_combine: the plan; k = 1, 4 and 6; tokens with every copy
+    # dropped; fp32 and bf16; widths that are not a multiple of 8. Row 0 is
+    # NaN and read by no kept copy: it must not leak.
+    expert_out = rows((n, d), torch.bfloat16)
+    same("moe_combine",
+         moe_combine(plan.inv_slot, plan.inv_weight, expert_out),
+         moe_combine_plain(plan.inv_slot, plan.inv_weight, expert_out),
+         slots="plan", dtype="bfloat16", T=t, k=plan.inv_slot.shape[1], d=d)
+    for dtype, width, k in ((torch.bfloat16, d, 1), (torch.float32, d, 4),
+                            (torch.bfloat16, 100, 6),
+                            (torch.float32, 37, 4)):
+        pool = rows((4096, width), dtype)
+        pool[0] = float("nan")
+        slot = torch.randint(1, 4096, (2048, k), device=dev, generator=g,
+                             dtype=torch.int32)
+        slot[torch.rand((2048, k), device=dev, generator=g) < 0.3] = -1
+        slot[:16] = -1                                  # every copy dropped
+        w = torch.rand((2048, k), device=dev, generator=g)
+        got = moe_combine(slot, w, pool)
+        same("moe_combine", got, moe_combine_plain(slot, w, pool),
+             slots="random with all -1 rows", dtype=str(dtype), T=2048, k=k,
+             d=width)
+        if not bool(torch.isfinite(got.float()).all()) or got[:16].any():
+            raise AssertionError("moe_combine read a dropped copy's row")
+        del pool
+
+    # Times at the prefill's shapes.
+    stream = torch.cuda.current_stream().cuda_stream
+    idx, elem = plan.token_idx, tokens.element_size()
+    active = int((idx >= 0).sum())
+    out_g = torch.empty((n, d), dtype=tokens.dtype, device=dev)
+    g_bytes = active * d * elem + n * d * elem + 4 * n
+    safe = idx.long().clamp_min(0)
+    out = {}
+    b_ms, b_by = bound_ms(g_bytes, 0)
+    out["moe_gather"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: moe_gather(idx, tokens)),
+        "kernel_ms": time_ms(torch, lambda: build.launch(
+            "moe_gather", tokens.data_ptr(), out_g.data_ptr(),
+            idx.data_ptr(), n, d * elem, stream)),
+        "plain_ms": time_ms(torch, lambda: moe_gather_plain(idx, tokens)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": g_bytes}
+    yard_g = time_ms(torch, lambda: tokens.index_select(0, safe))
+    log({"time": "moe_gather", "slots": n, "active": active, "d": d,
+         **out["moe_gather"],
+         "share_of_bound": b_ms / out["moe_gather"]["ms"],
+         "kernel_share_of_bound": b_ms / out["moe_gather"]["kernel_ms"]})
+    log({"yardstick": "moe_gather", "index_select_ms": yard_g,
+         "note": "one call, but a -1 slot gets row 0, not zeros"})
+
+    slot, w = plan.inv_slot, plan.inv_weight
+    k = slot.shape[1]
+    kept = int((slot >= 0).sum())
+    out_c = torch.empty((t, d), dtype=expert_out.dtype, device=dev)
+    c_bytes = kept * d * elem + t * d * elem + 8 * t * k
+    b_ms, b_by = bound_ms(c_bytes, 2 * kept * d)
+    out["moe_combine"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: moe_combine(slot, w, expert_out)),
+        "kernel_ms": time_ms(torch, lambda: build.launch(
+            "moe_combine", slot.data_ptr(), w.data_ptr(),
+            expert_out.data_ptr(), out_c.data_ptr(), t, d, k, 1, stream)),
+        "plain_ms": time_ms(torch, lambda: moe_combine_plain(slot, w,
+                                                             expert_out)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": c_bytes, "operations": 2 * kept * d}
+    flat = slot.long().clamp_min(0).view(-1)
+    w16 = w.to(expert_out.dtype).view(t, 1, k)
+
+    def yard_c():
+        return torch.bmm(w16, expert_out.index_select(0, flat).view(t, k, d))
+    yard_ms = time_ms(torch, yard_c)
+    log({"time": "moe_combine", "tokens": t, "k": k, "kept": kept, "d": d,
+         **out["moe_combine"],
+         "share_of_bound": b_ms / out["moe_combine"]["ms"],
+         "kernel_share_of_bound": b_ms / out["moe_combine"]["kernel_ms"]})
+    log({"yardstick": "moe_combine", "index_select_plus_bmm_ms": yard_ms,
+         "note": "two calls, weights rounded to bf16: not one library call"})
+    del tokens, expert_out, out_g, out_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_work(q, k, causal: bool) -> tuple:
+    """(bytes, operations) of the attention: q, k, v read once, the output
+    written once; 4 * D operations per visible (query, key) pair."""
+    b, s, h, d = q.shape
+    sk = k.shape[1]
+    pairs = s * (s + 1) // 2 if causal and s == sk else s * sk
+    n_bytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    return n_bytes, 4 * b * h * d * pairs
+
+
+def check_flash(torch, np, dev, rng) -> dict:
+    """``flash_attention`` against its plain version, and its times at the
+    prefill's shapes with SDPA beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    cfg = get_config(PREFILL_ARCH)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def qkv(b, s, h, kv, d, dtype):
+        return [torch.randn((b, s, n, d), device=dev, generator=g).to(dtype)
+                for n in (h, kv, kv)]
+
+    err = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for b, s, h, kv, d, causal, window in FLASH_CASES:
+            q, k, v = qkv(b, s, h, kv, d, dtype)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            e = max_err(torch, got, want)
+            lim = tol + tol * want.float().abs()
+            if not bool(((got.float() - want.float()).abs() <= lim).all()):
+                raise AssertionError(
+                    f"flash_attention disagrees: {dtype} B {b} S {s} "
+                    f"H/KV {h}/{kv} D {d} causal {causal} window {window}, "
+                    f"max abs err {e}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            log({"check": "flash_attention", "dtype": str(dtype), "B": b,
+                 "S": s, "H": h, "KV": kv, "D": d, "causal": causal,
+                 "window": window, "max_abs_err": e, "rtol": tol,
+                 "atol": tol})
+            del q, k, v, want, got
+
+    # Times at the prefill's shapes: 4 prompts of 2,048 tokens, dbrx-132b's
+    # 48 query heads over 8 KV heads of 128, bf16, causal.
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = qkv(PROMPTS, PROMPT_LEN, h, kv, d, torch.bfloat16)
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    kernel_ms = time_ms(torch, lambda: build.launch(
+        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, 1, 0, 1,
+        stream))
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
+                                                            causal=True),
+                       reps=3, warm=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True))
+    ours = flash_attention(q, k, v, causal=True)
+    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    n_bytes, n_ops = flash_work(q, k, True)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    out = {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": n_bytes, "operations": n_ops}
+    log({"time": "flash_attention", "B": PROMPTS, "S": PROMPT_LEN, "H": h,
+         "KV": kv, "D": d, "dtype": "bfloat16", "causal": True, **out,
+         "ops_rate": "bf16 tensor cores, 989.4 TFLOP/s",
+         "share_of_bound": b_ms / ms, "kernel_share_of_bound": b_ms / kernel_ms,
+         "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
+         "max_abs_diff_to_library": max_err(torch, ours, lib)})
+    del q, k, v, o, ours, lib
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
+
+RUNTIME_KERNELS = ("descriptor_copy", "quantize_copy", "prefetch_pipeline",
+                   "paged_attention")
+
 
 class Writebacks:
     """Per-phase check that every ticket retired through §II-D."""
@@ -780,10 +1054,203 @@ def main_path(torch, np, dev, rng) -> dict:
 
     counts = build.launch_counts()            # the main path ends here
     log({"main_path_launches": counts})
-    for k, v in counts.items():
-        if v <= 0:
+    for k in RUNTIME_KERNELS:
+        if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4 (j): the model path
+# ---------------------------------------------------------------------------
+
+MODEL_KERNELS = ("flash_attention", "moe_gather", "moe_combine")
+
+
+def prefill_path(torch, np, dev, rng, seed: int) -> dict:
+    """dbrx-132b prefill at full width, 2 layers: forward through the three
+    kernels, held against the same forward on their plain versions."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.moe_dispatch import (
+        moe_combine_plain, moe_gather_plain)
+    from repro_torch.models import forward, init_params
+    from repro_torch.models import moe as moe_mod
+
+    cfg = dataclasses.replace(get_config(PREFILL_ARCH),
+                              num_layers=PREFILL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log({"init": PREFILL_ARCH, "layers": cfg.num_layers,
+         "d_model": cfg.d_model, "heads": cfg.num_heads,
+         "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim_,
+         "experts": cfg.moe.num_experts, "top_k": cfg.moe.experts_per_token,
+         "expert_d_ff": cfg.moe.expert_d_ff, "vocab": cfg.padded_vocab,
+         "params": n_params,
+         "param_bytes": sum(x.numel() * x.element_size()
+                            for x in _leaves(params)),
+         "seconds": time.perf_counter() - t0})
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PROMPTS, PROMPT_LEN)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    n_tok = PROMPTS * PROMPT_LEN
+
+    plans = []
+    real_plan = moe_mod.moe_dispatch_plan
+
+    def recording(*args):
+        plans.append(real_plan(*args))
+        return plans[-1]
+
+    build.reset_launches()                    # the model path starts here
+    with mock.patch.object(moe_mod, "moe_dispatch_plan", recording):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux, _, _ = forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = build.launch_counts()          # the model path ends here
+    for name, n in launches.items():
+        want = cfg.num_layers if name in MODEL_KERNELS else 0
+        if n != want:
+            raise AssertionError(f"phase j: {name} launched {n} times, "
+                                 f"expected {want}")
+    if logits.shape != (PROMPTS, PROMPT_LEN, cfg.padded_vocab) \
+            or logits.dtype != cfg.cdtype:
+        raise AssertionError(f"phase j: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    if not bool(torch.isfinite(logits).all()) or not bool(aux.isfinite()):
+        raise AssertionError("phase j: logits or aux not finite")
+    dropped = [int(p.num_dropped) for p in plans]
+    empty = [int((p.token_idx < 0).sum()) for p in plans]
+    if len(plans) != cfg.num_layers or min(dropped) <= 0 or min(empty) <= 0:
+        raise AssertionError(f"phase j: dropped {dropped}, empty slots "
+                             f"{empty}: both -1 rules must run")
+    log({"phase": "j_prefill_dbrx_132b", "ms": ms,
+         "tokens_per_s": n_tok / (ms / 1e3), "prompts": PROMPTS,
+         "prompt_len": PROMPT_LEN, "dropped_tokens": dropped,
+         "empty_slots": empty,
+         "slots": [int(p.token_idx.shape[0]) for p in plans],
+         "aux": float(aux),
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "launches": launches})
+
+    # The same forward with the three ops replaced by their plain versions,
+    # here and nowhere in the package. The first run's plans are replayed,
+    # so both route alike; the plain run's own routing is compared.
+    replay = iter(plans)
+    flipped = []
+
+    def replaying(probs, m, cap):
+        ours, theirs = next(replay), real_plan(probs, m, cap)
+        # Token copies sent to another expert, or dropped where the other
+        # run kept them (a slot index alone also moves with the queue).
+        expert = [torch.where(p.inv_slot >= 0, p.inv_slot // cap, -1)
+                  for p in (ours, theirs)]
+        flipped.append(int((expert[0] != expert[1]).sum()))
+        return ours
+
+    def plain_flash(q, k, v, *, causal=True, window=None, **_):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    before = build.launch_counts()
+    with mock.patch.object(moe_mod, "moe_dispatch_plan", replaying), \
+            mock.patch.object(ops, "flash_attention_op", plain_flash), \
+            mock.patch.object(ops, "moe_gather_op", moe_gather_plain), \
+            mock.patch.object(ops, "moe_combine_op", moe_combine_plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_aux, _, _ = forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    if build.launch_counts() != before:
+        raise AssertionError("phase j: the plain forward launched a kernel")
+    err = max_err(torch, logits, want)
+    close = (logits.float() - want.float()).abs() \
+        <= LOGIT_TOL + LOGIT_TOL * want.float().abs()
+    last, last_want = logits[:, -1].float(), want[:, -1].float()
+    greedy, greedy_want = last.argmax(-1), last_want.argmax(-1)
+    top2 = last_want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    sure = margin > LOGIT_TOL
+    log({"check": "j_prefill_vs_plain", "max_abs_err": err,
+         "rtol": LOGIT_TOL, "atol": LOGIT_TOL,
+         "positions_out_of_tolerance": int((~close).any(-1).sum()),
+         "copies_routed_otherwise_in_plain_run": flipped,
+         "plain_ms": plain_ms,
+         "aux": float(aux), "plain_aux": float(want_aux),
+         "greedy_next_tokens": greedy.tolist(),
+         "greedy_plain": greedy_want.tolist(),
+         "top2_margin": margin.tolist()})
+    if not bool(close.all()):
+        raise AssertionError(f"phase j: logits differ from the plain forward "
+                             f"beyond {LOGIT_TOL}: max abs err {err}")
+    if not torch.equal(greedy[sure], greedy_want[sure]):
+        raise AssertionError("phase j: greedy tokens differ where the top-2 "
+                             "margin exceeds the tolerance")
+    del want
+    steady_forward(torch, forward, params, batch, cfg, logits, n_tok)
+    del params, logits
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in MODEL_KERNELS}
+
+
+def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
+    """The same forward again, set up already: its wall time, and its
+    device time by kernel name where the profiler sees the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _, _, _ = forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = bool(torch.equal(again, first))
+    if not same and max_err(torch, again, first) > LOGIT_TOL:
+        raise AssertionError("phase j: a second forward gave other logits")
+    del again
+    log({"phase": "j_prefill_steady", "ms": ms,
+         "tokens_per_s": n_tok / (ms / 1e3), "bit_identical_to_first": same})
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward(params, batch, cfg)
+            torch.cuda.synchronize()
+    except RuntimeError as e:      # CUPTI refused: no breakdown, say so
+        log({"profile": "j_prefill_steady", "error": str(e)})
+        return
+    # Kernels only: an operator's row also carries the device time of the
+    # kernels it launched, which would count them twice.
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    log({"profile": "j_prefill_steady", "device_ms": total / 1e3,
+         "device_busy_share_of_steady_ms": total / 1e3 / ms,
+         "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                 for us, k, n in rows[:14]]})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -827,23 +1294,34 @@ def main() -> int:
     timing = check_kernels(torch, np, dev, rng)
     timing["prefetch_pipeline"] = check_prefetch(torch, np, dev, rng)
     timing["paged_attention"] = check_paged(torch, np, dev, rng)
+    timing.update(check_moe(torch, np, dev, rng))
+    timing["flash_attention"] = check_flash(torch, np, dev, rng)
     launches = main_path(torch, np, dev, rng)
+    torch.cuda.empty_cache()                  # the pools of phase 3 are gone
+    launches.update(prefill_path(torch, np, dev, rng, args.seed))
 
     csrc = "src/repro_torch/kernels/csrc/"
-    src = {"descriptor_copy": ("descriptor_copy",
+    # name: (launch counter, source, TPU kernel it replaces)
+    src = {"descriptor_copy": ("descriptor_copy", "descriptor_copy",
                                "src/repro/kernels/descriptor_copy.py:39"),
-           "quantize_copy": ("quantize_copy",
+           "quantize_copy": ("quantize_copy", "quantize_copy",
                              "src/repro/kernels/quantize_copy.py:52"),
-           "prefetched_chain_copy": ("prefetch_pipeline",
+           "prefetched_chain_copy": ("prefetch_pipeline", "prefetch_pipeline",
                                      "src/repro/kernels/prefetch_pipeline.py:61"),
-           "paged_attention": ("paged_attention",
-                               "src/repro/kernels/paged_attention.py:69")}
+           "paged_attention": ("paged_attention", "paged_attention",
+                               "src/repro/kernels/paged_attention.py:69"),
+           "moe_gather": ("moe_gather", "moe_dispatch",
+                          "src/repro/kernels/moe_dispatch.py:26"),
+           "moe_combine": ("moe_combine", "moe_dispatch",
+                           "src/repro/kernels/moe_dispatch.py:57"),
+           "flash_attention": ("flash_attention", "flash_attention",
+                               "src/repro/kernels/flash_attention.py:78")}
     kernels = []
-    for name, (lib, replaces) in src.items():
-        t = timing[lib]
+    for name, (counter, lib, replaces) in src.items():
+        t = timing[counter]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
-                        "replaces": replaces, "launches": launches[lib],
+                        "replaces": replaces, "launches": launches[counter],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "kernel_ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

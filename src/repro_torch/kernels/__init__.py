@@ -3,6 +3,9 @@ from .build import LAUNCHES, build_all, launch_counts, reset_launches  # noqa: F
 from .ops import (  # noqa: F401
     chain_copy_op,
     descriptor_copy_op,
+    flash_attention_op,
+    moe_combine_op,
+    moe_gather_op,
     paged_attention_op,
     prefetched_chain_copy_op,
     quantize_copy_op,
@@ -10,6 +13,16 @@ from .ops import (  # noqa: F401
 from .descriptor_copy import (  # noqa: F401
     descriptor_copy_bucketed,
     descriptor_copy_plain,
+)
+from .flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_plain,
+)
+from .moe_dispatch import (  # noqa: F401
+    moe_combine,
+    moe_combine_plain,
+    moe_gather,
+    moe_gather_plain,
 )
 from .paged_attention import (  # noqa: F401
     paged_attention,

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface, loaded with ``ctypes``. The
+own shared library with a plain C interface, loaded with ``ctypes``; a
+library holds the launch functions of one or more kernels. The
 library's file name carries a hash of its source and flags, so an edited
 kernel is rebuilt and an unchanged one is reused. Libraries go to
 ``build/repro_torch/`` at the root of the checkout (``build/`` is
@@ -30,21 +31,33 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: Launch function of each library: (C symbol, argtypes).
+#: Launch function of each kernel: (library, C symbol, argtypes). The
+#: library is the stem of its source in ``csrc/``.
 _SYMBOLS = {
-    "descriptor_copy": ("descriptor_copy_launch",
+    "descriptor_copy": ("descriptor_copy", "descriptor_copy_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                         + [ctypes.c_void_p]),
-    "quantize_copy": ("quantize_copy_launch",
+    "quantize_copy": ("quantize_copy", "quantize_copy_launch",
                       [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                       + [ctypes.c_int, ctypes.c_void_p]),
-    "prefetch_pipeline": ("prefetch_pipeline_launch",
+    "prefetch_pipeline": ("prefetch_pipeline", "prefetch_pipeline_launch",
                           [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                           + [ctypes.c_int, ctypes.c_void_p]),
-    "paged_attention": ("paged_attention_launch",
+    "paged_attention": ("paged_attention", "paged_attention_launch",
                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p]),
+    "moe_gather": ("moe_dispatch", "moe_gather_launch",
+                   [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p]),
+    "moe_combine": ("moe_dispatch", "moe_combine_launch",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int, ctypes.c_void_p]),
 }
+#: The libraries, one per source.
+LIBRARIES = sorted({lib for lib, _, _ in _SYMBOLS.values()})
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SYMBOLS}
 BUILD_LOG: Dict[str, str] = {}
@@ -107,9 +120,9 @@ def _finish(name: str, job) -> None:
 
 
 def build_all(names: List[str] = None) -> None:
-    """Compile every kernel library not built yet, one nvcc each, in
-    parallel; raises if any build fails."""
-    names = list(_SYMBOLS) if names is None else names
+    """Compile every library (source stem) in ``names``, default all, that
+    is not built yet, one nvcc each, in parallel; raises if any fails."""
+    names = LIBRARIES if names is None else names
     with _LOCK:
         jobs = {n: _start(n) for n in names}
         for n, job in jobs.items():
@@ -117,24 +130,27 @@ def build_all(names: List[str] = None) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built at first use."""
-    lib = _LIBS.get(name)
+    """The loaded library of kernel ``name``, built at first use, with the
+    argument types of every launch function it holds."""
+    lib_name = _SYMBOLS[name][0]
+    lib = _LIBS.get(lib_name)
     if lib is not None:
         return lib
-    build_all([name])
+    build_all([lib_name])
     with _LOCK:
-        lib = ctypes.CDLL(str(_target(name)))
-        sym, argtypes = _SYMBOLS[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(_target(lib_name)))
+        for owner, sym, argtypes in _SYMBOLS.values():
+            if owner == lib_name:
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[lib_name] = lib
     return lib
 
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s launch function, count it, raise on error."""
-    sym, _ = _SYMBOLS[name]
+    _, sym, _ = _SYMBOLS[name]
     err = getattr(library(name), sym)(*args)
     LAUNCHES[name] += 1
     if err != 0:

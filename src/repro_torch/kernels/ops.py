@@ -14,6 +14,8 @@ from repro_torch.core.speculation import (
 
 from . import ref  # noqa: F401  (re-exported oracles)
 from .descriptor_copy import chain_copy, descriptor_copy
+from .flash_attention import flash_attention
+from .moe_dispatch import moe_combine, moe_gather
 from .paged_attention import paged_attention
 from .prefetch_pipeline import prefetched_chain_copy
 from .quantize_copy import quantize_copy
@@ -31,8 +33,22 @@ def quantize_copy_op(src_idx, dst_idx, src, dst):
     return quantize_copy(src_idx, dst_idx, src, dst)
 
 
+def flash_attention_op(q, k, v, *, causal=True, window=None,
+                       q_block=128, kv_block=128):
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_block=q_block, kv_block=kv_block)
+
+
 def paged_attention_op(q, k_pages, v_pages, block_tables, lengths):
     return paged_attention(q, k_pages, v_pages, block_tables, lengths)
+
+
+def moe_gather_op(token_idx, tokens):
+    return moe_gather(token_idx, tokens)
+
+
+def moe_combine_op(inv_slot, inv_weight, expert_out):
+    return moe_combine(inv_slot, inv_weight, expert_out)
 
 
 def prefetched_chain_copy_op(src_idx, dst_idx, src, dst,

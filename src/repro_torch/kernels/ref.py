@@ -1,9 +1,11 @@
 """Plain-PyTorch oracles for the ported kernels (the `ref.py` contract).
 
 Each oracle is pure: it returns a new tensor and leaves its inputs as they
-were. The oracles of the kernels still to be ported follow them.
+were.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -47,3 +49,49 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables,
     from .paged_attention import paged_attention_plain
 
     return paged_attention_plain(q, k_pages, v_pages, block_tables, lengths)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Naive softmax attention. q: (B, S, H, D); k, v: (B, S, KV, D).
+
+    K and V are repeated per query head, as the JAX package's oracle does;
+    the softmax runs over the full fp32 score matrix, -1e30 where masked.
+    """
+    b, sq, h, d = q.shape
+    g = h // k.shape[2]
+    kk = k.repeat_interleave(g, dim=2).float()
+    vv = v.repeat_interleave(g, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * d ** -0.5
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= qi - ki < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def moe_gather_ref(token_idx, tokens) -> torch.Tensor:
+    """Dispatch gather: (E*C,) slots from (T, d) tokens; -1 -> zeros."""
+    idx = token_idx.long()
+    rows = tokens[idx.clamp_min(0)]
+    return torch.where((idx >= 0)[:, None], rows,
+                       torch.zeros((), dtype=tokens.dtype,
+                                   device=tokens.device))
+
+
+def moe_combine_ref(inv_slot, inv_weight, expert_out) -> torch.Tensor:
+    """Combine: out[t] = sum_j w[t,j] * expert_out[inv_slot[t,j]]; -1 skips.
+
+    The JAX package's einsum form (the sum order is the einsum's, so it
+    agrees with the kernel within fp32 rounding, not bit for bit).
+    """
+    slots = inv_slot.long()
+    rows = expert_out[slots.clamp_min(0)].float()           # (T, k, d)
+    w = torch.where(slots >= 0, inv_weight, 0.0).float()
+    rows = torch.where((slots >= 0)[..., None], rows, 0.0)
+    return torch.einsum("tk,tkd->td", w, rows).to(expert_out.dtype)

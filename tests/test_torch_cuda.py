@@ -7,7 +7,9 @@ toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel must be bit-identical to its plain version.
+The copies and the MoE gather and combine must be bit-identical to their
+plain versions; the attention kernels agree within rtol = atol = 2e-5 in
+float32 and 2e-2 in bfloat16 (the sums run in another order).
 """
 import numpy as np
 import pytest
@@ -179,3 +181,118 @@ def test_cuda_paged_attention_is_deterministic_wherever_pages_sit(cuda):
     c = paged_attention(q, kp2, vp2, moved, lengths)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# moe_gather, moe_combine (bit-identical) and flash_attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,idx_kind", [
+    (torch.bfloat16, 6144, "mixed"),   # 16-byte vectors
+    (torch.float32, 256, "mixed"),
+    (torch.bfloat16, 100, "mixed"),    # 200-byte rows: 4-byte words
+    (torch.bfloat16, 7, "mixed"),      # 14-byte rows: bytes
+    (torch.float32, 512, "all -1"),
+    (torch.bfloat16, 512, "no -1"),
+])
+def test_cuda_moe_gather_matches_plain(cuda, dtype, d, idx_kind):
+    from repro_torch.kernels.moe_dispatch import moe_gather, moe_gather_plain
+    tokens = _rows((96, d), dtype, cuda, 20)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    idx = torch.randint(-1, 96, (160,), generator=g, dtype=torch.int32)
+    if idx_kind == "all -1":
+        idx[:] = -1
+    elif idx_kind == "no -1":
+        idx = idx.clamp_min(0)
+    idx = idx.to(cuda)
+    want = moe_gather_plain(idx, tokens)
+    before = build.launch_counts()["moe_gather"]
+    got = moe_gather(idx, tokens)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["moe_gather"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 6144),
+                                     (torch.float32, 512),
+                                     (torch.bfloat16, 100),   # unaligned path
+                                     (torch.float32, 37)])
+@pytest.mark.parametrize("k", [1, 4, 6])
+def test_cuda_moe_combine_matches_plain(cuda, dtype, d, k):
+    from repro_torch.kernels.moe_dispatch import (moe_combine,
+                                                  moe_combine_plain)
+    eo = _rows((128, d), dtype, cuda, 22)
+    eo[0] = float("nan")              # read by no kept copy
+    g = torch.Generator(device="cpu").manual_seed(23)
+    slot = torch.randint(1, 128, (64, k), generator=g, dtype=torch.int32)
+    slot[torch.rand((64, k), generator=g) < 0.3] = -1
+    slot[5] = -1                      # a token with every copy dropped
+    w = torch.rand((64, k), generator=g)
+    slot, w = slot.to(cuda), w.to(cuda)
+    want = moe_combine_plain(slot, w, eo)
+    before = build.launch_counts()["moe_combine"]
+    got = moe_combine(slot, w, eo)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["moe_combine"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.isfinite(got.float()).all() and not got[5].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (1, 2048, 48, 8, 128, True, None),
+    (2, 200, 8, 8, 64, False, None),
+    (2, 200, 48, 8, 128, True, 64),
+    (1, 300, 8, 8, 64, False, 64),
+    (3, 65, 4, 2, 128, True, None),
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
+                                            causal, window):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cpu").manual_seed(s + h)
+    q = torch.randn((b, s, h, d), generator=g).to(dtype).to(cuda)
+    k = torch.randn((b, s, kv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, s, kv, d), generator=g).to(dtype).to(cuda)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = build.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_other_head_dims(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 16, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["softcap", "positions", "head dim"])
+def test_cuda_attention_raises_rather_than_falling_back(cuda, what):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attention, init_attention
+    cfg = dataclasses.replace(get_config("dbrx-132b", reduced=True),
+                              head_dim=64)
+    if what == "softcap":
+        cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
+    elif what == "head dim":
+        cfg = dataclasses.replace(cfg, head_dim=16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_attention(gen, cfg, cuda)
+    x = torch.randn((1, 32, cfg.d_model), device=cuda).to(cfg.cdtype)
+    pos = torch.arange(32, device=cuda, dtype=torch.int32)[None]
+    if what == "positions":
+        pos = pos + 1
+    before = build.launch_counts()["flash_attention"]
+    with pytest.raises(NotImplementedError, match=what):
+        attention(params, x, pos, cfg)
+    assert build.launch_counts()["flash_attention"] == before

@@ -218,7 +218,17 @@ def test_cpu_tensors_never_launch_a_kernel():
                     torch.ones((2, 4, 2, 8)),
                     torch.zeros((1, 1), dtype=torch.int32),
                     torch.full((1,), 3, dtype=torch.int32))
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_gather
+    q = torch.ones((1, 8, 2, 64))
+    flash_attention(q, q, q)
+    rows = moe_gather(torch.tensor([0, -1], dtype=torch.int32), f)
+    moe_combine(torch.tensor([[0, 1]], dtype=torch.int32),
+                torch.ones((1, 2)), rows)
     assert build.launch_counts() == {"descriptor_copy": 0,
                                      "quantize_copy": 0,
                                      "prefetch_pipeline": 0,
-                                     "paged_attention": 0}
+                                     "paged_attention": 0,
+                                     "flash_attention": 0,
+                                     "moe_gather": 0,
+                                     "moe_combine": 0}
