@@ -54,10 +54,14 @@ Phases:
    real dispatch plan, all -1, no -1, fp32 and bf16, rows of widths that
    are not a multiple of 8, k of 1, 4 and 6, tokens with every copy
    dropped) and ``flash_attention`` within rtol = atol = 2e-5 (fp32) and
-   2e-2 (bf16) (causal and not, window 64, H/KV 48/8 and 8/8, S 2,048 and
-   200, D 64 and 128); their times with the yardsticks ``index_select``
-   (gather), ``index_select`` + ``bmm`` (combine, several calls) and SDPA
-   with ``is_causal`` and ``enable_gqa`` in bf16 (flash).
+   2e-2 (bf16) (causal and not, windows of 64 and 100, H/KV 48/8, 8/8,
+   8/2 and 16/4, S 2,048, 1,000, 777, 333 and 200, 64 queries over 300
+   keys, D 64 and 128, q scaled by 8 for large logits); their times with
+   the yardsticks ``index_select`` (gather), ``index_select`` + ``bmm``
+   (combine, several calls) and SDPA with ``is_causal`` and ``enable_gqa``
+   in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
+   registers, shared memory and spills (ptxas), and the fp32 flash kernel
+   timed at one smaller shape.
 4. (j) The model path, after the pools of phase 3 are freed: dbrx-132b at
    its published widths (d 6,144, 48/8 heads of 128, 16 experts top-4 of
    d_ff 10,752, vocab 100,352) cut to 2 layers, weights from
@@ -105,14 +109,19 @@ SEQS, TOKENS, BURST = 64, 1024, 512
 PREFILL_ARCH, PREFILL_LAYERS = "dbrx-132b", 2   # published widths, 2 of 40
 PROMPTS, PROMPT_LEN = 4, 2048
 LOGIT_TOL = 6e-2
-FLASH_CASES = [  # B, S, H, KV, D, causal, window
-    (PROMPTS, PROMPT_LEN, 48, 8, 128, True, None),
-    (1, PROMPT_LEN, 48, 8, 128, False, None),
-    (1, PROMPT_LEN, 8, 8, 128, True, 64),
-    (2, 200, 8, 8, 64, False, None),
-    (2, 200, 48, 8, 64, True, 64),
-    (2, 200, 48, 8, 128, False, 64),
+FLASH_CASES = [  # B, S or (Sq, Sk), H, KV, D, causal, window, q scale
+    (PROMPTS, PROMPT_LEN, 48, 8, 128, True, None, 1),
+    (1, PROMPT_LEN, 48, 8, 128, False, None, 1),
+    (1, PROMPT_LEN, 8, 8, 128, True, 64, 1),
+    (2, 200, 8, 8, 64, False, None, 1),
+    (2, 200, 48, 8, 64, True, 64, 1),
+    (2, 200, 48, 8, 128, False, 64, 1),
+    (2, 1000, 48, 8, 128, True, None, 1),    # S not a multiple of 128, G 6
+    (1, 777, 8, 8, 64, True, 100, 1),        # a window across tile edges
+    (2, (64, 300), 8, 2, 128, False, None, 1),   # Sq != Sk
+    (2, 333, 16, 4, 128, True, None, 8),     # large logits: online rescale
 ]
+FLASH_FP32_SHAPE = (1, PROMPT_LEN, 48, 8, 128)   # B, S, H, KV, D, causal
 
 
 def log(obj) -> None:
@@ -641,14 +650,17 @@ def check_flash(torch, np, dev, rng) -> dict:
     cfg = get_config(PREFILL_ARCH)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
 
-    def qkv(b, s, h, kv, d, dtype):
-        return [torch.randn((b, s, n, d), device=dev, generator=g).to(dtype)
-                for n in (h, kv, kv)]
+    def qkv(b, s, h, kv, d, dtype, q_scale=1):
+        sq, sk = s if isinstance(s, tuple) else (s, s)
+        q = torch.randn((b, sq, h, d), device=dev, generator=g) * q_scale
+        k, v = (torch.randn((b, sk, kv, d), device=dev, generator=g)
+                for _ in range(2))
+        return [x.to(dtype) for x in (q, k, v)]
 
     err = 0.0
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for b, s, h, kv, d, causal, window in FLASH_CASES:
-            q, k, v = qkv(b, s, h, kv, d, dtype)
+        for b, s, h, kv, d, causal, window, q_scale in FLASH_CASES:
+            q, k, v = qkv(b, s, h, kv, d, dtype, q_scale)
             want = flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
             got = flash_attention(q, k, v, causal=causal, window=window)
@@ -658,14 +670,14 @@ def check_flash(torch, np, dev, rng) -> dict:
             if not bool(((got.float() - want.float()).abs() <= lim).all()):
                 raise AssertionError(
                     f"flash_attention disagrees: {dtype} B {b} S {s} "
-                    f"H/KV {h}/{kv} D {d} causal {causal} window {window}, "
-                    f"max abs err {e}")
+                    f"H/KV {h}/{kv} D {d} causal {causal} window {window} "
+                    f"q scale {q_scale}, max abs err {e}")
             if dtype == torch.bfloat16:
                 err = max(err, e)
             log({"check": "flash_attention", "dtype": str(dtype), "B": b,
                  "S": s, "H": h, "KV": kv, "D": d, "causal": causal,
-                 "window": window, "max_abs_err": e, "rtol": tol,
-                 "atol": tol})
+                 "window": window, "q_scale": q_scale, "max_abs_err": e,
+                 "rtol": tol, "atol": tol})
             del q, k, v, want, got
 
     # Times at the prefill's shapes: 4 prompts of 2,048 tokens, dbrx-132b's
@@ -697,10 +709,60 @@ def check_flash(torch, np, dev, rng) -> dict:
          "KV": kv, "D": d, "dtype": "bfloat16", "causal": True, **out,
          "ops_rate": "bf16 tensor cores, 989.4 TFLOP/s",
          "share_of_bound": b_ms / ms, "kernel_share_of_bound": b_ms / kernel_ms,
+         "kernel_tflops": n_ops / kernel_ms / 1e9,
+         "library_tflops": n_ops / library_ms / 1e9,
          "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
-         "max_abs_diff_to_library": max_err(torch, ours, lib)})
+         "max_abs_diff_to_library": max_err(torch, ours, lib),
+         "ptxas": flash_ptxas(build.BUILD_LOG.get("flash_attention"))})
     del q, k, v, o, ours, lib
+
+    # The fp32 path (the CUDA-core kernel) at one smaller shape, so that its
+    # time is on record.
+    b, s, h, kv, d = FLASH_FP32_SHAPE
+    q, k, v = qkv(b, s, h, kv, d, torch.float32)
+    o = torch.empty_like(q)
+    f32_ms = time_ms(torch, lambda: build.launch(
+        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), b, s, s, h, kv, d, 1, 0, 0, stream))
+    n_bytes, n_ops = flash_work(q, k, True)
+    log({"time": "flash_attention_fp32", "B": b, "S": s, "H": h, "KV": kv,
+         "D": d, "dtype": "float32", "causal": True, "kernel_ms": f32_ms,
+         "kernel_tflops": n_ops / f32_ms / 1e9,
+         "bound_ms": bound_ms(n_bytes, n_ops)[0],
+         "ops_rate": "fp32 outside the tensor cores, 67 TFLOP/s"})
+    del q, k, v, o
     torch.cuda.empty_cache()
+    return out
+
+
+def flash_ptxas(build_log) -> dict:
+    """Registers, static shared memory and spills of each flash kernel, as
+    ptxas -v reports them (the tensor-core kernel's tiles are dynamic
+    shared memory, which ptxas does not see)."""
+    if not build_log:
+        return {"note": "library not built in this run"}
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = None
+            for tag, key in (("tc_kernelILi128E", "bf16_tc_d128"),
+                             ("tc_kernelILi64E", "bf16_tc_d64"),
+                             ("kernelIfLi128E", "fp32_d128"),
+                             ("kernelIfLi64E", "fp32_d64")):
+                if tag in ln:
+                    name = key
+                    out[name] = {}
+                    break
+        elif name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["stack_bytes"], out[name]["spill_store_bytes"], \
+                out[name]["spill_load_bytes"] = nums[:3]
+        elif name and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[name]["static_smem_bytes"] = int(
+                    words[words.index("smem") - 2])
     return out
 
 
@@ -1174,8 +1236,8 @@ def prefill_path(torch, np, dev, rng, seed: int) -> dict:
     if build.launch_counts() != before:
         raise AssertionError("phase j: the plain forward launched a kernel")
     err = max_err(torch, logits, want)
-    close = (logits.float() - want.float()).abs() \
-        <= LOGIT_TOL + LOGIT_TOL * want.float().abs()
+    lim = LOGIT_TOL + LOGIT_TOL * want.float().abs()
+    close = (logits.float() - want.float()).abs() <= lim
     last, last_want = logits[:, -1].float(), want[:, -1].float()
     greedy, greedy_want = last.argmax(-1), last_want.argmax(-1)
     top2 = last_want.topk(2, dim=-1).values
@@ -1184,6 +1246,8 @@ def prefill_path(torch, np, dev, rng, seed: int) -> dict:
     log({"check": "j_prefill_vs_plain", "max_abs_err": err,
          "rtol": LOGIT_TOL, "atol": LOGIT_TOL,
          "positions_out_of_tolerance": int((~close).any(-1).sum()),
+         "worst_share_of_tolerance": float(
+             ((logits.float() - want.float()).abs() / lim).max()),
          "copies_routed_otherwise_in_plain_run": flipped,
          "plain_ms": plain_ms,
          "aux": float(aux), "plain_aux": float(want_aux),
@@ -1239,7 +1303,11 @@ def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
     log({"profile": "j_prefill_steady", "device_ms": total / 1e3,
          "device_busy_share_of_steady_ms": total / 1e3 / ms,
          "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
-                 for us, k, n in rows[:14]]})
+                 for us, k, n in rows[:14]],
+         "port_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                           "calls": n, "share": us / total}
+                          for us, k, n in rows
+                          if "flash_attention" in k or "moe_" in k]})
 
 
 def _leaves(tree):

@@ -4,41 +4,74 @@
 // (body _flash_kernel): q (B, Sq, H, D) attends over k, v (B, Sk, KV, D)
 // with GQA (query head h reads KV head h / (H / KV)), an optional causal mask
 // (key j <= query i) and an optional window (i - j < window), positions
-// counted from 0 in both. Online softmax in fp32: scores are the fp32 dot
-// product times D**-0.5, NEG_INF = -1e30 (not -inf, so exp(m_prev - m_new)
-// stays finite), and the output acc / max(l, 1e-30) is written in q's dtype.
-// A masked score contributes exactly 0, so a row with no valid key comes out
-// as zeros.
+// counted from 0 in both. Online softmax in fp32 over the scores times
+// D**-0.5; the output acc / max(l, 1e-30) is written in q's dtype. A masked
+// score contributes exactly 0, so a row with no visible key comes out as
+// zeros.
 //
-// Bound: operations. A causal pass does 4 * D operations per (query, key)
-// pair it must see: at B 4, S 2,048, H 48, D 128 that is 206 GFLOP, 0.21 ms
-// at the bf16 tensor-core rate, against 235 MB of q, k, v and output
-// (0.07 ms at 3.35 TB/s). This kernel runs on the CUDA cores in fp32, so it
-// cannot come near that bound; it is the simple, right version (mma.sync,
-// wgmma and TMA are for a later change).
+// Bound: operations. A causal pass does 4 * D operations per visible
+// (query, key) pair: at B 4, S 2,048, H 48, D 128 that is 206 GFLOP, 0.208
+// ms at the bf16 tensor-core rate of 989.4 TFLOP/s, against 235 MB of q, k,
+// v and output (0.070 ms at 3.35 TB/s).
 //
-// Design. One block per (q tile of 64 rows, query head, batch); 4 warps.
-// The q tile is converted to fp32 in shared memory once. The block walks the
-// K/V tiles of its KV head (indexed directly, not repeated per query head as
-// the TPU wrapper does) from the first key any of its rows may see (the
-// window) to the last one (the causal diagonal), 64 keys at a time: tiles
-// wholly above the diagonal or outside the window are never loaded. K and V
-// share one fp32 buffer in turn. Thread (r, c) of the 16 x 8 grid owns rows
-// 4r .. 4r+3 and, of the 64 x 64 score tile, the columns c, c + 8, ..., so
-// a row's max and sum reduce over the 8 lanes of one warp with shuffles; the
-// probabilities go through shared memory (written and read by the same warp)
-// to the product with V, where the thread owns D / 8 output columns of its 4
-// rows. Rows are padded by 4 floats in shared memory so that the float4 reads
-// of 8 different rows fall in different banks. Heavy (late) q tiles are
-// scheduled first. Every partial S (not a multiple of 64) is masked: keys
-// past Sk are zero-filled and never weighted, query rows past Sq are not
-// stored.
+// bfloat16: a tensor-core kernel (flash_attention_tc_kernel). It runs
+// every product on wgmma; softmax, loads and the ring's waits are what stand
+// between it and the bound.
+// * Tiles. A block of 384 threads takes two query tiles of 128 rows of one
+//   (query head, batch): tile T - 1 - z and tile z of the T tiles, so every
+//   block has the same causal work and the second tile's first loads overlap
+//   the first tile's last products and stores. Two consumer warpgroups own
+//   64 rows each; a producer warpgroup gives its registers to them
+//   (setmaxnreg) and one of its threads issues the loads. Blocks are ordered
+//   head fastest, so the G query heads of one KV head run side by side and
+//   share its K/V tiles through L2.
+// * Loads by TMA. 4-D tensor maps over (D, heads, S, B) with the tensors'
+//   own strides (nothing is repacked, K/V are not repeated per query head);
+//   boxes of 64 columns (128 bytes, the widest 128-byte-swizzled box) by 128
+//   rows, so a D 128 tile is two boxes. Each Q tile has its own buffer; K
+//   and V tiles of 128 keys go through a ring of 2 stages, each with a full
+//   and an empty mbarrier, so the next tile loads while this one is
+//   multiplied. Rows past S are zero-filled by the TMA unit and masked here.
+// * S = Q K^T on wgmma m64n128k16 (bf16 in, fp32 out), both operands read
+//   from shared memory through 128-byte-swizzle descriptors (K-major: a k16
+//   step is 32 bytes into a box; the 8-row groups 1,024 bytes apart).
+// * Online softmax in registers on the accumulator fragment: a thread owns
+//   2 rows, reduced over its quad with shuffles; exp2 on the special-function
+//   unit with D**-0.5 * log2(e) folded in. Only tiles that cross the
+//   diagonal, the window's edge or Sk are masked per score (to -inf); a row
+//   whose maximum is still -inf subtracts 0, so every masked score gives
+//   p = 0 and a row without keys ends with l = 0 and zeros.
+// * O += P V on wgmma with P converted to bf16 in registers as the A
+//   operand (the accumulator fragment is the A fragment: no shared-memory
+//   round trip) and V read as the MN-major B operand (transpose bit, no
+//   transpose pass; the second box of 64 columns is the leading byte
+//   offset). Tile j's S = Q K^T is issued with tile j - 1's P V, so the
+//   softmax of tile j overlaps that product; O is rescaled by
+//   exp2(m_old - m_new) once it is in, divided once by max(l, 1e-30) and
+//   stored as bf16, rows past Sq skipped.
+// P in bf16 changes each term of P V by at most 2**-9 relative.
+//
+// float32: the CUDA-core kernel (flash_attention_kernel), exact fp32 sums
+// within 2e-5 of the plain version, which TF32 or bf16 products could not
+// hold. One block per (64 q rows, query head, batch), 4 warps; Q, K and V
+// tiles in fp32 shared memory (rows padded by 4 floats against bank
+// conflicts), K and V sharing one buffer in turn; thread (r, c) of a 16 x 8
+// grid owns rows 4r .. 4r+3 and the score columns c, c + 8, ...; a validity
+// bit per score keeps masked keys at p = 0; the probabilities go through
+// shared memory to the product with V. Tiles wholly above the diagonal or
+// outside the window are never loaded; heavy q tiles first.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached at
+                   // run time through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;  // query rows per block
 constexpr int kBN = 64;  // keys per tile
@@ -50,26 +83,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Rows [0, rows) of a tile of kRows x D values of T (row stride `stride`
@@ -252,6 +267,590 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;       // query rows per block: 2 warpgroups of 64
+constexpr int kTcKeys = 128;       // keys per K/V tile
+constexpr int kTcStages = 2;       // K/V ring depth
+constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
+constexpr int kBoxCols = 64;       // bf16 columns per TMA box (128 bytes)
+constexpr uint32_t kBoxBytes = 128 * 128;  // one box of 128 rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at `dst`; its bytes complete on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
+// (its swizzle atoms, 8 rows of 128 bytes, 1024-byte aligned): `lbo` and
+// `sbo` are the leading and stride byte offsets.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence, commit and wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128, fp32) = A (64 x 16, shared) * B (16 x 128, shared, K-major):
+// the first k16 step, which writes d without reading it.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64],
+                                                          uint64_t a,
+                                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, shared) * B (16 x 128, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 128,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0,
+                                                   uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
+        "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 64,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0,
+                                                   uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
+        "r"(1));
+}
+
+// 2**x on the special-function unit (flushes subnormal results to 0;
+// 2**-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S (64 x 128) = Q K^T for one warpgroup: Q rows at `q_s`, K tile at `k_s`,
+// both K-major in boxes of 64 columns; a k16 step is 32 bytes into a box,
+// and steps 4..7 (D 128) are in the second box.
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_s,
+                                           uint32_t k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + 32 * (kk % 4);
+    const uint64_t a = sw128_desc(q_s + off, 16, 1024);
+    const uint64_t b = sw128_desc(k_s + off, 16, 1024);
+    if (kk == 0) {
+      wgmma_m64n128k16_ss_first(s, a, b);
+    } else {
+      wgmma_m64n128k16_ss(s, a, b);
+    }
+  }
+}
+
+// O (64 x D) += P V: P's k16 step kk is registers p[4kk .. 4kk+3]; V is
+// MN-major, 16 keys (2 swizzle atoms, 2,048 bytes) per step, the second
+// box of 64 columns 16 KB on (the leading byte offset).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&p)[32],
+                                           uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+    const uint64_t b = sw128_desc(v_s + 2048 * kk, kBoxBytes, 1024);
+    if constexpr (D == 128) {
+      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                          p[4 * kk + 3], b);
+    } else {
+      wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                         p[4 * kk + 3], b);
+    }
+  }
+}
+
+// Whether a tile of keys from k0 needs a per-score mask for the rows of one
+// warpgroup (row_lo .. row_lo + 63): it crosses Sk, the diagonal or the
+// window's edge.
+__device__ __forceinline__ bool tile_needs_mask(int k0, int row_lo, int sk,
+                                                int causal, int window) {
+  return k0 + kTcKeys > sk || (causal && k0 + kTcKeys - 1 > row_lo) ||
+         (window > 0 && row_lo + 63 - k0 >= window);
+}
+
+// Bit 4j + e: whether score s[4j + e] (row r0 + 8 (e / 2), key
+// k0 + 8j + c0 + e % 2) is visible. Each (row, column parity) sees a run of
+// the 16 column groups j, which is then spread to every fourth bit.
+__device__ __forceinline__ uint64_t visible_bits(int k0, int r0, int c0,
+                                                 int sk, int causal,
+                                                 int window) {
+  uint64_t bits = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int qi = r0 + 8 * (e / 2);
+    const int base = k0 + c0 + e % 2;  // key of column group j = base + 8j
+    const int lo = window > 0 ? qi - window + 1 - base : 0;
+    const int hi = (causal ? min(qi, sk - 1) : sk - 1) - base;
+    const int j_lo = max(0, (lo + 7) >> 3);  // ceil(lo / 8)
+    const int j_hi = min(15, hi >> 3);       // floor(hi / 8)
+    uint64_t run = j_hi >= j_lo ? (2u << j_hi) - (1u << j_lo) : 0u;
+    run = (run | run << 24) & 0x000000FF000000FFull;
+    run = (run | run << 12) & 0x000F000F000F000Full;
+    run = (run | run << 6) & 0x0303030303030303ull;
+    run = (run | run << 3) & 0x1111111111111111ull;
+    bits |= run << e;
+  }
+  return bits;
+}
+
+// Turns one tile of scores into bf16 probabilities for rows r0 and r0 + 8
+// in the A-operand order (p[2j + r]: row r, columns 8j + c0, + 1), a score
+// whose bit in `visible` is clear (kMasked) counting as -inf. Updates the
+// running maxima m and this thread's parts l of the row sums; corr is the
+// factor by which O must be rescaled before this tile's P V is added. The
+// scores are only read: a register that a wgmma accumulates into is written
+// by nothing else, so ptxas need not serialise the products.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(const float (&s)[64],
+                                             uint32_t (&p)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             uint64_t visible,
+                                             float scale_log2) {
+  const auto score = [&](int i) {
+    return kMasked && !((visible >> i) & 1) ? -INFINITY : s[i];
+  };
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      mx = fmaxf(mx, fmaxf(score(4 * j + 2 * r), score(4 * j + 2 * r + 1)));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // A row with no visible key yet keeps max -inf: subtract 0, so its -inf
+    // scores give exp2(-inf) = 0, never exp2(0) = 1.
+    const float ms = mx == -INFINITY ? 0.f : mx * scale_log2;
+    corr[r] = exp2_approx(m[r] * scale_log2 - ms);
+    m[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float a =
+          exp2_approx(fmaf(score(4 * j + 2 * r), scale_log2, -ms));
+      const float c =
+          exp2_approx(fmaf(score(4 * j + 2 * r + 1), scale_log2, -ms));
+      sum += a + c;
+      p[2 * j + r] = pack_bf16(a, c);
+    }
+    l[r] = l[r] * corr[r] + sum;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ out, int sq, int sk,
+                          int heads, int kv_heads, int causal, int window,
+                          float scale_log2) {
+  constexpr uint32_t kTile = (D / kBoxCols) * kBoxBytes;  // Q, K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 4 * kTcStages];
+  // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const auto q_s = [&](int t) { return base + t * kTile; };
+  const auto k_s = [&](int st) { return base + (2 + st) * kTile; };
+  const auto v_s = [&](int st) {
+    return base + (2 + kTcStages + st) * kTile;
+  };
+  const uint32_t bar0 = smem_u32(bars);
+  const auto q_full = [&](int t) { return bar0 + 8 * t; };
+  const auto k_full = [&](int st) { return bar0 + 8 * (2 + st); };
+  const auto k_empty = [&](int st) {
+    return bar0 + 8 * (2 + kTcStages + st);
+  };
+  const auto v_full = [&](int st) {
+    return bar0 + 8 * (2 + 2 * kTcStages + st);
+  };
+  const auto v_empty = [&](int st) {
+    return bar0 + 8 * (2 + 3 * kTcStages + st);
+  };
+  const auto stage = [](int it) { return it % kTcStages; };
+  const auto phase = [](int it) { return (it / kTcStages) & 1u; };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kh = h / (heads / kv_heads);
+  // The block's query tiles: tile T - 1 - z, then tile z (one tile where
+  // they meet), so every block has the same causal work, the heavy first.
+  const int z = blockIdx.z;
+  const int qt_first = (sq + kTcRows - 1) / kTcRows - 1 - z;
+  const int n_q = z < qt_first ? 2 : 1;
+  struct Span {
+    int q0, k_lo, n_tiles;  // keys [k_lo, k_hi) in tiles from k_lo
+  };
+  const auto span = [&](int t) {
+    Span sp;
+    sp.q0 = (t == 0 ? qt_first : z) * kTcRows;
+    const int q_last = min(sp.q0 + kTcRows, sq) - 1;
+    const int k_hi = causal ? min(sk, q_last + 1) : sk;
+    sp.k_lo = window > 0 ? max(0, sp.q0 - window + 1) : 0;
+    sp.n_tiles =
+        k_hi > sp.k_lo ? (k_hi - sp.k_lo + kTcKeys - 1) / kTcKeys : 0;
+    return sp;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full(0), 1);
+    mbar_init(q_full(1), 1);
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 2 * 128);
+      mbar_init(v_empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    // Producer warpgroup: gives its registers to the consumers; one thread
+    // issues every load. Both Q tiles first (a buffer each), then the K/V
+    // tiles of both through one ring, so the second tile's first loads
+    // overlap the first tile's last products and its output stores.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x != 256) return;
+    for (int t = 0; t < n_q; ++t) {
+      const Span sp = span(t);
+      if (sp.n_tiles == 0) continue;
+      mbar_expect_tx(q_full(t), kTile);
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        tma_load_4d(q_s(t) + c * kBoxBytes, &tq, q_full(t), c * kBoxCols, h,
+                    sp.q0, b);
+      }
+    }
+    int it = 0;
+    for (int t = 0; t < n_q; ++t) {
+      const Span sp = span(t);
+      for (int j = 0; j < sp.n_tiles; ++j, ++it) {
+        const int st = stage(it);
+        const int k0 = sp.k_lo + j * kTcKeys;
+        mbar_wait(k_empty(st), phase(it) ^ 1);  // the first round passes
+        mbar_expect_tx(k_full(st), kTile);
+        for (int c = 0; c < D / kBoxCols; ++c) {
+          tma_load_4d(k_s(st) + c * kBoxBytes, &tk, k_full(st),
+                      c * kBoxCols, kh, k0, b);
+        }
+        mbar_wait(v_empty(st), phase(it) ^ 1);
+        mbar_expect_tx(v_full(st), kTile);
+        for (int c = 0; c < D / kBoxCols; ++c) {
+          tma_load_4d(v_s(st) + c * kBoxBytes, &tv, v_full(st),
+                      c * kBoxCols, kh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each query tile;
+  // this thread owns rows r0 and r0 + 8 and, of every 8 columns of a
+  // fragment, c0 and c0 + 1.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  int it0 = 0;  // ring index of the query tile's first K/V tile
+#pragma unroll 1
+  for (int t = 0; t < n_q; ++t) {
+    const Span sp = span(t);
+    const int row_lo = sp.q0 + 64 * wg;
+    const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
+    const uint32_t q_wg = q_s(t) + wg * 64 * 128;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+
+    if (sp.n_tiles > 0) {
+      float s[64];
+      uint32_t p[32];
+      float corr[2];
+      mbar_wait(q_full(t), 0);
+      mbar_wait(k_full(stage(it0)), phase(it0));
+      wgmma_fence();
+      qk_product<D>(s, q_wg, k_s(stage(it0)));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(s);
+      mbar_arrive(k_empty(stage(it0)));
+      // The first tile always takes the masked form (one copy of the
+      // softmax fewer); O is 0, so nothing is rescaled.
+      softmax_tile<true>(s, p, m, l, corr,
+                         visible_bits(sp.k_lo, r0, c0, sk, causal, window),
+                         scale_log2);
+
+      // Tile j's S = Q K^T runs beside tile j - 1's O += P V; its softmax
+      // overlaps that product, and O is rescaled once the product is in.
+      // Unrolled by 2 so that p and p_next trade registers instead of
+      // being copied: a copy into p while a product is in flight would make
+      // ptxas serialise the wgmmas.
+#pragma unroll 2
+      for (int j = 1; j < sp.n_tiles; ++j) {
+        const int it = it0 + j;
+        mbar_wait(k_full(stage(it)), phase(it));
+        mbar_wait(v_full(stage(it - 1)), phase(it - 1));
+        hold(o);
+        hold(p);
+        wgmma_fence();
+        qk_product<D>(s, q_wg, k_s(stage(it)));
+        wgmma_commit();
+        pv_product<D>(o, p, v_s(stage(it - 1)));
+        wgmma_commit();
+        wgmma_wait<1>();  // S is in
+        hold(s);
+        mbar_arrive(k_empty(stage(it)));
+        uint32_t p_next[32];
+        const int k0 = sp.k_lo + j * kTcKeys;
+        if (tile_needs_mask(k0, row_lo, sk, causal, window)) {
+          softmax_tile<true>(s, p_next, m, l, corr,
+                             visible_bits(k0, r0, c0, sk, causal, window),
+                             scale_log2);
+        } else {
+          softmax_tile<false>(s, p_next, m, l, corr, 0, scale_log2);
+        }
+        wgmma_wait<0>();  // O += P V of tile j - 1 is in
+        hold(o);
+        hold(p);
+        mbar_arrive(v_empty(stage(it - 1)));
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[4 * i] *= corr[0];
+          o[4 * i + 1] *= corr[0];
+          o[4 * i + 2] *= corr[1];
+          o[4 * i + 3] *= corr[1];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) p[i] = p_next[i];
+      }
+
+      const int last = it0 + sp.n_tiles - 1;
+      mbar_wait(v_full(stage(last)), phase(last));
+      hold(o);
+      hold(p);
+      wgmma_fence();
+      pv_product<D>(o, p, v_s(stage(last)));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(o);
+      hold(p);
+      mbar_arrive(v_empty(stage(last)));
+      it0 += sp.n_tiles;
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qi = r0 + 8 * r;
+      if (qi >= sq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow =
+          out + ((static_cast<long long>(b) * sq + qi) * heads + h) * D + c0;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int batch,
              int sq, int sk, int heads, int kv_heads, int causal, int window,
@@ -273,19 +872,84 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_t(int head_dim, const void* q, const void* k, const void* v,
-             void* out, int batch, int sq, int sk, int heads, int kv_heads,
-             int causal, int window, cudaStream_t s) {
-  if (head_dim == 64) {
-    return launch_d<T, 64>(q, k, v, out, batch, sq, sk, heads, kv_heads,
-                           causal, window, s);
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, looked up once.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiledFn>(p);
   }
-  if (head_dim == 128) {
-    return launch_d<T, 128>(q, k, v, out, batch, sq, sk, heads, kv_heads,
-                            causal, window, s);
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 (batch, seq, heads, D) tensor as 4-D
+// (D, heads, seq, batch), boxes of 64 columns x 1 head x 128 rows, 128-byte
+// swizzle, zeros outside.
+bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
+               int heads, int d) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {kBoxCols, 1, kTcKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              int batch, int sq, int sk, int heads, int kv_heads, int causal,
+              int window, cudaStream_t stream) {
+  if (sk == 0) {  // no keys: every row is zeros
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(__nv_bfloat16) * batch * sq * heads * D, stream));
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int pairs = ((sq + kTcRows - 1) / kTcRows + 1) / 2;
+  if (pairs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  if (!encode_4d(&tq, q, batch, sq, heads, D) ||
+      !encode_4d(&tk, k, batch, sk, kv_heads, D) ||
+      !encode_4d(&tv, v, batch, sk, kv_heads, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (2 + 2 * kTcStages) * (D / kBoxCols) * kBoxBytes + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = static_cast<float>(
+      pow(static_cast<double>(D), -0.5) * 1.4426950408889634);
+  const dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                  static_cast<unsigned>(pairs));
+  flash_attention_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, sk, heads, kv_heads,
+      causal, window, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -293,7 +957,8 @@ int launch_t(int head_dim, const void* q, const void* k, const void* v,
 // q, out: (batch, sq, heads, head_dim); k, v: (batch, sk, kv_heads,
 // head_dim); all of one dtype (0: float32, 1: bfloat16), contiguous and
 // 16-byte aligned. heads a multiple of kv_heads; head_dim 64 or 128.
-// causal 0/1; window <= 0 for none. Launches on `stream`; returns
+// causal 0/1; window <= 0 for none. float32 runs the CUDA-core kernel,
+// bfloat16 the tensor-core one. Launches on `stream`; returns
 // cudaGetLastError, or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
@@ -302,17 +967,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || sk < 0 || batch > 65535 ||
-      heads > 65535) {
+      heads > 65535 || (head_dim != 64 && head_dim != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_t<float>(head_dim, q, k, v, out, batch, sq, sk, heads,
-                           kv_heads, causal, window, s);
+    return head_dim == 64
+               ? launch_d<float, 64>(q, k, v, out, batch, sq, sk, heads,
+                                     kv_heads, causal, window, s)
+               : launch_d<float, 128>(q, k, v, out, batch, sq, sk, heads,
+                                      kv_heads, causal, window, s);
   }
   if (dtype == 1) {
-    return launch_t<__nv_bfloat16>(head_dim, q, k, v, out, batch, sq, sk,
-                                   heads, kv_heads, causal, window, s);
+    return head_dim == 64
+               ? launch_tc<64>(q, k, v, out, batch, sq, sk, heads, kv_heads,
+                               causal, window, s)
+               : launch_tc<128>(q, k, v, out, batch, sq, sk, heads, kv_heads,
+                                causal, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

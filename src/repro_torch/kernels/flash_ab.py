@@ -1,0 +1,137 @@
+"""Side-by-side timing of builds of ``csrc/flash_attention.cu`` on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_ab A.cu B.cu ... \\
+        [--dtype bfloat16|float32] [--reps 30]
+
+Each source (for example the parent commit's ``flash_attention.cu`` and
+this one's) is built with :data:`build.NVCC_FLAGS` into its own library
+in a temporary directory and called through its ``flash_attention_launch``
+on the same inputs. At each shape every build is first held against
+:func:`flash_attention_plain` (rtol = atol = 2e-2 in bf16, 2e-5 in fp32),
+then timed in turns (A, B, ..., B, A: the median of ``--reps`` CUDA-event
+timings each, after a warm-up), with ``scaled_dot_product_attention``
+(``enable_gqa``) timed beside them as the library's yardstick. Prints one
+JSON line per build and shape: milliseconds of both turns, achieved
+TFLOP/s (4 * D operations per visible pair) and the check. Needs a CUDA
+GPU and ``nvcc``; times from two calls (two cards) are not comparable.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import build
+from .flash_attention import flash_attention_plain
+
+#: (B, S, H, KV, D, causal): the dbrx-132b prefill's shape first.
+SHAPES = {
+    torch.bfloat16: [(4, 2048, 48, 8, 128, 1), (1, 4096, 48, 8, 128, 1),
+                     (4, 2048, 48, 8, 128, 0), (4, 2048, 48, 8, 64, 1)],
+    torch.float32: [(1, 2048, 48, 8, 128, 1), (2, 1000, 48, 8, 64, 1)],
+}
+_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _launchers(sources):
+    """One ``flash_attention_launch`` per source, built in parallel."""
+    out_dir = Path(tempfile.mkdtemp(prefix="flash_ab_"))
+    jobs = []
+    for i, src in enumerate(sources):
+        lib = out_dir / f"lib{i}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
+        jobs.append((src, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    fns = []
+    for src, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        notes = [ln.strip() for ln in log.splitlines()
+                 if "C7513" in ln or "spill" in ln]
+        print(json.dumps({"build": str(src), "ptxas_notes": notes}))
+        fn = ctypes.CDLL(str(lib)).flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return fns
+
+
+def _time_ms(fn, reps: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("sources", nargs="+", type=Path)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--reps", type=int, default=30)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: needs a CUDA GPU")
+    dtype = getattr(torch, args.dtype)
+    fns = _launchers(args.sources)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, h, kv, d, causal in SHAPES[dtype]:
+        q = torch.randn((b, s, h, d), device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn((b, s, kv, d), device="cuda",
+                            generator=gen).to(dtype) for _ in range(2))
+        want = flash_attention_plain(q, k, v, causal=bool(causal)).float()
+        pairs = s * (s + 1) // 2 if causal else s * s
+        ops = 4 * b * h * d * pairs
+        calls, checks = [], []
+        for fn in fns:
+            o = torch.empty_like(q)
+            calls.append(lambda fn=fn, o=o: fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+                s, h, kv, d, causal, 0, _CODE[dtype], stream))
+            err = calls[-1]()
+            torch.cuda.synchronize()
+            diff = (o.float() - want).abs()
+            tol = _TOL[dtype]
+            checks.append({"rc": err, "max_abs_err": float(diff.max()),
+                           "within_tol": bool((diff <= tol + tol
+                                               * want.abs()).all())})
+        ms = [[] for _ in fns]
+        for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+            ms[i].append(_time_ms(calls[i], args.reps))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=bool(causal),
+                                       enable_gqa=True), args.reps)
+        shape = {"B": b, "S": s, "H": h, "KV": kv, "D": d,
+                 "causal": bool(causal), "dtype": args.dtype}
+        print(json.dumps({**shape, "sdpa_ms": lib_ms,
+                          "sdpa_tflops": ops / lib_ms / 1e9}))
+        for src, check, t in zip(args.sources, checks, ms):
+            print(json.dumps({**shape, "source": str(src), "ms": t,
+                              "tflops": ops / min(t) / 1e9, **check}))
+        del q, k, v, want
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -243,21 +243,27 @@ def test_cuda_moe_combine_matches_plain(cuda, dtype, d, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
-    (1, 2048, 48, 8, 128, True, None),
-    (2, 200, 8, 8, 64, False, None),
-    (2, 200, 48, 8, 128, True, 64),
-    (1, 300, 8, 8, 64, False, 64),
-    (3, 65, 4, 2, 128, True, None),
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,q_scale", [
+    (1, 2048, 48, 8, 128, True, None, 1),
+    (2, 200, 8, 8, 64, False, None, 1),
+    (2, 200, 48, 8, 128, True, 64, 1),
+    (1, 300, 8, 8, 64, False, 64, 1),
+    (3, 65, 4, 2, 128, True, None, 1),
+    (2, 1000, 48, 8, 128, True, None, 1),   # S not a multiple of 128, G 6
+    (1, 777, 8, 8, 64, True, 100, 1),       # a window across tile edges
+    (2, (64, 300), 8, 2, 128, False, None, 1),  # Sq != Sk
+    (1, (64, 0), 8, 2, 64, False, None, 1),     # no keys: zeros
+    (2, 333, 16, 4, 128, True, None, 8),    # large logits: online rescale
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
-                                            causal, window):
+                                            causal, window, q_scale):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    g = torch.Generator(device="cpu").manual_seed(s + h)
-    q = torch.randn((b, s, h, d), generator=g).to(dtype).to(cuda)
-    k = torch.randn((b, s, kv, d), generator=g).to(dtype).to(cuda)
-    v = torch.randn((b, s, kv, d), generator=g).to(dtype).to(cuda)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device="cpu").manual_seed(sq + h)
+    q = (torch.randn((b, sq, h, d), generator=g) * q_scale).to(dtype).to(cuda)
+    k = torch.randn((b, sk, kv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, sk, kv, d), generator=g).to(dtype).to(cuda)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     before = build.launch_counts()["flash_attention"]
     got = flash_attention(q, k, v, causal=causal, window=window)
