@@ -62,7 +62,23 @@ Phases:
    in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
    registers, shared memory and spills (ptxas), and the fp32 flash kernel
    timed at one smaller shape.
-4. (j) The model path, after the pools of phase 3 are freed: dbrx-132b at
+4. (k) The ``dma``/``mmu``/``transform`` perf sweep on the card, after the
+   pools of phase 3 are freed: ``repro_torch.perf.sweep.run_sweep`` with
+   the spec of the committed ``BENCH_perf.json`` (quick mode, seed 0, 3
+   repeats, 4 channels, L 13 and 100, 10 configs x 4 workloads, 120
+   runtime passes over pools on the card), gated with the port's
+   ``compare`` against ``ported_subset`` of the baseline (0 regressions,
+   0 errors; the 5 ``serve``/``sharded`` cells printed as not ported),
+   then held more strictly: every one of the 86 cells' metrics, and every
+   ``dma`` cell's counters, must equal the committed values. Prints the
+   launches of ``descriptor_copy`` per workload and the shapes it ran at
+   (it must have launched), the median host wall-clock
+   ``launch_us_per_descriptor`` per workload, holds the sweep's drains
+   over a random source pool against the CPU runtime bit for bit, and
+   times ``descriptor_copy`` at the sweep's small rows (wrapper, bare
+   kernel, the same launch with every descriptor -1 as its floor, the
+   plain version and ``index_select`` + ``index_copy_``).
+5. (j) The model path, after the pools of phase 3 are freed: dbrx-132b at
    its published widths (d 6,144, 48/8 heads of 128, 16 experts top-4 of
    d_ff 10,752, vocab 100,352) cut to 2 layers, weights from
    ``init_params`` with a seeded generator on the card (about 31.7 GB in
@@ -79,7 +95,8 @@ Phases:
    tokens and empty slots (both > 0, so both -1 rules run) and the peak
    device memory; then times the same forward again (set up already) and
    profiles a third one for its device time by kernel name.
-5. A ``kernels`` JSON line, then the ``ok`` JSON line last.
+6. A ``kernels`` JSON line (each kernel's launches summed over the main
+   path, (k) and (j), and per path), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -1123,6 +1140,256 @@ def main_path(torch, np, dev, rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase (k): the dma/mmu/transform perf sweep, gated against BENCH_perf.json
+# ---------------------------------------------------------------------------
+
+SWEEP_KERNEL = "descriptor_copy"
+#: Shapes of the sweep's traffic at which (k) times descriptor_copy:
+#: (workload, config). The index streams are the workload's first chain
+#: before coalescing, in rows of its unit: paged_kv on dbrx-132b is 96
+#: pages of 64 fp32 (256 B) over a 16,384-element pool, moe_dispatch on
+#: seamless-m4t-medium 96 token rows of 8 fp32 (32 B).
+SWEEP_SHAPES = (("paged_kv", "dbrx-132b"),
+                ("moe_dispatch", "seamless-m4t-medium"))
+SWEEP_CALLS = 200          # back-to-back calls per timing
+
+
+def time_per_call_ms(torch, fn, calls: int = SWEEP_CALLS,
+                     reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
+    calls of ``fn``, divided by ``calls``: resolves launches of a few µs."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def first_difference(a, b, path: str = "") -> str:
+    """The first key path at which two JSON values differ, or ''."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b)):
+            if k not in a or k not in b:
+                return f"{path}/{k}"
+            d = first_difference(a[k], b[k], f"{path}/{k}")
+            if d:
+                return d
+        return ""
+    return "" if a == b else f"{path} ({a!r} != {b!r})"
+
+
+def sweep_path(torch, np, dev, smi: str) -> tuple:
+    """(k) ``run_sweep`` on the card over the ported cells of the committed
+    baseline, gated and held cell for cell. Returns the launch counts and
+    the kernel's shapes in the sweep: (config, workload, active
+    descriptors, bucket, row, pool rows) -> [first index streams, calls]."""
+    from collections import Counter
+    from unittest import mock
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import descriptor_copy as dc
+    from repro_torch.perf import gate, sweep
+
+    base = json.loads((ROOT / "BENCH_perf.json").read_text())
+    ported, not_ported = gate.ported_subset(base)
+    spec = sweep.spec_from_doc(ported)
+    by_workload, shapes = Counter(), {}
+    current = {"cell": ("-", "-")}
+    real_pass, real_copy = sweep._run_runtime_pass, \
+        dc.descriptor_copy_bucketed
+
+    def counting_pass(arch, workload, *args, **kw):
+        current["cell"] = (arch, workload)
+        n0 = build.LAUNCHES[SWEEP_KERNEL]
+        out = real_pass(arch, workload, *args, **kw)
+        by_workload[workload] += build.LAUNCHES[SWEEP_KERNEL] - n0
+        return out
+
+    def recording_copy(sidx, didx, src, dst, *, n_bucket):
+        key = (*current["cell"], int(np.sum(np.asarray(sidx) >= 0)),
+               n_bucket, src.shape[1], src.shape[0])
+        shapes.setdefault(key, [np.array(sidx), np.array(didx), 0])[2] += 1
+        return real_copy(sidx, didx, src, dst, n_bucket=n_bucket)
+
+    launch_us = {}
+    build.reset_launches()                    # the sweep path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(sweep, "_run_runtime_pass", counting_pass), \
+            mock.patch.object(dc, "descriptor_copy_bucketed",
+                              recording_copy):
+        doc = sweep.run_sweep(spec, device=dev, launch_us=launch_us)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = build.launch_counts()            # the sweep path ends here
+
+    regressions = gate.compare(ported, doc)   # a GateError fails the smoke
+    if regressions:
+        raise AssertionError("phase k: " + "; ".join(
+            r.message for r in regressions))
+    equal = dma_counters = 0
+    for key, cell in sorted(ported["cells"].items()):
+        got = doc["cells"].get(key)
+        if got is None:
+            raise AssertionError(f"phase k: cell {key} missing")
+        diff = first_difference(got["metrics"], cell["metrics"],
+                                f"{key}/metrics")
+        if not diff and cell["kind"] == "dma":
+            diff = first_difference(got["counters"], cell["counters"],
+                                    f"{key}/counters")
+            dma_counters += not diff
+        if diff:
+            raise AssertionError(f"phase k: differs from BENCH_perf.json at "
+                                 f"{diff}")
+        equal += 1
+    log({"check": "k_sweep_vs_BENCH_perf", "cells_equal": equal,
+         "cells": len(ported["cells"]), "dma_counters_equal": dma_counters,
+         "kinds": dict(Counter(c["kind"] for c in doc["cells"].values())),
+         "gate_regressions": 0, "gate_errors": 0,
+         "not_ported_queue_a_12_13": not_ported, "seconds": seconds,
+         "runtime_passes": len(launch_us) * spec.repeats})
+    if counts[SWEEP_KERNEL] <= 0:
+        raise AssertionError(f"phase k: {SWEEP_KERNEL} was not launched")
+    log({"k_launches": counts, "descriptor_copy_by_workload":
+         dict(by_workload),
+         "descriptor_copy_shapes": [
+             {"config": a, "workload": w, "descriptors": n, "bucket": nb,
+              "row_fp32": unit, "pool_rows": rows, "launches": c}
+             for (a, w, n, nb, unit, rows), (_, _, c) in sorted(
+                 shapes.items())]})
+    per_workload = {}
+    for w in spec.workloads:
+        vals = [v for k, vs in launch_us.items() if k.split("/")[1] == w
+                for v in vs]
+        per_workload[w] = statistics.median(vals)
+    log({"k_launch_us_per_descriptor_median": per_workload,
+         "over": f"{len(spec.archs)} configs x {spec.repeats} repeats",
+         "clock": "host wall-clock of the runtime's submit side",
+         "card": smi})
+    return counts, shapes
+
+
+def check_sweep_drains(torch, np, dev, shapes) -> None:
+    """The sweep's traffic over a random source pool: one runtime pass on
+    the card per config and workload whose drains reached the kernel (and
+    those of ``SWEEP_SHAPES``), held bit for bit against the CPU runtime."""
+    from repro_torch.configs import get_config
+    from repro_torch.perf.workloads import QUICK, generate
+    from repro_torch.runtime import ChannelConfig, DMARuntime, SubmitRequest
+
+    cells = sorted({(a, w) for a, w, *_ in shapes}
+                   | {(a, w) for w, a in SWEEP_SHAPES})
+    g = torch.Generator().manual_seed(1)
+    for arch, workload in cells:
+        wl = generate(workload, get_config(arch), QUICK, 0)
+        src = torch.randn(wl.pool_elems, generator=g)
+        out = []
+        for d in ("cpu", dev):
+            rt = DMARuntime([ChannelConfig(name=f"ch{i}", tier="serial",
+                                           ring_capacity=QUICK.ring_capacity,
+                                           max_len=QUICK.max_len)
+                             for i in range(4)], device=d)
+            rt.register_pool("src", src.to(rt.device))
+            rt.register_pool("dst", torch.zeros(wl.pool_elems,
+                                                device=rt.device))
+            for c in wl.chains:
+                rt.submit(SubmitRequest(chain=c, src_pool="src",
+                                        dst_pool="dst", tier="serial"))
+            rt.drain_until_idle()
+            out.append(rt.pool("dst").cpu())
+        if not torch.equal(out[0], out[1]):
+            raise AssertionError(f"phase k: {arch}/{workload} drains differ "
+                                 "between the card and the CPU")
+    log({"check": "k_drains_card_vs_cpu", "cells": [f"{a}/{w}"
+                                                    for a, w in cells],
+         "equal": True})
+
+
+def time_sweep_copies(torch, np, dev, shapes) -> dict:
+    """descriptor_copy at the sweep's small rows: the wrapper, the bare
+    kernel, the same launch with every descriptor -1 (no row moved: the
+    launch floor), the plain version and index_select + index_copy_."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.descriptor_copy import (
+        descriptor_copy_bucketed, descriptor_copy_plain, pad_bucket)
+    from repro_torch.perf.workloads import QUICK, generate
+
+    cases = []
+    for workload, arch in SWEEP_SHAPES:
+        wl = generate(workload, get_config(arch), QUICK, 0)
+        c = wl.chains[0]
+        unit = int(np.asarray(c.length)[0])
+        n = c.num_descriptors
+        sidx, didx = pad_bucket(np.asarray(c.src) // unit,
+                                np.asarray(c.dst) // unit,
+                                1 << max(n - 1, 0).bit_length())
+        cases.append((f"{workload}/{arch}", sidx, didx, unit,
+                      wl.pool_elems // unit))
+    if shapes:                                # the shape the sweep ran most
+        (a, w, _, _, unit, rows), (sidx, didx, _) = max(
+            shapes.items(), key=lambda kv: kv[1][2])
+        cases.append((f"{w}/{a}, as the sweep ran it", sidx, didx, unit,
+                      rows))
+    g = torch.Generator(device=dev).manual_seed(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, sidx, didx, unit, rows in cases:
+        n_bucket = len(sidx)
+        n = int(np.sum((sidx >= 0) & (didx >= 0)))
+        src = torch.randn((rows, unit), device=dev, generator=g)
+        dst = torch.zeros_like(src)
+        want = descriptor_copy_plain(sidx, didx, src, dst.clone())
+        got = descriptor_copy_bucketed(sidx, didx, src, dst.clone(),
+                                       n_bucket=n_bucket)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase k: descriptor_copy at {label} "
+                                 "disagrees with its plain version")
+        s32 = torch.from_numpy(sidx.astype(np.int32)).to(dev)
+        d32 = torch.from_numpy(didx.astype(np.int32)).to(dev)
+        none = torch.full_like(s32, -1)
+        active = (sidx >= 0) & (didx >= 0)
+        s_dev = torch.from_numpy(sidx[active]).to(dev)
+        d_dev = torch.from_numpy(didx[active]).to(dev)
+        row_bytes = unit * 4
+
+        def bare(s, d):
+            return lambda: build.launch(SWEEP_KERNEL, src.data_ptr(),
+                                        dst.data_ptr(), s.data_ptr(),
+                                        d.data_ptr(), n_bucket, row_bytes,
+                                        stream)
+        t = {
+            "ms": time_per_call_ms(torch, lambda: descriptor_copy_bucketed(
+                sidx, didx, src, dst, n_bucket=n_bucket)),
+            "kernel_ms": time_per_call_ms(torch, bare(s32, d32)),
+            "floor_ms": time_per_call_ms(torch, bare(none, none)),
+            "plain_ms": time_per_call_ms(torch, lambda: descriptor_copy_plain(
+                sidx, didx, src, dst)),
+            "library_ms": time_per_call_ms(torch, lambda: dst.index_copy_(
+                0, d_dev, src.index_select(0, s_dev))),
+        }
+        moved = 2 * n * row_bytes + 2 * 4 * n_bucket   # rows + int32 indices
+        b_ms, b_by = bound_ms(moved, 0)
+        out[label] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": max_err(torch, got, want)}
+        log({"time": f"k_{SWEEP_KERNEL}", "shape": label, "descriptors": n,
+             "bucket": n_bucket, "row_bytes": row_bytes, "pool_rows": rows,
+             "bytes": moved, **out[label], "calls_per_timing": SWEEP_CALLS,
+             "kernel_over_floor": t["kernel_ms"] / t["floor_ms"],
+             "library_over_kernel": t["library_ms"] / t["kernel_ms"]})
+        del src, dst
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 (j): the model path
 # ---------------------------------------------------------------------------
 
@@ -1364,9 +1631,17 @@ def main() -> int:
     timing["paged_attention"] = check_paged(torch, np, dev, rng)
     timing.update(check_moe(torch, np, dev, rng))
     timing["flash_attention"] = check_flash(torch, np, dev, rng)
-    launches = main_path(torch, np, dev, rng)
+    by_path = {"main": main_path(torch, np, dev, rng)}
     torch.cuda.empty_cache()                  # the pools of phase 3 are gone
-    launches.update(prefill_path(torch, np, dev, rng, args.seed))
+    t0 = time.perf_counter()
+    by_path["k_sweep"], shapes = sweep_path(torch, np, dev, smi)
+    check_sweep_drains(torch, np, dev, shapes)
+    time_sweep_copies(torch, np, dev, shapes)
+    log({"phase": "k", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    by_path["j_prefill"] = prefill_path(torch, np, dev, rng, args.seed)
+    launches = {k: sum(p.get(k, 0) for p in by_path.values())
+                for k in build.LAUNCHES}
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (launch counter, source, TPU kernel it replaces)
@@ -1390,6 +1665,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
                         "replaces": replaces, "launches": launches[counter],
+                        "launches_by_path": {p: c.get(counter, 0)
+                                             for p, c in by_path.items()},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "kernel_ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

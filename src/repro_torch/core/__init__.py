@@ -30,6 +30,15 @@ from .engine import (  # noqa: F401
     execute_chain_host,
     execute_serial,
 )
+from .simulator import (  # noqa: F401
+    MEMORY_CONFIGS,
+    SimConfig,
+    SimResult,
+    ideal_utilization,
+    simulate,
+    table_iv,
+    utilization_sweep,
+)
 from .transform import (  # noqa: F401
     IDENTITY,
     TransformSpec,
@@ -39,6 +48,7 @@ from .transform import (  # noqa: F401
     reference_apply,
     transform_source_view,
 )
+from .area_model import area_kge, headline_fpga_savings, report  # noqa: F401
 from .prefetch import analytical_utilization, estimate_hit_rate  # noqa: F401
 from .speculation import (  # noqa: F401
     DEFAULT_DEPTH,

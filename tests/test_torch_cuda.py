@@ -302,3 +302,57 @@ def test_cuda_attention_raises_rather_than_falling_back(cuda, what):
     with pytest.raises(NotImplementedError, match=what):
         attention(params, x, pos, cfg)
     assert build.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_subset_equals_committed_cells(cuda):
+    """The port's sweep on the card: the committed BENCH_perf.json cells of
+    two configs, metrics and counters exactly, through descriptor_copy."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    from repro_torch.perf import gate, sweep
+
+    base = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_perf.json").read_text())
+    ported, _ = gate.ported_subset(base)
+    spec = dataclasses.replace(sweep.spec_from_doc(ported),
+                               archs=("deepseek-v2-236b", "qwen3-14b"))
+    before = build.launch_counts()["descriptor_copy"]
+    doc = sweep.run_sweep(spec, device=cuda)
+    assert build.launch_counts()["descriptor_copy"] > before
+    assert len(doc["cells"]) == 2 * 8 + 2 + 4
+    for key, cell in doc["cells"].items():
+        assert cell == base["cells"][key], key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,workload", [
+    ("qwen3-14b", "moe_dispatch"), ("deepseek-v2-236b", "chain_mix"),
+    ("seamless-m4t-medium", "paged_kv")])
+def test_cuda_sweep_drains_match_the_cpu(cuda, arch, workload):
+    """One runtime pass of the sweep's traffic over a random source pool:
+    the card's destination pool equals the CPU runtime's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.perf.workloads import QUICK, generate
+    from repro_torch.runtime import ChannelConfig, DMARuntime, SubmitRequest
+
+    wl = generate(workload, get_config(arch), QUICK, 0)
+    src = _rows((wl.pool_elems,), torch.float32, "cpu", 5)
+    out = []
+    for dev in ("cpu", cuda):
+        rt = DMARuntime([ChannelConfig(name=f"ch{i}", tier="serial",
+                                       ring_capacity=QUICK.ring_capacity,
+                                       max_len=QUICK.max_len)
+                         for i in range(4)], device=dev)
+        rt.register_pool("src", src.to(rt.device))
+        rt.register_pool("dst", torch.zeros(wl.pool_elems,
+                                            device=rt.device))
+        for d in wl.chains:
+            rt.submit(SubmitRequest(chain=d, src_pool="src",
+                                    dst_pool="dst", tier="serial"))
+        rt.drain_until_idle()
+        out.append(rt.pool("dst").cpu())
+    assert torch.equal(out[0], out[1])
+    assert out[0].abs().sum() > 0
