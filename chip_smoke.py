@@ -62,15 +62,17 @@ Phases:
    in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
    registers, shared memory and spills (ptxas), and the fp32 flash kernel
    timed at one smaller shape.
-4. (k) The ``dma``/``mmu``/``transform`` perf sweep on the card, after the
-   pools of phase 3 are freed: ``repro_torch.perf.sweep.run_sweep`` with
-   the spec of the committed ``BENCH_perf.json`` (quick mode, seed 0, 3
-   repeats, 4 channels, L 13 and 100, 10 configs x 4 workloads, 120
-   runtime passes over pools on the card), gated with the port's
-   ``compare`` against ``ported_subset`` of the baseline (0 regressions,
-   0 errors; the 5 ``serve``/``sharded`` cells printed as not ported),
-   then held more strictly: every one of the 86 cells' metrics, and every
-   ``dma`` cell's counters, must equal the committed values. Prints the
+4. (k) The ``dma``/``mmu``/``transform``/``serve`` perf sweep on the
+   card, after the pools of phase 3 are freed:
+   ``repro_torch.perf.sweep.run_sweep`` with the spec of the committed
+   ``BENCH_perf.json`` (quick mode, seed 0, 3 repeats, 4 channels, L 13
+   and 100, 10 configs x 4 workloads, 120 runtime passes over pools on
+   the card, and the serve cell's engine on the card), gated with the
+   port's ``compare`` against ``ported_subset`` of the baseline (0
+   regressions, 0 errors; the 4 ``sharded`` cells printed as not ported),
+   then held more strictly: every one of the 87 cells' metrics, and every
+   ``dma`` and ``serve`` cell's counters, must equal the committed
+   values. Prints the
    launches of ``descriptor_copy`` per workload and the shapes it ran at
    (it must have launched), the median host wall-clock
    ``launch_us_per_descriptor`` per workload, holds the sweep's drains
@@ -94,9 +96,32 @@ Phases:
    margin exceeds that. Prints the phase time, tokens/s, the dropped
    tokens and empty slots (both > 0, so both -1 rules run) and the peak
    device memory; then times the same forward again (set up already) and
-   profiles a third one for its device time by kernel name.
-6. A ``kernels`` JSON line (each kernel's launches summed over the main
-   path, (k) and (j), and per path), then the ``ok`` JSON line last.
+   profiles a third one for its device time by kernel name. Then
+   ``prefill`` and 4 greedy ``decode_step``s on the same weights (B 4):
+   ``moe_gather`` and ``moe_combine`` at 4 tokens a step, held step by
+   step against the plain ops from a copy of the prefilled state with the
+   plans replayed, at the same tolerance.
+6. (l) Serving, after (j)'s weights are freed: qwen2.5-3b at its
+   published config (36 layers, d 2,048, 16/2 heads of 128, d_ff 11,008,
+   vocab 151,936; about 12.3 GB of fp32 weights from ``--seed``).
+   ``prefill`` of 4 prompts of 512 tokens (``max_len`` 640;
+   ``flash_attention`` once a layer), 16 greedy ``decode_step``s, then a
+   ``ServeEngine`` (capacity 4, ``max_len`` 128) serving 8 requests with
+   prompts of 16-64 tokens and 16 new tokens each, polled every 3 steps;
+   all 8 must be delivered through their §II-D writebacks. Held: the
+   prefill against the same on plain flash (rtol = atol = 6e-2, logits
+   and K/V); the decode steps' logits against ``forward`` over the prompt
+   and the fed tokens at the same positions (teacher forcing, rtol = atol
+   = 8e-2, the reference's tolerance); each request's first token against
+   prefill's greedy token for its prompt wherever the top-2 margin exceeds
+   8e-2 or twice the largest teacher-forcing error, whichever is more.
+   Prints prefill ms and tokens/s, the decode step's
+   median ms and tokens/s, the engine's steps, median step ms, generated
+   tokens/s, admission stalls and poll latency, the peak device memory,
+   and one decode step's device time by kernel name with the share of the
+   copy (cast) kernels.
+7. A ``kernels`` JSON line (each kernel's launches summed over the main
+   path, (k), (j) and (l), and per path), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -105,6 +130,7 @@ package's sources are not next to it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -137,6 +163,7 @@ FLASH_CASES = [  # B, S or (Sq, Sk), H, KV, D, causal, window, q scale
     (1, 777, 8, 8, 64, True, 100, 1),        # a window across tile edges
     (2, (64, 300), 8, 2, 128, False, None, 1),   # Sq != Sk
     (2, 333, 16, 4, 128, True, None, 8),     # large logits: online rescale
+    (4, 512, 16, 2, 128, True, None, 1),     # qwen2.5-3b's prefill: G 8
 ]
 FLASH_FP32_SHAPE = (1, PROMPT_LEN, 48, 8, 128)   # B, S, H, KV, D, causal
 
@@ -1235,26 +1262,27 @@ def sweep_path(torch, np, dev, smi: str) -> tuple:
     if regressions:
         raise AssertionError("phase k: " + "; ".join(
             r.message for r in regressions))
-    equal = dma_counters = 0
+    equal = counters_equal = 0
     for key, cell in sorted(ported["cells"].items()):
         got = doc["cells"].get(key)
         if got is None:
             raise AssertionError(f"phase k: cell {key} missing")
         diff = first_difference(got["metrics"], cell["metrics"],
                                 f"{key}/metrics")
-        if not diff and cell["kind"] == "dma":
+        if not diff and cell["kind"] in ("dma", "serve"):
             diff = first_difference(got["counters"], cell["counters"],
                                     f"{key}/counters")
-            dma_counters += not diff
+            counters_equal += not diff
         if diff:
             raise AssertionError(f"phase k: differs from BENCH_perf.json at "
                                  f"{diff}")
         equal += 1
     log({"check": "k_sweep_vs_BENCH_perf", "cells_equal": equal,
-         "cells": len(ported["cells"]), "dma_counters_equal": dma_counters,
+         "cells": len(ported["cells"]),
+         "dma_and_serve_counters_equal": counters_equal,
          "kinds": dict(Counter(c["kind"] for c in doc["cells"].values())),
          "gate_regressions": 0, "gate_errors": 0,
-         "not_ported_queue_a_12_13": not_ported, "seconds": seconds,
+         "not_ported_queue_a_13": not_ported, "seconds": seconds,
          "runtime_passes": len(launch_us) * spec.repeats})
     if counts[SWEEP_KERNEL] <= 0:
         raise AssertionError(f"phase k: {SWEEP_KERNEL} was not launched")
@@ -1394,21 +1422,125 @@ def time_sweep_copies(torch, np, dev, shapes) -> dict:
 # ---------------------------------------------------------------------------
 
 MODEL_KERNELS = ("flash_attention", "moe_gather", "moe_combine")
+J_DECODE_STEPS = 4
 
 
-def prefill_path(torch, np, dev, rng, seed: int) -> dict:
-    """dbrx-132b prefill at full width, 2 layers: forward through the three
-    kernels, held against the same forward on their plain versions."""
-    import dataclasses
+@contextlib.contextmanager
+def recording_plans(plans: list):
+    """Every MoE dispatch plan the model path computes, appended to
+    ``plans`` in order."""
     from unittest import mock
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.models import moe as moe_mod
+    real_plan = moe_mod.moe_dispatch_plan
+
+    def recording(*args):
+        plans.append(real_plan(*args))
+        return plans[-1]
+
+    with mock.patch.object(moe_mod, "moe_dispatch_plan", recording):
+        yield
+
+
+@contextlib.contextmanager
+def plain_kernels(torch, plans=None, flipped=None):
+    """The model path's three ops replaced by their plain versions, here
+    and nowhere in the package. With ``plans`` (an iterator), the first
+    run's dispatch plans are replayed in order so that both runs route
+    alike; ``flipped`` receives, per MoE layer, the token copies that the
+    plain run's own plan sends to another expert or drops where the first
+    run kept them (a slot index alone also moves with the queue)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.moe_dispatch import (
         moe_combine_plain, moe_gather_plain)
-    from repro_torch.models import forward, init_params
     from repro_torch.models import moe as moe_mod
+    real_plan = moe_mod.moe_dispatch_plan
+
+    def replaying(probs, m, cap):
+        ours, theirs = next(plans), real_plan(probs, m, cap)
+        expert = [torch.where(p.inv_slot >= 0, p.inv_slot // cap, -1)
+                  for p in (ours, theirs)]
+        flipped.append(int((expert[0] != expert[1]).sum()))
+        return ours
+
+    def plain_flash(q, k, v, *, causal=True, window=None, **_):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    with contextlib.ExitStack() as stack:
+        if plans is not None:
+            stack.enter_context(mock.patch.object(
+                moe_mod, "moe_dispatch_plan", replaying))
+        for name, fn in (("flash_attention_op", plain_flash),
+                         ("moe_gather_op", moe_gather_plain),
+                         ("moe_combine_op", moe_combine_plain)):
+            stack.enter_context(mock.patch.object(ops, name, fn))
+        yield
+
+
+def hold_close(torch, label: str, got, want, tol: float) -> dict:
+    """``got`` within rtol = atol = ``tol`` of ``want`` everywhere, or
+    raise; returns the error's numbers for the log."""
+    diff = (got.float() - want.float()).abs()
+    lim = tol + tol * want.float().abs()
+    out = {"max_abs_err": float(diff.max()), "rtol": tol, "atol": tol,
+           "out_of_tolerance": int((diff > lim).sum()),
+           "worst_share_of_tolerance": float((diff / lim).max())}
+    if out["out_of_tolerance"]:
+        raise AssertionError(f"{label}: differs beyond rtol = atol = {tol}: "
+                             f"{out}")
+    return out
+
+
+def hold_greedy(torch, label: str, got, want, margin_needed) -> dict:
+    """Greedy tokens of logits ``got`` and ``want`` (..., V) must agree
+    wherever the top-2 margin of ``want`` exceeds ``margin_needed`` (a
+    number or a tensor of the top logit's shape)."""
+    g, w = got.float().argmax(-1), want.float().argmax(-1)
+    top2 = want.float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    sure = margin > margin_needed
+    if not torch.equal(g[sure], w[sure]):
+        raise AssertionError(f"{label}: greedy tokens differ where the "
+                             "top-2 margin exceeds the tolerance")
+    return {"greedy": g.tolist(), "greedy_want": w.tolist(),
+            "top2_margin": margin.tolist(), "checked": int(sure.sum()),
+            "of": sure.numel()}
+
+
+def clone_state(torch, state):
+    """A copy of a decode state: decode steps write their caches in place."""
+    from repro_torch.models import DecodeState
+    from repro_torch.models.attention import KVCacheView
+
+    def clone(c):
+        return KVCacheView(*(x.clone() for x in c))
+
+    return DecodeState({"prefix": [clone(c) for c in state.caches["prefix"]],
+                        "slots": tuple(clone(c)
+                                       for c in state.caches["slots"])},
+                       state.cur_pos.clone())
+
+
+def expect_launches(label: str, launches: dict, want: dict) -> None:
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"phase {label}: {name} launched {n} "
+                                 f"times, expected {want.get(name, 0)}")
+
+
+def prefill_path(torch, np, dev, rng, seed: int) -> tuple:
+    """dbrx-132b at full width, 2 layers: forward through the three
+    kernels, held against the same forward on their plain versions; then
+    prefill and greedy decode steps on the same weights. Returns the
+    launches of the prefill path and of the decode path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import forward, init_params
 
     cfg = dataclasses.replace(get_config(PREFILL_ARCH),
                               num_layers=PREFILL_LAYERS)
@@ -1433,25 +1565,15 @@ def prefill_path(torch, np, dev, rng, seed: int) -> dict:
     n_tok = PROMPTS * PROMPT_LEN
 
     plans = []
-    real_plan = moe_mod.moe_dispatch_plan
-
-    def recording(*args):
-        plans.append(real_plan(*args))
-        return plans[-1]
-
     build.reset_launches()                    # the model path starts here
-    with mock.patch.object(moe_mod, "moe_dispatch_plan", recording):
+    with recording_plans(plans):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, aux, _, _ = forward(params, batch, cfg)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     launches = build.launch_counts()          # the model path ends here
-    for name, n in launches.items():
-        want = cfg.num_layers if name in MODEL_KERNELS else 0
-        if n != want:
-            raise AssertionError(f"phase j: {name} launched {n} times, "
-                                 f"expected {want}")
+    expect_launches("j", launches, {k: cfg.num_layers for k in MODEL_KERNELS})
     if logits.shape != (PROMPTS, PROMPT_LEN, cfg.padded_vocab) \
             or logits.dtype != cfg.cdtype:
         raise AssertionError(f"phase j: logits {tuple(logits.shape)} "
@@ -1472,29 +1594,12 @@ def prefill_path(torch, np, dev, rng, seed: int) -> dict:
          "max_memory_allocated": torch.cuda.max_memory_allocated(),
          "launches": launches})
 
-    # The same forward with the three ops replaced by their plain versions,
-    # here and nowhere in the package. The first run's plans are replayed,
-    # so both route alike; the plain run's own routing is compared.
-    replay = iter(plans)
+    # The same forward with the three ops replaced by their plain versions.
+    # The first run's plans are replayed, so both route alike; the plain
+    # run's own routing is compared.
     flipped = []
-
-    def replaying(probs, m, cap):
-        ours, theirs = next(replay), real_plan(probs, m, cap)
-        # Token copies sent to another expert, or dropped where the other
-        # run kept them (a slot index alone also moves with the queue).
-        expert = [torch.where(p.inv_slot >= 0, p.inv_slot // cap, -1)
-                  for p in (ours, theirs)]
-        flipped.append(int((expert[0] != expert[1]).sum()))
-        return ours
-
-    def plain_flash(q, k, v, *, causal=True, window=None, **_):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-
     before = build.launch_counts()
-    with mock.patch.object(moe_mod, "moe_dispatch_plan", replaying), \
-            mock.patch.object(ops, "flash_attention_op", plain_flash), \
-            mock.patch.object(ops, "moe_gather_op", moe_gather_plain), \
-            mock.patch.object(ops, "moe_combine_op", moe_combine_plain):
+    with plain_kernels(torch, iter(plans), flipped):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want, want_aux, _, _ = forward(params, batch, cfg)
@@ -1502,36 +1607,113 @@ def prefill_path(torch, np, dev, rng, seed: int) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
     if build.launch_counts() != before:
         raise AssertionError("phase j: the plain forward launched a kernel")
-    err = max_err(torch, logits, want)
-    lim = LOGIT_TOL + LOGIT_TOL * want.float().abs()
-    close = (logits.float() - want.float()).abs() <= lim
-    last, last_want = logits[:, -1].float(), want[:, -1].float()
-    greedy, greedy_want = last.argmax(-1), last_want.argmax(-1)
-    top2 = last_want.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    sure = margin > LOGIT_TOL
-    log({"check": "j_prefill_vs_plain", "max_abs_err": err,
-         "rtol": LOGIT_TOL, "atol": LOGIT_TOL,
-         "positions_out_of_tolerance": int((~close).any(-1).sum()),
-         "worst_share_of_tolerance": float(
-             ((logits.float() - want.float()).abs() / lim).max()),
+    close = hold_close(torch, "phase j: logits against the plain forward",
+                       logits, want, LOGIT_TOL)
+    greedy = hold_greedy(torch, "phase j", logits[:, -1], want[:, -1],
+                         LOGIT_TOL)
+    log({"check": "j_prefill_vs_plain", **close,
          "copies_routed_otherwise_in_plain_run": flipped,
          "plain_ms": plain_ms,
          "aux": float(aux), "plain_aux": float(want_aux),
-         "greedy_next_tokens": greedy.tolist(),
-         "greedy_plain": greedy_want.tolist(),
-         "top2_margin": margin.tolist()})
-    if not bool(close.all()):
-        raise AssertionError(f"phase j: logits differ from the plain forward "
-                             f"beyond {LOGIT_TOL}: max abs err {err}")
-    if not torch.equal(greedy[sure], greedy_want[sure]):
-        raise AssertionError("phase j: greedy tokens differ where the top-2 "
-                             "margin exceeds the tolerance")
+         "greedy_next_tokens": greedy["greedy"],
+         "greedy_plain": greedy["greedy_want"],
+         "top2_margin": greedy["top2_margin"]})
     del want
     steady_forward(torch, forward, params, batch, cfg, logits, n_tok)
-    del params, logits
+    del logits
+    decode_launches = dbrx_decode(torch, params, batch, cfg)
+    del params
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in MODEL_KERNELS}
+    return {k: launches[k] for k in MODEL_KERNELS}, decode_launches
+
+
+def dbrx_decode(torch, params, batch, cfg) -> dict:
+    """(j) ``prefill`` and greedy ``decode_step``s on the 2-layer dbrx
+    weights: ``moe_gather``/``moe_combine`` at T = 4 tokens a step, held
+    step by step against the plain ops from a copy of the prefilled state,
+    the dispatch plans replayed."""
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, prefill
+
+    plans, fed, outs, step_ms = [], [], [], []
+    build.reset_launches()                    # the decode path starts here
+    with recording_plans(plans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, state = prefill(params, batch, cfg, PROMPT_LEN + J_DECODE_STEPS)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        start = clone_state(torch, state)
+        n_prefill = len(plans)
+        tok = last.argmax(-1).to(torch.int32)
+        for _ in range(J_DECODE_STEPS):
+            fed.append(tok)
+            t0 = time.perf_counter()
+            logits, state = decode_step(params, tok, state, cfg)
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits)
+    launches = build.launch_counts()          # the decode path ends here
+    n = cfg.num_layers
+    expect_launches("j_decode", launches,
+                    {"flash_attention": n,
+                     "moe_gather": n * (1 + J_DECODE_STEPS),
+                     "moe_combine": n * (1 + J_DECODE_STEPS)})
+    flipped, wants = [], []
+    before = build.launch_counts()
+    state = start
+    with plain_kernels(torch, iter(plans[n_prefill:]), flipped):
+        for tok in fed:
+            logits, state = decode_step(params, tok, state, cfg)
+            wants.append(logits)
+    torch.cuda.synchronize()
+    if build.launch_counts() != before:
+        raise AssertionError("phase j: the plain decode launched a kernel")
+    got, want = torch.stack(outs), torch.stack(wants)    # (steps, B, V)
+    close = hold_close(torch, "phase j: decode logits against the plain "
+                       "ops", got, want, LOGIT_TOL)
+    greedy = hold_greedy(torch, "phase j decode", got, want, LOGIT_TOL)
+    decode_plans = plans[n_prefill:]
+    log({"phase": "j_decode_dbrx_132b", "prefill_ms": prefill_ms,
+         "step_ms": step_ms, "batch": PROMPTS,
+         "tokens_per_token_step": int(got.shape[1]),
+         "slots": [int(p.token_idx.shape[0]) for p in decode_plans],
+         "empty_slots": [int((p.token_idx < 0).sum()) for p in decode_plans],
+         "dropped_tokens": [int(p.num_dropped) for p in decode_plans],
+         "launches": launches})
+    log({"check": "j_decode_vs_plain", **close,
+         "copies_routed_otherwise_in_plain_run": flipped,
+         "greedy_checked": greedy["checked"], "of": greedy["of"]})
+    return launches
+
+
+def device_profile(torch, fn, label: str, api: dict = None):
+    """Device time of ``fn`` by kernel name, largest first, as
+    ``[(device_us, name, calls)]``; None where the profiler sees no card.
+    ``api`` (a dict) receives the count of each CUDA runtime call the host
+    made (launches, copies, synchronisations)."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:      # CUPTI refused: no breakdown, say so
+        log({"profile": label, "error": str(e)})
+        return None
+    # Kernels only: an operator's row also carries the device time of the
+    # kernels it launched, which would count them twice.
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+        elif api is not None and ev.key.startswith(("cuda", "cu")):
+            api[ev.key] = ev.count
+    rows.sort(reverse=True)
+    return rows
 
 
 def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
@@ -1548,24 +1730,10 @@ def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
     del again
     log({"phase": "j_prefill_steady", "ms": ms,
          "tokens_per_s": n_tok / (ms / 1e3), "bit_identical_to_first": same})
-    from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            forward(params, batch, cfg)
-            torch.cuda.synchronize()
-    except RuntimeError as e:      # CUPTI refused: no breakdown, say so
-        log({"profile": "j_prefill_steady", "error": str(e)})
+    rows = device_profile(torch, lambda: forward(params, batch, cfg),
+                          "j_prefill_steady")
+    if not rows:
         return
-    # Kernels only: an operator's row also carries the device time of the
-    # kernels it launched, which would count them twice.
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     log({"profile": "j_prefill_steady", "device_ms": total / 1e3,
          "device_busy_share_of_steady_ms": total / 1e3 / ms,
@@ -1575,6 +1743,215 @@ def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
                            "calls": n, "share": us / total}
                           for us, k, n in rows
                           if "flash_attention" in k or "moe_" in k]})
+
+
+# ---------------------------------------------------------------------------
+# Phase (l): serving qwen2.5-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_MAX_LEN = 4, 512, 640
+SERVE_DECODE_STEPS = 16
+#: The reference's teacher-forcing tolerance (tests/test_models_smoke.py).
+TF_TOL = 8e-2
+ENGINE_CAPACITY, ENGINE_MAX_LEN, ENGINE_REQUESTS = 4, 128, 8
+ENGINE_PROMPT_LENS = (16, 64)
+ENGINE_NEW_TOKENS, ENGINE_POLL_EVERY = 16, 3
+
+
+def serve_path(torch, np, dev, rng, seed: int) -> dict:
+    """(l) qwen2.5-3b at its published config, all 36 layers: ``prefill``
+    of 4 x 512 tokens through ``flash_attention``, 16 greedy
+    ``decode_step``s, then a ``ServeEngine`` serving 8 requests through
+    §II-D writebacks. Held against the plain prefill, the full forward
+    (teacher forcing) and per-prompt prefills. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.runtime import PerfProbe, SubmitRequest
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    log({"init": SERVE_ARCH, "layers": cfg.num_layers,
+         "d_model": cfg.d_model, "heads": cfg.num_heads,
+         "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim_,
+         "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab,
+         "params": sum(x.numel() for x in _leaves(params)),
+         "param_bytes": sum(x.numel() * x.element_size()
+                            for x in _leaves(params)),
+         "seconds": time.perf_counter() - t0})
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (SERVE_PROMPTS, SERVE_PROMPT_LEN)).astype(
+            np.int32)).to(dev)
+    lo, hi = ENGINE_PROMPT_LENS
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             int(rng.integers(lo, hi + 1)))]
+               for _ in range(ENGINE_REQUESTS)]
+
+    build.reset_launches()                    # the serve path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, state = prefill(params, {"tokens": tokens}, cfg, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    fed, outs, step_ms = [], [], []
+    tok = last.argmax(-1).to(torch.int32)
+    for _ in range(SERVE_DECODE_STEPS):
+        fed.append(tok)
+        t0 = time.perf_counter()
+        logits, state = decode_step(params, tok, state, cfg)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits)
+
+    probe = PerfProbe()
+    eng = ServeEngine(params, cfg, capacity=ENGINE_CAPACITY,
+                      max_len=ENGINE_MAX_LEN, device=dev)
+    eng.attach_probe(probe)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(SubmitRequest(request=Request(
+            uid=uid, prompt=prompt, max_new_tokens=ENGINE_NEW_TOKENS)))
+    engine_ms = []
+    t_engine = time.perf_counter()
+    while eng.queue or any(s.busy for s in eng.slots):
+        t0 = time.perf_counter()
+        eng.step()                 # ends in the sampled tokens' download
+        engine_ms.append((time.perf_counter() - t0) * 1e3)
+        if eng.steps % ENGINE_POLL_EVERY == 0:
+            eng.poll_completed()
+    delivered = eng.poll_completed()
+    engine_s = time.perf_counter() - t_engine
+    launches = build.launch_counts()          # the serve path ends here
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("l", launches, {"flash_attention": cfg.num_layers})
+
+    pc = eng.perf_counters()
+    generated = sum(len(r.output) for r in delivered)
+    if sorted(r.uid for r in delivered) != list(range(ENGINE_REQUESTS)) \
+            or probe.serve.completions_observed != ENGINE_REQUESTS \
+            or any(len(r.output) != ENGINE_NEW_TOKENS for r in delivered):
+        raise AssertionError(
+            f"phase l: {len(delivered)} of {ENGINE_REQUESTS} requests "
+            f"delivered through their writebacks, "
+            f"{probe.serve.completions_observed} observed")
+    n_tok = SERVE_PROMPTS * SERVE_PROMPT_LEN
+    decode_ms = statistics.median(step_ms)
+    log({"phase": "l_prefill_qwen2_5_3b", "ms": prefill_ms,
+         "tokens_per_s": n_tok / (prefill_ms / 1e3),
+         "prompts": SERVE_PROMPTS, "prompt_len": SERVE_PROMPT_LEN,
+         "max_len": SERVE_MAX_LEN})
+    log({"phase": "l_decode_qwen2_5_3b", "step_ms_median": decode_ms,
+         "step_ms": step_ms, "batch": SERVE_PROMPTS,
+         "tokens_per_s": SERVE_PROMPTS / (decode_ms / 1e3)})
+    log({"phase": "l_engine_qwen2_5_3b", "requests": ENGINE_REQUESTS,
+         "capacity": ENGINE_CAPACITY, "max_len": ENGINE_MAX_LEN,
+         "prompt_lens": [len(p) for p in prompts],
+         "max_new_tokens": ENGINE_NEW_TOKENS,
+         "poll_every": ENGINE_POLL_EVERY, "steps": eng.steps,
+         "step_ms_median": statistics.median(engine_ms),
+         "step_ms_max": max(engine_ms), "seconds": engine_s,
+         "generated_tokens": generated,
+         "generated_tokens_per_s": generated / engine_s,
+         "admission_stalls": pc["serve.admission_stalls"],
+         "poll_latency_steps": pc["serve.completion_poll_latency_steps"],
+         "request_latency_steps_p50": pc["serve.request_latency_steps_p50"],
+         "request_latency_steps_p99": pc["serve.request_latency_steps_p99"],
+         "delivered_in_order": [r.uid for r in delivered],
+         "max_memory_allocated": peak, "launches": launches})
+
+    # The prefill again with flash replaced by its plain version.
+    before = build.launch_counts()
+    with plain_kernels(torch):
+        last_p, state_p = prefill(params, {"tokens": tokens}, cfg,
+                                  SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    if build.launch_counts() != before:
+        raise AssertionError("phase l: the plain prefill launched a kernel")
+    close = hold_close(torch, "phase l: prefill logits against the plain "
+                       "prefill", last, last_p, LOGIT_TOL)
+    kv = [hold_close(torch, "phase l: prefill caches against the plain "
+                     "prefill", a, b, LOGIT_TOL)["max_abs_err"]
+          for c, cp in zip(state.caches["slots"], state_p.caches["slots"])
+          for a, b in ((c.k[..., :SERVE_PROMPT_LEN, :, :],
+                        cp.k[..., :SERVE_PROMPT_LEN, :, :]),
+                       (c.v[..., :SERVE_PROMPT_LEN, :, :],
+                        cp.v[..., :SERVE_PROMPT_LEN, :, :]))]
+    greedy = hold_greedy(torch, "phase l prefill", last, last_p, LOGIT_TOL)
+    log({"check": "l_prefill_vs_plain", **close, "kv_max_abs_err": max(kv),
+         "greedy_checked": greedy["checked"], "of": greedy["of"]})
+    del last_p, state_p
+
+    # Teacher forcing: the decode steps' logits against the full forward's
+    # at the same positions (flash over the sequence against the decode's
+    # dense-view attention).
+    seq = torch.cat([tokens, torch.stack(fed, dim=1)], dim=1)
+    full, _, _, _ = forward(params, {"tokens": seq}, cfg)
+    full = full[:, SERVE_PROMPT_LEN:].transpose(0, 1).contiguous()
+    got = torch.stack(outs)                               # (steps, B, V)
+    tf = hold_close(torch, "phase l: teacher forcing", got, full, TF_TOL)
+    # A greedy token is held where the top-2 margin exceeds the tolerance,
+    # or twice the largest error seen between the two routes if that is
+    # more: no error of that size can flip it.
+    need = max(TF_TOL, 2 * tf["max_abs_err"])
+    tf_greedy = hold_greedy(torch, "phase l teacher forcing", got, full,
+                            need)
+    log({"check": "l_teacher_forcing", **tf, "positions": [
+        SERVE_PROMPT_LEN, SERVE_PROMPT_LEN + SERVE_DECODE_STEPS - 1],
+        "greedy_margin_needed": need,
+        "greedy_checked": tf_greedy["checked"], "of": tf_greedy["of"]})
+    del full, got, outs, seq
+
+    # Each request's first generated token against prefill's greedy token
+    # for its prompt, where the margin exceeds the same bound.
+    firsts, wants = [], []
+    for r in sorted(delivered, key=lambda r: r.uid):
+        first, _ = prefill(params, {"tokens": torch.tensor(
+            [prompts[r.uid]], dtype=torch.int32, device=dev)}, cfg,
+            ENGINE_MAX_LEN)
+        wants.append(first[0])
+        firsts.append(r.output[0])
+    want = torch.stack(wants)
+    got_tok = torch.tensor(firsts, device=dev)
+    g = want.float().argmax(-1)
+    top2 = want.float().topk(2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > need
+    if not torch.equal(got_tok[sure], g[sure]):
+        raise AssertionError("phase l: an engine's first token differs from "
+                             "prefill's greedy token where the margin "
+                             "exceeds the tolerance")
+    log({"check": "l_engine_first_token_vs_prefill",
+         "greedy_margin_needed": need,
+         "engine": firsts, "prefill_greedy": g.tolist(),
+         "top2_margin": (top2[:, 0] - top2[:, 1]).tolist(),
+         "checked": int(sure.sum()), "of": len(firsts),
+         "agree": int((got_tok == g).sum())})
+
+    # One decode step, profiled: device time by kernel name, and the share
+    # of the copy kernels (the fp32 -> bf16 weight casts, mostly).
+    # The host's CUDA runtime calls in the same step say where the step's
+    # host time goes (kernel launches, copies, synchronisations).
+    api = {}
+    rows = device_profile(torch, lambda: decode_step(params, tok, state, cfg),
+                          "l_decode_step", api)
+    if rows:
+        total = sum(r[0] for r in rows)
+        cast = sum(us for us, k, _ in rows if "copy" in k.lower())
+        log({"profile": "l_decode_step", "device_ms": total / 1e3,
+             "device_busy_share_of_step": total / 1e3 / decode_ms,
+             "copy_kernels_ms": cast / 1e3, "copy_share": cast / total,
+             "kernels_launched": sum(n for _, _, n in rows),
+             "cuda_api_calls": api,
+             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                     for us, k, n in rows[:12]]})
+    del params, state, eng
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in MODEL_KERNELS}
 
 
 def _leaves(tree):
@@ -1639,7 +2016,12 @@ def main() -> int:
     time_sweep_copies(torch, np, dev, shapes)
     log({"phase": "k", "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
-    by_path["j_prefill"] = prefill_path(torch, np, dev, rng, args.seed)
+    by_path["j_prefill"], by_path["j_decode"] = prefill_path(
+        torch, np, dev, rng, args.seed)
+    torch.cuda.empty_cache()                  # (j)'s weights are gone
+    t0 = time.perf_counter()
+    by_path["l_serve"] = serve_path(torch, np, dev, rng, args.seed)
+    log({"phase": "l", "seconds": time.perf_counter() - t0})
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in build.LAUNCHES}
 

@@ -1,3 +1,11 @@
-"""Models: the decoder-only prefill path (attention + dense/MoE blocks)."""
-from .convert import params_from_jax  # noqa: F401
-from .model import forward, init_params, param_shapes  # noqa: F401
+"""Models: the decoder-only path (attention + dense/MoE blocks): prefill
+forward, decode caches and the decode step."""
+from .convert import decode_state_from_jax, params_from_jax  # noqa: F401
+from .model import (  # noqa: F401
+    DecodeState,
+    decode_step,
+    forward,
+    init_params,
+    param_shapes,
+    prefill,
+)

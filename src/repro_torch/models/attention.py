@@ -1,4 +1,4 @@
-"""Attention: GQA/MHA with q/k-norm, partial RoPE and sliding windows (prefill).
+"""Attention: GQA/MHA with q/k-norm, partial RoPE and sliding windows.
 
 Train/prefill attention runs the core through
 :func:`repro_torch.kernels.ops.flash_attention_op`: the hand-written CUDA
@@ -9,12 +9,19 @@ softcap, and head dims 64 or 128. Anything else runs
 CPU and raises ``NotImplementedError`` on the card: nothing on the card
 gives way quietly to a plain version.
 
-MLA, decode attention and ``init_cache`` are the reference's and wait for
-the serve slice.
+Decode attends one new token per row against a dense-view cache with
+per-slot position tags (:class:`KVCacheView`): slot = pos % cache_len, so
+full caches, sliding windows and ring buffers share one masking rule. The
+reference's decode is jnp over that view, not a Pallas kernel, and so is
+the port's. Where the reference rebuilds the cache functionally
+(``.at[].set``), the port writes the new token's K/V and tag into the
+cache in place: a cache is allocated once and lives as long as its state.
+
+MLA is the reference's and waits for ROADMAP Queue A item 14.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,9 +37,12 @@ NEG_INF = -1e30
 # Parameter init
 # ---------------------------------------------------------------------------
 
+_MLA_GAP = "MLA attention is not ported yet (ROADMAP Queue A item 14)"
+
+
 def init_attention(gen, cfg: ModelConfig, device):
     if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
+        raise NotImplementedError(_MLA_GAP)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dt = cfg.pdtype
     p = {
@@ -182,7 +192,7 @@ def attention(params, x, positions, cfg: ModelConfig, *,
               return_cache: bool = False):
     """Full-sequence attention. kind: 'attn' (full) or 'local' (windowed)."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
+        raise NotImplementedError(_MLA_GAP)
     if cfg.attention_impl != "blockwise":
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} is not ported")
@@ -207,3 +217,63 @@ def attention(params, x, positions, cfg: ModelConfig, *,
     if return_cache:
         return y, KVCacheView(k, v, positions.to(torch.int32))
     return y
+
+
+# ---------------------------------------------------------------------------
+# Decode (single-token) attention against a dense-view cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
+               device=None) -> KVCacheView:
+    """An empty cache for one layer in the compute dtype: zeros, every tag
+    -1. A ``local`` layer keeps ``min(max_len, sliding_window)`` slots."""
+    if cfg.mla is not None:
+        raise NotImplementedError(_MLA_GAP)
+    size = min(max_len, cfg.sliding_window) if (
+        kind == "local" and cfg.sliding_window) else max_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim_)
+    return KVCacheView(
+        k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        kv_pos=torch.full((batch, size), -1, dtype=torch.int32,
+                          device=device))
+
+
+def decode_attention(params, x, cache: KVCacheView, cur_pos,
+                     cfg: ModelConfig, *, kind: str = "attn"
+                     ) -> Tuple[torch.Tensor, KVCacheView]:
+    """One decode step. x: (B, 1, d_model); cur_pos: (B,) current position.
+
+    Writes the step's K/V and tag into ``cache`` in place, at slot
+    ``cur_pos % cache_len``, then attends over every slot whose tag the
+    mask admits. Returns ``(y, cache)``, the cache being the same tensors.
+    """
+    if cfg.mla is not None:
+        raise NotImplementedError(_MLA_GAP)
+    dt = cfg.cdtype
+    b = x.shape[0]
+    kv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim_
+    positions = cur_pos[:, None]
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+
+    slot = (cur_pos % cache.k.shape[1]).long()
+    bidx = torch.arange(b, device=x.device)
+    cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
+    cache.kv_pos[bidx, slot] = cur_pos.to(torch.int32)
+
+    window = cfg.sliding_window if kind == "local" else None
+    # Scores in fp32 from the bf16 operands (the reference's
+    # preferred_element_type=float32).
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     q.reshape(b, 1, kv, g, hd).float(),
+                     cache.k.float()) * hd ** -0.5
+    if cfg.attn_logit_softcap:
+        s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
+    s = s + _mask(positions, cache.kv_pos, True, window)[:, None, None]
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(dt), cache.v.to(dt))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, kv * g * hd)
+    y = out @ params["wo"].to(dt).reshape(-1, x.shape[-1])
+    return y, cache

@@ -6,6 +6,8 @@ its tree's nodes. :func:`params_from_jax` gives the port's tree: the same
 dict keys, one dict per (slot, period), tensors on ``device`` in the
 arrays' own dtypes. The tests feed both packages the same weights through
 it, from ``tree_map(np.asarray, init_params(key, cfg))`` of the reference.
+:func:`decode_state_from_jax` does the same for the reference's
+``DecodeState``, so a decode step of each package can start from one state.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from .attention import KVCacheView
+from .model import DecodeState
 from .transformer import n_periods
 
 
@@ -54,6 +58,30 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
     out["stack"] = {"prefix": [_tensors(p, dev) for p in stack["prefix"]],
                     "slots": tuple(slots)}
     return out
+
+
+def decode_state_from_jax(state, cfg: ModelConfig, device=None
+                          ) -> DecodeState:
+    """Port decode state from the reference's ``DecodeState`` of numpy
+    arrays (``tree_map(np.asarray, state)``): the same caches, stacked
+    slots included, as fresh tensors on ``device``."""
+    dev = resolve_device(device)
+    caches, cur_pos = state
+    if set(caches) != {"prefix", "slots"}:
+        raise NotImplementedError(
+            f"decode caches with {sorted(set(caches) - {'prefix', 'slots'})}"
+            " are not ported yet (ROADMAP Queue A item 14)")
+    periods = n_periods(cfg)
+
+    def view(c):                      # the reference's (k, v, kv_pos)
+        return KVCacheView(*(_tensors(x, dev) for x in c))
+
+    slots = tuple(view(c) for c in caches["slots"])
+    if any(c.k.shape[0] != periods for c in slots):
+        raise ValueError(f"slot caches must lead with {periods} periods")
+    return DecodeState({"prefix": [view(c) for c in caches["prefix"]],
+                        "slots": slots},
+                       _tensors(cur_pos, dev).to(torch.int32))
 
 
 def _leaves(tree):

@@ -4,8 +4,11 @@ A model is ``first_k_dense`` prefix layers plus N identical *periods*; each
 period is the config's ``block_pattern``. The reference stacks each
 pattern slot's parameters over periods and scans; the port keeps one
 parameter dict per (slot, period) (``params["slots"][j][i]``) and loops.
-This slice is inference: no remat. Mamba mixers, cross-attention and the
-decode functions are the reference's and wait for later slices.
+This slice is inference: no remat. Decode caches keep the reference's
+layout (a ``KVCacheView`` per prefix layer, one per pattern slot stacked
+over periods); ``stack_decode`` updates them in place through per-period
+views. Mamba mixers and cross-attention are the reference's and wait for
+ROADMAP Queue A item 14.
 """
 from __future__ import annotations
 
@@ -14,7 +17,13 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import KVCacheView, attention, init_attention
+from .attention import (
+    KVCacheView,
+    attention,
+    decode_attention,
+    init_attention,
+    init_cache,
+)
 from .layers import init_mlp, init_rms_norm, mlp, rms_norm
 from .moe import init_moe, moe_ffn
 
@@ -23,9 +32,14 @@ from .moe import init_moe, moe_ffn
 # Single block
 # ---------------------------------------------------------------------------
 
-def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str, device):
+def _check_mixer(mixer: str) -> None:
     if mixer not in ("attn", "local"):
-        raise NotImplementedError(f"{mixer!r} mixers are not ported yet")
+        raise NotImplementedError(f"{mixer!r} mixers are not ported yet "
+                                  "(ROADMAP Queue A item 14)")
+
+
+def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str, device):
+    _check_mixer(mixer)
     p: dict = {"norm1": init_rms_norm(cfg.d_model, cfg.pdtype, device),
                "norm2": init_rms_norm(cfg.d_model, cfg.pdtype, device),
                "mixer": init_attention(gen, cfg, device)}
@@ -41,8 +55,7 @@ def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str, device):
 def block_forward(p, x, positions, cfg: ModelConfig, mixer: str, ffn: str,
                   *, causal: bool = True, return_cache: bool = False):
     """Pre-norm block. Returns (x, aux_loss, cache|None)."""
-    if mixer not in ("attn", "local"):
-        raise NotImplementedError(f"{mixer!r} mixers are not ported yet")
+    _check_mixer(mixer)
     h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     cache = None
     out = attention(p["mixer"], h, positions, cfg, kind=mixer, causal=causal,
@@ -123,3 +136,65 @@ def stack_forward(params, x, positions, cfg: ModelConfig, *,
         caches = {"prefix": prefix_caches,
                   "slots": tuple(_stack_caches(c) for c in slot_caches)}
     return x, aux_total, caches
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       device=None):
+    """Empty caches for the decoder stack: ``{"prefix": [KVCacheView, ...],
+    "slots": (KVCacheView stacked over periods, ...)}``."""
+    if cfg.is_encdec:
+        raise NotImplementedError("cross-attention caches are not ported "
+                                  "yet (ROADMAP Queue A item 14)")
+    pattern = cfg.block_pattern
+    for mixer, _ in pattern:
+        _check_mixer(mixer)
+    periods = n_periods(cfg)
+    prefix = [init_cache(cfg, batch, max_len, pattern[0][0], device)
+              for _ in range(cfg.first_k_dense)]
+    slots = []
+    for mixer, _ in pattern:
+        one = init_cache(cfg, batch, max_len, mixer, device)
+        slots.append(KVCacheView(*(x.unsqueeze(0).repeat(
+            (periods,) + (1,) * x.ndim) for x in one)))
+    return {"prefix": prefix, "slots": tuple(slots)}
+
+
+def _period_view(cache: KVCacheView, i: int) -> KVCacheView:
+    """Period i of a stacked cache: views, so writes land in the stack."""
+    return KVCacheView(cache.k[i], cache.v[i], cache.kv_pos[i])
+
+
+def stack_decode(params, x, caches, cur_pos, cfg: ModelConfig):
+    """One-token decode through the stack. x: (B, 1, d).
+
+    Returns ``(x, caches)``; the caches are updated in place and returned
+    as the same objects.
+    """
+    pattern = cfg.block_pattern
+
+    def block_step(p, x, cache, mixer, ffn):
+        _check_mixer(mixer)
+        h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
+        out, _ = decode_attention(p["mixer"], h, cache, cur_pos, cfg,
+                                  kind=mixer)
+        x = x + out
+        if ffn == "none":
+            return x
+        h2 = rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
+        if ffn == "moe":
+            y, _, _ = moe_ffn(p["ffn"], h2, cfg, cfg.act_fn)
+        else:
+            y = mlp(p["ffn"], h2, cfg.act_fn, cfg.cdtype)
+        return x + y
+
+    for p, cache in zip(params["prefix"], caches["prefix"]):
+        x = block_step(p, x, cache, pattern[0][0], "dense")
+    for i in range(len(params["slots"][0])):
+        for j, (mixer, ffn) in enumerate(pattern):
+            x = block_step(params["slots"][j][i], x,
+                           _period_view(caches["slots"][j], i), mixer, ffn)
+    return x, caches

@@ -9,8 +9,8 @@ cell (arch/workload/channels/L) and the metric, so a red run points at
 *what* eroded, not just *that* something did.
 
 The baseline is the reference's document: the gate reads it and never
-writes it. Its ``serve`` and ``sharded`` cells need modules this package
-does not have yet (ROADMAP Queue A items 12 and 13); :func:`ported_subset`
+writes it. Its ``sharded`` cells need the sharded runtime, which this
+package does not have yet (ROADMAP Queue A item 13); :func:`ported_subset`
 drops them and the CLI names them as not ported. Their metric names,
 tolerances and polarities stay here as data, so the comparison is whole
 once those cells land.
@@ -38,6 +38,7 @@ import sys
 from typing import Dict, List, Optional, Sequence
 
 from .mmu_cell import MMU_GATED_METRICS
+from .serve_cell import SERVE_GATED_METRICS
 from .transform_cell import TRANSFORM_GATED_METRICS
 from .sweep import (
     COMMITTED_BASELINE,
@@ -46,16 +47,6 @@ from .sweep import (
     run_sweep,
     spec_from_doc,
     write_doc,
-)
-
-#: Gated metrics of the serve cell (``perf/serve_cell.py`` of the schema).
-SERVE_GATED_METRICS = (
-    "admission_stall_rate",
-    "completion_poll_latency_steps",
-    "serve_steps_per_request",
-    "request_latency_steps_p50",
-    "request_latency_steps_p99",
-    "request_latency_steps",
 )
 
 #: Gated metrics of the sharded mesh cells (``perf/sharded_cell.py``).
@@ -70,8 +61,8 @@ SHARDED_GATED_METRICS = (
     "first_touch_latency_rounds",
 )
 
-#: Cell kinds whose modules are not ported yet (ROADMAP Queue A 12-13).
-NOT_PORTED_KINDS = ("serve", "sharded")
+#: Cell kinds whose modules are not ported yet (ROADMAP Queue A item 13).
+NOT_PORTED_KINDS = ("sharded",)
 
 
 class GateError(Exception):
@@ -389,9 +380,9 @@ def quick_subset(doc: Dict[str, object]):
 def ported_subset(doc: Dict[str, object]):
     """Restrict a baseline to the cells this package can regenerate.
 
-    Drops the ``serve`` and ``sharded`` cells (ROADMAP Queue A items 12
-    and 13) and empties their dimensions, so :func:`spec_from_doc` on the
-    subset asks for neither. Returns ``(subset_doc, dropped_keys)``;
+    Drops the ``sharded`` cells (ROADMAP Queue A item 13) and empties
+    their dimension, so :func:`spec_from_doc` on the subset does not ask
+    for them. Returns ``(subset_doc, dropped_keys)``;
     raises GateError when nothing remains. Every other baseline cell the
     current run lacks stays an error in :func:`compare`.
     """
@@ -402,8 +393,7 @@ def ported_subset(doc: Dict[str, object]):
         raise GateError("baseline has no cells this package can regenerate "
                         f"(only {NOT_PORTED_KINDS} cells)")
     out = dict(doc)
-    out["dimensions"] = dict(doc["dimensions"], serve_cells=[],
-                             sharded_cells=[])
+    out["dimensions"] = dict(doc["dimensions"], sharded_cells=[])
     out["cells"] = cells
     return out, dropped
 
@@ -654,7 +644,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       "(quick dimensions; the rest need a full run)")
         baseline, not_ported = ported_subset(baseline)
         for key in not_ported:
-            print(f"not ported (Queue A items 12-13): {key}")
+            print(f"not ported (Queue A item 13): {key}")
         if args.current:
             current = load_doc(args.current)
         else:

@@ -26,10 +26,11 @@ Each ``dma`` cell runs in both substrates:
 
 The ``mmu`` cells (cycle model with the IOTLB) and the ``transform`` cells
 (cycle model, the numpy kv8 oracle and a kv_int8 runtime on the sweep's
-device) come from :mod:`.mmu_cell` and :mod:`.transform_cell`. The
-``serve`` and ``sharded`` cells of the document schema need the serve
-engine and the sharded runtime, which this package does not have yet:
-asking for them raises :class:`NotImplementedError`.
+device) come from :mod:`.mmu_cell` and :mod:`.transform_cell`; the
+``serve`` cell (a reduced-config :class:`repro_torch.serve.ServeEngine`
+on the sweep's device) from :mod:`.serve_cell`. The ``sharded`` cells of
+the document schema need the sharded runtime, which this package does not
+have yet: asking for them raises :class:`NotImplementedError`.
 
 The document is *bit-for-bit reproducible* from ``(mode, seed)``: gated
 metrics are medians over ``repeats`` seeded re-generations, wall-clock
@@ -67,6 +68,7 @@ from repro_torch.runtime import (
 )
 
 from .mmu_cell import DEFAULT_MMU_SPEC, MMU_GATED_METRICS, mmu_cell_entries
+from .serve_cell import DEFAULT_SERVE_SPEC, SERVE_GATED_METRICS, run_serve_cell
 from .transform_cell import (
     DEFAULT_TRANSFORM_SPEC,
     TRANSFORM_GATED_METRICS,
@@ -111,8 +113,6 @@ _SPEC_FRONTENDS = (
 )
 
 _NOT_PORTED = {
-    "include_serve": "the serve cell needs serve/engine.py and the model "
-                     "decode path (ROADMAP Queue A items 11 and 12)",
     "include_sharded": "the sharded cells need distributed/ (ROADMAP "
                        "Queue A item 13)",
 }
@@ -391,6 +391,27 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
                               f"cache={cache_hit:.2f} "
                               f"speedup={speedup:.2f}x", file=sys.stderr)
 
+    serve_cells = []
+    if spec.include_serve:
+        serve_spec = DEFAULT_SERVE_SPEC
+        serve_metrics, serve_counters = run_serve_cell(
+            spec.seed, serve_spec, device=device)
+        serve_cells = [serve_spec.cell_key]
+        cells[serve_spec.cell_key] = {
+            "kind": "serve",
+            "arch": serve_spec.arch,
+            "workload": "serve",
+            "capacity": serve_spec.capacity,
+            "n_requests": serve_spec.n_requests,
+            "metrics": serve_metrics,
+            "counters": serve_counters,
+        }
+        if progress:
+            print(f"  {serve_spec.cell_key}: " + " ".join(
+                f"{k}={v:.3f}" for k, v in serve_metrics.items()
+                if isinstance(v, (int, float))),
+                file=sys.stderr)
+
     mmu_cells = []
     if spec.iotlb:
         for key, cell in mmu_cell_entries(spec.seed, spec.mem_latencies,
@@ -412,7 +433,7 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
                 f"{k}={v:.3f}" for k, v in cells[key]["metrics"].items()),
                 file=sys.stderr)
 
-    from .gate import SERVE_GATED_METRICS, SHARDED_GATED_METRICS
+    from .gate import SHARDED_GATED_METRICS
     return {
         "schema_version": SCHEMA_VERSION,
         "mode": spec.mode,
@@ -425,7 +446,7 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
             "workloads": list(spec.workloads),
             "channel_counts": list(spec.channel_counts),
             "mem_latencies": list(spec.mem_latencies),
-            "serve_cells": [],
+            "serve_cells": serve_cells,
             "mesh_sizes": list(spec.mesh_sizes),
             "sharded_cells": [],
             "transform_cells": transform_cells,
@@ -442,8 +463,8 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
 
 def spec_from_doc(doc: Dict[str, object]) -> SweepSpec:
     """Rebuild the exact spec a document was generated with. A document
-    with ``serve`` or ``sharded`` cells raises :class:`NotImplementedError`
-    (pass it through ``gate.ported_subset`` first)."""
+    with ``sharded`` cells raises :class:`NotImplementedError` (pass it
+    through ``gate.ported_subset`` first)."""
     dims = doc["dimensions"]
     return default_spec(
         doc["mode"], int(doc["seed"]),
@@ -503,7 +524,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("refusing to write BENCH_perf.json: the committed baseline is "
               "the reference's; pass another --out", file=sys.stderr)
         return 2
-    doc = run_sweep(default_spec(args.mode, args.seed,
+    doc = run_sweep(default_spec(args.mode, args.seed, include_serve=True,
                                  translation=not args.no_translation_cache,
                                  iotlb=not args.no_iotlb),
                     progress=args.progress, device=args.device)

@@ -254,6 +254,7 @@ def test_cuda_moe_combine_matches_plain(cuda, dtype, d, k):
     (2, (64, 300), 8, 2, 128, False, None, 1),  # Sq != Sk
     (1, (64, 0), 8, 2, 64, False, None, 1),     # no keys: zeros
     (2, 333, 16, 4, 128, True, None, 8),    # large logits: online rescale
+    (4, 512, 16, 2, 128, True, None, 1),    # qwen2.5-3b's prefill: G 8
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
                                             causal, window, q_scale):
@@ -322,7 +323,7 @@ def test_cuda_sweep_subset_equals_committed_cells(cuda):
     before = build.launch_counts()["descriptor_copy"]
     doc = sweep.run_sweep(spec, device=cuda)
     assert build.launch_counts()["descriptor_copy"] > before
-    assert len(doc["cells"]) == 2 * 8 + 2 + 4
+    assert len(doc["cells"]) == 2 * 8 + 2 + 4 + 1      # + the serve cell
     for key, cell in doc["cells"].items():
         assert cell == base["cells"][key], key
 
@@ -356,3 +357,72 @@ def test_cuda_sweep_drains_match_the_cpu(cuda, arch, workload):
         out.append(rt.pool("dst").cpu())
     assert torch.equal(out[0], out[1])
     assert out[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cell_equals_committed_cell(cuda):
+    """The serve cell on the card: a real engine's decode steps there, and
+    metrics and counters equal to ``BENCH_perf.json`` exactly."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.perf.serve_cell import run_serve_cell
+
+    base = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_perf.json").read_text())
+    metrics, counters = run_serve_cell(0, device=cuda)
+    want = base["cells"]["serve/qwen2.5-3b/cap2"]
+    assert metrics == want["metrics"]
+    assert counters == want["counters"]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):                     # a KVCacheView
+        return type(tree)(*(_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-12b", "dbrx-132b"])
+def test_cuda_decode_matches_the_cpu(cuda, arch):
+    """Reduced configs at head dim 64 (a width the flash kernel takes), in
+    fp32: prefill (through flash, and for dbrx-132b the MoE kernels) and 20
+    greedy decode steps on the card against the same on the CPU, logits
+    within rtol = atol = 1e-4, position tags exactly. gemma3-12b's local
+    layers keep 16 slots, which the steps wrap."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), head_dim=64,
+                              compute_dtype="float32")
+    params = init_params(0, cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (3, 24)).astype(np.int32))
+    runs, fed = [], []            # both runs are fed the CPU's tokens
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = build.launch_counts()["flash_attention"]
+        logits, state = prefill(p, {"tokens": tokens.to(dev)}, cfg,
+                                max_len=64)
+        launched = build.launch_counts()["flash_attention"] - before
+        assert launched == (cfg.num_layers if dev == cuda else 0)
+        out = [logits.cpu()]
+        for step in range(20):
+            if dev == "cpu":
+                fed.append(out[-1].argmax(-1).to(torch.int32))
+            logits, state = decode_step(p, fed[step].to(dev), state, cfg)
+            out.append(logits.cpu())
+        runs.append((out, _to(state.caches, "cpu")))
+    (want, wcaches), (got, gcaches) = runs
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"step {i}: {m}")
+    for a, b in zip(gcaches["slots"], wcaches["slots"]):
+        assert torch.equal(a.kv_pos, b.kv_pos)
+        torch.testing.assert_close(a.k, b.k, rtol=1e-4, atol=1e-4)

@@ -3,9 +3,9 @@
 The port's workloads must be the reference's byte for byte, its runtime
 pass must count what the reference's counts, and its sweep must reproduce
 the committed ``BENCH_perf.json`` cells it runs exactly: metrics and
-counters, the ``dma``, ``mmu`` and ``transform`` kinds alike. Each cell
-depends only on its own config and workload, so a subset of configs
-reproduces the committed cells of those configs. Runs on the CPU.
+counters, the ``dma``, ``mmu``, ``transform`` and ``serve`` kinds alike.
+Each cell depends only on its own config and workload, so a subset of
+configs reproduces the committed cells of those configs. Runs on the CPU.
 """
 import dataclasses
 import json
@@ -22,7 +22,7 @@ from repro.perf import sweep as jsweep  # noqa: E402
 from repro.perf import workloads as jw  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.core.descriptor import to_packed  # noqa: E402
-from repro_torch.perf import gate, sweep  # noqa: E402
+from repro_torch.perf import gate, serve_cell, sweep  # noqa: E402
 from repro_torch.perf.workloads import (  # noqa: E402
     QUICK,
     SCALES,
@@ -167,7 +167,10 @@ def test_sweep_reproduces_committed_cells_exactly(baseline, subset_doc):
     for key, cell in cells.items():
         kinds[cell["kind"]] = kinds.get(cell["kind"], 0) + 1
         assert cell == baseline["cells"][key], key
-    assert kinds == {"dma": 8 * len(SUBSET), "mmu": 2, "transform": 4}
+    assert kinds == {"dma": 8 * len(SUBSET), "mmu": 2, "transform": 4,
+                     "serve": 1}
+    assert subset_doc["dimensions"]["serve_cells"] == \
+        baseline["dimensions"]["serve_cells"]
 
 
 def test_sweep_subset_gates_clean(baseline, subset_doc):
@@ -175,7 +178,7 @@ def test_sweep_subset_gates_clean(baseline, subset_doc):
     ported["cells"] = {k: c for k, c in ported["cells"].items()
                        if k in subset_doc["cells"]}
     assert gate.compare(ported, subset_doc) == []
-    assert len(dropped) == 5
+    assert len(dropped) == 4
 
 
 def test_sweep_document_is_bit_for_bit_deterministic():
@@ -244,8 +247,12 @@ def test_launch_us_is_reported_and_never_stored():
 
 @pytest.mark.parametrize("flag", ["include_serve", "include_sharded"])
 def test_unported_cells_raise_never_skip(flag):
-    with pytest.raises(NotImplementedError, match="Queue A item"):
-        sweep.default_spec("quick", 0, **{flag: True})
+    """The sharded cells raise; the serve cell is ported and runs."""
+    if flag == "include_sharded":
+        with pytest.raises(NotImplementedError, match="Queue A item 13"):
+            sweep.default_spec("quick", 0, **{flag: True})
+    else:
+        assert sweep.default_spec("quick", 0, **{flag: True}).include_serve
     spec = sweep.default_spec("quick", 0)
     assert spec.include_serve is False and spec.include_sharded is False
 
@@ -257,6 +264,17 @@ def test_spec_from_doc_refuses_unported_cells(baseline):
     assert (spec.mode, spec.seed, spec.repeats) == ("quick", 0, 3)
     assert spec.channel_counts == (4,) and spec.mem_latencies == (13, 100)
     assert len(spec.archs) == 10 and spec.iotlb and spec.include_transforms
+    assert spec.include_serve and not spec.include_sharded
+
+
+def test_serve_cell_equals_the_committed_cell_exactly(baseline):
+    """Metrics and counters of ``serve/qwen2.5-3b/cap2``, bit for bit: they
+    are scheduling outcomes, whatever the weights."""
+    metrics, counters = serve_cell.run_serve_cell(0, device="cpu")
+    want = baseline["cells"]["serve/qwen2.5-3b/cap2"]
+    assert metrics == want["metrics"]
+    assert counters == want["counters"]
+    assert set(metrics) == set(serve_cell.SERVE_GATED_METRICS)
 
 
 def test_sweep_cli_never_writes_the_committed_baseline(tmp_path, capsys):

@@ -25,9 +25,8 @@ MMU_CELL = "mmu/paged_seq/L13"
 TRANSFORM_CELL = "transform/kv1024B/L13"
 SERVE_CELL = "serve/archA/cap2"
 SHARDED_CELL = "sharded/archA/mesh4"
-NOT_PORTED = ["serve/qwen2.5-3b/cap2", "sharded/qwen2.5-3b/mesh1",
-              "sharded/qwen2.5-3b/mesh2", "sharded/qwen2.5-3b/mesh4",
-              "sharded/qwen2.5-3b/mesh8"]
+NOT_PORTED = ["sharded/qwen2.5-3b/mesh1", "sharded/qwen2.5-3b/mesh2",
+              "sharded/qwen2.5-3b/mesh4", "sharded/qwen2.5-3b/mesh8"]
 
 
 def _doc(cells=None):
@@ -266,13 +265,14 @@ def test_ported_subset_names_exactly_the_serve_and_sharded_cells():
     doc = json.loads(BASELINE.read_text())
     sub, dropped = gate.ported_subset(doc)
     assert dropped == NOT_PORTED
-    assert len(sub["cells"]) == 86
+    assert len(sub["cells"]) == 87
     assert {c["kind"] for c in sub["cells"].values()} == \
-        {"dma", "mmu", "transform"}
-    assert sub["dimensions"]["serve_cells"] == []
+        {"dma", "mmu", "transform", "serve"}
+    assert sub["dimensions"]["serve_cells"] == ["serve/qwen2.5-3b/cap2"]
     assert sub["dimensions"]["sharded_cells"] == []
-    assert doc["dimensions"]["serve_cells"]        # the input is untouched
-    only = _doc({SERVE_CELL: _serve_cell()})
+    assert doc["dimensions"]["sharded_cells"]      # the input is untouched
+    assert gate.NOT_PORTED_KINDS == ("sharded",)
+    only = _doc({SHARDED_CELL: _sharded_cell()})
     with pytest.raises(gate.GateError, match="no cells"):
         gate.ported_subset(only)
 
@@ -301,8 +301,8 @@ def test_cli_exit_codes_on_committed_copies(committed, tmp_path, capsys):
     assert gate.main(["--baseline", path, "--current", same]) == 0
     out = capsys.readouterr().out
     for key in NOT_PORTED:
-        assert f"not ported (Queue A items 12-13): {key}" in out
-    assert "PASS — 86 cells" in out
+        assert f"not ported (Queue A item 13): {key}" in out
+    assert "PASS — 87 cells" in out
 
     bad = copy.deepcopy(cur)
     bad["cells"]["dbrx-132b/paged_kv/ch4/L13"]["metrics"][
@@ -344,12 +344,12 @@ def test_cli_refuses_to_write_the_committed_baseline(committed, capsys):
 
 def test_cli_reruns_the_sweep_on_the_cpu_and_passes(committed, tmp_path,
                                                     capsys):
-    """The whole port: the baseline's spec re-run on the CPU, 86 cells."""
+    """The whole port: the baseline's spec re-run on the CPU, 87 cells."""
     path, _ = committed
     out = str(tmp_path / "port.json")
     assert gate.main(["--baseline", path, "--device", "cpu",
                       "--out", out]) == 0
     text = capsys.readouterr().out
     assert "re-running sweep: mode=quick seed=0 repeats=3" in text
-    assert "PASS — 86 cells within tolerance (5 not ported)" in text
-    assert len(json.loads(Path(out).read_text())["cells"]) == 86
+    assert "PASS — 87 cells within tolerance (4 not ported)" in text
+    assert len(json.loads(Path(out).read_text())["cells"]) == 87
