@@ -62,18 +62,18 @@ Phases:
    in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
    registers, shared memory and spills (ptxas), and the fp32 flash kernel
    timed at one smaller shape.
-4. (k) The ``dma``/``mmu``/``transform``/``serve`` perf sweep on the
-   card, after the pools of phase 3 are freed:
+4. (k) The ``dma``/``mmu``/``transform``/``serve``/``sharded`` perf sweep
+   on the card, after the pools of phase 3 are freed:
    ``repro_torch.perf.sweep.run_sweep`` with the spec of the committed
    ``BENCH_perf.json`` (quick mode, seed 0, 3 repeats, 4 channels, L 13
    and 100, 10 configs x 4 workloads, 120 runtime passes over pools on
-   the card, and the serve cell's engine on the card), gated with the
-   port's ``compare`` against ``ported_subset`` of the baseline (0
-   regressions, 0 errors; the 4 ``sharded`` cells printed as not ported),
-   then held more strictly: every one of the 87 cells' metrics, and every
-   ``dma`` and ``serve`` cell's counters, must equal the committed
-   values. Prints the
-   launches of ``descriptor_copy`` per workload and the shapes it ran at
+   the card, the serve cell's engine on the card, and the 4 sharded mesh
+   cells' runtimes on the card), gated with the port's ``compare``
+   against the baseline (0 regressions, 0 errors), then held more
+   strictly: every one of the 91 cells' metrics and counters must equal
+   the committed values. Prints the
+   launches of ``descriptor_copy`` per workload (and per sharded cell)
+   and the shapes it ran at
    (it must have launched), the median host wall-clock
    ``launch_us_per_descriptor`` per workload, holds the sweep's drains
    over a random source pool against the CPU runtime bit for bit, and
@@ -120,8 +120,35 @@ Phases:
    tokens/s, admission stalls and poll latency, the peak device memory,
    and one decode step's device time by kernel name with the share of the
    copy (cast) kernels.
-7. A ``kernels`` JSON line (each kernel's launches summed over the main
-   path, (k), (j) and (l), and per path), then the ``ok`` JSON line last.
+7. (m) Cross-shard KV-page migration, after (l), at qwen2.5-3b's KV
+   geometry (2 KV heads of 128, pages of 16 tokens, fp32: 16 KiB a page
+   row): 4 logical shards of 4,096 pages on the card (256 MiB a pool, K
+   and V from ``--seed``) under ``ShardedDMARuntime`` with the async
+   fabric. Four steps, each held against a plain torch oracle (the pools
+   before it, with the same page moves applied by indexing), with every
+   hop written back (§II-D) and the data rings drained: 1,024 Zipf-hot
+   pages (alpha 1.1, as the sharded cells pick them) migrated in waves of
+   8; 32 pages flipped to shard 1 and pulled one by one on first touch;
+   shard 3 lost with hops into, out of and beside it in flight
+   (``ungraceful_resize``; every page lands once on a survivor); an
+   ``evacuate``/``readmit`` round trip of shard 2. Prints each step's ms,
+   pages/s, bytes, hops, fabric rounds, overlap ratio, drains and
+   ``descriptor_copy`` launches (it must launch).
+8. (n) Sharded serving with (l)'s weights: a ``ShardedServeEngine`` over
+   2 logical shards (each a ``ServeEngine`` of capacity 2, ``max_len``
+   128) and a 2-shard ``ShardedKVPool`` in the same KV geometry serves 8
+   requests (prompts of 8-32 tokens, 8 new tokens, 4 KV pages each; 4
+   requests with a page on the shard that loses the route, which
+   admission migrates). All 8 must be delivered through their
+   writebacks, ``remote_page_reads`` must equal the pulled pages, the
+   ``perf_counters()`` keys must be the reference's, and each request's
+   tokens must equal an unsharded ``ServeEngine``'s on the same requests
+   up to a first difference, where the full forward's top-2 margin must
+   be under 8e-2. Prints the engine's median step ms, generated tokens/s
+   and requests per shard.
+9. A ``kernels`` JSON line (each kernel's launches summed over the main
+   path, (k), (j), (l), (m) and (n), and per path), then the ``ok`` JSON
+   line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -131,6 +158,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1214,10 +1242,11 @@ def first_difference(a, b, path: str = "") -> str:
 
 
 def sweep_path(torch, np, dev, smi: str) -> tuple:
-    """(k) ``run_sweep`` on the card over the ported cells of the committed
-    baseline, gated and held cell for cell. Returns the launch counts and
-    the kernel's shapes in the sweep: (config, workload, active
-    descriptors, bucket, row, pool rows) -> [first index streams, calls]."""
+    """(k) ``run_sweep`` on the card over every cell of the committed
+    baseline, gated and held cell for cell, metrics and counters. Returns
+    the launch counts and the kernel's shapes in the sweep: (config,
+    workload, active descriptors, bucket, row, pool rows) -> [first index
+    streams, calls]."""
     from collections import Counter
     from unittest import mock
 
@@ -1226,18 +1255,25 @@ def sweep_path(torch, np, dev, smi: str) -> tuple:
     from repro_torch.perf import gate, sweep
 
     base = json.loads((ROOT / "BENCH_perf.json").read_text())
-    ported, not_ported = gate.ported_subset(base)
-    spec = sweep.spec_from_doc(ported)
+    spec = sweep.spec_from_doc(base)
     by_workload, shapes = Counter(), {}
     current = {"cell": ("-", "-")}
     real_pass, real_copy = sweep._run_runtime_pass, \
         dc.descriptor_copy_bucketed
+    real_sharded = sweep.sharded_cell_entry
 
     def counting_pass(arch, workload, *args, **kw):
         current["cell"] = (arch, workload)
         n0 = build.LAUNCHES[SWEEP_KERNEL]
         out = real_pass(arch, workload, *args, **kw)
         by_workload[workload] += build.LAUNCHES[SWEEP_KERNEL] - n0
+        return out
+
+    def counting_sharded(seed, mesh, cell_spec, **kw):
+        current["cell"] = (cell_spec.arch, f"kv_migration/mesh{mesh}")
+        n0 = build.LAUNCHES[SWEEP_KERNEL]
+        out = real_sharded(seed, mesh, cell_spec, **kw)
+        by_workload[current["cell"][1]] += build.LAUNCHES[SWEEP_KERNEL] - n0
         return out
 
     def recording_copy(sidx, didx, src, dst, *, n_bucket):
@@ -1251,6 +1287,8 @@ def sweep_path(torch, np, dev, smi: str) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with mock.patch.object(sweep, "_run_runtime_pass", counting_pass), \
+            mock.patch.object(sweep, "sharded_cell_entry",
+                              counting_sharded), \
             mock.patch.object(dc, "descriptor_copy_bucketed",
                               recording_copy):
         doc = sweep.run_sweep(spec, device=dev, launch_us=launch_us)
@@ -1258,31 +1296,32 @@ def sweep_path(torch, np, dev, smi: str) -> tuple:
     seconds = time.perf_counter() - t0
     counts = build.launch_counts()            # the sweep path ends here
 
-    regressions = gate.compare(ported, doc)   # a GateError fails the smoke
+    regressions = gate.compare(base, doc)     # a GateError fails the smoke
     if regressions:
         raise AssertionError("phase k: " + "; ".join(
             r.message for r in regressions))
     equal = counters_equal = 0
-    for key, cell in sorted(ported["cells"].items()):
+    for key, cell in sorted(base["cells"].items()):
         got = doc["cells"].get(key)
         if got is None:
             raise AssertionError(f"phase k: cell {key} missing")
         diff = first_difference(got["metrics"], cell["metrics"],
                                 f"{key}/metrics")
-        if not diff and cell["kind"] in ("dma", "serve"):
-            diff = first_difference(got["counters"], cell["counters"],
-                                    f"{key}/counters")
+        if not diff:
+            diff = first_difference(got.get("counters"),
+                                    cell.get("counters"), f"{key}/counters")
             counters_equal += not diff
         if diff:
             raise AssertionError(f"phase k: differs from BENCH_perf.json at "
                                  f"{diff}")
         equal += 1
+    if set(doc["cells"]) != set(base["cells"]):
+        raise AssertionError("phase k: the sweep's cells are not the "
+                             "baseline's")
     log({"check": "k_sweep_vs_BENCH_perf", "cells_equal": equal,
-         "cells": len(ported["cells"]),
-         "dma_and_serve_counters_equal": counters_equal,
+         "cells": len(base["cells"]), "counters_equal": counters_equal,
          "kinds": dict(Counter(c["kind"] for c in doc["cells"].values())),
-         "gate_regressions": 0, "gate_errors": 0,
-         "not_ported_queue_a_13": not_ported, "seconds": seconds,
+         "gate_regressions": 0, "gate_errors": 0, "seconds": seconds,
          "runtime_passes": len(launch_us) * spec.repeats})
     if counts[SWEEP_KERNEL] <= 0:
         raise AssertionError(f"phase k: {SWEEP_KERNEL} was not launched")
@@ -1310,10 +1349,12 @@ def check_sweep_drains(torch, np, dev, shapes) -> None:
     the card per config and workload whose drains reached the kernel (and
     those of ``SWEEP_SHAPES``), held bit for bit against the CPU runtime."""
     from repro_torch.configs import get_config
-    from repro_torch.perf.workloads import QUICK, generate
+    from repro_torch.perf.workloads import QUICK, WORKLOAD_NAMES, generate
     from repro_torch.runtime import ChannelConfig, DMARuntime, SubmitRequest
 
-    cells = sorted({(a, w) for a, w, *_ in shapes}
+    # The sharded cells' drains are held in phase (m) and by
+    # tests/test_torch_cuda.py; these are the dma cells' workloads.
+    cells = sorted({(a, w) for a, w, *_ in shapes if w in WORKLOAD_NAMES}
                    | {(a, w) for w, a in SWEEP_SHAPES})
     g = torch.Generator().manual_seed(1)
     for arch, workload in cells:
@@ -1716,6 +1757,28 @@ def device_profile(torch, fn, label: str, api: dict = None):
     return rows
 
 
+def host_profile(fn, top: int = 12) -> dict:
+    """Host time of ``fn`` by function (cProfile): its wall time, and the
+    functions of the port with the most self and cumulative time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof).stats
+    rows = [(f"{Path(f).name}:{ln}:{name}", tt, ct, nc)
+            for (f, ln, name), (_, nc, tt, ct, _) in st.items()
+            if "repro_torch" in f or "torch/" in f]
+
+    def pick(i):
+        return [{"fn": r[0], "self_ms" if i == 1 else "cum_ms": r[i] * 1e3,
+                 "calls": r[3]}
+                for r in sorted(rows, key=lambda r: -r[i])[:top]]
+    return {"wall_ms_profiled": wall * 1e3, "by_self": pick(1),
+            "by_cumulative": pick(2)}
+
+
 def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
     """The same forward again, set up already: its wall time, and its
     device time by kernel name where the profiler sees the card."""
@@ -1759,12 +1822,13 @@ ENGINE_PROMPT_LENS = (16, 64)
 ENGINE_NEW_TOKENS, ENGINE_POLL_EVERY = 16, 3
 
 
-def serve_path(torch, np, dev, rng, seed: int) -> dict:
+def serve_path(torch, np, dev, rng, seed: int) -> tuple:
     """(l) qwen2.5-3b at its published config, all 36 layers: ``prefill``
     of 4 x 512 tokens through ``flash_attention``, 16 greedy
     ``decode_step``s, then a ``ServeEngine`` serving 8 requests through
     §II-D writebacks. Held against the plain prefill, the full forward
-    (teacher forcing) and per-prompt prefills. Returns the launches."""
+    (teacher forcing) and per-prompt prefills. Returns the launches and
+    the weights, which phase (n) serves again."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import decode_step, forward, init_params, prefill
@@ -1949,9 +2013,379 @@ def serve_path(torch, np, dev, rng, seed: int) -> dict:
              "cuda_api_calls": api,
              "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
                      for us, k, n in rows[:12]]})
-    del params, state, eng
+    del state, eng
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in MODEL_KERNELS}
+    return {k: launches[k] for k in MODEL_KERNELS}, params
+
+
+# ---------------------------------------------------------------------------
+# Phase 7 (m): cross-shard KV-page migration at a real size
+# ---------------------------------------------------------------------------
+
+#: qwen2.5-3b's published KV geometry (2 KV heads of 128), pages of 16
+#: tokens, fp32: 4,096 elements (16 KiB) a page row; 4 logical shards of
+#: 4,096 pages, 256 MiB a pool, K and V.
+M_SHARDS, M_PAGES_PER_SHARD = 4, 4096
+M_PAGE, M_KV_HEADS, M_HEAD_DIM = 16, 2, 128
+M_MOVES, M_WAVE, M_TRAFFIC = 1024, 8, 4096
+M_FLIP, M_LOST = 32, 3
+#: Pages each kind of traffic holds when shard M_LOST is lost: live on the
+#: lost shard, on hops into it, on hops out of it, and bystanders.
+M_LIVE, M_INTO, M_OUT, M_BYSTAND = 64, 32, 32, 16
+#: The sharded runtime's serial burst window (its default): a 4,096-element
+#: page is cut into 4 descriptors of 1,024, all of one length and aligned.
+M_MAX_LEN = 1024
+
+
+class ShardedOracle:
+    """Plain torch: the global page rows of K and V, moved by indexing."""
+
+    def __init__(self, torch, srt, kv):
+        self.torch, self.srt, self.kv = torch, srt, kv
+        self.k, self.v = (self.pools(n) for n in (kv.POOL_K, kv.POOL_V))
+
+    def pools(self, name):
+        t = self.torch
+        return t.cat([self.srt.pool_shard(name, s)
+                      for s in range(self.srt.num_shards)]).view(
+                          -1, self.kv.row_elems).clone()
+
+    def move(self, src, dst):
+        t = self.torch
+        s = t.as_tensor([int(p) for p in src], device=self.k.device)
+        d = t.as_tensor([int(p) for p in dst], device=self.k.device)
+        self.k[d] = self.k[s]
+        self.v[d] = self.v[s]
+
+    def hold(self, label, skip=()):
+        """The runtime's pools equal the oracle's, shard by shard (a lost
+        shard's slots are skipped: nothing reads them any more)."""
+        t, kv = self.torch, self.kv
+        pps = kv.owner.pages_per_shard
+        for s in range(self.srt.num_shards):
+            if s in skip:
+                continue
+            rows = slice(s * pps, (s + 1) * pps)
+            for name, want in ((kv.POOL_K, self.k), (kv.POOL_V, self.v)):
+                got = self.srt.pool_shard(name, s).view(-1, kv.row_elems)
+                if not t.equal(got, want[rows]):
+                    raise AssertionError(f"phase m ({label}): shard {s}'s "
+                                         f"{name} differs from the plain "
+                                         "page moves")
+
+
+def sharded_path(torch, np, dev, rng, smi: str) -> dict:
+    """(m) 4 logical shards on the card in qwen2.5-3b's KV geometry: 1,024
+    Zipf-hot pages migrated through the async fabric in waves of 8, an
+    ownership flip of 32 pages pulled on first touch, the loss of shard 3
+    with hops in flight, and an evacuate/readmit round trip; each step held
+    against the plain oracle. Returns the launches."""
+    from repro_torch.distributed import (
+        ShardedDMARuntime, ShardedKVPool, ungraceful_resize)
+    from repro_torch.kernels import build
+    from repro_torch.perf.sharded_cell import (
+        DEFAULT_SHARDED_SPEC, _zipf_moves)
+
+    num_pages = M_SHARDS * M_PAGES_PER_SHARD
+    srt = ShardedDMARuntime(num_shards=M_SHARDS, max_len=M_MAX_LEN,
+                            device=dev)
+    kv = ShardedKVPool(srt, num_pages=num_pages, page=M_PAGE,
+                       kv_heads=M_KV_HEADS, head_dim=M_HEAD_DIM)
+    row_bytes = kv.row_elems * 4
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    for name in (kv.POOL_K, kv.POOL_V):
+        srt.register_sharded_pool(
+            name, torch.randn(num_pages * kv.row_elems, device=dev,
+                              generator=g), kv.owner, kv.row_elems)
+    oracle = ShardedOracle(torch, srt, kv)
+    src, dst = _zipf_moves(rng, num_pages, M_MOVES,
+                           DEFAULT_SHARDED_SPEC.zipf_alpha, M_TRAFFIC)
+    src, dst = src.tolist(), dst.tolist()
+    data = [ch for rt in srt.shards for ch in rt.channels.values()
+            if ch.cfg.tier == "serial"]
+
+    def step(label, fn, pages):
+        before = build.launch_counts()
+        m0 = dataclasses.replace(srt.migration)
+        r0, drains0 = srt.fabric.now, sum(c.stats.batches for c in data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = srt.migration
+        launches = {k: v - before[k] for k, v in build.launch_counts().items()}
+        d = {f: getattr(m, f) - getattr(m0, f)
+             for f in ("pages", "local_pages", "cross_pages", "hops",
+                       "hop_completions", "chain_in", "chain_out",
+                       "fabric_inflight_rounds", "fabric_hidden_rounds")}
+        if m.hop_completions != m.hops or d["hop_completions"] != d["hops"]:
+            raise AssertionError(f"phase m ({label}): {m.hop_completions} "
+                                 f"of {m.hops} hops written back")
+        for c in data:
+            if c.pending or c.ring.occupancy:
+                raise AssertionError(f"phase m ({label}): {c.name} not "
+                                     "drained")
+        copied = (d["local_pages"] + 2 * d["cross_pages"]) * 2 * row_bytes
+        log({"phase": f"m_{label}", "ms": ms, "pages": pages,
+             "pages_per_s": pages / (ms / 1e3), "bytes": 2 * pages * row_bytes,
+             "bytes_copied": copied, **d,
+             "fabric_rounds": srt.fabric.now - r0,
+             "overlap_ratio": d["fabric_hidden_rounds"]
+             / max(d["fabric_inflight_rounds"], 1),
+             "drains": sum(c.stats.batches for c in data) - drains0,
+             "launches": launches, "card": smi})
+        return out, launches
+
+    build.reset_launches()                    # the sharded path starts here
+
+    def migrate():
+        for i in range(0, len(src), M_WAVE):
+            kv.move_pages(kv.refs(src[i:i + M_WAVE]),
+                          kv.refs(dst[i:i + M_WAVE]), priority=1,
+                          drain=False)
+        srt.pump_until_idle()
+        srt.drain_until_idle()
+    _, first = step("migrate", migrate, len(src))
+    oracle.move(src, dst)
+    oracle.hold("migrate")
+    # The same migration again (idempotent: the sources are unchanged),
+    # under torch.profiler (device time by kernel, CUDA runtime calls) and
+    # then cProfile (host time by function): where (m)'s time goes.
+    ms_first = None
+    api = {}
+    rows = device_profile(torch, migrate, "m_migrate", api)
+    if rows:
+        total = sum(r[0] for r in rows)
+        ms_first = total / 1e3
+        log({"profile": "m_migrate", "device_ms": ms_first,
+             "kernels_launched": sum(n for _, _, n in rows),
+             "cuda_api_calls": api,
+             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                     for us, k, n in rows[:8]]})
+    log({"profile": "m_migrate_host", **host_profile(migrate),
+         "device_ms": ms_first})
+    oracle.hold("migrate, repeated")
+
+    # Ownership-first: 32 pages flip to shard 1 now, their bytes follow on
+    # first touch, one page at a time.
+    flip_pages = kv.alloc_on(0, M_FLIP)
+    homes = [kv.table.slot_of(int(p)) for p in flip_pages]
+    flipped = kv.flip_ownership(flip_pages, 1)
+
+    def touch():
+        rounds = []
+        for p in flipped:
+            r = srt.fabric.now
+            kv.ensure_resident([p])
+            rounds.append(srt.fabric.now - r)
+        return rounds
+    rounds, _ = step("flip_first_touch", touch, M_FLIP)
+    if kv.first_touch_pulls != M_FLIP \
+            or any(kv.owner_of(p) != 1 for p in flipped):
+        raise AssertionError("phase m: the flipped pages were not pulled "
+                             "onto shard 1 once each")
+    oracle.move(homes, [kv.table.slot_of(int(p)) for p in flipped])
+    oracle.hold("flip_first_touch")
+    log({"check": "m_first_touch_rounds", "rounds_per_pull": rounds})
+
+    # The loss of shard 3 with hops into, out of and beside it in flight.
+    live = kv.alloc_on(M_LOST, M_LIVE)
+    moves = (list(zip(kv.alloc_on(0, M_INTO), kv.alloc_on(M_LOST, M_INTO)))
+             + list(zip(kv.alloc_on(M_LOST, M_OUT), kv.alloc_on(2, M_OUT)))
+             + list(zip(kv.alloc_on(1, M_BYSTAND),
+                        kv.alloc_on(0, M_BYSTAND))))
+    live_phys = [kv.table.slot_of(int(p)) for p in live]
+    phys = [(kv.table.slot_of(int(a)), kv.table.slot_of(int(b)))
+            for a, b in moves]
+
+    def lose():
+        plan = kv.move_pages([a for a, _ in moves], [b for _, b in moves],
+                             drain=False)
+        srt.pump(2)
+        states = sorted(t.state for t in srt._pending_hops)
+        return ungraceful_resize(kv, M_LOST), plan, states
+    (remap, plan, states), _ = step("ungraceful_resize", lose,
+                                    M_LIVE + M_INTO + M_OUT + M_BYSTAND)
+    # The oracle works on physical slots: a hop re-routed off the lost
+    # shard lands in the slot of its new page; an evacuated slot moves to
+    # the slot its new page names.
+    landed = [int(p) for p in remap.values()]
+    rerouted = {b for _, b in phys if kv.owner.owner(b) == M_LOST}
+    if plan.hop_completions != plan.hops \
+            or len(landed) != len(set(landed)) \
+            or any(kv.owner.owner(p) == M_LOST for p in landed) \
+            or set(remap) != set(live_phys) | rerouted:
+        raise AssertionError("phase m: a page of the lost shard did not "
+                             "land exactly once on a survivor")
+    oracle.move([a for a, _ in phys],
+                [kv.table.slot_of(int(remap[b])) if b in rerouted else b
+                 for _, b in phys])
+    oracle.move(live_phys, [int(remap[p]) for p in live_phys])
+    oracle.hold("ungraceful_resize", skip=(M_LOST,))
+    log({"check": "m_resize", "tickets_in_flight": states,
+         "remapped": len(remap), "landed_once": True})
+
+    # Graceful leave and rejoin of shard 2.
+    def roundtrip():
+        out = kv.evacuate(2)
+        kv.readmit(2)
+        return out
+    gone = sorted(set(kv.owner.shard_pages(2)) - set(kv._free[2]))
+    evac, _ = step("evacuate_readmit", roundtrip, len(gone))
+    oracle.move(gone, [evac[p] for p in gone])
+    oracle.hold("evacuate_readmit", skip=(M_LOST,))
+    if srt.active != [True, True, True, False]:
+        raise AssertionError(f"phase m: membership {srt.active}")
+    launches = build.launch_counts()          # the sharded path ends here
+    if first["descriptor_copy"] <= 0 or launches["descriptor_copy"] <= 0:
+        raise AssertionError("phase m: descriptor_copy was not launched")
+    log({"check": "m_sharded_vs_plain", "steps": 4, "equal": True,
+         "pool_bytes": 2 * num_pages * row_bytes, "shards": M_SHARDS,
+         "page_row_bytes": row_bytes, "max_len": M_MAX_LEN,
+         "migration": dataclasses.asdict(srt.migration),
+         "fabric_rounds": srt.fabric.now, "launches": launches})
+    del srt, kv, oracle
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8 (n): sharded serving at full width
+# ---------------------------------------------------------------------------
+
+N_SHARDS, N_CAPACITY, N_MAX_LEN, N_REQUESTS = 2, 2, 128, 8
+N_PROMPT_LENS, N_NEW_TOKENS, N_PAGES = (8, 32), 8, 4
+#: The reference's ShardedServeEngine.perf_counters() keys
+#: (src/repro/distributed/sharded_runtime.py, perf_counters).
+SHARDED_COUNTER_KEYS = (
+    "sharded.num_shards", "sharded.requests_per_shard",
+    "sharded.remote_page_reads", "sharded.migration",
+    "sharded.first_touch_pulls", "sharded.page_table_generation",
+    "sharded.page_table_remaps", "sharded.pending_pages", "sharded.steps",
+    "sharded.completed", "sharded.admission_stalls",
+    "sharded.request_latency_steps_p50", "sharded.request_latency_steps_p99",
+    "sharded.request_latency_steps", "sharded.per_shard", "translation")
+
+
+def sharded_serve_path(torch, np, dev, rng, params) -> dict:
+    """(n) qwen2.5-3b at its published config (phase (l)'s weights) served
+    through a ShardedServeEngine over 2 logical shards: 8 requests, 4 of
+    them with a KV page on the shard that loses the route, so admission
+    migrates it. Held against an unsharded ServeEngine on the same
+    requests. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (
+        ShardedDMARuntime, ShardedKVPool, ShardedServeEngine)
+    from repro_torch.kernels import build
+    from repro_torch.models import forward
+    from repro_torch.runtime import PerfProbe, SubmitRequest
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    lo, hi = N_PROMPT_LENS
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             int(rng.integers(lo, hi + 1)))]
+               for _ in range(N_REQUESTS)]
+    srt = ShardedDMARuntime(num_shards=N_SHARDS, device=dev)
+    kv = ShardedKVPool(srt, num_pages=16 * N_SHARDS * N_PAGES, page=M_PAGE,
+                       kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_)
+    build.reset_launches()                    # the sharded serve path starts
+    eng = ShardedServeEngine(params, cfg, runtime=srt, kv_pool=kv,
+                             capacity=N_CAPACITY, max_len=N_MAX_LEN)
+    probe = PerfProbe()
+    eng.attach_probe(probe)
+    routes, pulled = [], 0
+    for uid, prompt in enumerate(prompts):
+        home = uid % N_SHARDS
+        if uid % 2:       # one page on the shard that loses the route
+            pages = kv.alloc_on(home, N_PAGES - 1) + kv.alloc_on(
+                (home + 1) % N_SHARDS, 1)
+            pulled += 1
+        else:
+            pages = kv.alloc_on(home, N_PAGES)
+        t = eng.submit(SubmitRequest(request=Request(
+            uid=uid, prompt=prompt, max_new_tokens=N_NEW_TOKENS,
+            kv_pages=pages)))
+        routes.append(t.shard)
+    step_ms = []
+    t_engine = time.perf_counter()
+    while any(e.queue or any(s.busy for s in e.slots) for e in eng.engines):
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(step_ms) % ENGINE_POLL_EVERY == 0:
+            eng.poll_completed()
+    delivered = {r.uid: r for r in eng.poll_completed()}
+    seconds = time.perf_counter() - t_engine
+    launches = build.launch_counts()          # the sharded serve path ends
+    pc = eng.perf_counters()
+    if sorted(delivered) != list(range(N_REQUESTS)) \
+            or probe.serve.completions_observed != N_REQUESTS \
+            or any(len(r.output) != N_NEW_TOKENS
+                   for r in delivered.values()):
+        raise AssertionError(f"phase n: {len(delivered)} of {N_REQUESTS} "
+                             "requests delivered through their writebacks")
+    if eng.remote_page_reads != pulled or pc["sharded.migration"][
+            "hop_completions"] != pc["sharded.migration"]["hops"]:
+        raise AssertionError(f"phase n: {eng.remote_page_reads} remote page "
+                             f"reads, {pulled} pages had to be pulled")
+    if tuple(sorted(pc)) != tuple(sorted(SHARDED_COUNTER_KEYS)):
+        raise AssertionError(f"phase n: perf_counters keys {sorted(pc)} "
+                             "differ from the reference's")
+    if launches["descriptor_copy"] <= 0:
+        raise AssertionError("phase n: the pull-in migrations never "
+                             "launched descriptor_copy")
+    generated = sum(len(r.output) for r in delivered.values())
+    log({"phase": "n_sharded_serve_qwen2_5_3b", "shards": N_SHARDS,
+         "requests": N_REQUESTS, "capacity": N_CAPACITY,
+         "max_len": N_MAX_LEN, "prompt_lens": [len(p) for p in prompts],
+         "max_new_tokens": N_NEW_TOKENS, "routes": routes,
+         "requests_per_shard": pc["sharded.requests_per_shard"],
+         "remote_page_reads": eng.remote_page_reads,
+         "migration": pc["sharded.migration"], "steps": len(step_ms),
+         "step_ms_median": statistics.median(step_ms),
+         "step_ms_max": max(step_ms), "seconds": seconds,
+         "generated_tokens": generated,
+         "generated_tokens_per_s": generated / seconds,
+         "launches": launches})
+
+    # The same requests through one unsharded engine on the same weights.
+    ref = ServeEngine(params, cfg, capacity=N_CAPACITY * N_SHARDS,
+                      max_len=N_MAX_LEN, device=dev)
+    for uid, prompt in enumerate(prompts):
+        ref.submit(SubmitRequest(request=Request(
+            uid=uid, prompt=prompt, max_new_tokens=N_NEW_TOKENS)))
+    want = ref.run()
+    # A token may differ only where the two routes' logits are a near tie:
+    # at the first difference, the top-2 margin of the full forward over
+    # the shared prefix must be under the tolerance; before it, the tokens
+    # agree.
+    agree, checked, ties = 0, 0, []
+    for uid, prompt in enumerate(prompts):
+        got, exp = delivered[uid].output, want[uid].output
+        k = next((i for i, (a, b) in enumerate(zip(got, exp)) if a != b),
+                 None)
+        checked += len(got) if k is None else k
+        if k is None:
+            agree += 1
+            continue
+        seq = torch.tensor([prompt + got[:k]], dtype=torch.int32, device=dev)
+        logits = forward(params, {"tokens": seq}, cfg)[0][0, -1].float()
+        top2 = logits.topk(2).values
+        margin = float(top2[0] - top2[1])
+        ties.append({"uid": uid, "position": k, "top2_margin": margin})
+        if margin > TF_TOL:
+            raise AssertionError(f"phase n: request {uid}'s token {k} "
+                                 "differs from the unsharded engine's where "
+                                 f"the top-2 margin ({margin}) exceeds "
+                                 f"{TF_TOL}")
+    log({"check": "n_sharded_vs_unsharded_engine", "requests_equal": agree,
+         "of": N_REQUESTS, "tokens_checked": checked,
+         "greedy_margin_needed": TF_TOL, "near_ties": ties})
+    del eng, ref, srt, kv
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _leaves(tree):
@@ -2020,8 +2454,17 @@ def main() -> int:
         torch, np, dev, rng, args.seed)
     torch.cuda.empty_cache()                  # (j)'s weights are gone
     t0 = time.perf_counter()
-    by_path["l_serve"] = serve_path(torch, np, dev, rng, args.seed)
+    by_path["l_serve"], params = serve_path(torch, np, dev, rng, args.seed)
     log({"phase": "l", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path["m_sharded"] = sharded_path(torch, np, dev, rng, smi)
+    log({"phase": "m", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path["n_sharded_serve"] = sharded_serve_path(torch, np, dev, rng,
+                                                    params)
+    log({"phase": "n", "seconds": time.perf_counter() - t0})
+    del params
+    torch.cuda.empty_cache()
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in build.LAUNCHES}
 

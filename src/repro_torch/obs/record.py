@@ -1,18 +1,16 @@
 """One-shot seeded trace recorder: the ``--trace`` entrypoint.
 
-``python -m repro_torch.obs.record --out serve.trace.json --seed 0
-[--device cpu]`` runs the reduced serve scenario on the port's
-:class:`repro_torch.serve.ServeEngine` with the tracer attached to every
-layer — request-lifecycle async spans, channel launch/drain spans,
-translation lookups, §II-D completion instants — plus a short cycle-clock
-simulator pass, then writes the Chrome/Perfetto ``trace_event`` JSON
-(DESIGN.md §8). ``--metrics-out`` additionally dumps the probe's metric
-registry as flat JSONL.
+``python -m repro_torch.obs.record --out serve.trace.json --mesh 2
+--seed 0 [--device cpu]`` runs the reduced serve scenario with the tracer
+attached to every layer — request-lifecycle async spans, channel
+launch/drain spans, translation lookups, §II-D completion instants, and
+(at ``--mesh`` >= 2) cross-shard migration hops linked by Perfetto flow
+arrows — plus a short cycle-clock simulator pass, then writes the
+Chrome/Perfetto ``trace_event`` JSON (DESIGN.md §8). ``--metrics-out``
+additionally dumps the probe's metric registry as flat JSONL.
 
 Everything is seeded: the same ``--seed`` replays the same request mix
-and the same sampling decisions. The reference's ``--mesh`` >= 2 (the
-sharded serve path) needs ``distributed/`` and raises
-``NotImplementedError`` (ROADMAP Queue A item 13).
+and the same sampling decisions.
 """
 from __future__ import annotations
 
@@ -44,7 +42,14 @@ def record_serve_trace(
     device=None,
 ) -> Tuple[Tracer, object, dict]:
     """Run the seeded serve scenario under a tracer, on ``device``
-    (``cuda`` unless given). Returns ``(tracer, probe, perf_counters)``."""
+    (``cuda`` unless given). Returns ``(tracer, probe, perf_counters)``.
+
+    ``mesh == 1`` drives a plain :class:`repro_torch.serve.ServeEngine`;
+    ``mesh >= 2`` drives a :class:`repro_torch.distributed.
+    ShardedServeEngine` over logical shards with every third request's KV
+    pages straddling shards, so the trace contains real migration hops
+    (egress -> fabric -> ingress flow arrows).
+    """
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -55,47 +60,75 @@ def record_serve_trace(
 
     if mesh < 1:
         raise ValueError("mesh must be >= 1")
-    if mesh > 1:
-        raise NotImplementedError(
-            "mesh >= 2 traces the sharded serve path, which needs "
-            "distributed/ (ROADMAP Queue A item 13)")
     tracer = Tracer(capacity=capacity, sample_rate=sample_rate, seed=seed)
     probe = PerfProbe()
     cfg = get_config(_ARCH, reduced=True)
-    eng = ServeEngine(init_params(0, cfg, device), cfg, capacity=_CAPACITY,
-                      max_len=_MAX_LEN, device=device)
+    params = init_params(0, cfg, device)
     rng = np.random.default_rng([seed, zlib.crc32(b"obs.record")])
 
     def _prompt():
         n = int(rng.integers(2, 7))
         return [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
 
-    eng.attach_probe(probe)
-    eng.attach_tracer(tracer)
-    for uid in range(2 * _N_REQUESTS_PER_SHARD):
-        eng.submit(SubmitRequest(request=Request(
-            uid=uid, prompt=_prompt(), max_new_tokens=_MAX_NEW_TOKENS)))
-    while ((eng.queue or any(s.busy for s in eng.slots))
-           and eng.steps < _MAX_STEPS):
-        eng.step()
-        if eng.steps % _POLL_EVERY == 0:
-            eng.poll_completed()
-    eng.poll_completed()
-    pc = eng.perf_counters()
+    if mesh == 1:
+        eng = ServeEngine(params, cfg, capacity=_CAPACITY, max_len=_MAX_LEN,
+                          device=device)
+        eng.attach_probe(probe)
+        eng.attach_tracer(tracer)
+        for uid in range(2 * _N_REQUESTS_PER_SHARD):
+            eng.submit(SubmitRequest(request=Request(
+                uid=uid, prompt=_prompt(), max_new_tokens=_MAX_NEW_TOKENS)))
+        while ((eng.queue or any(s.busy for s in eng.slots))
+               and eng.steps < _MAX_STEPS):
+            eng.step()
+            if eng.steps % _POLL_EVERY == 0:
+                eng.poll_completed()
+        eng.poll_completed()
+        pc = eng.perf_counters()
+    else:
+        from repro_torch.distributed.sharded_runtime import (
+            ShardedDMARuntime,
+            ShardedKVPool,
+            ShardedServeEngine,
+        )
+        srt = ShardedDMARuntime(num_shards=mesh, device=device)
+        kv = ShardedKVPool(srt, num_pages=16 * mesh, page=2,
+                           kv_heads=2, head_dim=4)
+        eng = ShardedServeEngine(params, cfg, runtime=srt, kv_pool=kv,
+                                 capacity=_CAPACITY, max_len=_MAX_LEN)
+        eng.attach_probe(probe)
+        eng.attach_tracer(tracer)
+        for uid in range(mesh * _N_REQUESTS_PER_SHARD):
+            home = uid % mesh
+            pages = kv.alloc_on(home, 2)
+            if uid % 3 == 2:
+                # Straddle shards: the majority owner wins the route and
+                # pulls the minority page across -> a real migration hop.
+                pages = pages + kv.alloc_on((home + 1) % mesh, 1)
+            eng.submit(SubmitRequest(request=Request(
+                uid=uid, prompt=_prompt(),
+                max_new_tokens=_MAX_NEW_TOKENS, kv_pages=pages)))
+        eng.run(max_steps=_MAX_STEPS)
+        pc = eng.perf_counters()
 
     if simulate:
         # A short cycle-clock pass so the exported timeline carries the
         # simulator's bus view (its own clock domain, own tracks).
-        from repro_torch.core.simulator import simulate_multichannel
-        simulate_multichannel(2, 13, 64, num_transfers=40, seed=seed,
-                              tracer=tracer)
+        if mesh > 1:
+            from repro_torch.core.simulator import simulate_sharded
+            simulate_sharded(mesh, 2, 13, 64, num_transfers=40,
+                             cross_fraction=0.25, seed=seed, tracer=tracer)
+        else:
+            from repro_torch.core.simulator import simulate_multichannel
+            simulate_multichannel(2, 13, 64, num_transfers=40, seed=seed,
+                                  tracer=tracer)
     return tracer, probe, pc
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs.record",
-        description="Record a seeded serve lifecycle trace as "
+        description="Record a seeded serve(+sharded) lifecycle trace as "
                     "Perfetto-loadable trace_event JSON (DESIGN.md §8).")
     ap.add_argument("--out", default="serve.trace.json",
                     help="trace JSON path (load at ui.perfetto.dev)")
@@ -105,7 +138,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="scenario + sampling seed (same seed, same trace "
                          "structure)")
     ap.add_argument("--mesh", type=int, default=1,
-                    help=">= 2 (the sharded serve path) is not ported")
+                    help=">= 2 runs the sharded serve path: per-shard "
+                         "track groups plus migration-hop flow arrows")
     ap.add_argument("--sample-rate", type=float, default=1.0,
                     help="deterministic per-key sampling fraction")
     ap.add_argument("--capacity", type=int, default=65536,
@@ -128,10 +162,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"{len(tracks)} tracks")
     print(f"  tracks: {', '.join(tracks)}")
     print(f"  events: {', '.join(names)}")
+    ns = "sharded" if args.mesh > 1 else "serve"
     print(f"  request latency steps: "
-          f"p50={pc['serve.request_latency_steps_p50']:.1f} "
-          f"p99={pc['serve.request_latency_steps_p99']:.1f} "
-          f"(n={pc['serve.request_latency_steps']['n']})")
+          f"p50={pc[f'{ns}.request_latency_steps_p50']:.1f} "
+          f"p99={pc[f'{ns}.request_latency_steps_p99']:.1f} "
+          f"(n={pc[f'{ns}.request_latency_steps']['n']})")
     if args.metrics_out:
         n = write_metrics_jsonl(args.metrics_out, probe.metrics)
         print(f"wrote {args.metrics_out}: {n} metrics")

@@ -9,11 +9,8 @@ cell (arch/workload/channels/L) and the metric, so a red run points at
 *what* eroded, not just *that* something did.
 
 The baseline is the reference's document: the gate reads it and never
-writes it. Its ``sharded`` cells need the sharded runtime, which this
-package does not have yet (ROADMAP Queue A item 13); :func:`ported_subset`
-drops them and the CLI names them as not ported. Their metric names,
-tolerances and polarities stay here as data, so the comparison is whole
-once those cells land.
+writes it. Every cell kind of it is ported (``dma``, ``mmu``,
+``transform``, ``serve`` and ``sharded``), so the comparison is whole.
 
 Comparison semantics (DESIGN.md §4):
 
@@ -39,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 
 from .mmu_cell import MMU_GATED_METRICS
 from .serve_cell import SERVE_GATED_METRICS
+from .sharded_cell import SHARDED_GATED_METRICS
 from .transform_cell import TRANSFORM_GATED_METRICS
 from .sweep import (
     COMMITTED_BASELINE,
@@ -49,20 +47,8 @@ from .sweep import (
     write_doc,
 )
 
-#: Gated metrics of the sharded mesh cells (``perf/sharded_cell.py``).
-SHARDED_GATED_METRICS = (
-    "cross_shard_migration_cycles",
-    "per_shard_bus_utilization",
-    "migration_chain_merge_ratio",
-    "migration_overlap_ratio",
-    "p99_migration_stall_cycles",
-    "rebalance_convergence_steps",
-    "throughput_retained_during_resize",
-    "first_touch_latency_rounds",
-)
-
-#: Cell kinds whose modules are not ported yet (ROADMAP Queue A item 13).
-NOT_PORTED_KINDS = ("sharded",)
+#: Cell kinds whose modules are not ported yet: none.
+NOT_PORTED_KINDS = ()
 
 
 class GateError(Exception):
@@ -380,20 +366,18 @@ def quick_subset(doc: Dict[str, object]):
 def ported_subset(doc: Dict[str, object]):
     """Restrict a baseline to the cells this package can regenerate.
 
-    Drops the ``sharded`` cells (ROADMAP Queue A item 13) and empties
-    their dimension, so :func:`spec_from_doc` on the subset does not ask
-    for them. Returns ``(subset_doc, dropped_keys)``;
-    raises GateError when nothing remains. Every other baseline cell the
-    current run lacks stays an error in :func:`compare`.
+    Drops the cells of :data:`NOT_PORTED_KINDS` — none, now that the
+    ``sharded`` cells are ported — so the subset is the whole baseline.
+    Returns ``(subset_doc, dropped_keys)``; raises GateError when nothing
+    remains. Every baseline cell the current run lacks stays an error in
+    :func:`compare`.
     """
     dropped = sorted(k for k, c in doc["cells"].items()
                      if c.get("kind") in NOT_PORTED_KINDS)
     cells = {k: c for k, c in doc["cells"].items() if k not in dropped}
     if not cells:
-        raise GateError("baseline has no cells this package can regenerate "
-                        f"(only {NOT_PORTED_KINDS} cells)")
+        raise GateError("baseline has no cells this package can regenerate")
     out = dict(doc)
-    out["dimensions"] = dict(doc["dimensions"], sharded_cells=[])
     out["cells"] = cells
     return out, dropped
 
@@ -642,9 +626,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 print(f"--quick: gating {len(baseline['cells'])} of "
                       f"{len(baseline['cells']) + dropped} baseline cells "
                       "(quick dimensions; the rest need a full run)")
-        baseline, not_ported = ported_subset(baseline)
-        for key in not_ported:
-            print(f"not ported (Queue A item 13): {key}")
+        baseline, _ = ported_subset(baseline)
         if args.current:
             current = load_doc(args.current)
         else:
@@ -673,8 +655,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"perf gate: FAIL — {len(regressions)} regression(s) "
               f"across {n} cells", file=sys.stderr)
         return 1
-    print(f"perf gate: PASS — {n} cells within tolerance"
-          + (f" ({len(not_ported)} not ported)" if not_ported else ""))
+    print(f"perf gate: PASS — {n} cells within tolerance")
     return 0
 
 

@@ -28,9 +28,9 @@ The ``mmu`` cells (cycle model with the IOTLB) and the ``transform`` cells
 (cycle model, the numpy kv8 oracle and a kv_int8 runtime on the sweep's
 device) come from :mod:`.mmu_cell` and :mod:`.transform_cell`; the
 ``serve`` cell (a reduced-config :class:`repro_torch.serve.ServeEngine`
-on the sweep's device) from :mod:`.serve_cell`. The ``sharded`` cells of
-the document schema need the sharded runtime, which this package does not
-have yet: asking for them raises :class:`NotImplementedError`.
+on the sweep's device) from :mod:`.serve_cell`; the ``sharded`` mesh cells
+(:class:`repro_torch.distributed.ShardedDMARuntime` over logical shards on
+the sweep's device, and the sharded cycle model) from :mod:`.sharded_cell`.
 
 The document is *bit-for-bit reproducible* from ``(mode, seed)``: gated
 metrics are medians over ``repeats`` seeded re-generations, wall-clock
@@ -69,6 +69,12 @@ from repro_torch.runtime import (
 
 from .mmu_cell import DEFAULT_MMU_SPEC, MMU_GATED_METRICS, mmu_cell_entries
 from .serve_cell import DEFAULT_SERVE_SPEC, SERVE_GATED_METRICS, run_serve_cell
+from .sharded_cell import (
+    DEFAULT_SHARDED_SPEC,
+    MESH_SIZES,
+    SHARDED_GATED_METRICS,
+    cell_entry as sharded_cell_entry,
+)
 from .transform_cell import (
     DEFAULT_TRANSFORM_SPEC,
     TRANSFORM_GATED_METRICS,
@@ -93,9 +99,6 @@ GATED_METRICS = (
     "translation_launch_speedup",
 )
 
-#: The mesh axis of the sharded cells (schema field, kept for documents).
-MESH_SIZES = (1, 2, 4, 8)
-
 #: Warm replay rounds of the runtime pass: the workload's chains are
 #: resubmitted unchanged after the cold round, and the steady-state
 #: translation-cache hit rate is the artifact-cache hit fraction over the
@@ -111,12 +114,6 @@ _SPEC_FRONTENDS = (
                          prefetch=FixedDepth(DEFAULT_DEPTH))),
     ("adaptive", SimConfig.adaptive()),
 )
-
-_NOT_PORTED = {
-    "include_sharded": "the sharded cells need distributed/ (ROADMAP "
-                       "Queue A item 13)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
@@ -140,11 +137,6 @@ class SweepSpec:
     #: MMU/IOTLB cells (schema v8, DESIGN.md §11); False skips them and
     #: the document records ``iotlb_enabled: false``.
     iotlb: bool = True
-
-    def __post_init__(self):
-        for flag, why in _NOT_PORTED.items():
-            if getattr(self, flag):
-                raise NotImplementedError(f"{flag}=True: {why}")
 
     @property
     def scale(self) -> Scale:
@@ -412,6 +404,19 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
                 if isinstance(v, (int, float))),
                 file=sys.stderr)
 
+    sharded_cells = []
+    if spec.include_sharded:
+        for mesh in spec.mesh_sizes:
+            key, cell = sharded_cell_entry(
+                spec.seed, mesh, DEFAULT_SHARDED_SPEC,
+                repeats=spec.repeats, device=device)
+            cells[key] = cell
+            sharded_cells.append(key)
+            if progress:
+                print(f"  {key}: " + " ".join(
+                    f"{k}={v:.3f}" for k, v in cell["metrics"].items()),
+                    file=sys.stderr)
+
     mmu_cells = []
     if spec.iotlb:
         for key, cell in mmu_cell_entries(spec.seed, spec.mem_latencies,
@@ -433,7 +438,6 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
                 f"{k}={v:.3f}" for k, v in cells[key]["metrics"].items()),
                 file=sys.stderr)
 
-    from .gate import SHARDED_GATED_METRICS
     return {
         "schema_version": SCHEMA_VERSION,
         "mode": spec.mode,
@@ -448,7 +452,7 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
             "mem_latencies": list(spec.mem_latencies),
             "serve_cells": serve_cells,
             "mesh_sizes": list(spec.mesh_sizes),
-            "sharded_cells": [],
+            "sharded_cells": sharded_cells,
             "transform_cells": transform_cells,
             "mmu_cells": mmu_cells,
         },
@@ -462,9 +466,7 @@ def run_sweep(spec: Optional[SweepSpec] = None, *,
 
 
 def spec_from_doc(doc: Dict[str, object]) -> SweepSpec:
-    """Rebuild the exact spec a document was generated with. A document
-    with ``sharded`` cells raises :class:`NotImplementedError` (pass it
-    through ``gate.ported_subset`` first)."""
+    """Rebuild the exact spec a document was generated with."""
     dims = doc["dimensions"]
     return default_spec(
         doc["mode"], int(doc["seed"]),
@@ -525,6 +527,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               "the reference's; pass another --out", file=sys.stderr)
         return 2
     doc = run_sweep(default_spec(args.mode, args.seed, include_serve=True,
+                                 include_sharded=True,
                                  translation=not args.no_translation_cache,
                                  iotlb=not args.no_iotlb),
                     progress=args.progress, device=args.device)

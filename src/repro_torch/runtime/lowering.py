@@ -386,6 +386,26 @@ def disabled_stats() -> Dict[str, object]:
             "transform_fusion_hit_rate": 0.0}
 
 
+def aggregate_stats(blocks) -> Dict[str, object]:
+    """Sum per-shard translation-cache counter blocks (sharded serving).
+
+    Inputs and output are *raw* bare-key blocks; the public surfaces wrap
+    the result in the unified namespace (``repro_torch.obs.counters``).
+    """
+    out = disabled_stats()
+    for b in blocks:
+        out["enabled"] = out["enabled"] or bool(b.get("enabled"))
+        for k in ("hits", "misses", "evictions", "size", "capacity",
+                  "lookups", "plan_hits", "plan_misses",
+                  "transform_lookups", "transform_fused"):
+            out[k] += int(b.get(k, 0))
+    out["hit_rate"] = out["hits"] / out["lookups"] if out["lookups"] else 0.0
+    out["transform_fusion_hit_rate"] = (
+        out["transform_fused"] / out["transform_lookups"]
+        if out["transform_lookups"] else 0.0)
+    return out
+
+
 def translate_chain(d: DescriptorArray, table, row_elems: int,
                     *, translate_dst: bool = True) -> DescriptorArray:
     """Lower a *virtual* page chain onto physical slots (DESIGN.md §11).

@@ -11,6 +11,8 @@ The copies and the MoE gather and combine must be bit-identical to their
 plain versions; the attention kernels agree within rtol = atol = 2e-5 in
 float32 and 2e-2 in bfloat16 (the sums run in another order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -323,7 +325,7 @@ def test_cuda_sweep_subset_equals_committed_cells(cuda):
     before = build.launch_counts()["descriptor_copy"]
     doc = sweep.run_sweep(spec, device=cuda)
     assert build.launch_counts()["descriptor_copy"] > before
-    assert len(doc["cells"]) == 2 * 8 + 2 + 4 + 1      # + the serve cell
+    assert len(doc["cells"]) == 2 * 8 + 2 + 4 + 1 + 4  # serve, sharded
     for key, cell in doc["cells"].items():
         assert cell == base["cells"][key], key
 
@@ -374,6 +376,81 @@ def test_cuda_serve_cell_equals_committed_cell(cuda):
     want = base["cells"]["serve/qwen2.5-3b/cap2"]
     assert metrics == want["metrics"]
     assert counters == want["counters"]
+
+
+def _sharded_run(device, seed=0):
+    """4 logical shards, 64 pages of 4,096 fp32 per shard: Zipf-hot moves
+    in waves of 8 through the async fabric, a flip with first-touch pulls,
+    an ungraceful resize with tickets in flight, evacuate and readmit."""
+    from repro_torch.distributed import (
+        ShardedDMARuntime, ShardedKVPool, ungraceful_resize)
+    from repro_torch.perf.sharded_cell import _zipf_moves
+
+    srt = ShardedDMARuntime(num_shards=4, device=device)
+    kv = ShardedKVPool(srt, num_pages=256, page=16, kv_heads=2,
+                       head_dim=128)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for name in (kv.POOL_K, kv.POOL_V):
+        srt.register_sharded_pool(name, torch.randn(256 * kv.row_elems,
+                                                    generator=g),
+                                  kv.owner, kv.row_elems)
+    src, dst = _zipf_moves(np.random.default_rng(seed), 256, 48, 1.1, 256)
+    src, dst = src.tolist(), dst.tolist()
+    for i in range(0, len(src), 8):
+        kv.move_pages(kv.refs(src[i:i + 8]), kv.refs(dst[i:i + 8]),
+                      priority=1, drain=False)
+    srt.pump_until_idle()
+    srt.drain_until_idle()
+    flipped = kv.flip_ownership(kv.alloc_on(0, 4), 2)
+    kv.page_rows(flipped[:2])
+    kv.alloc_on(3, 5)                      # live pages the loss evacuates
+    moving = [kv.move_pages(kv.alloc_on(0, 2), kv.alloc_on(3, 2),
+                            drain=False),
+              kv.move_pages(kv.alloc_on(3, 3), kv.alloc_on(1, 3),
+                            drain=False)]
+    srt.pump(2)
+    remap = ungraceful_resize(kv, 3)
+    kv.alloc_on(1, 4)
+    remap.update(kv.evacuate(1))
+    kv.readmit(1)
+    kv.ensure_resident(flipped)
+    assert len(remap) == 16        # 2 re-routed + 5 and 9 evacuated
+    assert srt.migration.hop_completions == srt.migration.hops
+    assert all(m.hop_completions == m.hops for m in moving)
+    return ([torch.from_numpy(srt.gather_pool(n))
+             for n in (kv.POOL_K, kv.POOL_V)], remap,
+            dataclasses.asdict(srt.migration), srt.fabric.now)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_migration_matches_the_cpu(cuda):
+    """The sharded runtime's migrations on the card, bit-identical to the
+    same on the CPU, through descriptor_copy."""
+    before = build.launch_counts()["descriptor_copy"]
+    got = _sharded_run(cuda)
+    assert build.launch_counts()["descriptor_copy"] > before
+    want = _sharded_run("cpu")
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert got[1:] == want[1:]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_cells_equal_committed_cells(cuda):
+    """The four sharded mesh cells on the card: metrics and counters equal
+    to ``BENCH_perf.json`` exactly, with descriptor_copy launched."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.perf.sharded_cell import cell_entry
+
+    base = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_perf.json").read_text())
+    before = build.launch_counts()["descriptor_copy"]
+    for mesh in (1, 2, 4, 8):
+        key, cell = cell_entry(0, mesh, device=cuda)
+        assert cell == base["cells"][key], key
+    assert build.launch_counts()["descriptor_copy"] > before
 
 
 def _to(tree, device):

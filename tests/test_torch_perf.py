@@ -3,9 +3,10 @@
 The port's workloads must be the reference's byte for byte, its runtime
 pass must count what the reference's counts, and its sweep must reproduce
 the committed ``BENCH_perf.json`` cells it runs exactly: metrics and
-counters, the ``dma``, ``mmu``, ``transform`` and ``serve`` kinds alike.
-Each cell depends only on its own config and workload, so a subset of
-configs reproduces the committed cells of those configs. Runs on the CPU.
+counters, the ``dma``, ``mmu``, ``transform``, ``serve`` and ``sharded``
+kinds alike. Each cell depends only on its own config and workload, so a
+subset of configs reproduces the committed cells of those configs (and
+every cell of the other kinds). Runs on the CPU.
 """
 import dataclasses
 import json
@@ -168,9 +169,9 @@ def test_sweep_reproduces_committed_cells_exactly(baseline, subset_doc):
         kinds[cell["kind"]] = kinds.get(cell["kind"], 0) + 1
         assert cell == baseline["cells"][key], key
     assert kinds == {"dma": 8 * len(SUBSET), "mmu": 2, "transform": 4,
-                     "serve": 1}
-    assert subset_doc["dimensions"]["serve_cells"] == \
-        baseline["dimensions"]["serve_cells"]
+                     "serve": 1, "sharded": 4}
+    for dim in ("serve_cells", "sharded_cells", "mesh_sizes"):
+        assert subset_doc["dimensions"][dim] == baseline["dimensions"][dim]
 
 
 def test_sweep_subset_gates_clean(baseline, subset_doc):
@@ -178,7 +179,7 @@ def test_sweep_subset_gates_clean(baseline, subset_doc):
     ported["cells"] = {k: c for k, c in ported["cells"].items()
                        if k in subset_doc["cells"]}
     assert gate.compare(ported, subset_doc) == []
-    assert len(dropped) == 4
+    assert dropped == []
 
 
 def test_sweep_document_is_bit_for_bit_deterministic():
@@ -247,24 +248,30 @@ def test_launch_us_is_reported_and_never_stored():
 
 @pytest.mark.parametrize("flag", ["include_serve", "include_sharded"])
 def test_unported_cells_raise_never_skip(flag):
-    """The sharded cells raise; the serve cell is ported and runs."""
-    if flag == "include_sharded":
-        with pytest.raises(NotImplementedError, match="Queue A item 13"):
-            sweep.default_spec("quick", 0, **{flag: True})
-    else:
-        assert sweep.default_spec("quick", 0, **{flag: True}).include_serve
+    """Every cell kind is ported: the serve and sharded cells run when
+    asked for (the document-level run is in the tests above); neither is
+    on by default."""
+    assert getattr(sweep.default_spec("quick", 0, **{flag: True}), flag)
     spec = sweep.default_spec("quick", 0)
     assert spec.include_serve is False and spec.include_sharded is False
+    if flag == "include_sharded":
+        doc = sweep.run_sweep(sweep.default_spec(
+            "quick", 0, archs=[], include_sharded=True, mesh_sizes=[1, 2],
+            include_transforms=False, iotlb=False), device="cpu")
+        assert doc["dimensions"]["sharded_cells"] == [
+            "sharded/qwen2.5-3b/mesh1", "sharded/qwen2.5-3b/mesh2"]
+        assert set(doc["cells"]) == set(doc["dimensions"]["sharded_cells"])
 
 
 def test_spec_from_doc_refuses_unported_cells(baseline):
-    with pytest.raises(NotImplementedError, match="Queue A item"):
-        sweep.spec_from_doc(baseline)
-    spec = sweep.spec_from_doc(gate.ported_subset(baseline)[0])
+    """No cell of the baseline is refused: its spec asks for every kind."""
+    spec = sweep.spec_from_doc(baseline)
+    assert spec == sweep.spec_from_doc(gate.ported_subset(baseline)[0])
     assert (spec.mode, spec.seed, spec.repeats) == ("quick", 0, 3)
     assert spec.channel_counts == (4,) and spec.mem_latencies == (13, 100)
     assert len(spec.archs) == 10 and spec.iotlb and spec.include_transforms
-    assert spec.include_serve and not spec.include_sharded
+    assert spec.include_serve and spec.include_sharded
+    assert spec.mesh_sizes == (1, 2, 4, 8)
 
 
 def test_serve_cell_equals_the_committed_cell_exactly(baseline):

@@ -25,8 +25,8 @@ MMU_CELL = "mmu/paged_seq/L13"
 TRANSFORM_CELL = "transform/kv1024B/L13"
 SERVE_CELL = "serve/archA/cap2"
 SHARDED_CELL = "sharded/archA/mesh4"
-NOT_PORTED = ["sharded/qwen2.5-3b/mesh1", "sharded/qwen2.5-3b/mesh2",
-              "sharded/qwen2.5-3b/mesh4", "sharded/qwen2.5-3b/mesh8"]
+SHARDED = ["sharded/qwen2.5-3b/mesh1", "sharded/qwen2.5-3b/mesh2",
+           "sharded/qwen2.5-3b/mesh4", "sharded/qwen2.5-3b/mesh8"]
 
 
 def _doc(cells=None):
@@ -262,19 +262,23 @@ def test_quick_subset_keeps_quick_cells_and_unported_kinds():
 # ---------------------------------------------------------------------------
 
 def test_ported_subset_names_exactly_the_serve_and_sharded_cells():
+    """Every kind is ported: the subset is the whole baseline, its serve
+    and sharded cells included, and drops nothing."""
     doc = json.loads(BASELINE.read_text())
     sub, dropped = gate.ported_subset(doc)
-    assert dropped == NOT_PORTED
-    assert len(sub["cells"]) == 87
+    assert dropped == []
+    assert sub == doc and len(sub["cells"]) == 91
     assert {c["kind"] for c in sub["cells"].values()} == \
-        {"dma", "mmu", "transform", "serve"}
+        {"dma", "mmu", "transform", "serve", "sharded"}
     assert sub["dimensions"]["serve_cells"] == ["serve/qwen2.5-3b/cap2"]
-    assert sub["dimensions"]["sharded_cells"] == []
-    assert doc["dimensions"]["sharded_cells"]      # the input is untouched
-    assert gate.NOT_PORTED_KINDS == ("sharded",)
+    assert sub["dimensions"]["sharded_cells"] == SHARDED
+    assert sorted(k for k, c in sub["cells"].items()
+                  if c["kind"] == "sharded") == SHARDED
+    assert gate.NOT_PORTED_KINDS == ()
     only = _doc({SHARDED_CELL: _sharded_cell()})
+    assert gate.ported_subset(only) == (only, [])
     with pytest.raises(gate.GateError, match="no cells"):
-        gate.ported_subset(only)
+        gate.ported_subset(_doc({}))
 
 
 def test_committed_copy_against_itself_and_an_injected_regression(committed):
@@ -300,9 +304,8 @@ def test_cli_exit_codes_on_committed_copies(committed, tmp_path, capsys):
     same = _write(tmp_path, "same.json", cur)
     assert gate.main(["--baseline", path, "--current", same]) == 0
     out = capsys.readouterr().out
-    for key in NOT_PORTED:
-        assert f"not ported (Queue A item 13): {key}" in out
-    assert "PASS — 87 cells" in out
+    assert "not ported" not in out
+    assert "PASS — 91 cells" in out
 
     bad = copy.deepcopy(cur)
     bad["cells"]["dbrx-132b/paged_kv/ch4/L13"]["metrics"][
@@ -344,12 +347,17 @@ def test_cli_refuses_to_write_the_committed_baseline(committed, capsys):
 
 def test_cli_reruns_the_sweep_on_the_cpu_and_passes(committed, tmp_path,
                                                     capsys):
-    """The whole port: the baseline's spec re-run on the CPU, 87 cells."""
+    """The whole port: the baseline's spec re-run on the CPU, 91 cells."""
     path, _ = committed
     out = str(tmp_path / "port.json")
     assert gate.main(["--baseline", path, "--device", "cpu",
                       "--out", out]) == 0
     text = capsys.readouterr().out
     assert "re-running sweep: mode=quick seed=0 repeats=3" in text
-    assert "PASS — 87 cells within tolerance (4 not ported)" in text
-    assert len(json.loads(Path(out).read_text())["cells"]) == 87
+    assert "PASS — 91 cells within tolerance" in text
+    assert "not ported" not in text
+    cells = json.loads(Path(out).read_text())["cells"]
+    assert len(cells) == 91
+    base = json.loads(BASELINE.read_text())["cells"]
+    for key in SHARDED:
+        assert cells[key] == base[key], key

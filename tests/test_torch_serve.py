@@ -132,8 +132,12 @@ def test_recorded_serve_trace_covers_every_lifecycle_phase(tmp_path):
     assert json.loads((tmp_path / "serve.trace.json").read_text()) == doc
     assert probe.metrics_snapshot()["request_latency_steps"]["n"] == 6
     assert pc["serve.request_latency_steps_p50"] > 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        record_serve_trace(0, mesh=2, device="cpu")
+    # mesh >= 2 records the sharded serve path (tests/test_torch_sharded.py
+    # holds it against the reference's recorder).
+    tracer, _, pc = record_serve_trace(0, mesh=2, device="cpu")
+    assert pc["sharded.completed"] == 6
+    assert {"migrate.egress", "migrate.ingress", "hop"} <= \
+        {e.name for e in tracer.events()}
 
 
 def test_serve_launcher_on_the_cpu(capsys):
