@@ -19,7 +19,12 @@ Phases:
    destinations, an aliased move chain, an all-zero block, exact .5 ties,
    mixed magnitudes); ``prefetched_chain_copy`` bit for bit (the same
    pools, -1 on both sides, duplicate destinations, depths 2-8, chains of
-   0, 1, 3 and 512, an aliased move chain); ``paged_attention`` within
+   0, 1, 3 and 512, an aliased move chain); both copies also at 1 to
+   9,000 descriptors around their by-value descriptor tables (128, 512 and
+   4,088 pairs; a longer call is cut into several launches, counted
+   against the plain model of the launch function's host pass), over
+   256-byte rows and 4 KiB rows (the bulk-copy path) with duplicates
+   across blocks and launches; ``paged_attention`` within
    rtol = atol = 2e-5 (fp32) and 2e-2 (bf16) (H/KV 40/8 and 8/8, ragged
    lengths with 0 and a partial page, -1 inside and past the length).
    Each with its times at the main path's shapes, the bytes it moves and
@@ -77,9 +82,10 @@ Phases:
    (it must have launched), the median host wall-clock
    ``launch_us_per_descriptor`` per workload, holds the sweep's drains
    over a random source pool against the CPU runtime bit for bit, and
-   times ``descriptor_copy`` at the sweep's small rows (wrapper, bare
-   kernel, the same launch with every descriptor -1 as its floor, the
-   plain version and ``index_select`` + ``index_copy_``).
+   times ``descriptor_copy`` at the sweep's small rows and at (m)'s drain
+   of 4 descriptors of 4 KiB (wrapper, bare launch function, the same
+   with one descriptor as its floor, the plain version and
+   ``index_select`` + ``index_copy_``).
 5. (j) The model path, after the pools of phase 3 are freed: dbrx-132b at
    its published widths (d 6,144, 48/8 heads of 128, 16 experts top-4 of
    d_ff 10,752, vocab 100,352) cut to 2 layers, weights from
@@ -133,7 +139,10 @@ Phases:
    (``ungraceful_resize``; every page lands once on a survivor); an
    ``evacuate``/``readmit`` round trip of shard 2. Prints each step's ms,
    pages/s, bytes, hops, fabric rounds, overlap ratio, drains and
-   ``descriptor_copy`` launches (it must launch).
+   ``descriptor_copy`` launches (it must launch); then profiles the
+   migration repeated: device time by kernel, CUDA runtime calls with the
+   ``cudaStreamSynchronize`` count beside the drains, host time by
+   function.
 8. (n) Sharded serving with (l)'s weights: a ``ShardedServeEngine`` over
    2 logical shards (each a ``ServeEngine`` of capacity 2, ``max_len``
    128) and a 2-shard ``ShardedKVPool`` in the same KV geometry serves 8
@@ -146,9 +155,11 @@ Phases:
    up to a first difference, where the full forward's top-2 margin must
    be under 8e-2. Prints the engine's median step ms, generated tokens/s
    and requests per shard.
-9. A ``kernels`` JSON line (each kernel's launches summed over the main
-   path, (k), (j), (l), (m) and (n), and per path), then the ``ok`` JSON
-   line last.
+9. The most active descriptors one copy call received on each path
+   (main, (k), (m), (n)) and the paths whose calls were cut into several
+   launches; a ``kernels`` JSON line (each kernel's launches summed over
+   the main path, (k), (j), (l), (m) and (n), and per path), then the
+   ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -196,6 +207,36 @@ FLASH_CASES = [  # B, S or (Sq, Sk), H, KV, D, causal, window, q scale
 FLASH_FP32_SHAPE = (1, PROMPT_LEN, 48, 8, 128)   # B, S, H, KV, D, causal
 
 
+@contextlib.contextmanager
+def recording_tables(np, sizes: dict):
+    """Record in ``sizes`` the most active descriptors that one call of
+    each copy kernel's launch function received (above MAX_TABLE = 4,088 a
+    call is cut into several launches). Costs a count per call: keep it
+    off the timed copies."""
+    from unittest import mock
+
+    from repro_torch.kernels import descriptor_copy as dc
+    from repro_torch.kernels import prefetch_pipeline as pf
+
+    real_dc, real_pf = dc._launch_copy, pf._launch
+
+    def record(kernel, n):
+        sizes[kernel] = max(sizes.get(kernel, 0), n)
+
+    def dc_launch(src, dst, sidx, didx):
+        record("descriptor_copy",
+               int(np.count_nonzero((sidx >= 0) & (didx >= 0))))
+        return real_dc(src, dst, sidx, didx)
+
+    def pf_launch(src, dst, sidx, didx, depth):
+        record("prefetch_pipeline", int(sidx.size))
+        return real_pf(src, dst, sidx, didx, depth)
+
+    with mock.patch.object(dc, "_launch_copy", dc_launch), \
+            mock.patch.object(pf, "_launch", pf_launch):
+        yield sizes
+
+
 def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
@@ -233,6 +274,45 @@ def max_err(torch, a, b) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+#: Chain lengths around the copy kernels' descriptor tables (128, 512 and
+#: 4,088 pairs by value in the launch) and above the largest, where a call
+#: is cut into consecutive launches.
+TABLE_NS = (1, 128, 129, 512, 513, 4088, 4089, 9000)
+
+
+def check_tables(torch, np, dev, g, rng, name, counter, kernel, plain, *,
+                 clamp: bool) -> None:
+    """``kernel`` bit for bit against ``plain`` at every n of TABLE_NS, over
+    256-byte rows (one warp per descriptor) and 4 KiB rows (the bulk-copy
+    path), destinations drawn with repeats so that duplicates span blocks
+    and launches, -1 on both sides; the launches must be those of the
+    plain model of the launch function's host pass."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import table_launches
+
+    rows, launches = 9000, {}
+    for unit in (64, 1024):
+        src = torch.randn((rows, unit), device=dev, generator=g)
+        dst = torch.randn((rows, unit), device=dev, generator=g)
+        for n in TABLE_NS:
+            sidx = rng.integers(-1, rows, n)
+            didx = rng.integers(-1, rows // 4, n)
+            want = plain(sidx, didx, src, dst.clone())
+            before = build.LAUNCHES[counter]
+            got = kernel(sidx, didx, src, dst.clone())
+            torch.cuda.synchronize()
+            key = f"{unit * 4}B/{n}"
+            launches[key] = build.LAUNCHES[counter] - before
+            expect = len(table_launches(sidx, didx, clamp=clamp))
+            equal = torch.equal(got, want)
+            if not equal or launches[key] != expect:
+                raise AssertionError(f"{name} at {key}: equal {equal}, "
+                                     f"launches {launches[key]} (want "
+                                     f"{expect})")
+        del src, dst
+    log({"check": f"{name}_tables", "launches": launches, "equal": True})
+
 
 def check_kernels(torch, np, dev, rng) -> dict:
     from repro_torch.kernels import build
@@ -287,6 +367,8 @@ def check_kernels(torch, np, dev, rng) -> dict:
     log({"check": "descriptor_copy", "case": "src is dst, overlapping rows",
          "equal": True})
     del pool, got, want
+    check_tables(torch, np, dev, g, rng, "descriptor_copy", "descriptor_copy",
+                 descriptor_copy, descriptor_copy_plain, clamp=False)
 
     # quantize_copy: fp32 and bf16 rows, zero block, .5 ties, magnitudes.
     for dtype, rows in ((torch.float32, NUM_PAGES), (torch.bfloat16, 2048)):
@@ -330,15 +412,21 @@ def check_kernels(torch, np, dev, rng) -> dict:
                                             n_bucket=BURST),
              lambda: quantize_copy_plain(sidx, didx, src, dst),
              QUANT_OPS_PER_ELEM * BURST * ROW)):
-        args = [src.data_ptr(), dst.data_ptr(), s32.data_ptr(),
-                d32.data_ptr(), BURST]
-        if name == "descriptor_copy":
-            args += [row_bytes]
-        else:
-            args += [ROW, 0]
         stream = torch.cuda.current_stream().cuda_stream
+        if name == "descriptor_copy":     # host streams, by value
+            args = [src.data_ptr(), dst.data_ptr(), NUM_PAGES, NUM_PAGES,
+                    sidx.tobytes(), didx.tobytes(), BURST, row_bytes,
+                    stream]
+            bare = build.launch_table
+        else:                             # int32 index arrays on the card
+            args = [src.data_ptr(), dst.data_ptr(), s32.data_ptr(),
+                    d32.data_ptr(), BURST, ROW, 0, stream]
+            bare = build.launch
         ms = time_ms(torch, wrapper)
-        kernel_ms = time_ms(torch, lambda: build.launch(name, *args, stream))
+        kernel_ms = time_ms(torch, lambda: bare(name, *args))
+        # Back to back, the launches queue up: the card's own time a call.
+        kernel_b2b_ms = time_per_call_ms(torch, lambda: bare(name, *args),
+                                         calls=50)
         plain_ms = time_ms(torch, plain)
         library_ms = None
         if name == "descriptor_copy":
@@ -346,7 +434,8 @@ def check_kernels(torch, np, dev, rng) -> dict:
                 0, d_dev, src.index_select(0, s_dev)))
         b_ms, b_by = bound_ms(moved, ops)
         out[name] = {"max_abs_err": errs[name], "ms": ms,
-                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "kernel_ms": kernel_ms, "kernel_b2b_ms": kernel_b2b_ms,
+                     "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": moved}
         log({"time": name, "rows": BURST, "row_bytes": row_bytes,
@@ -410,6 +499,11 @@ def check_prefetch(torch, np, dev, rng) -> dict:
     log({"check": "prefetched_chain_copy", "case": "src is dst, "
          "overlapping rows", "equal": True})
     del pool, got, want
+    check_tables(torch, np, dev, g, rng, "prefetched_chain_copy",
+                 "prefetch_pipeline",
+                 lambda s, d, a, b: prefetched_chain_copy(
+                     s, d, a, b, depth=depth_main),
+                 prefetched_chain_copy_plain, clamp=True)
 
     # Times at the main path's shapes: a 512-row swap of 64 KiB rows out of
     # a full pool, at the default depth.
@@ -419,23 +513,27 @@ def check_prefetch(torch, np, dev, rng) -> dict:
     didx = np.arange(BURST, dtype=np.int64)
     s_dev = torch.from_numpy(sidx).to(dev)
     d_dev = torch.from_numpy(didx).to(dev)
-    s32, d32 = s_dev.to(torch.int32), d_dev.to(torch.int32)
     row_bytes = ROW * 4
     moved = 2 * BURST * row_bytes
     stream = torch.cuda.current_stream().cuda_stream
     ms = time_ms(torch, lambda: prefetched_chain_copy(sidx, didx, src, dst,
                                                       depth=depth_main))
-    kernel_ms = time_ms(torch, lambda: build.launch(
-        "prefetch_pipeline", src.data_ptr(), dst.data_ptr(), s32.data_ptr(),
-        d32.data_ptr(), BURST, row_bytes, depth_main, stream))
+    def bare():
+        build.launch_table("prefetch_pipeline", src.data_ptr(),
+                           dst.data_ptr(), NUM_PAGES, BURST, sidx.tobytes(),
+                           didx.tobytes(), BURST, row_bytes, depth_main,
+                           stream)
+    kernel_ms = time_ms(torch, bare)
+    kernel_b2b_ms = time_per_call_ms(torch, bare, calls=50)
     plain_ms = time_ms(torch, lambda: prefetched_chain_copy_plain(
         sidx, didx, src, dst))
     library_ms = time_ms(torch, lambda: dst.index_copy_(
         0, d_dev, src.index_select(0, s_dev)))
     b_ms, b_by = bound_ms(moved, 0)
     out = {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": moved}
+           "kernel_b2b_ms": kernel_b2b_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": moved}
     log({"time": "prefetched_chain_copy", "rows": BURST,
          "row_bytes": row_bytes, "depth": depth_main, **out,
          "share_of_bound": b_ms / ms, "kernel_share_of_bound": b_ms / kernel_ms})
@@ -1382,10 +1480,18 @@ def check_sweep_drains(torch, np, dev, shapes) -> None:
          "equal": True})
 
 
+#: (m)'s drain, timed in (k) beside the sweep's shapes: (descriptors, row
+#: fp32, pool rows): a page of 16 KiB cut at the runtime's max_len of 1,024
+#: (M_MAX_LEN) into 4 descriptors of 4 KiB, out of one shard's pool of
+#: 4,096 pages (16,384 rows of 4 KiB).
+M_DRAIN_SHAPE = (4, 1024, 16384)
+
+
 def time_sweep_copies(torch, np, dev, shapes) -> dict:
-    """descriptor_copy at the sweep's small rows: the wrapper, the bare
-    kernel, the same launch with every descriptor -1 (no row moved: the
-    launch floor), the plain version and index_select + index_copy_."""
+    """descriptor_copy at the sweep's small rows and at (m)'s drain: the
+    wrapper, the bare launch function (its host pass and launch), the same
+    with one descriptor (the launch floor), the plain version and
+    index_select + index_copy_."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.descriptor_copy import (
@@ -1408,6 +1514,12 @@ def time_sweep_copies(torch, np, dev, shapes) -> dict:
             shapes.items(), key=lambda kv: kv[1][2])
         cases.append((f"{w}/{a}, as the sweep ran it", sidx, didx, unit,
                       rows))
+    n, unit, rows = M_DRAIN_SHAPE
+    g = np.random.default_rng(3)
+    cases.append(("m drain (qwen2.5-3b pages, max_len 1,024)",
+                  g.choice(rows, n, replace=False).astype(np.int64),
+                  g.choice(rows, n, replace=False).astype(np.int64), unit,
+                  rows))
     g = torch.Generator(device=dev).manual_seed(2)
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
@@ -1422,30 +1534,28 @@ def time_sweep_copies(torch, np, dev, shapes) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"phase k: descriptor_copy at {label} "
                                  "disagrees with its plain version")
-        s32 = torch.from_numpy(sidx.astype(np.int32)).to(dev)
-        d32 = torch.from_numpy(didx.astype(np.int32)).to(dev)
-        none = torch.full_like(s32, -1)
         active = (sidx >= 0) & (didx >= 0)
         s_dev = torch.from_numpy(sidx[active]).to(dev)
         d_dev = torch.from_numpy(didx[active]).to(dev)
         row_bytes = unit * 4
 
         def bare(s, d):
-            return lambda: build.launch(SWEEP_KERNEL, src.data_ptr(),
-                                        dst.data_ptr(), s.data_ptr(),
-                                        d.data_ptr(), n_bucket, row_bytes,
-                                        stream)
+            return lambda: build.launch_table(
+                SWEEP_KERNEL, src.data_ptr(), dst.data_ptr(), rows, rows,
+                s.tobytes(), d.tobytes(), s.size, row_bytes, stream)
+        first = np.flatnonzero(active)[:1]
         t = {
             "ms": time_per_call_ms(torch, lambda: descriptor_copy_bucketed(
                 sidx, didx, src, dst, n_bucket=n_bucket)),
-            "kernel_ms": time_per_call_ms(torch, bare(s32, d32)),
-            "floor_ms": time_per_call_ms(torch, bare(none, none)),
+            "kernel_ms": time_per_call_ms(torch, bare(sidx, didx)),
+            "floor_ms": time_per_call_ms(torch, bare(sidx[first],
+                                                     didx[first])),
             "plain_ms": time_per_call_ms(torch, lambda: descriptor_copy_plain(
                 sidx, didx, src, dst)),
             "library_ms": time_per_call_ms(torch, lambda: dst.index_copy_(
                 0, d_dev, src.index_select(0, s_dev))),
         }
-        moved = 2 * n * row_bytes + 2 * 4 * n_bucket   # rows + int32 indices
+        moved = 2 * n * row_bytes + 2 * 4 * n    # rows + int32 indices
         b_ms, b_by = bound_ms(moved, 0)
         out[label] = {**t, "bound_ms": b_ms, "bound_by": b_by,
                       "max_abs_err": max_err(torch, got, want)}
@@ -1453,7 +1563,8 @@ def time_sweep_copies(torch, np, dev, shapes) -> dict:
              "bucket": n_bucket, "row_bytes": row_bytes, "pool_rows": rows,
              "bytes": moved, **out[label], "calls_per_timing": SWEEP_CALLS,
              "kernel_over_floor": t["kernel_ms"] / t["floor_ms"],
-             "library_over_kernel": t["library_ms"] / t["kernel_ms"]})
+             "library_over_kernel": t["library_ms"] / t["kernel_ms"],
+             "wrapper_under_library": t["ms"] < t["library_ms"]})
         del src, dst
     return out
 
@@ -2154,12 +2265,15 @@ def sharded_path(torch, np, dev, rng, smi: str) -> dict:
     # then cProfile (host time by function): where (m)'s time goes.
     ms_first = None
     api = {}
+    drains0 = sum(c.stats.batches for c in data)
     rows = device_profile(torch, migrate, "m_migrate", api)
     if rows:
         total = sum(r[0] for r in rows)
         ms_first = total / 1e3
         log({"profile": "m_migrate", "device_ms": ms_first,
              "kernels_launched": sum(n for _, _, n in rows),
+             "drains": sum(c.stats.batches for c in data) - drains0,
+             "cudaStreamSynchronize": api.get("cudaStreamSynchronize", 0),
              "cuda_api_calls": api,
              "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
                      for us, k, n in rows[:8]]})
@@ -2442,10 +2556,14 @@ def main() -> int:
     timing["paged_attention"] = check_paged(torch, np, dev, rng)
     timing.update(check_moe(torch, np, dev, rng))
     timing["flash_attention"] = check_flash(torch, np, dev, rng)
-    by_path = {"main": main_path(torch, np, dev, rng)}
+    tables = {p: {} for p in ("main", "k_sweep", "m_sharded",
+                              "n_sharded_serve")}
+    with recording_tables(np, tables["main"]):
+        by_path = {"main": main_path(torch, np, dev, rng)}
     torch.cuda.empty_cache()                  # the pools of phase 3 are gone
     t0 = time.perf_counter()
-    by_path["k_sweep"], shapes = sweep_path(torch, np, dev, smi)
+    with recording_tables(np, tables["k_sweep"]):
+        by_path["k_sweep"], shapes = sweep_path(torch, np, dev, smi)
     check_sweep_drains(torch, np, dev, shapes)
     time_sweep_copies(torch, np, dev, shapes)
     log({"phase": "k", "seconds": time.perf_counter() - t0})
@@ -2457,12 +2575,19 @@ def main() -> int:
     by_path["l_serve"], params = serve_path(torch, np, dev, rng, args.seed)
     log({"phase": "l", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    by_path["m_sharded"] = sharded_path(torch, np, dev, rng, smi)
+    with recording_tables(np, tables["m_sharded"]):
+        by_path["m_sharded"] = sharded_path(torch, np, dev, rng, smi)
     log({"phase": "m", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    by_path["n_sharded_serve"] = sharded_serve_path(torch, np, dev, rng,
-                                                    params)
+    with recording_tables(np, tables["n_sharded_serve"]):
+        by_path["n_sharded_serve"] = sharded_serve_path(torch, np, dev, rng,
+                                                        params)
     log({"phase": "n", "seconds": time.perf_counter() - t0})
+    from repro_torch.kernels.descriptor_copy import MAX_TABLE
+    log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
+         "paths_cut_into_several_launches": sorted(
+             p for p, t in tables.items()
+             if any(n > MAX_TABLE for n in t.values()))})
     del params
     torch.cuda.empty_cache()
     launches = {k: sum(p.get(k, 0) for p in by_path.values())

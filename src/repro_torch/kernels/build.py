@@ -35,13 +35,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: library is the stem of its source in ``csrc/``.
 _SYMBOLS = {
     "descriptor_copy": ("descriptor_copy", "descriptor_copy_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+                        + [ctypes.c_char_p] * 2 + [ctypes.c_longlong] * 2
                         + [ctypes.c_void_p]),
     "quantize_copy": ("quantize_copy", "quantize_copy_launch",
                       [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                       + [ctypes.c_int, ctypes.c_void_p]),
     "prefetch_pipeline": ("prefetch_pipeline", "prefetch_pipeline_launch",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                          [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_char_p] * 2 + [ctypes.c_longlong] * 2
                           + [ctypes.c_int, ctypes.c_void_p]),
     "paged_attention": ("paged_attention", "paged_attention_launch",
                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -62,6 +64,7 @@ LIBRARIES = sorted({lib for lib, _, _ in _SYMBOLS.values()})
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SYMBOLS}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -93,6 +96,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}_{key}.so"
 
@@ -155,3 +159,27 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+#: Return code of a table launch function when an index is out of range
+#: (``csrc/desc_table.cuh``).
+OUT_OF_RANGE = -1
+
+
+def launch_table(name: str, *args) -> None:
+    """Call kernel ``name``'s launch function that takes its descriptors by
+    value (``csrc/desc_table.cuh``): it returns the number of launches it
+    made, which are counted, :data:`OUT_OF_RANGE` when it launched nothing
+    because an index is out of range (raises ``IndexError``), or
+    ``-1 - error`` after a failed launch (raises ``RuntimeError``)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(library(name), _SYMBOLS[name][1])
+    r = fn(*args)
+    if r >= 0:
+        LAUNCHES[name] += r
+    elif r == OUT_OF_RANGE:
+        raise IndexError(f"{name}: row index out of range")
+    else:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{-1 - r}")

@@ -18,18 +18,28 @@ Three implementations of one function:
   any device. The CPU tests use it; ``chip_smoke.py`` holds the kernel
   against it on the card.
 
-Two rules that the TPU's in-order grid gave for free, applied on the host
-before either version runs:
+Two rules that the TPU's in-order grid gave for free:
 
 * **duplicate destinations** — of several active descriptors writing one
-  row, only the last one writes (the TPU grid order);
-* **aliasing** — when ``src`` and ``dst`` share storage and an active
+  row, only the last one writes (the TPU grid order). The plain version
+  applies it on the host (``core/engine.keep_last``); the kernel applies
+  it on the card, each block over the launch's descriptor table
+  (:func:`repro_torch.kernels.ref.last_write_keep` models that rule);
+* **aliasing** — when ``src`` and ``dst`` overlap in memory and an active
   source row is also an active destination row, the source rows are first
   copied to a scratch buffer, so every descriptor reads the pool as it was
   before the call (the JAX drains' snapshot semantics).
 
-The index streams are host-side control state: they may be numpy arrays
-or tensors on any device, and are uploaded to the pools' device per call.
+The index streams are host-side control state: numpy arrays or tensors on
+any device. On the CUDA route they reach the card inside the launch, not
+through a device buffer: the wrapper hands the library the bytes of two
+contiguous int64 streams (a caller that passes such numpy arrays,
+as ``runtime/lowering.py`` and ``runtime/channel.py`` do, pays no
+conversion), and one C pass checks the indices' range, drops the -1
+entries and packs the rest into the kernel's by-value table of 128, 512
+or 4,088 int32 pairs, the smallest that holds them. More active
+descriptors than 4,088 are cut into consecutive launches on one stream
+(``MAX_TABLE``), each counted; nothing uploads and nothing synchronises.
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ import torch
 
 from repro_torch.core.engine import keep_last
 
-from .build import launch
+from .build import launch_table
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +74,13 @@ def host_indices(idx) -> np.ndarray:
 
 def check_pools(src: torch.Tensor, dst: torch.Tensor, api: str) -> None:
     """Row pools: 2-D, contiguous, one dtype, one row width, one device."""
+    if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+            and src.is_cuda and dst.is_cuda and src.dim() == 2
+            and dst.dim() == 2 and src.dtype == dst.dtype
+            and src.shape[1] == dst.shape[1]
+            and src.get_device() == dst.get_device()
+            and src.is_contiguous() and dst.is_contiguous()):
+        return                  # pools on one card: every check below holds
     for name, t in (("src", src), ("dst", dst)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{api}: {name} must be a torch.Tensor")
@@ -146,7 +163,64 @@ def device_i32(sidx: np.ndarray, didx: np.ndarray,
 
 
 def stream_of(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current CUDA stream."""
+    return raw_stream(torch.cuda.current_device() if device.index is None
+                      else device.index)
+
+
+def raw_stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of device ``index``
+    (without building a ``torch.cuda.Stream``, which costs several µs)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+#: The most descriptors one launch takes (``csrc/desc_table.cuh``).
+MAX_TABLE = 4088
+_I64 = np.dtype(np.int64)
+
+
+def int64_streams(src_idx, dst_idx,
+                  api: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Both index streams as contiguous int64 numpy arrays of one length;
+    arrays that are that already pass through untouched."""
+    sidx, didx = src_idx, dst_idx
+    if not (type(sidx) is np.ndarray and sidx.dtype is _I64
+            and sidx.ndim == 1 and sidx.flags.c_contiguous):
+        sidx = np.ascontiguousarray(host_indices(sidx))
+    if not (type(didx) is np.ndarray and didx.dtype is _I64
+            and didx.ndim == 1 and didx.flags.c_contiguous):
+        didx = np.ascontiguousarray(host_indices(didx))
+    if sidx.shape != didx.shape:
+        raise ValueError(f"{api}: {sidx.size} source vs {didx.size} "
+                         "destination indices")
+    return sidx, didx
+
+
+def overlaps(src: torch.Tensor, dst: torch.Tensor) -> bool:
+    """Whether the two pools' bytes overlap (a pointer comparison)."""
+    a, b = src.data_ptr(), dst.data_ptr()
+    return a < b + dst.nbytes and b < a + src.nbytes
+
+
+def unaliased_source(src: torch.Tensor, dst: torch.Tensor, sidx: np.ndarray,
+                     didx: np.ndarray, copy_rows) -> Tuple[torch.Tensor,
+                                                           np.ndarray]:
+    """``(src, sidx)`` for a launch into ``dst`` when the pools overlap:
+    unchanged when no active source row can be overwritten by the call,
+    else a scratch pool of the active source rows (filled by
+    ``copy_rows(src, scratch, rows)``) and ``sidx`` remapped onto it.
+    Active: both indices >= 0."""
+    active = (sidx >= 0) & (didx >= 0)
+    if not active.any():
+        return src, sidx
+    same_rows = src.data_ptr() == dst.data_ptr() and src.shape == dst.shape
+    if same_rows and not np.intersect1d(sidx[active], didx[active]).size:
+        return src, sidx
+    rows, sidx = snapshot_rows(np.where(active, sidx, -1))
+    scratch = torch.empty((rows.size, src.shape[1]), dtype=src.dtype,
+                          device=src.device)
+    copy_rows(src, scratch, rows)
+    return scratch, sidx
 
 
 # ---------------------------------------------------------------------------
@@ -170,33 +244,47 @@ def descriptor_copy_plain(src_idx, dst_idx, src: torch.Tensor,
 
 def _launch_copy(src: torch.Tensor, dst: torch.Tensor, sidx: np.ndarray,
                  didx: np.ndarray) -> None:
-    dev = dst.device
-    s, d = device_i32(sidx, didx, dev)
-    with torch.cuda.device(dev):
-        launch("descriptor_copy", src.data_ptr(), dst.data_ptr(),
-               s.data_ptr(), d.data_ptr(), int(sidx.size),
-               int(src.shape[1] * src.element_size()), stream_of(dev))
+    """One call into the library: range check, packing and the launches.
+    ``sidx``/``didx``: contiguous int64 numpy arrays of one length, handed
+    over as bytes (cheaper to pass than their addresses)."""
+    launch_on_card("descriptor_copy", src, dst, sidx, didx)
+
+
+def launch_on_card(name: str, src: torch.Tensor, dst: torch.Tensor,
+                   sidx: np.ndarray, didx: np.ndarray, *extra) -> None:
+    """Call copy kernel ``name``'s table launch function for ``dst``'s card
+    on its current stream: the pools, their row counts, both streams'
+    bytes, the count, the row width in bytes, then ``extra``."""
+    args = (src.data_ptr(), dst.data_ptr(), src.shape[0], dst.shape[0],
+            sidx.tobytes(), didx.tobytes(), sidx.size,
+            src.shape[1] * src.element_size(), *extra)
+    index = dst.get_device()
+    if index == torch.cuda.current_device():
+        launch_table(name, *args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            launch_table(name, *args, raw_stream(index))
+
+
+def _copy_rows(src: torch.Tensor, scratch: torch.Tensor,
+               rows: np.ndarray) -> None:
+    _launch_copy(src, scratch, rows, np.arange(rows.size))
 
 
 def descriptor_copy(src_idx, dst_idx, src: torch.Tensor,
                     dst: torch.Tensor) -> torch.Tensor:
     """dst[dst_idx[i]] = src[src_idx[i]] for each descriptor i, in place.
 
-    src/dst: (rows, unit) row pools of one dtype (any) on one device.
+    src/dst: (rows, unit) row pools of one dtype (any) on one device. An
+    active index out of range raises ``IndexError`` before anything is
+    written.
     """
     check_pools(src, dst, "descriptor_copy")
-    if dst.device.type == "cpu":
+    if dst.get_device() < 0:                       # on the CPU
         return descriptor_copy_plain(src_idx, dst_idx, src, dst)
-    sidx, didx, snapshot = prepare(src_idx, dst_idx, src, dst,
-                                   "descriptor_copy")
-    if not np.any(sidx >= 0):
-        return dst
-    if snapshot:
-        rows, sidx = snapshot_rows(sidx)
-        scratch = torch.empty((rows.size, src.shape[1]), dtype=src.dtype,
-                              device=src.device)
-        _launch_copy(src, scratch, rows, np.arange(rows.size))
-        src = scratch
+    sidx, didx = int64_streams(src_idx, dst_idx, "descriptor_copy")
+    if overlaps(src, dst):
+        src, sidx = unaliased_source(src, dst, sidx, didx, _copy_rows)
     _launch_copy(src, dst, sidx, didx)
     return dst
 
@@ -212,10 +300,19 @@ def descriptor_copy_bucketed(src_idx, dst_idx, src: torch.Tensor,
 
     The translation cache (:mod:`repro_torch.runtime.lowering`) keys its
     artifacts on pow2 segment-count buckets; the ``-1`` padding keeps the
-    TPU kernel's contract. CUDA needs no recompile per count: the padded
-    entries read one index pair and exit.
+    TPU kernel's contract. The padding entries are skips, so on CUDA the
+    streams are not padded (the launch drops -1 entries anyway); the CPU
+    route pads, as the TPU kernel does. Raises ``ValueError`` when there
+    are more than ``n_bucket`` descriptors.
     """
-    sidx, didx = pad_bucket(src_idx, dst_idx, n_bucket)
+    if isinstance(dst, torch.Tensor) and dst.get_device() >= 0:  # a card
+        sidx, didx = int64_streams(src_idx, dst_idx,
+                                   "descriptor_copy_bucketed")
+        if sidx.size > n_bucket:
+            raise ValueError(f"{sidx.size} descriptors exceed bucket "
+                             f"{n_bucket}")
+    else:
+        sidx, didx = pad_bucket(src_idx, dst_idx, n_bucket)
     return descriptor_copy(sidx, didx, src, dst)
 
 

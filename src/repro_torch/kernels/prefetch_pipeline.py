@@ -19,25 +19,32 @@ Semantics, those of the TPU kernel run in order:
 
 The destination is updated in place and returned. The wrapper launches
 the kernel for CUDA tensors (or raises) and runs
-:func:`prefetched_chain_copy_plain` for CPU tensors. Before the launch it
-clamps the indices, keeps only the last descriptor per destination row
-(the others become -1, which the kernel skips) and, when ``src`` aliases
-``dst``, copies the source rows to a scratch pool with one more launch of
-the same kernel.
+:func:`prefetched_chain_copy_plain` for CPU tensors. On the CUDA route the
+chain reaches the card inside the launch, as the TPU kernel's
+scalar-prefetch operands do: the wrapper hands the library the bytes of
+two contiguous int64 streams, and one C pass clamps them to
+row 0, checks their range and packs them into the kernel's by-value table
+of 128, 512 or 4,088 int32 pairs; a longer chain is cut into consecutive
+launches on one stream, each counted. The last-write rule is applied on
+the card (:func:`repro_torch.kernels.ref.last_write_keep` models it), and
+when ``src`` and ``dst`` overlap in memory and a source row is also a
+destination row the wrapper first copies the source rows to a scratch
+pool, with one more call of the same kernel. Nothing uploads and nothing
+synchronises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .build import launch
 from .descriptor_copy import (
     check_pools,
-    device_i32,
     host_indices,
+    int64_streams,
+    launch_on_card,
+    overlaps,
     prepare,
-    snapshot_rows,
-    stream_of,
+    unaliased_source,
 )
 
 
@@ -78,12 +85,7 @@ def prefetched_chain_copy_plain(src_idx, dst_idx, src: torch.Tensor,
 
 def _launch(src: torch.Tensor, dst: torch.Tensor, sidx: np.ndarray,
             didx: np.ndarray, depth: int) -> None:
-    dev = dst.device
-    s, d = device_i32(sidx, didx, dev)
-    with torch.cuda.device(dev):
-        launch("prefetch_pipeline", src.data_ptr(), dst.data_ptr(),
-               s.data_ptr(), d.data_ptr(), int(sidx.size),
-               int(src.shape[1] * src.element_size()), depth, stream_of(dev))
+    launch_on_card("prefetch_pipeline", src, dst, sidx, didx, depth)
 
 
 def prefetched_chain_copy(src_idx, dst_idx, src: torch.Tensor,
@@ -92,23 +94,20 @@ def prefetched_chain_copy(src_idx, dst_idx, src: torch.Tensor,
     """dst[dst_idx[i]] = src[src_idx[i]] in chain order through a
     ``depth``-deep prefetch ring, in place.
 
-    src/dst: (rows, unit) row pools of one dtype (any) on one device.
+    src/dst: (rows, unit) row pools of one dtype (any) on one device. An
+    index out of range raises ``IndexError`` before anything is written.
     """
     check_pools(src, dst, "prefetched_chain_copy")
-    if dst.device.type == "cpu":
+    if dst.get_device() < 0:                       # on the CPU
         return prefetched_chain_copy_plain(src_idx, dst_idx, src, dst,
                                            depth=depth)
-    sidx, didx, snapshot = _clamped(src_idx, dst_idx, src, dst,
-                                    "prefetched_chain_copy")
+    sidx, didx = int64_streams(src_idx, dst_idx, "prefetched_chain_copy")
     depth = clamp_depth(depth, sidx.size)
-    if not np.any(sidx >= 0):
-        return dst
-    if snapshot:
-        rows, sidx = snapshot_rows(sidx)
-        scratch = torch.empty((rows.size, src.shape[1]), dtype=src.dtype,
-                              device=src.device)
-        _launch(src, scratch, rows, np.arange(rows.size),
-                clamp_depth(depth, rows.size))
-        src = scratch
+    if overlaps(src, dst):
+        src, sidx = unaliased_source(
+            src, dst, np.maximum(sidx, 0), np.maximum(didx, 0),
+            lambda s, scratch, rows: _launch(
+                s, scratch, rows, np.arange(rows.size),
+                clamp_depth(depth, rows.size)))
     _launch(src, dst, sidx, didx, depth)
     return dst

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,49 @@ def descriptor_copy_ref(src_idx, dst_idx, src: torch.Tensor,
     rows = src[torch.from_numpy(sidx.clip(0, None)).to(src.device)]
     active = (sidx >= 0) & (didx >= 0)
     return scatter_drop(dst.clone(), didx, rows, valid=active)
+
+
+def table_launches(src_idx, dst_idx, *, clamp: bool = False,
+                   cap: Optional[int] = None) -> list:
+    """The host pass of the copy kernels' launch functions
+    (``csrc/desc_table.cuh``), in numpy: with ``clamp`` negative indices
+    become row 0 (``prefetched_chain_copy``), else a -1 on either side
+    drops the descriptor (``descriptor_copy``); what is left is cut, in
+    chain order, into launches of at most ``cap`` (default the largest
+    table, ``MAX_TABLE``) int32 (src, dst) pairs. Returns the launches."""
+    from .descriptor_copy import MAX_TABLE, host_indices
+
+    cap = MAX_TABLE if cap is None else cap
+    s, d = host_indices(src_idx), host_indices(dst_idx)
+    if clamp:
+        s, d = np.maximum(s, 0), np.maximum(d, 0)
+    active = (s >= 0) & (d >= 0)
+    s, d = s[active].astype(np.int32), d[active].astype(np.int32)
+    return [(s[i:i + cap], d[i:i + cap]) for i in range(0, s.size, cap)]
+
+
+def last_write_keep(dst_rows) -> np.ndarray:
+    """The kernels' duplicate rule over one launch's table, descriptor by
+    descriptor as a warp decides it on the card: descriptor i writes
+    unless a later descriptor of the launch has the same destination."""
+    d = np.asarray(dst_rows)
+    return np.array([not np.any(d[i + 1:] == d[i]) for i in range(d.size)],
+                    dtype=bool)
+
+
+def table_copy_ref(src_idx, dst_idx, src: torch.Tensor, dst: torch.Tensor,
+                   *, clamp: bool = False,
+                   cap: Optional[int] = None) -> torch.Tensor:
+    """The copy kernels' route modelled in plain PyTorch: the launches of
+    :func:`table_launches` in stream order, each writing the rows that
+    :func:`last_write_keep` keeps, every read seeing ``src`` as it was
+    before the call. Pure (returns a new tensor)."""
+    out, base = dst.clone(), src.clone()
+    for s, d in table_launches(src_idx, dst_idx, clamp=clamp, cap=cap):
+        keep = last_write_keep(d)
+        out[torch.from_numpy(d[keep]).long().to(out.device)] = \
+            base[torch.from_numpy(s[keep]).long().to(base.device)]
+    return out
 
 
 def prefetched_chain_copy_ref(src_idx, dst_idx, src: torch.Tensor,

@@ -133,6 +133,145 @@ def test_cuda_prefetched_chain_copy_short_and_aliased(cuda, n):
     assert torch.equal(got, want)
 
 
+# ---------------------------------------------------------------------------
+# The copies' descriptor tables: capacities, the bulk-copy path, aliasing,
+# clamping and errors on the by-value route
+# ---------------------------------------------------------------------------
+
+def _copy_kernels():
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy, prefetched_chain_copy_plain)
+    return {"descriptor_copy": ("descriptor_copy", descriptor_copy,
+                                descriptor_copy_plain, False),
+            "prefetched_chain_copy": ("prefetch_pipeline",
+                                      lambda *a: prefetched_chain_copy(
+                                          *a, depth=4),
+                                      prefetched_chain_copy_plain, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 128, 129, 512, 513, 4088, 4089, 9000])
+@pytest.mark.parametrize("unit", [64, 1024])       # 256 B rows; 4 KiB: bulk
+@pytest.mark.parametrize("kernel", ["descriptor_copy",
+                                    "prefetched_chain_copy"])
+def test_cuda_copies_across_table_capacities(cuda, kernel, unit, n):
+    """n at each table's capacity (128, 512, 4,088) and one above, and far
+    above the largest: destinations repeat across blocks and launches
+    (the last write wins), -1 on both sides; the launches are those of the
+    host pass's plain model, so n <= 4,088 active is exactly one."""
+    from repro_torch.kernels.ref import table_launches
+    counter, fn, plain, clamp = _copy_kernels()[kernel]
+    rng = np.random.default_rng(n + unit)
+    src = _rows((9000, unit), torch.float32, cuda, 20)
+    dst = _rows((9000, unit), torch.float32, cuda, 21)
+    sidx = rng.integers(-1, 9000, n)
+    didx = rng.integers(-1, 2000, n)
+    want = plain(sidx, didx, src, dst.clone())
+    before = build.launch_counts()[counter]
+    got = fn(sidx, didx, src, dst)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()[counter] - before
+    assert launches == len(table_launches(sidx, didx, clamp=clamp))
+    if 0 < n <= 4088:
+        assert launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset_bytes", [0, 16])  # 16-byte aligned bases
+@pytest.mark.parametrize("row_kib", [4, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["descriptor_copy",
+                                    "prefetched_chain_copy"])
+def test_cuda_copies_wide_rows(cuda, kernel, dtype, row_kib, offset_bytes):
+    """Rows of 4 and 64 KiB, 16-byte aligned in width and base (the bulk
+    copy path of descriptor_copy), also with both pools starting 16 bytes
+    into their storage."""
+    counter, fn, plain, _ = _copy_kernels()[kernel]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    unit, off, rows = row_kib * 1024 // esize, offset_bytes // esize, 96
+    src = _rows((rows * unit + off,), dtype, cuda, 22)[off:].view(rows, unit)
+    dst = _rows((rows * unit + off,), dtype, cuda, 23)[off:].view(rows, unit)
+    rng = np.random.default_rng(row_kib + offset_bytes)
+    sidx = rng.integers(0, rows, 80)
+    didx = rng.integers(0, 48, 80)
+    sidx[::9] = -1
+    want = plain(sidx, didx, src, dst.clone())
+    before = build.launch_counts()[counter]
+    got = fn(sidx, didx, src, dst)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[counter] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [64, 1024])
+@pytest.mark.parametrize("kernel", ["descriptor_copy",
+                                    "prefetched_chain_copy"])
+def test_cuda_copies_aliased_across_launches(cuda, kernel, unit):
+    """src is dst and the chain is longer than the largest table: every
+    launch reads the pool as it was before the call."""
+    counter, fn, plain, _ = _copy_kernels()[kernel]
+    pool = _rows((12000, unit), torch.float32, cuda, 24)
+    sidx, didx = np.arange(0, 9000), np.arange(3000, 12000)  # overlapping
+    want = plain(sidx, didx, pool.clone(), pool.clone())
+    got = fn(sidx, didx, pool, pool)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetched_chain_copy_clamps_negative_indices_to_row_zero(
+        cuda):
+    from repro_torch.kernels.prefetch_pipeline import (
+        prefetched_chain_copy, prefetched_chain_copy_plain)
+    src = _rows((16, 1024), torch.float32, cuda, 25)
+    dst = _rows((16, 1024), torch.float32, cuda, 26)
+    sidx = np.array([3, -1, 7, 5, -7, 2])
+    didx = np.array([4, 6, -1, 8, 11, -3])
+    want = prefetched_chain_copy_plain(sidx, didx, src, dst.clone())
+    got = prefetched_chain_copy(sidx, didx, src, dst.clone(), depth=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[6], src[0]) and torch.equal(got[11], src[0])
+    assert torch.equal(got[0], src[2])          # the last write to row 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["descriptor_copy",
+                                    "prefetched_chain_copy"])
+def test_cuda_copies_raise_out_of_range_before_writing(cuda, kernel):
+    counter, fn, _, _ = _copy_kernels()[kernel]
+    src = _rows((16, 64), torch.float32, cuda, 27)
+    dst = torch.zeros((16, 64), device=cuda)
+    late = np.zeros(5001, np.int64)
+    late[-1] = 16            # out of range after the first table's worth
+    before = build.launch_counts()[counter]
+    for sidx, didx in ((np.array([0, 16]), np.array([1, 2])),
+                       (np.array([0, 1]), np.array([1, 16])),
+                       (late, np.arange(5001) % 16)):
+        with pytest.raises(IndexError, match="out of range"):
+            fn(sidx, didx, src, dst)
+    torch.cuda.synchronize()
+    assert not dst.any()
+    assert build.launch_counts()[counter] == before
+
+
+@pytest.mark.cuda
+def test_cuda_descriptor_copy_bucketed_raises_above_the_bucket(cuda):
+    src = _rows((16, 64), torch.float32, cuda, 28)
+    dst = torch.zeros((16, 64), device=cuda)
+    with pytest.raises(ValueError, match="exceed bucket"):
+        descriptor_copy_bucketed(np.arange(5), np.arange(5), src, dst,
+                                 n_bucket=4)
+    before = build.launch_counts()["descriptor_copy"]
+    descriptor_copy_bucketed(np.arange(4), np.arange(4), src, dst,
+                             n_bucket=4)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["descriptor_copy"] == before + 1
+    assert torch.equal(dst[:4], src[:4]) and not dst[4:].any()
+
+
 def _paged_inputs(device, dtype, b, h, kv, d, page, pool, maxp, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((b, h, d), generator=g).to(dtype).to(device)

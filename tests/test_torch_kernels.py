@@ -232,3 +232,105 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "flash_attention": 0,
                                      "moe_gather": 0,
                                      "moe_combine": 0}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA route's rules, modelled in plain Python (kernels/ref.py): the
+# launch function's host pass (drop -1, cut at MAX_TABLE) and the kernel's
+# last-write rule over one launch's table.
+# ---------------------------------------------------------------------------
+
+def _dup_streams(rng, n, rows):
+    """Seeded streams with -1 on both sides and many repeated
+    destinations (a few distinct rows for n descriptors)."""
+    return (rng.integers(-1, rows, n),
+            rng.integers(-1, max(n // 8, 2), n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4100])
+def test_last_write_keep_matches_keep_last(n):
+    from repro_torch.core.engine import keep_last
+    rng = np.random.default_rng(20 + n)
+    sidx, didx = _dup_streams(rng, n, 64)
+    active = (sidx >= 0) & (didx >= 0)
+    want = keep_last(didx, active)[active]
+    got = tref.last_write_keep(didx[active])
+    np.testing.assert_array_equal(got, want)
+    (s, d), = tref.table_launches(sidx, didx, cap=max(n, 1))
+    np.testing.assert_array_equal(d, didx[active])
+    np.testing.assert_array_equal(tref.last_write_keep(d), want)
+
+
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 4100])
+def test_table_route_model_matches_pallas_and_plain(n, same):
+    """The kernel's route (the host pass's launches in stream order, the
+    last-write rule per launch, reads of the pool before the call) equals
+    the Pallas kernel's in-order grid and the plain version, also when the
+    call is cut into launches of 7 and when src is dst."""
+    rng = np.random.default_rng(30 + n)
+    rows, unit = 512, 8
+    src = rng.standard_normal((rows, unit)).astype(np.float32)
+    dst = src if same else rng.standard_normal((rows, unit)).astype(
+        np.float32)
+    sidx, didx = _dup_streams(rng, n, rows)
+    p = jnp.asarray(src)
+    want = np.asarray(jcopy(jnp.asarray(sidx, jnp.int32),
+                            jnp.asarray(didx, jnp.int32), p,
+                            p if same else jnp.asarray(dst), **I))
+    s = torch.from_numpy(src.copy())
+    d = s if same else torch.from_numpy(dst.copy())
+    for cap in (None, 7):
+        got = tref.table_copy_ref(sidx, didx, s, d, cap=cap)
+        np.testing.assert_array_equal(got.numpy(), want)
+    got = descriptor_copy_plain(sidx, didx, s, d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_table_launches_cut_at_the_largest_capacity():
+    from repro_torch.kernels.descriptor_copy import MAX_TABLE
+    n = 2 * MAX_TABLE + 5
+    sidx, didx = np.arange(n), np.arange(n)[::-1].copy()
+    cuts = tref.table_launches(sidx, didx)
+    assert [s.size for s, _ in cuts] == [MAX_TABLE, MAX_TABLE, 5]
+    assert all(s.dtype == np.int32 for s, _ in cuts)
+    np.testing.assert_array_equal(np.concatenate([s for s, _ in cuts]), sidx)
+    np.testing.assert_array_equal(np.concatenate([d for _, d in cuts]), didx)
+    # -1 entries are dropped before the cut, in chain order.
+    sidx[::2] = -1
+    cuts = tref.table_launches(sidx, didx)
+    assert [s.size for s, _ in cuts] == [MAX_TABLE, n // 2 - MAX_TABLE]
+    np.testing.assert_array_equal(np.concatenate([s for s, _ in cuts]),
+                                  sidx[sidx >= 0])
+    assert tref.table_launches(np.zeros(0, np.int64),
+                               np.zeros(0, np.int64)) == []
+    assert len(tref.table_launches([-1, 0], [3, -1])) == 0
+
+
+@pytest.mark.parametrize("kind", ["list", "numpy", "torch"])
+def test_descriptor_copy_bucketed_still_raises_above_the_bucket(kind):
+    sidx, didx = [0, 1, 2], [3, 2, 1]
+    if kind == "numpy":
+        sidx, didx = np.array(sidx), np.array(didx)
+    elif kind == "torch":
+        sidx, didx = torch.tensor(sidx), torch.tensor(didx)
+    src, dst = torch.ones((4, 16)), torch.zeros((4, 16))
+    with pytest.raises(ValueError, match="exceed bucket"):
+        descriptor_copy_bucketed(sidx, didx, src, dst, n_bucket=2)
+    assert not dst.any()
+    descriptor_copy_bucketed(sidx, didx, src, dst, n_bucket=3)
+    assert dst[1:].all() and not dst[0].any()
+
+
+@pytest.mark.parametrize("which", ["descriptor_copy", "bucketed",
+                                   "prefetched_chain_copy"])
+def test_out_of_range_raises_before_the_destination_changes(which):
+    from repro_torch.kernels.prefetch_pipeline import prefetched_chain_copy
+    fn = {"descriptor_copy": descriptor_copy,
+          "bucketed": lambda *a: descriptor_copy_bucketed(*a, n_bucket=4),
+          "prefetched_chain_copy": prefetched_chain_copy}[which]
+    src, dst = torch.ones((4, 16)), torch.zeros((4, 16))
+    for sidx, didx in (([0, 4], [1, 2]), ([0, 1], [1, 4])):
+        with pytest.raises(IndexError, match="out of range"):
+            fn(np.array(sidx), np.array(didx), src, dst)
+        assert not dst.any()

@@ -235,3 +235,22 @@ def test_translate_chain_refuses_pending_pages_like_jax():
         translate_chain(from_pages([1, 2], 4), t, 4)
     with pytest.raises(ValueError):
         translate_chain(from_pages([1], 4), t, 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4100])
+def test_prefetch_table_route_model_matches_pallas(n):
+    """The kernel's route (negative indices clamped to row 0 in the host
+    pass, launches of at most MAX_TABLE, or 7, in stream order, the last
+    write per launch) equals the Pallas kernel run in order."""
+    rng = np.random.default_rng(40 + n)
+    src, dst = _pools(rng, 96, 8, np.float32)
+    sidx = rng.integers(-1, 96, n)
+    didx = rng.integers(-1, min(max(n // 8, 2), 96), n)
+    want = _j(sidx, didx, src, dst, 4)
+    for cap in (None, 7):
+        got = tref.table_copy_ref(sidx, didx, torch.from_numpy(src),
+                                  torch.from_numpy(dst), clamp=True, cap=cap)
+        np.testing.assert_array_equal(got.numpy(), want)
+    launches = tref.table_launches(sidx, didx, clamp=True)
+    assert sum(s.size for s, _ in launches) == n      # nothing is dropped
+    assert all(s.min() >= 0 and d.min() >= 0 for s, d in launches)
