@@ -61,12 +61,16 @@ Phases:
    dropped) and ``flash_attention`` within rtol = atol = 2e-5 (fp32) and
    2e-2 (bf16) (causal and not, windows of 64 and 100, H/KV 48/8, 8/8,
    8/2 and 16/4, S 2,048, 1,000, 777, 333 and 200, 64 queries over 300
-   keys, D 64 and 128, q scaled by 8 for large logits); their times with
+   keys, D 64 and 128, q scaled by 8 for large logits; and the head dims
+   of phase (o): 96, and 192 over values of 128, at phi-3-vision's and
+   deepseek-v2's prefill shapes and smaller ones); their times with
    the yardsticks ``index_select`` (gather), ``index_select`` + ``bmm``
    (combine, several calls) and SDPA with ``is_causal`` and ``enable_gqa``
    in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
-   registers, shared memory and spills (ptxas), and the fp32 flash kernel
-   timed at one smaller shape.
+   registers, shared memory and spills (ptxas), the fp32 flash kernel
+   timed at one smaller shape, and flash at 96 and 192/128 (causal, bf16,
+   B 2 x S 1,024 x 32 heads and B 4 x S 512 x 128 heads) beside its bound
+   and SDPA (``is_causal``, whose backends take DV != D).
 4. (k) The ``dma``/``mmu``/``transform``/``serve``/``sharded`` perf sweep
    on the card, after the pools of phase 3 are freed:
    ``repro_torch.perf.sweep.run_sweep`` with the spec of the committed
@@ -155,11 +159,36 @@ Phases:
    up to a first difference, where the full forward's top-2 margin must
    be under 8e-2. Prints the engine's median step ms, generated tokens/s
    and requests per shard.
-9. The most active descriptors one copy call received on each path
+9. (o) Every other model family at its published widths, after (n),
+   each drawn from ``--seed`` on the card and freed before the next:
+   deepseek-v2-236b cut to 2 of 60 layers (its dense layer 0 and one MoE
+   layer: MLA through flash at 192/128, 160 experts top-6; about 5.4 B
+   parameters, 21.6 GB fp32), jamba-v0.1-52b cut to one period of 8 of 32
+   (7 Mamba-2 layers, 1 attention, 4 MoE of 16 experts; 13.3 B, 53.1 GB),
+   and, uncut, mamba2-780m (48 layers), seamless-m4t-medium (12 encoder
+   layers over 512 stub frames, 12 decoder layers with cross-attention)
+   and phi-3-vision-4.2b (32 layers, head dim 96, 576 stub patch
+   embeddings before the tokens). Each: ``prefill`` of 4 x 512 tokens (B
+   2 x 448 after the patches for phi-3-vision, 4 x 128 for seamless) and
+   8 greedy decode steps (16 for mamba2-780m, which also serves 8 requests
+   through a ``ServeEngine``), its flash and MoE launches counted by path
+   and flash's by shape; the prefill held against the same on the plain
+   ops (the dispatch plans replayed) within rtol = atol = 6e-2, logits and
+   every cache; decode held against the full forward (teacher forcing)
+   from a prompt that fills one SSD chunk with its steps, MoE capacity
+   raised: in fp32 compute within 8e-2; in bf16, on the same tokens and
+   with the fp32 forward's experts, against the fp32 forward within the
+   larger of 8e-2 and twice the bf16 forward's own error there, the token
+   copies that bf16 rounding would route elsewhere counted and held under
+   a quarter. Prints the steady prefill's ms and tokens/s (the first,
+   cold call's ms beside it), the decode step's median ms and the card's
+   busy share of one step, and the peak device memory.
+10. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
    launches; a ``kernels`` JSON line (each kernel's launches summed over
-   the main path, (k), (j), (l), (m) and (n), and per path), then the
-   ``ok`` JSON line last.
+   the main path, (k), (j), (l), (m), (n) and (o), and per path; flash's
+   phase (o) launches by shape and its times at the new head dims), then
+   the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -205,6 +234,19 @@ FLASH_CASES = [  # B, S or (Sq, Sk), H, KV, D, causal, window, q scale
     (4, 512, 16, 2, 128, True, None, 1),     # qwen2.5-3b's prefill: G 8
 ]
 FLASH_FP32_SHAPE = (1, PROMPT_LEN, 48, 8, 128)   # B, S, H, KV, D, causal
+#: The head dims of phase (o)'s families: B, S or (Sq, Sk), H, KV, D, DV,
+#: causal, window.
+FLASH_WIDE_CASES = [
+    (2, 1024, 32, 32, 96, 96, True, None),     # phi-3-vision's prefill
+    (2, 300, 8, 8, 96, 96, False, None),
+    (1, 777, 8, 4, 96, 96, True, 100),
+    (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's MLA prefill
+    (2, 333, 16, 16, 192, 128, True, None),
+    (2, (64, 300), 8, 8, 192, 128, False, None),
+]
+#: The two timed: (label, B, S, H, KV, D, DV), causal, bf16.
+FLASH_WIDE_TIMED = [("phi-3-vision-4.2b", 2, 1024, 32, 32, 96, 96),
+                    ("deepseek-v2-236b", 4, 512, 128, 128, 192, 128)]
 
 
 @contextlib.contextmanager
@@ -798,15 +840,18 @@ def check_moe(torch, np, dev, rng) -> dict:
     return out
 
 
-def flash_work(q, k, causal: bool) -> tuple:
+def flash_work(q, k, causal: bool, v=None) -> tuple:
     """(bytes, operations) of the attention: q, k, v read once, the output
-    written once; 4 * D operations per visible (query, key) pair."""
+    (B, Sq, H, DV) written once; 2 * (D + DV) operations per visible
+    (query, key) pair. ``v`` defaults to k's shape."""
     b, s, h, d = q.shape
     sk = k.shape[1]
+    dv = d if v is None else v.shape[-1]
     pairs = s * (s + 1) // 2 if causal and s == sk else s * sk
-    n_bytes = 2 * q.numel() * q.element_size() \
-        + 2 * k.numel() * k.element_size()
-    return n_bytes, 4 * b * h * d * pairs
+    kv_bytes = k.numel() * k.element_size()
+    n_bytes = q.numel() * q.element_size() + kv_bytes * (1 + dv / d) \
+        + b * s * h * dv * q.element_size()
+    return int(n_bytes), 2 * b * h * (d + dv) * pairs
 
 
 def check_flash(torch, np, dev, rng) -> dict:
@@ -820,17 +865,21 @@ def check_flash(torch, np, dev, rng) -> dict:
     cfg = get_config(PREFILL_ARCH)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
 
-    def qkv(b, s, h, kv, d, dtype, q_scale=1):
+    def qkv(b, s, h, kv, d, dtype, q_scale=1, dv=None):
         sq, sk = s if isinstance(s, tuple) else (s, s)
         q = torch.randn((b, sq, h, d), device=dev, generator=g) * q_scale
-        k, v = (torch.randn((b, sk, kv, d), device=dev, generator=g)
-                for _ in range(2))
+        k = torch.randn((b, sk, kv, d), device=dev, generator=g)
+        v = torch.randn((b, sk, kv, dv or d), device=dev, generator=g)
         return [x.to(dtype) for x in (q, k, v)]
 
+    cases = [(b, s, h, kv, d, d, causal, window, q_scale)
+             for b, s, h, kv, d, causal, window, q_scale in FLASH_CASES]
+    cases += [(b, s, h, kv, d, dv, causal, window, 1)
+              for b, s, h, kv, d, dv, causal, window in FLASH_WIDE_CASES]
     err = 0.0
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for b, s, h, kv, d, causal, window, q_scale in FLASH_CASES:
-            q, k, v = qkv(b, s, h, kv, d, dtype, q_scale)
+        for b, s, h, kv, d, dv, causal, window, q_scale in cases:
+            q, k, v = qkv(b, s, h, kv, d, dtype, q_scale, dv)
             want = flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
             got = flash_attention(q, k, v, causal=causal, window=window)
@@ -840,12 +889,13 @@ def check_flash(torch, np, dev, rng) -> dict:
             if not bool(((got.float() - want.float()).abs() <= lim).all()):
                 raise AssertionError(
                     f"flash_attention disagrees: {dtype} B {b} S {s} "
-                    f"H/KV {h}/{kv} D {d} causal {causal} window {window} "
-                    f"q scale {q_scale}, max abs err {e}")
+                    f"H/KV {h}/{kv} D {d} DV {dv} causal {causal} window "
+                    f"{window} q scale {q_scale}, max abs err {e}")
             if dtype == torch.bfloat16:
                 err = max(err, e)
             log({"check": "flash_attention", "dtype": str(dtype), "B": b,
-                 "S": s, "H": h, "KV": kv, "D": d, "causal": causal,
+                 "S": s, "H": h, "KV": kv, "D": d, "DV": dv,
+                 "causal": causal,
                  "window": window, "q_scale": q_scale, "max_abs_err": e,
                  "rtol": tol, "atol": tol})
             del q, k, v, want, got
@@ -859,7 +909,7 @@ def check_flash(torch, np, dev, rng) -> dict:
     ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, 1, 0, 1,
+        o.data_ptr(), PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, d, 1, 0, 1,
         stream))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
                                                             causal=True),
@@ -885,6 +935,8 @@ def check_flash(torch, np, dev, rng) -> dict:
          "max_abs_diff_to_library": max_err(torch, ours, lib),
          "ptxas": flash_ptxas(build.BUILD_LOG.get("flash_attention"))})
     del q, k, v, o, ours, lib
+    out["shapes"] = [time_flash_shape(torch, qkv, spec)
+                     for spec in FLASH_WIDE_TIMED]
 
     # The fp32 path (the CUDA-core kernel) at one smaller shape, so that its
     # time is on record.
@@ -893,13 +945,56 @@ def check_flash(torch, np, dev, rng) -> dict:
     o = torch.empty_like(q)
     f32_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), b, s, s, h, kv, d, 1, 0, 0, stream))
+        o.data_ptr(), b, s, s, h, kv, d, d, 1, 0, 0, stream))
     n_bytes, n_ops = flash_work(q, k, True)
     log({"time": "flash_attention_fp32", "B": b, "S": s, "H": h, "KV": kv,
          "D": d, "dtype": "float32", "causal": True, "kernel_ms": f32_ms,
          "kernel_tflops": n_ops / f32_ms / 1e9,
          "bound_ms": bound_ms(n_bytes, n_ops)[0],
          "ops_rate": "fp32 outside the tensor cores, 67 TFLOP/s"})
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_shape(torch, qkv, spec) -> dict:
+    """``flash_attention`` at one of phase (o)'s head dims, causal, bf16:
+    the wrapper, the bare launch, the plain version and SDPA (which takes a
+    value head dim that differs through its math or memory-efficient
+    backend), beside the bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    label, b, s, h, kv, d, dv = spec
+    q, k, v = qkv(b, s, h, kv, d, torch.bfloat16, dv=dv)
+    o = q.new_empty((b, s, h, dv))
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    kernel_ms = time_ms(torch, lambda: build.launch(
+        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), b, s, s, h, kv, d, dv, 1, 0, 1, stream))
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
+                                                            causal=True),
+                       reps=3, warm=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    diff = max_err(torch, flash_attention(q, k, v, causal=True),
+                   sdpa(qt, kt, vt, is_causal=True).transpose(1, 2))
+    n_bytes, n_ops = flash_work(q, k, True, v)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    out = {"model": label, "B": b, "S": s, "H": h, "KV": kv, "D": d,
+           "DV": dv, "causal": True, "dtype": "bfloat16", "ms": ms,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": n_bytes, "operations": n_ops}
+    log({"time": "flash_attention_shape", **out,
+         "share_of_bound": b_ms / kernel_ms,
+         "kernel_tflops": n_ops / kernel_ms / 1e9,
+         "library_tflops": n_ops / library_ms / 1e9,
+         "library": "scaled_dot_product_attention(is_causal)",
+         "max_abs_diff_to_library": diff})
     del q, k, v, o
     torch.cuda.empty_cache()
     return out
@@ -915,10 +1010,14 @@ def flash_ptxas(build_log) -> dict:
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
             name = None
-            for tag, key in (("tc_kernelILi128E", "bf16_tc_d128"),
-                             ("tc_kernelILi64E", "bf16_tc_d64"),
-                             ("kernelIfLi128E", "fp32_d128"),
-                             ("kernelIfLi64E", "fp32_d64")):
+            for tag, key in (("tc_kernelILi128ELi128E", "bf16_tc_d128"),
+                             ("tc_kernelILi64ELi64E", "bf16_tc_d64"),
+                             ("tc_kernelILi96ELi96E", "bf16_tc_d96"),
+                             ("tc_kernelILi192ELi128E", "bf16_tc_d192_128"),
+                             ("kernelIfLi128ELi128E", "fp32_d128"),
+                             ("kernelIfLi64ELi64E", "fp32_d64"),
+                             ("kernelIfLi96ELi96E", "fp32_d96"),
+                             ("kernelIfLi192ELi128E", "fp32_d192_128")):
                 if tag in ln:
                     name = key
                     out[name] = {}
@@ -2502,6 +2601,479 @@ def sharded_serve_path(torch, np, dev, rng, params) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9 (o): every other model family at its published widths
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    arch: str
+    layers: int | None      # depth cut to this many layers; None: published
+    batch: int
+    prompt_len: int         # decoder tokens
+    steps: int              # greedy decode steps
+    frames: int = 0         # encoder frames (the encoder-decoder)
+    engine: bool = False    # also serve ENGINE_REQUESTS through a ServeEngine
+
+
+#: deepseek-v2-236b keeps its dense layer 0 and one MoE layer of 60;
+#: jamba-v0.1-52b one period of 8 of 32 (7 mamba + 1 attention, 4 MoE).
+FAMILIES = (
+    Family("deepseek-v2-236b", 2, 4, 512, 8),
+    Family("jamba-v0.1-52b", 8, 4, 512, 8),
+    Family("mamba2-780m", None, 4, 512, 16, engine=True),
+    Family("seamless-m4t-medium", None, 4, 128, 8, frames=512),
+    Family("phi-3-vision-4.2b", None, 2, 448, 8),
+)
+#: Teacher forcing runs from a shorter prompt, so that prompt and steps
+#: fill one SSD chunk of 256 (a longer pass must divide into chunks).
+TF_POSITIONS = 256
+#: Scale of the stub frontend embeddings (frames, patches): the token
+#: embeddings' init scale.
+STUB_SCALE = 0.02
+
+
+def family_layers(cfg):
+    """(mixer, ffn) of every decoder layer, prefix first."""
+    from repro_torch.models.transformer import n_periods
+    return [(cfg.block_pattern[0][0], "dense")] * cfg.first_k_dense \
+        + list(cfg.block_pattern) * n_periods(cfg)
+
+
+def family_launches(cfg, steps: int) -> tuple:
+    """The launches two prefills (cold, then steady) and ``steps`` decode
+    steps make: by kernel, and flash by shape key. Flash runs once a
+    prefill per attention layer (and per encoder layer and
+    cross-attention); the MoE kernels once per MoE layer per pass, decode
+    steps included."""
+    from collections import Counter
+
+    from repro_torch.kernels.flash_attention import shape_key
+    layers = family_layers(cfg)
+    n_attn = sum(m in ("attn", "local") for m, _ in layers)
+    n_moe = sum(f == "moe" for _, f in layers)
+    d = dv = cfg.head_dim_
+    if cfg.mla is not None:
+        d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        dv = cfg.mla.v_head_dim
+    shapes = Counter({shape_key(d, dv, True): 2 * n_attn})
+    if cfg.is_encdec:
+        shapes[shape_key(d, dv, False)] += 2 * (cfg.encoder_layers + n_attn)
+    shapes = +shapes
+    kernels = {"flash_attention": sum(shapes.values()),
+               "moe_gather": n_moe * (2 + steps),
+               "moe_combine": n_moe * (2 + steps)}
+    return kernels, dict(shapes)
+
+
+def family_batch(torch, np, dev, rng, cfg, spec, n_tokens: int) -> dict:
+    """Token ids and the stub frontend embeddings, from ``rng``."""
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (spec.batch, n_tokens)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    if spec.frames:
+        batch["frames"] = torch.randn((spec.batch, spec.frames, cfg.d_model),
+                                      device=dev, generator=g) * STUB_SCALE
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = torch.randn(
+            (spec.batch, cfg.prefix_len, cfg.d_model), device=dev,
+            generator=g) * STUB_SCALE
+    return batch
+
+
+def greedy_steps(torch, params, cfg, last, state, steps: int,
+                 tokens=None) -> tuple:
+    """``steps`` greedy decode steps from prefill's last logits, or with
+    ``tokens`` (a list of ``steps`` (B,) tensors) those tokens fed instead:
+    (fed tokens, logits per step (steps, B, V), step ms, state)."""
+    from repro_torch.models import decode_step
+    fed, outs, step_ms = [], [], []
+    tok = last.argmax(-1).to(torch.int32)
+    for i in range(steps):
+        if tokens is not None:
+            tok = tokens[i]
+        fed.append(tok)
+        t0 = time.perf_counter()
+        logits, state = decode_step(params, tok, state, cfg)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits)
+    return fed, torch.stack(outs), step_ms, state
+
+
+def cache_tensors(caches):
+    """(name, tensor) of every decode cache field but the tags."""
+    for key in ("prefix", "slots", "cross_prefix", "cross_slots"):
+        for i, c in enumerate(caches.get(key, ())):
+            for name, x in zip(c._fields, c):
+                if name != "kv_pos" and x.numel():
+                    yield f"{key}{i}.{name}", x
+
+
+#: At most this share of the bf16 routes' token copies may go to other
+#: experts than the fp32 forward's top-k (a near tie that rounding flips);
+#: a router at fault moves most of them.
+FLIP_SHARE = 0.25
+
+
+def plan_experts(torch, plan, num_experts: int):
+    """(T, k) expert of each token copy of a plan in which nothing drops."""
+    if bool((plan.inv_slot < 0).any()):
+        raise AssertionError("a teacher-forcing pass dropped a token copy")
+    cap = plan.token_idx.shape[0] // num_experts
+    return plan.inv_slot.long() // cap
+
+
+@contextlib.contextmanager
+def forced_routing(torch, experts, flipped: list):
+    """Each MoE dispatch plan routes its tokens to the experts that
+    ``experts`` (an iterator of (T, k) expert ids) gives in turn, gated by
+    the route's own router probabilities (renormalised where the config
+    says so), through the package's own plan builder; ``flipped`` receives,
+    per plan, the token copies that the route's own top-k sends elsewhere."""
+    from unittest import mock
+
+    from repro_torch.models import moe as moe_mod
+    real_plan, real_top_k = moe_mod.moe_dispatch_plan, moe_mod.top_k
+
+    def forcing(probs, m, cap):
+        want = next(experts).sort(-1).values
+        own = real_top_k(probs, m.experts_per_token)[1].sort(-1).values
+        flipped.append(int((own != want).sum()))
+        # The route's own order among them: descending, ties to lower ids.
+        order = torch.sort(-probs.gather(-1, want), dim=-1,
+                           stable=True).indices
+        want = want.gather(-1, order)
+        with mock.patch.object(moe_mod, "top_k",
+                               lambda p, k: (p.gather(-1, want), want)):
+            return real_plan(probs, m, cap)
+
+    with mock.patch.object(moe_mod, "moe_dispatch_plan", forcing):
+        yield
+
+
+def family_teacher_forcing(torch, np, dev, rng, params, cfg, spec) -> dict:
+    """Decode against the full forward (teacher forcing) from a prompt of
+    TF_POSITIONS - steps tokens, MoE capacity raised so that no pass drops
+    a token (tests/test_models_smoke.py does the same).
+
+    fp32 compute: greedy decode steps, the logits held within TF_TOL of
+    the forward's on the same tokens.
+
+    bf16 compute, on the fp32 run's tokens: the two schedules (a chunked
+    SSD against its recurrence, flash against the dense decode view)
+    round apart by more than TF_TOL over mamba2-780m's 48 layers (0.148,
+    the port on the CPU), so each bf16 route is held against the fp32
+    forward: the decode's logits within max(TF_TOL, 2 e), e being the
+    bf16 forward's own largest error there. Rounding keeps the decode near
+    e; a fault in the bf16 decode lands far beyond it. Both bf16 routes
+    take the fp32 forward's experts, so that a top-k choice that rounding
+    flips near a tie moves neither; the copies that their own top-k would
+    have sent elsewhere are counted and held under FLIP_SHARE."""
+    from repro_torch.models import forward, prefill
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    n = min(spec.prompt_len, TF_POSITIONS) - spec.steps
+    batch = family_batch(torch, np, dev, rng, cfg, spec, n)
+    pre = cfg.prefix_len if "prefix_embeds" in batch else 0
+    positions = pre + n + spec.steps
+    label = f"phase o {spec.arch}: teacher forcing"
+
+    plans = []
+    with recording_plans(plans):
+        last, state = prefill(params, batch, cfg32, positions)
+        n_moe = len(plans)
+        fed, got32, _, state = greedy_steps(torch, params, cfg32, last,
+                                            state, spec.steps)
+        del state
+        seq = torch.cat([batch["tokens"], torch.stack(fed, dim=1)], dim=1)
+        full32, _, _, _ = forward(params, dict(batch, tokens=seq), cfg32)
+    full32 = full32[:, n:].transpose(0, 1).contiguous()    # (steps, B, V)
+    flips32 = routing_flips(torch, cfg, plans, n_moe, spec.steps, positions,
+                            pre + n)
+    tf32 = hold_close(torch, f"{label} in float32", got32, full32, TF_TOL)
+    del got32
+
+    # The fp32 forward's experts, per MoE layer (B, positions, k), fed to
+    # the bf16 forward in layer order and to the bf16 decode as its prefill
+    # and steps consume them.
+    routes = [plan_experts(torch, p, cfg.moe.num_experts).view(
+        spec.batch, positions, -1) for p in plans[n_moe * (1 + spec.steps):]]
+    to_forward = [r.reshape(-1, r.shape[-1]) for r in routes]
+    to_decode = [r[:, :pre + n].reshape(-1, r.shape[-1]) for r in routes] \
+        + [r[:, pre + n + s] for s in range(spec.steps) for r in routes]
+    flipped = {"forward": [], "decode": []}
+    with forced_routing(torch, iter(to_forward), flipped["forward"]):
+        full16, _, _, _ = forward(params, dict(batch, tokens=seq), cfg16)
+    full16 = full16[:, n:].transpose(0, 1).contiguous()
+    with forced_routing(torch, iter(to_decode), flipped["decode"]):
+        last, state = prefill(params, batch, cfg16, positions)
+        _, got16, _, state = greedy_steps(torch, params, cfg16, last, state,
+                                          spec.steps, fed)
+    del state, last
+    copies = {"forward": sum(r.numel() for r in to_forward),
+              "decode": sum(r.numel() for r in to_decode)}
+    flip_share = {k: sum(v) / copies[k] if copies[k] else 0.0
+                  for k, v in flipped.items()}
+    if max(flip_share.values()) > FLIP_SHARE:
+        raise AssertionError(f"{label} in bfloat16: {flip_share} of the "
+                             "token copies routed otherwise than the fp32 "
+                             f"forward, more than {FLIP_SHARE}")
+    fwd_err = max_err(torch, full16, full32)
+    tol = max(TF_TOL, 2 * fwd_err)
+    tf16 = hold_close(torch, f"{label} in bfloat16 against the fp32 forward",
+                      got16, full32, tol)
+    need = max(TF_TOL, 2 * tf16["max_abs_err"])
+    greedy = hold_greedy(torch, f"{label} in bfloat16", got16, full32, need)
+    return {"prompt_len": n, "steps": spec.steps,
+            "float32": {**tf32, "routing_flips": flips32},
+            "bfloat16": {**tf16, "forward_max_abs_err": fwd_err,
+                         "against_bf16_forward_max_abs_err":
+                             max_err(torch, got16, full16),
+                         "copies_routed_otherwise": {
+                             k: sum(v) for k, v in flipped.items()},
+                         "copies": copies,
+                         "greedy_margin_needed": need,
+                         "greedy_checked": greedy["checked"],
+                         "of": greedy["of"]}}
+
+
+def routing_flips(torch, cfg, plans, n_moe: int, steps: int, seq: int,
+                  first: int):
+    """Tokens whose set of experts differs between a decode step and the
+    full forward at the same position, over the MoE layers: ``plans`` holds
+    the prefill's ``n_moe`` plans, then ``n_moe`` a step, then the
+    forward's (over ``seq`` positions; step s is position first + s).
+    None without MoE layers."""
+    if not n_moe:
+        return None
+
+    def experts(plan):                         # (T, k), sorted per token
+        return plan_experts(torch, plan, cfg.moe.num_experts).sort(-1).values
+
+    forward_plans = plans[n_moe * (1 + steps):]
+    flips = 0
+    for s in range(steps):
+        for j in range(n_moe):
+            dec = experts(plans[n_moe * (1 + s) + j])           # (B, k)
+            fwd = experts(forward_plans[j]).view(dec.shape[0], seq, -1)
+            flips += int((dec != fwd[:, first + s]).any(-1).sum())
+    return flips
+
+
+def family_engine(torch, np, dev, rng, params, cfg) -> dict:
+    """ENGINE_REQUESTS requests through a ServeEngine (capacity
+    ENGINE_CAPACITY), polled every ENGINE_POLL_EVERY steps; every request
+    must be delivered through its writeback."""
+    from repro_torch.runtime import PerfProbe, SubmitRequest
+    from repro_torch.serve import Request, ServeEngine
+    lo, hi = ENGINE_PROMPT_LENS
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             int(rng.integers(lo, hi + 1)))]
+               for _ in range(ENGINE_REQUESTS)]
+    probe = PerfProbe()
+    eng = ServeEngine(params, cfg, capacity=ENGINE_CAPACITY,
+                      max_len=ENGINE_MAX_LEN, device=dev)
+    eng.attach_probe(probe)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(SubmitRequest(request=Request(
+            uid=uid, prompt=prompt, max_new_tokens=ENGINE_NEW_TOKENS)))
+    engine_ms = []
+    t_engine = time.perf_counter()
+    while eng.queue or any(s.busy for s in eng.slots):
+        t0 = time.perf_counter()
+        eng.step()
+        engine_ms.append((time.perf_counter() - t0) * 1e3)
+        if eng.steps % ENGINE_POLL_EVERY == 0:
+            eng.poll_completed()
+    delivered = eng.poll_completed()
+    engine_s = time.perf_counter() - t_engine
+    if sorted(r.uid for r in delivered) != list(range(ENGINE_REQUESTS)) \
+            or probe.serve.completions_observed != ENGINE_REQUESTS \
+            or any(len(r.output) != ENGINE_NEW_TOKENS for r in delivered):
+        raise AssertionError(f"phase o {cfg.name}: {len(delivered)} of "
+                             f"{ENGINE_REQUESTS} requests delivered")
+    generated = sum(len(r.output) for r in delivered)
+    return {"requests": ENGINE_REQUESTS, "capacity": ENGINE_CAPACITY,
+            "steps": eng.steps,
+            "step_ms_median": statistics.median(engine_ms),
+            "generated_tokens_per_s": generated / engine_s,
+            "outputs": {r.uid: r.output for r in delivered},
+            "prompts": prompts}
+
+
+def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
+    """One family at its published widths: prefill and greedy decode steps
+    through the kernels (counted), the prefill held against the same on
+    the plain ops (the dispatch plans replayed), decode against teacher
+    forcing; with ``spec.engine``, a ServeEngine too, each request's first
+    token held against prefill's greedy one. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import LAUNCHES_BY_SHAPE
+    from repro_torch.models import init_params, prefill
+
+    cfg = get_config(spec.arch)
+    if spec.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=spec.layers)
+    label = spec.arch.replace("-", "_").replace(".", "_")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    log({"init": spec.arch, "layers": cfg.num_layers,
+         "published_layers": get_config(spec.arch).num_layers,
+         "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+         "head_dim": cfg.head_dim_, "vocab": cfg.padded_vocab,
+         "params": sum(x.numel() for x in _leaves(params)),
+         "param_bytes": sum(x.numel() * x.element_size()
+                            for x in _leaves(params)),
+         "seconds": time.perf_counter() - t0})
+    batch = family_batch(torch, np, dev, rng, cfg, spec, spec.prompt_len)
+    pre = cfg.prefix_len if "prefix_embeds" in batch else 0
+    positions = pre + spec.prompt_len
+    max_len = positions + spec.steps + 1      # + the profiled step
+
+    def timed_prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(params, batch, cfg, max_len)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    plans = []
+    build.reset_launches()                    # the family's path starts here
+    LAUNCHES_BY_SHAPE.clear()
+    # The first call pays first-call costs; the second is the steady one.
+    cold_prefill_ms = timed_prefill()[1]
+    with recording_plans(plans):
+        (last, state), prefill_ms = timed_prefill()
+    _, _, step_ms, state = greedy_steps(torch, params, cfg, last, state,
+                                        spec.steps)
+    engine = family_engine(torch, np, dev, rng, params, cfg) \
+        if spec.engine else None
+    launches = build.launch_counts()          # the family's path ends here
+    shapes = dict(LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated()
+    want_k, want_shapes = family_launches(cfg, spec.steps)
+    expect_launches(f"o {spec.arch}", launches, want_k)
+    if shapes != want_shapes:
+        raise AssertionError(f"phase o {spec.arch}: flash launched {shapes} "
+                             f"by shape, expected {want_shapes}")
+    if last.shape != (spec.batch, cfg.padded_vocab) \
+            or not bool(torch.isfinite(last.float()).all()):
+        raise AssertionError(f"phase o {spec.arch}: prefill logits "
+                             f"{tuple(last.shape)} or not finite")
+    decode_ms = statistics.median(step_ms)
+    n_tok = spec.batch * positions
+    log({"phase": f"o_{label}", "prefill_ms": prefill_ms,
+         "prefill_tokens_per_s": n_tok / (prefill_ms / 1e3),
+         "cold_prefill_ms": cold_prefill_ms,
+         "batch": spec.batch, "prompt_len": spec.prompt_len,
+         "prefix_len": pre, "encoder_frames": spec.frames,
+         "decode_steps": spec.steps, "step_ms_median": decode_ms,
+         "step_ms": step_ms,
+         "decode_tokens_per_s": spec.batch / (decode_ms / 1e3),
+         "max_memory_allocated": peak, "launches": launches,
+         "flash_launches_by_shape": shapes,
+         "engine": None if engine is None else {
+             k: v for k, v in engine.items()
+             if k not in ("outputs", "prompts")}})
+
+    # One more decode step, profiled: the card's busy share of a step.
+    from repro_torch.models import decode_step
+    tok = last.argmax(-1).to(torch.int32)
+    rows = device_profile(torch, lambda: decode_step(params, tok, state, cfg),
+                          f"o_{label}_decode_step")
+    busy = None
+    if rows:
+        busy = sum(r[0] for r in rows) / 1e3 / decode_ms
+        log({"profile": f"o_{label}_decode_step",
+             "device_ms": sum(r[0] for r in rows) / 1e3,
+             "device_busy_share_of_step": busy,
+             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                     for us, k, n in rows[:8]]})
+    del state
+
+    # The prefill again on the plain ops, the first run's plans replayed.
+    flipped = []
+    before = build.launch_counts()
+    with plain_kernels(torch, iter(plans), flipped):
+        last_p, state_p = prefill(params, batch, cfg, max_len)
+    torch.cuda.synchronize()
+    if build.launch_counts() != before:
+        raise AssertionError(f"phase o {spec.arch}: the plain prefill "
+                             "launched a kernel")
+    close = hold_close(torch, f"phase o {spec.arch}: prefill logits against "
+                       "the plain prefill", last, last_p, LOGIT_TOL)
+    greedy = hold_greedy(torch, f"phase o {spec.arch} prefill", last, last_p,
+                         LOGIT_TOL)
+    _, state = prefill(params, batch, cfg, max_len)
+    caches = {}
+    for (name, a), (_, b) in zip(cache_tensors(state.caches),
+                                 cache_tensors(state_p.caches)):
+        caches[name] = hold_close(torch, f"phase o {spec.arch}: cache {name} "
+                                  "against the plain prefill", a, b,
+                                  LOGIT_TOL)["max_abs_err"]
+    del state, state_p, last_p
+    log({"check": f"o_{label}_prefill_vs_plain", **close,
+         "copies_routed_otherwise_in_plain_run": flipped,
+         "caches_max_abs_err": max(caches.values()), "caches": len(caches),
+         "greedy_checked": greedy["checked"], "of": greedy["of"]})
+
+    tf = family_teacher_forcing(torch, np, dev, rng, params, cfg, spec)
+    log({"check": f"o_{label}_teacher_forcing", **tf})
+    if engine is not None:
+        # Each request's first token against prefill's greedy token for its
+        # prompt, where the top-2 margin exceeds the teacher-forcing bound.
+        firsts, wants = [], []
+        for uid, prompt in enumerate(engine["prompts"]):
+            first, _ = prefill(params, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int32, device=dev)}, cfg,
+                ENGINE_MAX_LEN)
+            wants.append(first[0])
+            firsts.append(engine["outputs"][uid][0])
+        want = torch.stack(wants).float()
+        top2 = want.topk(2, dim=-1).values
+        need = tf["bfloat16"]["greedy_margin_needed"]
+        sure = top2[:, 0] - top2[:, 1] > need
+        got_tok = torch.tensor(firsts, device=dev)
+        if not torch.equal(got_tok[sure], want.argmax(-1)[sure]):
+            raise AssertionError(f"phase o {spec.arch}: an engine's first "
+                                 "token differs from prefill's greedy token "
+                                 "where the margin exceeds the tolerance")
+        log({"check": f"o_{label}_engine_first_token_vs_prefill",
+             "engine": firsts, "prefill_greedy": want.argmax(-1).tolist(),
+             "checked": int(sure.sum()), "of": len(firsts)})
+    del params, last
+    torch.cuda.empty_cache()
+    return {"launches": launches, "flash_by_shape": shapes,
+            "prefill_ms": prefill_ms, "cold_prefill_ms": cold_prefill_ms,
+            "step_ms_median": decode_ms,
+            "busy_share": busy, "peak_bytes": peak}
+
+
+def family_path(torch, np, dev, rng, seed: int) -> dict:
+    """(o) The five families, each freed before the next. Returns the
+    launches summed over them, and flash's by shape."""
+    from collections import Counter
+    total, shapes = Counter(), Counter()
+    for spec in FAMILIES:
+        t0 = time.perf_counter()
+        out = family_run(torch, np, dev, rng, seed, spec)
+        total.update(out["launches"])
+        shapes.update(out["flash_by_shape"])
+        log({"phase": f"o_{spec.arch}", "seconds": time.perf_counter() - t0})
+    return dict(total), dict(shapes)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2583,13 +3155,17 @@ def main() -> int:
         by_path["n_sharded_serve"] = sharded_serve_path(torch, np, dev, rng,
                                                         params)
     log({"phase": "n", "seconds": time.perf_counter() - t0})
+    del params
+    torch.cuda.empty_cache()                  # (l)'s weights are gone
+    t0 = time.perf_counter()
+    by_path["o_families"], flash_shapes = family_path(torch, np, dev, rng,
+                                                      args.seed)
+    log({"phase": "o", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(
              p for p, t in tables.items()
              if any(n > MAX_TABLE for n in t.values()))})
-    del params
-    torch.cuda.empty_cache()
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in build.LAUNCHES}
 
@@ -2612,6 +3188,10 @@ def main() -> int:
     kernels = []
     for name, (counter, lib, replaces) in src.items():
         t = timing[counter]
+        extra = {}
+        if name == "flash_attention":
+            extra = {"launches_by_shape_o_families": flash_shapes,
+                     "shapes": t["shapes"]}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
                         "replaces": replaces, "launches": launches[counter],
@@ -2621,7 +3201,7 @@ def main() -> int:
                         "kernel_ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"], **extra})
     log(smi)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -49,7 +49,7 @@ _SYMBOLS = {
                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p]),
     "moe_gather": ("moe_dispatch", "moe_gather_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2

@@ -1,11 +1,15 @@
 // Flash attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (body _flash_kernel): q (B, Sq, H, D) attends over k, v (B, Sk, KV, D)
-// with GQA (query head h reads KV head h / (H / KV)), an optional causal mask
+// (body _flash_kernel): q (B, Sq, H, D) attends over k (B, Sk, KV, D) and
+// v (B, Sk, KV, DV) with GQA (query head h reads KV head h / (H / KV)), an optional causal mask
 // (key j <= query i) and an optional window (i - j < window), positions
 // counted from 0 in both. Online softmax in fp32 over the scores times
-// D**-0.5; the output acc / max(l, 1e-30) is written in q's dtype. A masked
+// D**-0.5; the output (B, Sq, H, DV) acc / max(l, 1e-30) is written in q's
+// dtype. (D, DV) is one of (64, 64), (96, 96), (128, 128) and (192, 128):
+// phi-3-vision's heads of 96 and MLA's query/key heads of 192 (128 without
+// position + 64 rotated) over value heads of 128, as the reference's
+// blockwise_attention takes them (repro/models/attention.py). A masked
 // score contributes exactly 0, so a row with no visible key comes out as
 // zeros.
 //
@@ -28,7 +32,13 @@
 // * Loads by TMA. 4-D tensor maps over (D, heads, S, B) with the tensors'
 //   own strides (nothing is repacked, K/V are not repeated per query head);
 //   boxes of 64 columns (128 bytes, the widest 128-byte-swizzled box) by 128
-//   rows, so a D 128 tile is two boxes. Each Q tile has its own buffer; K
+//   rows, so a D 128 tile is two boxes. D 96 is two boxes too: the tensor
+//   map's rows are 96 long, so the TMA unit fills columns 96-127 of the
+//   second box with zeros; Q K^T reads 6 k16 steps of it, and P V (n 128)
+//   adds 0 to the 32 output columns that the epilogue never stores. D 192
+//   is three boxes, and its blocks take one query tile instead of two:
+//   two tiles of Q, the K ring and the V ring would need 257 KB of shared
+//   memory, one Q tile 209 KB. Each Q tile has its own buffer; K
 //   and V tiles of 128 keys go through a ring of 2 stages, each with a full
 //   and an empty mbarrier, so the next tile loads while this one is
 //   multiplied. Rows past S are zero-filled by the TMA unit and masked here.
@@ -55,7 +65,7 @@
 // within 2e-5 of the plain version, which TF32 or bf16 products could not
 // hold. One block per (64 q rows, query head, batch), 4 warps; Q, K and V
 // tiles in fp32 shared memory (rows padded by 4 floats against bank
-// conflicts), K and V sharing one buffer in turn; thread (r, c) of a 16 x 8
+// conflicts), K and V sharing one buffer in turn (rows of max(D, DV)); thread (r, c) of a 16 x 8
 // grid owns rows 4r .. 4r+3 and the score columns c, c + 8, ...; a validity
 // bit per score keeps masked keys at p = 0; the probabilities go through
 // shared memory to the product with V. Tiles wholly above the diagonal or
@@ -103,18 +113,20 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int sq,
                        int sk, int heads, int kv_heads, int causal, int window,
                        float scale) {
   constexpr int kLd = D + 4;
-  constexpr int kCols = D / 32;  // float4 output columns per thread
+  constexpr int kLdV = DV + 4;
+  constexpr int kLdKV = kLd > kLdV ? kLd : kLdV;
+  constexpr int kCols = DV / 32;  // float4 output columns per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // kBM x kLd
-  float* kvs = qs + kBM * kLd;                  // kBN x kLd
-  float* ps = kvs + kBN * kLd;                  // kBM x kPadP
+  float* kvs = qs + kBM * kLd;                  // kBN x kLdKV: K, then V
+  float* ps = kvs + kBN * kLdKV;                // kBM x kPadP
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // late (heavy) tiles first
   const int h = blockIdx.y;
@@ -126,12 +138,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_stride = static_cast<long long>(heads) * D;
   const long long kv_stride = static_cast<long long>(kv_heads) * D;
+  const long long v_stride = static_cast<long long>(kv_heads) * DV;
+  const long long o_stride = static_cast<long long>(heads) * DV;
   const T* qb = q + (static_cast<long long>(b) * sq + q0) * q_stride +
                 static_cast<long long>(h) * D;
   const T* kb = k + static_cast<long long>(b) * sk * kv_stride +
                 static_cast<long long>(kh) * D;
-  const T* vb = v + static_cast<long long>(b) * sk * kv_stride +
-                static_cast<long long>(kh) * D;
+  const T* vb = v + static_cast<long long>(b) * sk * v_stride +
+                static_cast<long long>(kh) * DV;
 
   const int q_rows = min(kBM, sq - q0);
   load_tile<T, D, kBM>(qs, qb, q_stride, q_rows);
@@ -223,7 +237,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // every warp is done with K
-    load_tile<T, D, kBN>(kvs, vb + k0 * kv_stride, kv_stride, k_rows);
+    load_tile<T, DV, kBN>(kvs, vb + k0 * v_stride, v_stride, k_rows);
     __syncthreads();  // V (and this warp's probabilities) visible
 
     // acc += P V over this tile's keys.
@@ -233,7 +247,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = load4(ps + (4 * tr + i) * kPadP + key);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = kvs + (key + u) * kLd + 4 * tc;
+        const float* vrow = kvs + (key + u) * kLdV + 4 * tc;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const float4 vv = load4(vrow + 32 * c);
@@ -256,8 +270,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = 4 * tr + i;
     if (row >= q_rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = out + (static_cast<long long>(b) * sq + q0 + row) * q_stride +
-              static_cast<long long>(h) * D + 4 * tc;
+    T* orow = out + (static_cast<long long>(b) * sq + q0 + row) * o_stride +
+              static_cast<long long>(h) * DV + 4 * tc;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const float4 a = acc[i][c];
@@ -277,6 +291,27 @@ constexpr int kTcStages = 2;       // K/V ring depth
 constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr int kBoxCols = 64;       // bf16 columns per TMA box (128 bytes)
 constexpr uint32_t kBoxBytes = 128 * 128;  // one box of 128 rows
+constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
+
+// The tensor-core kernel's tiles for query/key head dim D and value head dim
+// DV: boxes of 64 columns (the last one zero-filled past D or DV), P V as
+// wide as the V boxes, and two query tiles a block where they fit.
+template <int D, int DV>
+struct TcTiles {
+  static constexpr int kQkBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
+  static constexpr int kPv = kVBoxes * kBoxCols;  // n of the P V product
+  static constexpr uint32_t kQk = kQkBoxes * kBoxBytes;  // a Q or K tile
+  static constexpr uint32_t kV = kVBoxes * kBoxBytes;    // a V tile
+  // The K and V rings and 1 KB of alignment slack, beside the Q tiles.
+  static constexpr size_t kRing =
+      kTcStages * (static_cast<size_t>(kQk) + kV) + 1024;
+  static constexpr int kQTiles =
+      2 * static_cast<size_t>(kQk) + kRing <= kSmemMax ? 2 : 1;
+  static constexpr size_t kSmem = kQTiles * static_cast<size_t>(kQk) + kRing;
+  static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
+  static_assert(kPv == 64 || kPv == 128, "P V is n64 or n128");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -513,7 +548,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // S (64 x 128) = Q K^T for one warpgroup: Q rows at `q_s`, K tile at `k_s`,
 // both K-major in boxes of 64 columns; a k16 step is 32 bytes into a box,
-// and steps 4..7 (D 128) are in the second box.
+// steps 4..7 are in the second box and 8..11 (D 192) in the third.
 template <int D>
 __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_s,
                                            uint32_t k_s) {
@@ -530,17 +565,17 @@ __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_s,
   }
 }
 
-// O (64 x D) += P V: P's k16 step kk is registers p[4kk .. 4kk+3]; V is
+// O (64 x N) += P V: P's k16 step kk is registers p[4kk .. 4kk+3]; V is
 // MN-major, 16 keys (2 swizzle atoms, 2,048 bytes) per step, the second
 // box of 64 columns 16 KB on (the leading byte offset).
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+template <int N>
+__device__ __forceinline__ void pv_product(float (&o)[N / 2],
                                            const uint32_t (&p)[32],
                                            uint32_t v_s) {
 #pragma unroll
   for (int kk = 0; kk < kTcKeys / 16; ++kk) {
     const uint64_t b = sw128_desc(v_s + 2048 * kk, kBoxBytes, 1024);
-    if constexpr (D == 128) {
+    if constexpr (N == 128) {
       wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                           p[4 * kk + 3], b);
     } else {
@@ -628,7 +663,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -636,15 +671,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ out, int sq, int sk,
                           int heads, int kv_heads, int causal, int window,
                           float scale_log2) {
-  constexpr uint32_t kTile = (D / kBoxCols) * kBoxBytes;  // Q, K or V tile
+  using Tiles = TcTiles<D, DV>;
+  constexpr uint32_t kQk = Tiles::kQk;  // bytes of a Q or K tile
+  constexpr uint32_t kV = Tiles::kV;    // bytes of a V tile
+  constexpr int kQTiles = Tiles::kQTiles;
+  constexpr int kPv = Tiles::kPv;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 4 * kTcStages];
   // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const auto q_s = [&](int t) { return base + t * kTile; };
-  const auto k_s = [&](int st) { return base + (2 + st) * kTile; };
+  const auto q_s = [&](int t) { return base + t * kQk; };
+  const auto k_s = [&](int st) { return base + (kQTiles + st) * kQk; };
   const auto v_s = [&](int st) {
-    return base + (2 + kTcStages + st) * kTile;
+    return base + (kQTiles + kTcStages) * kQk + st * kV;
   };
   const uint32_t bar0 = smem_u32(bars);
   const auto q_full = [&](int t) { return bar0 + 8 * t; };
@@ -666,9 +705,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int kh = h / (heads / kv_heads);
   // The block's query tiles: tile T - 1 - z, then tile z (one tile where
   // they meet), so every block has the same causal work, the heavy first.
+  // With one Q tile a block (kQTiles 1), block z takes tile T - 1 - z.
   const int z = blockIdx.z;
   const int qt_first = (sq + kTcRows - 1) / kTcRows - 1 - z;
-  const int n_q = z < qt_first ? 2 : 1;
+  const int n_q = kQTiles == 2 && z < qt_first ? 2 : 1;
   struct Span {
     int q0, k_lo, n_tiles;  // keys [k_lo, k_hi) in tiles from k_lo
   };
@@ -707,8 +747,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 0; t < n_q; ++t) {
       const Span sp = span(t);
       if (sp.n_tiles == 0) continue;
-      mbar_expect_tx(q_full(t), kTile);
-      for (int c = 0; c < D / kBoxCols; ++c) {
+      mbar_expect_tx(q_full(t), kQk);
+      for (int c = 0; c < Tiles::kQkBoxes; ++c) {
         tma_load_4d(q_s(t) + c * kBoxBytes, &tq, q_full(t), c * kBoxCols, h,
                     sp.q0, b);
       }
@@ -720,14 +760,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const int st = stage(it);
         const int k0 = sp.k_lo + j * kTcKeys;
         mbar_wait(k_empty(st), phase(it) ^ 1);  // the first round passes
-        mbar_expect_tx(k_full(st), kTile);
-        for (int c = 0; c < D / kBoxCols; ++c) {
+        mbar_expect_tx(k_full(st), kQk);
+        for (int c = 0; c < Tiles::kQkBoxes; ++c) {
           tma_load_4d(k_s(st) + c * kBoxBytes, &tk, k_full(st),
                       c * kBoxCols, kh, k0, b);
         }
         mbar_wait(v_empty(st), phase(it) ^ 1);
-        mbar_expect_tx(v_full(st), kTile);
-        for (int c = 0; c < D / kBoxCols; ++c) {
+        mbar_expect_tx(v_full(st), kV);
+        for (int c = 0; c < Tiles::kVBoxes; ++c) {
           tma_load_4d(v_s(st) + c * kBoxBytes, &tv, v_full(st),
                       c * kBoxCols, kh, k0, b);
         }
@@ -751,9 +791,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
     const uint32_t q_wg = q_s(t) + wg * 64 * 128;
 
-    float o[D / 2];
+    float o[kPv / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kPv / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
 
@@ -790,7 +830,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
         qk_product<D>(s, q_wg, k_s(stage(it)));
         wgmma_commit();
-        pv_product<D>(o, p, v_s(stage(it - 1)));
+        pv_product<kPv>(o, p, v_s(stage(it - 1)));
         wgmma_commit();
         wgmma_wait<1>();  // S is in
         hold(s);
@@ -809,7 +849,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         hold(p);
         mbar_arrive(v_empty(stage(it - 1)));
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < kPv / 8; ++i) {
           o[4 * i] *= corr[0];
           o[4 * i + 1] *= corr[0];
           o[4 * i + 2] *= corr[1];
@@ -824,7 +864,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       hold(o);
       hold(p);
       wgmma_fence();
-      pv_product<D>(o, p, v_s(stage(last)));
+      pv_product<kPv>(o, p, v_s(stage(last)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(o);
@@ -841,9 +881,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (qi >= sq) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       __nv_bfloat16* orow =
-          out + ((static_cast<long long>(b) * sq + qi) * heads + h) * D + c0;
+          out + ((static_cast<long long>(b) * sq + qi) * heads + h) * DV + c0;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         *reinterpret_cast<uint32_t*>(orow + 8 * i) =
             pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
       }
@@ -851,21 +891,23 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* out, int batch,
              int sq, int sk, int heads, int kv_heads, int causal, int window,
              cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((kBM + kBN) * static_cast<size_t>(D + 4) + kBM * kPadP);
+      sizeof(float) * (kBM * static_cast<size_t>(D + 4) +
+                       kBN * static_cast<size_t>((D > DV ? D : DV) + 4) +
+                       kBM * kPadP);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_attention_kernel<T, D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // D ** -0.5 as the reference computes it, in double, then rounded.
   const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
   const dim3 grid(static_cast<unsigned>((sq + kBM - 1) / kBM),
                   static_cast<unsigned>(heads), static_cast<unsigned>(batch));
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, heads, kv_heads,
       causal, window, scale);
@@ -921,69 +963,91 @@ bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               int batch, int sq, int sk, int heads, int kv_heads, int causal,
               int window, cudaStream_t stream) {
+  using Tiles = TcTiles<D, DV>;
   if (sk == 0) {  // no keys: every row is zeros
     return static_cast<int>(cudaMemsetAsync(
-        out, 0, sizeof(__nv_bfloat16) * batch * sq * heads * D, stream));
+        out, 0, sizeof(__nv_bfloat16) * batch * sq * heads * DV, stream));
   }
-  const int pairs = ((sq + kTcRows - 1) / kTcRows + 1) / 2;
-  if (pairs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int q_tiles = (sq + kTcRows - 1) / kTcRows;
+  const int blocks_z = (q_tiles + Tiles::kQTiles - 1) / Tiles::kQTiles;
+  if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   if (!encode_4d(&tq, q, batch, sq, heads, D) ||
       !encode_4d(&tk, k, batch, sk, kv_heads, D) ||
-      !encode_4d(&tv, v, batch, sk, kv_heads, D)) {
+      !encode_4d(&tv, v, batch, sk, kv_heads, DV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = (2 + 2 * kTcStages) * (D / kBoxCols) * kBoxBytes + 1024;
+  const size_t smem = Tiles::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D>,
+      flash_attention_tc_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = static_cast<float>(
       pow(static_cast<double>(D), -0.5) * 1.4426950408889634);
   const dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
-                  static_cast<unsigned>(pairs));
-  flash_attention_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+                  static_cast<unsigned>(blocks_z));
+  flash_attention_tc_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, sk, heads, kv_heads,
       causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch for one (D, DV) pair in one dtype (0: float32, 1: bfloat16).
+template <int D, int DV>
+int launch_dtype(const void* q, const void* k, const void* v, void* out,
+                 int batch, int sq, int sk, int heads, int kv_heads,
+                 int causal, int window, int dtype, cudaStream_t s) {
+  if (dtype == 0) {
+    return launch_d<float, D, DV>(q, k, v, out, batch, sq, sk, heads,
+                                  kv_heads, causal, window, s);
+  }
+  if (dtype == 1) {
+    return launch_tc<D, DV>(q, k, v, out, batch, sq, sk, heads, kv_heads,
+                            causal, window, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// q, out: (batch, sq, heads, head_dim); k, v: (batch, sk, kv_heads,
-// head_dim); all of one dtype (0: float32, 1: bfloat16), contiguous and
-// 16-byte aligned. heads a multiple of kv_heads; head_dim 64 or 128.
-// causal 0/1; window <= 0 for none. float32 runs the CUDA-core kernel,
-// bfloat16 the tensor-core one. Launches on `stream`; returns
-// cudaGetLastError, or cudaErrorInvalidValue for a shape it does not take.
+// q: (batch, sq, heads, head_dim); k: (batch, sk, kv_heads, head_dim); v:
+// (batch, sk, kv_heads, v_head_dim); out: (batch, sq, heads, v_head_dim);
+// all of one dtype (0: float32, 1: bfloat16), contiguous and 16-byte
+// aligned. heads a multiple of kv_heads; (head_dim, v_head_dim) one of
+// (64, 64), (96, 96), (128, 128) and (192, 128). causal 0/1; window <= 0
+// for none. float32 runs the CUDA-core kernel, bfloat16 the tensor-core one.
+// Launches on `stream`; returns cudaGetLastError, or cudaErrorInvalidValue
+// for a shape it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int sk, int heads, int kv_heads,
-                                      int head_dim, int causal, int window,
-                                      int dtype, void* stream) {
+                                      int head_dim, int v_head_dim, int causal,
+                                      int window, int dtype, void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || sk < 0 || batch > 65535 ||
-      heads > 65535 || (head_dim != 64 && head_dim != 128)) {
+      heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return head_dim == 64
-               ? launch_d<float, 64>(q, k, v, out, batch, sq, sk, heads,
-                                     kv_heads, causal, window, s)
-               : launch_d<float, 128>(q, k, v, out, batch, sq, sk, heads,
-                                      kv_heads, causal, window, s);
+  const int shape = head_dim * 1000 + v_head_dim;
+  switch (shape) {
+    case 64064:
+      return launch_dtype<64, 64>(q, k, v, out, batch, sq, sk, heads,
+                                  kv_heads, causal, window, dtype, s);
+    case 96096:
+      return launch_dtype<96, 96>(q, k, v, out, batch, sq, sk, heads,
+                                  kv_heads, causal, window, dtype, s);
+    case 128128:
+      return launch_dtype<128, 128>(q, k, v, out, batch, sq, sk, heads,
+                                    kv_heads, causal, window, dtype, s);
+    case 192128:
+      return launch_dtype<192, 128>(q, k, v, out, batch, sq, sk, heads,
+                                    kv_heads, causal, window, dtype, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return head_dim == 64
-               ? launch_tc<64>(q, k, v, out, batch, sq, sk, heads, kv_heads,
-                               causal, window, s)
-               : launch_tc<128>(q, k, v, out, batch, sq, sk, heads, kv_heads,
-                                causal, window, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,9 @@
 Each source (for example the parent commit's ``flash_attention.cu`` and
 this one's) is built with :data:`build.NVCC_FLAGS` into its own library
 in a temporary directory and called through its ``flash_attention_launch``
-on the same inputs. At each shape every build is first held against
+on the same inputs (the launch function that takes the value head dim
+beside the head dim; a source from before it took one cannot be loaded
+here). At each shape every build is first held against
 :func:`flash_attention_plain` (rtol = atol = 2e-2 in bf16, 2e-5 in fp32),
 then timed in turns (A, B, ..., B, A: the median of ``--reps`` CUDA-event
 timings each, after a warm-up), with ``scaled_dot_product_attention``
@@ -59,7 +61,7 @@ def _launchers(sources):
                  if "C7513" in ln or "spill" in ln]
         print(json.dumps({"build": str(src), "ptxas_notes": notes}))
         fn = ctypes.CDLL(str(lib)).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns.append(fn)
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
             o = torch.empty_like(q)
             calls.append(lambda fn=fn, o=o: fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-                s, h, kv, d, causal, 0, _CODE[dtype], stream))
+                s, h, kv, d, d, causal, 0, _CODE[dtype], stream))
             err = calls[-1]()
             torch.cuda.synchronize()
             diff = (o.float() - want).abs()

@@ -2,23 +2,27 @@
 
 ``flash_attention(q, k, v, causal=True, window=None)``:
 
-* q: (B, Sq, H, D); k, v: (B, Sk, KV, D); float32 or bfloat16, all of one
-  dtype; H a multiple of KV (query head h reads KV head h // (H // KV)).
+* q: (B, Sq, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, DV) (DV may differ
+  from D, as MLA's value heads do); float32 or bfloat16, all of one dtype;
+  H a multiple of KV (query head h reads KV head h // (H // KV)).
 * Positions count from 0 in q and in k: key j is visible to query i when
   ``j <= i`` (``causal``) and ``i - j < window`` (``window`` not None).
-* Returns (B, Sq, H, D) in q's dtype: the softmax of the fp32 scores times
+* Returns (B, Sq, H, DV) in q's dtype: the softmax of the fp32 scores times
   ``D ** -0.5`` over the visible keys, applied to V in fp32. A row with no
   visible key is zeros (the reference's softmax would average V there; with
   Sq == Sk every row sees at least itself).
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors, which
-takes D of 64 or 128 (any other D raises), and runs
-:func:`flash_attention_plain` for CPU tensors. ``q_block`` and ``kv_block``
+takes (D, DV) of :data:`FLASH_SHAPES` (any other pair raises), and runs
+:func:`flash_attention_plain` for CPU tensors. ``LAUNCHES_BY_SHAPE``
+breaks the kernel's launch count down by (D, DV) and causality, beside
+``build.LAUNCHES["flash_attention"]``. ``q_block`` and ``kv_block``
 are the TPU kernel's tile sizes; they are accepted for its signature and
 not needed: S need not divide by them.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -27,8 +31,11 @@ from .build import launch
 from .descriptor_copy import stream_of
 
 NEG_INF = -1e30
-#: Head dims the CUDA kernel is instantiated for.
-FLASH_HEAD_DIMS = (64, 128)
+#: (query/key head dim, value head dim) pairs the CUDA kernel is
+#: instantiated for: 96 is phi-3-vision's, 192/128 MLA's.
+FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128))
+#: Kernel launches by shape key (:func:`shape_key`).
+LAUNCHES_BY_SHAPE: Counter = Counter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -47,11 +54,11 @@ def _check(q, k, v, window, api: str):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{api}: q, k and v must share a dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"{api}: q must be (B, Sq, H, D) and k, v "
-                         "(B, Sk, KV, D) of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{api}: q must be (B, Sq, H, D), k (B, Sk, KV, D) "
+                         f"and v (B, Sk, KV, DV), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
     bk, sk, kvh, dk = k.shape
     if bk != b or dk != d or kvh < 1 or h % kvh:
@@ -75,16 +82,22 @@ def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
     return ok
 
 
+def shape_key(d: int, dv: int, causal: bool) -> str:
+    """The key of one launch shape in :data:`LAUNCHES_BY_SHAPE`."""
+    dims = str(d) if d == dv else f"{d}/{dv}"
+    return f"{dims} {'causal' if causal else 'non-causal'}"
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """Plain-PyTorch :func:`flash_attention` (same rules, any D, any
-    device): the full fp32 score matrix, one batch element at a time."""
+    """Plain-PyTorch :func:`flash_attention` (same rules, any D and DV,
+    any device): the full fp32 score matrix, one batch element at a time."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention_plain")
-    g = h // kvh
+    g, dv = h // kvh, v.shape[-1]
+    out = q.new_empty((b, sq, h, dv))
     if sk == 0:
-        return torch.zeros_like(q)
+        return out.zero_()
     mask = _visible(sq, sk, causal, window, q.device)
-    out = torch.empty_like(q)
     for bi in range(b):
         qf = q[bi].float().view(sq, kvh, g, d)
         kf, vf = k[bi].float(), v[bi].float()
@@ -94,7 +107,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         den = p.sum(dim=-1).clamp_min(1e-30)
         o = torch.einsum("kgqs,skd->qkgd", p, vf) / \
             den.permute(2, 0, 1)[..., None]
-        out[bi] = o.reshape(sq, h, d).to(q.dtype)
+        out[bi] = o.reshape(sq, h, dv).to(q.dtype)
     return out
 
 
@@ -104,22 +117,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention of q over k, v (see the module). ``q_block`` and
     ``kv_block`` are accepted for the TPU kernel's signature only."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention")
+    dv = v.shape[-1]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head dim "
-                         f"{' or '.join(map(str, FLASH_HEAD_DIMS))}, got {d}")
+    if (d, dv) not in FLASH_SHAPES:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head dims "
+                         f"(D, DV) of {FLASH_SHAPES}, got ({d}, {dv})")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, dv))
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
         launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, sq, sk, h, kvh, d, int(causal),
+               out.data_ptr(), b, sq, sk, h, kvh, d, dv, int(causal),
                0 if window is None else int(window), _DTYPE_CODE[q.dtype],
                stream_of(q.device))
+    LAUNCHES_BY_SHAPE[shape_key(d, dv, causal)] += 1
     return out

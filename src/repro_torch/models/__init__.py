@@ -1,5 +1,6 @@
-"""Models: the decoder-only path (attention + dense/MoE blocks): prefill
-forward, decode caches and the decode step."""
+"""Models: every family of the reference (attention with GQA, windows or
+MLA, Mamba-2 SSD, the hybrid stack, encoder-decoder, the VLM prefix; dense
+or MoE FFNs): prefill forward, decode caches and the decode step."""
 from .convert import decode_state_from_jax, params_from_jax  # noqa: F401
 from .model import (  # noqa: F401
     DecodeState,

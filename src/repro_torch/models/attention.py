@@ -1,13 +1,14 @@
-"""Attention: GQA/MHA with q/k-norm, partial RoPE and sliding windows.
+"""Attention: GQA/MHA with q/k-norm, partial RoPE, sliding windows, and MLA.
 
 Train/prefill attention runs the core through
 :func:`repro_torch.kernels.ops.flash_attention_op`: the hand-written CUDA
 flash kernel on the card, its plain version on the CPU. The kernel takes
 positions that count from 0 (what ``model.forward`` builds), no logit
-softcap, and head dims 64 or 128. Anything else runs
-:func:`blockwise_attention` (the flash schedule in plain PyTorch) on the
-CPU and raises ``NotImplementedError`` on the card: nothing on the card
-gives way quietly to a plain version.
+softcap, and the head dims of ``FLASH_SHAPES`` (64, 96, 128, and MLA's
+192 over values of 128). Anything else runs :func:`blockwise_attention`
+(the flash schedule in plain PyTorch) on the CPU and raises
+``NotImplementedError`` on the card: nothing on the card gives way quietly
+to a plain version.
 
 Decode attends one new token per row against a dense-view cache with
 per-slot position tags (:class:`KVCacheView`): slot = pos % cache_len, so
@@ -17,7 +18,12 @@ the port's. Where the reference rebuilds the cache functionally
 (``.at[].set``), the port writes the new token's K/V and tag into the
 cache in place: a cache is allocated once and lives as long as its state.
 
-MLA is the reference's and waits for ROADMAP Queue A item 14.
+MLA (DeepSeek-V2's multi-head latent attention) prefills in the expanded
+form, through the flash kernel at query/key heads of 192 and value heads
+of 128, and caches the compressed latent (c_kv | k_rope) per position in
+``KVCacheView.k`` as (B, S, 1, kv_lora + rope) beside a (B, S, 1, 0) ``v``.
+Its decode attends in the latent space (kv_up absorbed into the query), in
+plain PyTorch as the reference's jnp is, writing latent and tag in place.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import FLASH_HEAD_DIMS
+from repro_torch.kernels.flash_attention import FLASH_SHAPES
 from .layers import apply_rope, dense_init, init_rms_norm, rms_norm
 
 NEG_INF = -1e30
@@ -37,14 +43,24 @@ NEG_INF = -1e30
 # Parameter init
 # ---------------------------------------------------------------------------
 
-_MLA_GAP = "MLA attention is not ported yet (ROADMAP Queue A item 14)"
-
-
 def init_attention(gen, cfg: ModelConfig, device):
-    if cfg.mla is not None:
-        raise NotImplementedError(_MLA_GAP)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dt = cfg.pdtype
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_down": dense_init(gen, (d, m.q_lora_rank), dt, device),
+            "q_norm": init_rms_norm(m.q_lora_rank, dt, device),
+            "q_up": dense_init(gen, (m.q_lora_rank, h, qk), dt, device),
+            "kv_down": dense_init(gen, (d, m.kv_lora_rank
+                                        + m.qk_rope_head_dim), dt, device),
+            "kv_norm": init_rms_norm(m.kv_lora_rank, dt, device),
+            "kv_up": dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim
+                                      + m.v_head_dim), dt, device),
+            "wo": dense_init(gen, (h, m.v_head_dim, d), dt, device,
+                             in_axis=0),
+        }
     p = {
         "wq": dense_init(gen, (d, h, hd), dt, device),
         "wk": dense_init(gen, (d, kv, hd), dt, device),
@@ -143,8 +159,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 class KVCacheView(NamedTuple):
     """Dense-view cache for one layer: position-tagged slots."""
-    k: torch.Tensor          # (B, S, KV, D)
-    v: torch.Tensor          # (B, S, KV, D)
+    k: torch.Tensor          # (B, S, KV, D); MLA: (B, S, 1, lora + rope)
+    v: torch.Tensor          # (B, S, KV, D); MLA: a (B, S, 1, 0) placeholder
     kv_pos: torch.Tensor     # (B, S) int32, -1 = empty
 
 
@@ -176,46 +192,115 @@ def _counts_from_zero(positions: torch.Tensor) -> bool:
     return bool(torch.equal(positions.long(), ar.expand_as(positions)))
 
 
-def _kernel_gap(cfg: ModelConfig, positions, head_dim: int) -> Optional[str]:
-    """What keeps the flash kernel from this call on the card, or None."""
-    if cfg.attn_logit_softcap is not None:
+def _softcap(cfg: ModelConfig) -> Optional[float]:
+    """The logit softcap the core applies: MLA takes none, as the
+    reference's MLA prefill passes none."""
+    return None if cfg.mla is not None else cfg.attn_logit_softcap
+
+
+def _kernel_gap(cfg: ModelConfig, positions, head_dim: int,
+                v_head_dim: Optional[int] = None) -> Optional[str]:
+    """What keeps the flash kernel from this call on the card, or None.
+    ``v_head_dim`` defaults to ``head_dim``."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if _softcap(cfg) is not None:
         return "a logit softcap in the flash kernel"
     if not _counts_from_zero(positions):
         return "positions that do not count from 0 in the flash kernel"
-    if head_dim not in FLASH_HEAD_DIMS:
-        return f"head dim {head_dim} in the flash kernel"
+    if (head_dim, dv) not in FLASH_SHAPES:
+        dims = str(head_dim) if dv == head_dim else f"{head_dim}/{dv}"
+        return f"head dim {dims} in the flash kernel"
     return None
+
+
+def _core(q, k, v, positions, cfg: ModelConfig, *, causal: bool,
+          window: Optional[int]):
+    """The attention core over a full sequence: the flash op where the
+    kernel takes the call (on the CPU, any head dims: the op runs its
+    plain version), else the blockwise schedule on the CPU; on the card
+    anything else raises."""
+    gap = _kernel_gap(cfg, positions, q.shape[-1], v.shape[-1])
+    cpu = q.device.type == "cpu"
+    if gap is None or (cpu and gap.startswith("head dim")):
+        return ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    if cpu:
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_positions=positions,
+                                   kv_positions=positions,
+                                   softcap=_softcap(cfg))
+    raise NotImplementedError(f"attention on the card needs {gap}, "
+                              "which is not ported")
 
 
 def attention(params, x, positions, cfg: ModelConfig, *,
               kind: str = "attn", causal: bool = True,
               return_cache: bool = False):
     """Full-sequence attention. kind: 'attn' (full) or 'local' (windowed)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(_MLA_GAP)
     if cfg.attention_impl != "blockwise":
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} is not ported")
+    if cfg.mla is not None:
+        return _mla_attention(params, x, positions, cfg,
+                              return_cache=return_cache)
     dt = cfg.cdtype
     q, k, v = _project_qkv(params, x, cfg, positions)
     window = cfg.sliding_window if kind == "local" else None
-    gap = _kernel_gap(cfg, positions, cfg.head_dim_)
-    cpu = x.device.type == "cpu"
-    if gap is None or (cpu and gap.startswith("head dim")):
-        # On the CPU the op runs the plain version, which takes any D.
-        out = ops.flash_attention_op(q, k, v, causal=causal, window=window)
-    elif cpu:
-        out = blockwise_attention(q, k, v, causal=causal, window=window,
-                                  q_positions=positions,
-                                  kv_positions=positions,
-                                  softcap=cfg.attn_logit_softcap)
-    else:
-        raise NotImplementedError(f"attention on the card needs {gap}, "
-                                  "which is not ported")
+    out = _core(q, k, v, positions, cfg, causal=causal, window=window)
     b, s = x.shape[:2]
     y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, x.shape[-1])
     if return_cache:
         return y, KVCacheView(k, v, positions.to(torch.int32))
+    return y
+
+
+def _mla_q(params, x, positions, cfg: ModelConfig):
+    """MLA's query: (q_nope, q_rope), q_rope rotated; x (B, S, d)."""
+    m = cfg.mla
+    dt = cfg.cdtype
+    b, s, _ = x.shape
+    cq = rms_norm(x @ params["q_down"].to(dt), params["q_norm"]["scale"],
+                  cfg.norm_eps)
+    q = (cq @ params["q_up"].to(dt).reshape(m.q_lora_rank, -1)).view(
+        b, s, cfg.num_heads, -1)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
+
+
+def _mla_latent(params, x, positions, cfg: ModelConfig):
+    """MLA's compressed K/V: (c_kv normalised (B, S, r), k_rope rotated
+    (B, S, 1, rope))."""
+    m = cfg.mla
+    ckv = x @ params["kv_down"].to(cfg.cdtype)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = rms_norm(c_kv, params["kv_norm"]["scale"], cfg.norm_eps)
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions,
+                            theta=cfg.rope_theta)
+
+
+def _mla_attention(params, x, positions, cfg: ModelConfig, *,
+                   return_cache: bool = False):
+    """DeepSeek-V2 multi-head latent attention, the expanded form: K/V of
+    every head from the latent, the core at query/key heads of
+    nope + rope over value heads of v_head_dim."""
+    m = cfg.mla
+    dt = cfg.cdtype
+    b, s, dm = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    kv = (c_kv @ params["kv_up"].to(dt).reshape(m.kv_lora_rank, -1)).view(
+        b, s, h, -1)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    out = _core(q, k, v.contiguous(), positions, cfg, causal=True,
+                window=None)
+    y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, dm)
+    if return_cache:
+        # MLA caches the compressed latents: (c_kv | k_rope) per position.
+        lat = torch.cat([c_kv, k_rope[:, :, 0, :]], -1)[:, :, None, :]
+        return y, KVCacheView(lat, x.new_zeros((b, s, 1, 0)),
+                              positions.to(torch.int32))
     return y
 
 
@@ -226,9 +311,19 @@ def attention(params, x, positions, cfg: ModelConfig, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
                device=None) -> KVCacheView:
     """An empty cache for one layer in the compute dtype: zeros, every tag
-    -1. A ``local`` layer keeps ``min(max_len, sliding_window)`` slots."""
+    -1. A ``local`` layer keeps ``min(max_len, sliding_window)`` slots.
+    MLA keeps the latent (B, max_len, 1, kv_lora + rope) in ``k`` and a
+    (B, max_len, 1, 0) ``v``."""
     if cfg.mla is not None:
-        raise NotImplementedError(_MLA_GAP)
+        m = cfg.mla
+        lat = m.kv_lora_rank + m.qk_rope_head_dim
+        return KVCacheView(
+            k=torch.zeros((batch, max_len, 1, lat), dtype=cfg.cdtype,
+                          device=device),
+            v=torch.zeros((batch, max_len, 1, 0), dtype=cfg.cdtype,
+                          device=device),
+            kv_pos=torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device))
     size = min(max_len, cfg.sliding_window) if (
         kind == "local" and cfg.sliding_window) else max_len
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim_)
@@ -249,7 +344,7 @@ def decode_attention(params, x, cache: KVCacheView, cur_pos,
     mask admits. Returns ``(y, cache)``, the cache being the same tensors.
     """
     if cfg.mla is not None:
-        raise NotImplementedError(_MLA_GAP)
+        return _mla_decode(params, x, cache, cur_pos, cfg)
     dt = cfg.cdtype
     b = x.shape[0]
     kv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
@@ -276,4 +371,44 @@ def decode_attention(params, x, cache: KVCacheView, cur_pos,
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(dt), cache.v.to(dt))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, kv * g * hd)
     y = out @ params["wo"].to(dt).reshape(-1, x.shape[-1])
+    return y, cache
+
+
+def _mla_decode(params, x, cache: KVCacheView, cur_pos, cfg: ModelConfig):
+    """Absorbed MLA decode: attend in the compressed latent space.
+
+    The cache holds (c_kv | k_rope) of kv_lora + rope per position; the
+    step writes its latent and tag in place. Scores absorb kv_up's key half
+    into the query; values attend over c_kv, then expand with kv_up's value
+    half (DeepSeek-V2 section 2.1).
+    """
+    m = cfg.mla
+    dt = cfg.cdtype
+    b = x.shape[0]
+    r = m.kv_lora_rank
+    positions = cur_pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_new, k_rope_new = _mla_latent(params, x, positions, cfg)
+    lat_new = torch.cat([c_new, k_rope_new[:, :, 0, :]], -1)
+
+    slot = (cur_pos % cache.k.shape[1]).long()
+    bidx = torch.arange(b, device=x.device)
+    cache.k[bidx, slot, 0] = lat_new[:, 0].to(cache.k.dtype)
+    cache.kv_pos[bidx, slot] = cur_pos.to(torch.int32)
+    c_kv, k_rope = cache.k[:, :, 0, :r], cache.k[:, :, 0, r:]
+
+    w_up = params["kv_up"].to(dt)
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope,
+                         w_up[:, :, :m.qk_nope_head_dim])
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    # Scores in fp32 from the compute-dtype operands.
+    s = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), c_kv.float())
+         + torch.einsum("bqhe,bse->bhqs", q_rope.float(),
+                        k_rope.float())) * scale
+    s = s + _mask(positions, cache.kv_pos, True, None)[:, None]
+    p = torch.softmax(s, dim=-1)
+    lat_out = torch.einsum("bhqs,bsr->bqhr", p.to(dt), c_kv.to(dt))
+    out = torch.einsum("bqhr,rhe->bqhe", lat_out,
+                       w_up[:, :, m.qk_nope_head_dim:])
+    y = out.reshape(b, 1, -1) @ params["wo"].to(dt).reshape(-1, x.shape[-1])
     return y, cache

@@ -1,13 +1,19 @@
-"""Top-level model: embeddings -> stack -> head; prefill and decode.
+"""Top-level model: embeddings -> stack(s) -> head; prefill and decode.
 
 ``init_params`` draws the weights on the card (or ``device``) from a seeded
 ``torch.Generator``; :func:`repro_torch.models.convert.params_from_jax`
 turns the reference's own weights into the same structure.
-``forward`` is the decoder-only prefill pass with the reference's return
-value. ``prefill`` runs it and lays its K/V into position-tagged decode
-caches; ``decode_step`` advances every row by one token, writing the
-caches in place. The multimodal prefix, the encoder and ``loss_fn`` are
-the reference's and wait for ROADMAP Queue A items 14 and 15.
+``forward`` is the prefill pass with the reference's return value.
+``prefill`` runs it and lays its caches (K/V, MLA's latents, Mamba's conv
+inputs and state) into the decode caches in place; ``decode_step``
+advances every row by one token, writing the caches in place.
+
+Multimodal archs take *precomputed* frontend embeddings, as the reference
+does: ``batch["prefix_embeds"]`` (B, P, d), concatenated before the token
+embeddings and cut from the logits (phi-3-vision's patches), and
+``batch["frames"]`` (B, S_enc, d), the encoder's input (seamless-m4t's
+audio frames). The frontends are stubs; the backbone is exact.
+``loss_fn`` is the reference's and waits for ROADMAP Queue A item 15.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from .attention import KVCacheView
 from .layers import embed, init_embed, init_rms_norm, rms_norm, unembed
 from .transformer import (
     init_decode_caches,
@@ -32,14 +39,16 @@ class DecodeState(NamedTuple):
 
 
 def _init(gen, cfg: ModelConfig, device) -> Dict:
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
-    return {
+    p = {
         "embed": init_embed(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype,
                             device, cfg.tie_embeddings),
-        "stack": init_stack(gen, cfg, device),
+        "stack": init_stack(gen, cfg, device, cross_attn=cfg.is_encdec),
         "final_norm": init_rms_norm(cfg.d_model, cfg.pdtype, device),
     }
+    if cfg.is_encdec:
+        p["encoder"] = init_stack(gen, cfg, device, encoder=True)
+        p["enc_norm"] = init_rms_norm(cfg.d_model, cfg.pdtype, device)
+    return p
 
 
 def init_params(seed, cfg: ModelConfig, device=None) -> Dict:
@@ -59,11 +68,29 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return _init(None, cfg, torch.device("meta"))
 
 
-def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embeddings and their positions 0 .. S-1."""
+def _encode(params, batch, cfg: ModelConfig):
+    """The encoder over the stub frame embeddings: its normalised memory."""
+    frames = batch["frames"].to(cfg.cdtype)          # (B, S_enc, d)
+    b, s, _ = frames.shape
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=frames.device).expand(b, s)
+    h, _, _ = stack_forward(params["encoder"], frames, pos, cfg, encoder=True)
+    return rms_norm(h, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
+def _prefix(batch, cfg: ModelConfig) -> int:
+    """Positions the multimodal prefix takes ahead of the tokens."""
     if cfg.prefix_len and "prefix_embeds" in batch:
-        raise NotImplementedError("the multimodal prefix is not ported yet")
+        return batch["prefix_embeds"].shape[1]
+    return 0
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings (after the multimodal prefix, if any) and their
+    positions 0 .. S-1."""
     x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+    if _prefix(batch, cfg):
+        x = torch.cat([batch["prefix_embeds"].to(cfg.cdtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -71,19 +98,17 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def forward(params, batch, cfg: ModelConfig, *, return_caches: bool = False):
-    """Full forward: logits over the token sequence.
-
-    Returns ``(logits, aux, caches, None)`` as the reference does for a
-    decoder-only model (its last item is the encoder memory).
-    """
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
+    """Full forward: logits over the token sequence (the prefix's positions
+    cut away). Returns ``(logits, aux, caches, memory)`` as the reference
+    does, ``memory`` the encoder's output (None without an encoder)."""
+    memory = _encode(params, batch, cfg) if cfg.is_encdec else None
     x, positions = _embed_inputs(params, batch, cfg)
     x, aux, caches = stack_forward(params["stack"], x, positions, cfg,
-                                   return_caches=return_caches)
+                                   memory=memory, return_caches=return_caches)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = x[:, _prefix(batch, cfg):]
     logits = unembed(params["embed"], x, cfg.cdtype)
-    return logits, aux, caches, None
+    return logits, aux, caches, memory
 
 
 # ---------------------------------------------------------------------------
@@ -93,20 +118,29 @@ def forward(params, batch, cfg: ModelConfig, *, return_caches: bool = False):
 def prefill(params, batch, cfg: ModelConfig, max_len: int
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt; return the last position's logits and a decode
-    state whose caches hold the prompt's K/V in the decode layout."""
-    logits, _, caches, _ = forward(params, batch, cfg, return_caches=True)
+    state whose caches hold the prompt's K/V (and an encoder-decoder's
+    cross-attention K/V of the memory) in the decode layout."""
+    logits, _, caches, memory = forward(params, batch, cfg,
+                                        return_caches=True)
     tokens = batch["tokens"]
-    b, s = tokens.shape[0], tokens.shape[1]
-    state = init_decode_caches(cfg, b, max_len, device=tokens.device)
+    b, s = tokens.shape[0], tokens.shape[1] + _prefix(batch, cfg)
+    state = init_decode_caches(cfg, b, max_len, device=tokens.device,
+                               memory=memory, params=params["stack"])
     _load_prefill_caches(state, caches, s)
     cur = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return logits[:, -1], DecodeState(state, cur)
 
 
 def _load_prefill_caches(decode_caches, full_caches, seq: int) -> None:
-    """Copy prefill K/V into the decode caches (in place) as a tagged ring:
-    the last ``cache_len`` positions, at slots ``pos % cache_len``."""
+    """Copy the prefill's caches into the decode caches (in place): K/V as
+    a tagged ring, the last ``cache_len`` positions at slots
+    ``pos % cache_len`` (MLA's zero-width V left as it is); a
+    ``MambaCache`` as it is, its final conv inputs and state."""
     def load(dst, src):
+        if not isinstance(dst, KVCacheView):
+            for d, s_ in zip(dst, src):
+                d.copy_(s_)
+            return
         cache_len = dst.k.shape[-3]
         take = min(seq, cache_len)
         pos = torch.arange(seq - take, seq, dtype=torch.int32,
@@ -114,8 +148,9 @@ def _load_prefill_caches(decode_caches, full_caches, seq: int) -> None:
         slots = (pos % cache_len).long()
         dst.k[..., slots, :, :] = src.k[..., seq - take:, :, :].to(
             dst.k.dtype)
-        dst.v[..., slots, :, :] = src.v[..., seq - take:, :, :].to(
-            dst.v.dtype)
+        if dst.v.shape[-1]:
+            dst.v[..., slots, :, :] = src.v[..., seq - take:, :, :].to(
+                dst.v.dtype)
         dst.kv_pos[..., slots] = pos.expand_as(src.kv_pos[..., seq - take:])
 
     for dst, src in zip(decode_caches["prefix"], full_caches["prefix"]):

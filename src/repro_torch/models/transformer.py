@@ -1,68 +1,94 @@
 """Layer-stack assembly: heterogeneous block *periods*, run as a Python loop.
 
 A model is ``first_k_dense`` prefix layers plus N identical *periods*; each
-period is the config's ``block_pattern``. The reference stacks each
-pattern slot's parameters over periods and scans; the port keeps one
-parameter dict per (slot, period) (``params["slots"][j][i]``) and loops.
-This slice is inference: no remat. Decode caches keep the reference's
-layout (a ``KVCacheView`` per prefix layer, one per pattern slot stacked
-over periods); ``stack_decode`` updates them in place through per-period
-views. Mamba mixers and cross-attention are the reference's and wait for
-ROADMAP Queue A item 14.
+period is the config's ``block_pattern`` (Jamba: 7 mamba + 1 attention with
+alternating MoE). The reference stacks each pattern slot's parameters over
+periods and scans; the port keeps one parameter dict per (slot, period)
+(``params["slots"][j][i]``) and loops. This slice is inference: no remat.
+
+An encoder-decoder model has a second stack, the encoder: ``encoder_layers``
+periods of one non-causal (attention, dense) block. Each decoder block then
+also attends over the encoder's memory (cross-attention, no mask): in the
+full pass through the flash op, non-causal; in decode over the ``CrossCache``
+of K/V that ``init_decode_caches`` projects once from the memory, in plain
+PyTorch as the reference does.
+
+Decode caches keep the reference's layout: one cache per prefix layer, one
+per pattern slot stacked over periods (a ``KVCacheView`` for attention, a
+``MambaCache`` for mamba, so one period may hold both), and for an
+encoder-decoder ``cross_prefix`` / ``cross_slots`` of ``CrossCache``.
+``stack_decode`` updates them in place through per-period views.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from .attention import (
-    KVCacheView,
     attention,
     decode_attention,
     init_attention,
     init_cache,
 )
 from .layers import init_mlp, init_rms_norm, mlp, rms_norm
+from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_layer
 from .moe import init_moe, moe_ffn
+
+
+class CrossCache(NamedTuple):
+    k: torch.Tensor   # (B, S_enc, KV, D)
+    v: torch.Tensor
+
+
+def _is_attn(mixer: str) -> bool:
+    return mixer in ("attn", "local")
 
 
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
-def _check_mixer(mixer: str) -> None:
-    if mixer not in ("attn", "local"):
-        raise NotImplementedError(f"{mixer!r} mixers are not ported yet "
-                                  "(ROADMAP Queue A item 14)")
-
-
-def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str, device):
-    _check_mixer(mixer)
+def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
+               cross_attn: bool = False):
     p: dict = {"norm1": init_rms_norm(cfg.d_model, cfg.pdtype, device),
-               "norm2": init_rms_norm(cfg.d_model, cfg.pdtype, device),
-               "mixer": init_attention(gen, cfg, device)}
+               "norm2": init_rms_norm(cfg.d_model, cfg.pdtype, device)}
+    if _is_attn(mixer):
+        p["mixer"] = init_attention(gen, cfg, device)
+    else:
+        p["mixer"] = init_mamba(gen, cfg, device)
     if ffn == "moe":
         p["ffn"] = init_moe(gen, cfg, device)
     elif ffn == "dense":
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype, device,
                             gated=cfg.mlp_gated)
-    # ffn == "none": no FFN params, norm2 unused.
+    # ffn == "none" (pure Mamba-2): no FFN params, norm2 unused.
+    if cross_attn:
+        p["cross"] = init_attention(gen, cfg, device)
+        p["norm_c"] = init_rms_norm(cfg.d_model, cfg.pdtype, device)
     return p
 
 
 def block_forward(p, x, positions, cfg: ModelConfig, mixer: str, ffn: str,
-                  *, causal: bool = True, return_cache: bool = False):
+                  *, causal: bool = True, memory: Optional[torch.Tensor] = None,
+                  return_cache: bool = False):
     """Pre-norm block. Returns (x, aux_loss, cache|None)."""
-    _check_mixer(mixer)
     h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     cache = None
-    out = attention(p["mixer"], h, positions, cfg, kind=mixer, causal=causal,
-                    return_cache=return_cache)
+    if _is_attn(mixer):
+        out = attention(p["mixer"], h, positions, cfg, kind=mixer,
+                        causal=causal, return_cache=return_cache)
+    else:
+        out = mamba_layer(p["mixer"], h, cfg, return_cache=return_cache)
     if return_cache:
         out, cache = out
     x = x + out
+
+    if memory is not None and "cross" in p:
+        hc = rms_norm(x, p["norm_c"]["scale"], cfg.norm_eps)
+        x = x + _cross_attention(p["cross"], hc, memory, cfg)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none":
@@ -75,11 +101,55 @@ def block_forward(p, x, positions, cfg: ModelConfig, mixer: str, ffn: str,
     return x + y, aux, cache
 
 
+def _proj(x, w):
+    """"bsd,dhe->bshe": x (B, S, d) through w (d, heads, e)."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+
+
+def _cross_attention(p, x, memory, cfg: ModelConfig,
+                     kv: Optional[CrossCache] = None):
+    """q from the decoder, K/V from the encoder memory (or ``kv``), no mask.
+    The full pass runs the flash op, non-causal; decode (``kv`` given)
+    attends in plain PyTorch, as the reference's jnp does."""
+    dt = cfg.cdtype
+    q = _proj(x, p["wq"].to(dt))
+    b, s, h, d = q.shape
+    wo = p["wo"].to(dt).reshape(-1, x.shape[-1])
+    if kv is None:
+        k = _proj(memory, p["wk"].to(dt))
+        v = _proj(memory, p["wv"].to(dt))
+        out = ops.flash_attention_op(q, k, v, causal=False)
+        return out.reshape(b, s, -1) @ wo
+    kvh = cfg.num_kv_heads
+    g = cfg.num_heads // kvh
+    scores = torch.einsum("bqkgd,bskd->bkgqs",
+                          q.reshape(b, s, kvh, g, d).float(),
+                          kv.k.float()) * d ** -0.5
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", pr.to(dt), kv.v.to(dt))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, -1) @ wo
+
+
+def cross_kv(p, memory, cfg: ModelConfig) -> CrossCache:
+    dt = cfg.cdtype
+    return CrossCache(k=_proj(memory, p["wk"].to(dt)),
+                      v=_proj(memory, p["wv"].to(dt)))
+
+
 # ---------------------------------------------------------------------------
 # Stack: prefix layers + periods
 # ---------------------------------------------------------------------------
 
-def n_periods(cfg: ModelConfig) -> int:
+def _pattern(cfg: ModelConfig, encoder: bool = False):
+    if encoder:
+        return (("attn", "dense"),)
+    return cfg.block_pattern
+
+
+def n_periods(cfg: ModelConfig, encoder: bool = False) -> int:
+    if encoder:
+        return cfg.encoder_layers
     n = cfg.num_layers - cfg.first_k_dense
     if n % len(cfg.block_pattern):
         raise ValueError(f"{cfg.name}: {n} layers after the dense prefix "
@@ -88,37 +158,43 @@ def n_periods(cfg: ModelConfig) -> int:
     return n // len(cfg.block_pattern)
 
 
-def init_stack(gen, cfg: ModelConfig, device):
+def init_stack(gen, cfg: ModelConfig, device, *, encoder: bool = False,
+               cross_attn: bool = False):
     """{"prefix": [block, ...], "slots": ([block per period], ...)}: one
     parameter dict per layer, in the reference's layer order."""
-    pattern = cfg.block_pattern
-    periods = n_periods(cfg)
-    prefix = [init_block(gen, cfg, pattern[0][0], "dense", device)
-              for _ in range(cfg.first_k_dense)]
+    pattern = _pattern(cfg, encoder)
+    periods = n_periods(cfg, encoder)
+    prefix = [] if encoder else [
+        init_block(gen, cfg, pattern[0][0], "dense", device, cross_attn)
+        for _ in range(cfg.first_k_dense)]
     slots = tuple([] for _ in pattern)
     for _ in range(periods):
         for j, (mixer, ffn) in enumerate(pattern):
-            slots[j].append(init_block(gen, cfg, mixer, ffn, device))
+            slots[j].append(init_block(gen, cfg, mixer, ffn, device,
+                                       cross_attn))
     return {"prefix": prefix, "slots": slots}
 
 
 def _stack_caches(caches):
-    """Per-period KVCacheViews of one slot, stacked on a leading period
-    axis as the reference's scan returns them."""
-    return KVCacheView(*(torch.stack(parts) for parts in zip(*caches)))
+    """Per-period caches of one slot (all of one type), stacked on a
+    leading period axis as the reference's scan returns them."""
+    return type(caches[0])(*(torch.stack(parts) for parts in zip(*caches)))
 
 
 def stack_forward(params, x, positions, cfg: ModelConfig, *,
+                  encoder: bool = False, memory: Optional[torch.Tensor] = None,
                   return_caches: bool = False):
     """Full-sequence pass. Returns (x, aux_loss, caches).
 
     caches: {"prefix": [...], "slots": tuple per slot, stacked over periods}
     """
-    pattern = cfg.block_pattern
+    pattern = _pattern(cfg, encoder)
+    causal = not encoder
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_caches = []
     for p in params["prefix"]:
         x, aux, c = block_forward(p, x, positions, cfg, pattern[0][0], "dense",
+                                  causal=causal, memory=memory,
                                   return_cache=return_caches)
         aux_total = aux_total + aux
         prefix_caches.append(c)
@@ -127,7 +203,8 @@ def stack_forward(params, x, positions, cfg: ModelConfig, *,
     for i in range(len(params["slots"][0])):
         for j, (mixer, ffn) in enumerate(pattern):
             x, aux, c = block_forward(params["slots"][j][i], x, positions,
-                                      cfg, mixer, ffn,
+                                      cfg, mixer, ffn, causal=causal,
+                                      memory=memory,
                                       return_cache=return_caches)
             aux_total = aux_total + aux
             slot_caches[j].append(c)
@@ -143,45 +220,63 @@ def stack_forward(params, x, positions, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
-                       device=None):
-    """Empty caches for the decoder stack: ``{"prefix": [KVCacheView, ...],
-    "slots": (KVCacheView stacked over periods, ...)}``."""
-    if cfg.is_encdec:
-        raise NotImplementedError("cross-attention caches are not ported "
-                                  "yet (ROADMAP Queue A item 14)")
-    pattern = cfg.block_pattern
-    for mixer, _ in pattern:
-        _check_mixer(mixer)
+                       device=None, memory: Optional[torch.Tensor] = None,
+                       params=None):
+    """Empty caches for the decoder stack: ``{"prefix": [cache, ...],
+    "slots": (cache stacked over periods, ...)}``, a ``KVCacheView`` for
+    each attention layer and a ``MambaCache`` for each mamba layer. With the
+    encoder ``memory`` and the decoder stack's ``params``, also the
+    cross-attention K/V: ``cross_prefix`` and ``cross_slots``."""
+    pattern = _pattern(cfg)
     periods = n_periods(cfg)
-    prefix = [init_cache(cfg, batch, max_len, pattern[0][0], device)
-              for _ in range(cfg.first_k_dense)]
-    slots = []
-    for mixer, _ in pattern:
-        one = init_cache(cfg, batch, max_len, mixer, device)
-        slots.append(KVCacheView(*(x.unsqueeze(0).repeat(
-            (periods,) + (1,) * x.ndim) for x in one)))
-    return {"prefix": prefix, "slots": tuple(slots)}
+
+    def one(mixer):
+        if _is_attn(mixer):
+            return init_cache(cfg, batch, max_len, mixer, device)
+        return init_mamba_cache(cfg, batch, device)
+
+    def stacked(c):
+        return type(c)(*(x.unsqueeze(0).repeat((periods,) + (1,) * x.ndim)
+                         for x in c))
+
+    caches = {"prefix": [one(pattern[0][0])
+                         for _ in range(cfg.first_k_dense)],
+              "slots": tuple(stacked(one(m)) for m, _ in pattern)}
+    if memory is not None and params is not None:
+        caches["cross_prefix"] = [cross_kv(p["cross"], memory, cfg)
+                                  for p in params["prefix"]]
+        caches["cross_slots"] = tuple(
+            _stack_caches([cross_kv(sp["cross"], memory, cfg) for sp in slot])
+            for slot in params["slots"])
+    return caches
 
 
-def _period_view(cache: KVCacheView, i: int) -> KVCacheView:
-    """Period i of a stacked cache: views, so writes land in the stack."""
-    return KVCacheView(cache.k[i], cache.v[i], cache.kv_pos[i])
+def _period_view(cache, i: int):
+    """Period i of a stacked cache (any of the cache types): views, so
+    writes land in the stack."""
+    return type(cache)(*(x[i] for x in cache))
 
 
 def stack_decode(params, x, caches, cur_pos, cfg: ModelConfig):
     """One-token decode through the stack. x: (B, 1, d).
 
     Returns ``(x, caches)``; the caches are updated in place and returned
-    as the same objects.
+    as the same objects. Cross-attention runs where the caches hold its
+    K/V, as in the reference.
     """
-    pattern = cfg.block_pattern
+    pattern = _pattern(cfg)
 
-    def block_step(p, x, cache, mixer, ffn):
-        _check_mixer(mixer)
+    def block_step(p, x, cache, mixer, ffn, cross=None):
         h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
-        out, _ = decode_attention(p["mixer"], h, cache, cur_pos, cfg,
-                                  kind=mixer)
+        if _is_attn(mixer):
+            out, _ = decode_attention(p["mixer"], h, cache, cur_pos, cfg,
+                                      kind=mixer)
+        else:
+            out, _ = mamba_decode(p["mixer"], h, cache, cfg)
         x = x + out
+        if cross is not None:
+            hc = rms_norm(x, p["norm_c"]["scale"], cfg.norm_eps)
+            x = x + _cross_attention(p["cross"], hc, None, cfg, kv=cross)
         if ffn == "none":
             return x
         h2 = rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
@@ -191,10 +286,16 @@ def stack_decode(params, x, caches, cur_pos, cfg: ModelConfig):
             y = mlp(p["ffn"], h2, cfg.act_fn, cfg.cdtype)
         return x + y
 
-    for p, cache in zip(params["prefix"], caches["prefix"]):
-        x = block_step(p, x, cache, pattern[0][0], "dense")
+    cross_prefix = caches.get("cross_prefix")
+    for i, (p, cache) in enumerate(zip(params["prefix"], caches["prefix"])):
+        x = block_step(p, x, cache, pattern[0][0], "dense",
+                       None if cross_prefix is None else cross_prefix[i])
+    cross_slots = caches.get("cross_slots")
     for i in range(len(params["slots"][0])):
         for j, (mixer, ffn) in enumerate(pattern):
+            cross = None if cross_slots is None else \
+                _period_view(cross_slots[j], i)
             x = block_step(params["slots"][j][i], x,
-                           _period_view(caches["slots"][j], i), mixer, ffn)
+                           _period_view(caches["slots"][j], i), mixer, ffn,
+                           cross)
     return x, caches

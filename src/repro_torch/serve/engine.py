@@ -16,6 +16,11 @@ what a free slot writes is invalidated when a request is admitted to it,
 by clearing its position tags. ``cur_pos`` is kept on the host as well,
 so a step moves one array to the device (the tokens and positions) and
 one back (the sampled tokens).
+
+Every arch the reference's engine takes runs here: attention caches,
+MLA's latent caches and Mamba's conv/state caches, cleared row by row on
+admission. For an encoder-decoder the engine, like the reference's, builds
+its caches without encoder memory, so its decode skips cross-attention.
 """
 from __future__ import annotations
 
@@ -246,16 +251,14 @@ class ServeEngine:
     # -- engine internals --------------------------------------------------------
     def _reset_slot_caches(self, b: int) -> None:
         """Clear row ``b`` of every cache in place: position tags are
-        authoritative, so tags of -1 invalidate the ring."""
+        authoritative, so tags of -1 invalidate the ring; a ``MambaCache``
+        row's conv inputs and state go to 0."""
         caches = self.state.caches
-        for c in caches["prefix"]:
-            c.k[b] = 0
-            c.v[b] = 0
-            c.kv_pos[b] = -1
-        for c in caches["slots"]:              # (periods, B, ...)
-            c.k[:, b] = 0
-            c.v[:, b] = 0
-            c.kv_pos[:, b] = -1
+        rows = [(c, b) for c in caches["prefix"]]
+        rows += [(c, (slice(None), b)) for c in caches["slots"]]  # (P, B, ..)
+        for c, row in rows:
+            for name, x in zip(c._fields, c):
+                x[row] = -1 if name == "kv_pos" else 0
         self._cur[b] = 0
 
     def _admit(self) -> None:

@@ -415,11 +415,51 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", [
+    (2, 1024, 32, 32, 96, 96, True, None),     # phi-3-vision's prefill
+    (2, 300, 8, 8, 96, 96, False, None),
+    (1, 777, 8, 4, 96, 96, True, 100),
+    (2, (64, 300), 8, 8, 96, 96, False, None),
+    (1, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's MLA prefill
+    (2, 333, 16, 16, 192, 128, True, None),    # one query tile a block
+    (2, 200, 8, 8, 192, 128, False, None),
+    (1, (64, 300), 8, 8, 192, 128, False, None),
+])
+def test_cuda_flash_attention_other_head_dims_match_plain(
+        cuda, dtype, tol, b, s, h, kv, d, dv, causal, window):
+    """Head dim 96 (zero-filled past 96 in the tensor-core tiles) and
+    query/key heads of 192 over value heads of 128 (MLA), against the
+    plain version, with the launch counted under its shape."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES_BY_SHAPE, flash_attention, flash_attention_plain, shape_key)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device="cpu").manual_seed(sq + h + d)
+    q = torch.randn((b, sq, h, d), generator=g).to(dtype).to(cuda)
+    k = torch.randn((b, sk, kv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, sk, kv, dv), generator=g).to(dtype).to(cuda)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    key = shape_key(d, dv, causal)
+    before = (build.launch_counts()["flash_attention"],
+              LAUNCHES_BY_SHAPE[key])
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (build.launch_counts()["flash_attention"],
+            LAUNCHES_BY_SHAPE[key]) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (b, sq, h, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_other_head_dims(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
-    q = torch.zeros((1, 16, 2, 96), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros((1, 16, 2, 80), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q[..., :64].contiguous())
 
 
 @pytest.mark.cuda

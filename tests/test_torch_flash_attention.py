@@ -230,5 +230,8 @@ def test_attention_routes_the_core():
         ops.flash_attention_op = real
     assert tattn._kernel_gap(capped, pos, 128).startswith("a logit softcap")
     assert tattn._kernel_gap(tcfg, pos + 3, 128).startswith("positions")
-    assert tattn._kernel_gap(tcfg, pos, 96).startswith("head dim 96")
+    assert tattn._kernel_gap(tcfg, pos, 80).startswith("head dim 80")
+    assert tattn._kernel_gap(tcfg, pos, 192).startswith("head dim 192")
     assert tattn._kernel_gap(tcfg, pos, 128) is None
+    assert tattn._kernel_gap(tcfg, pos, 96) is None
+    assert tattn._kernel_gap(tcfg, pos, 192, 128) is None

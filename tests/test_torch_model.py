@@ -10,7 +10,14 @@ places; logits, which reach about 4, are held within rtol = atol = 6e-2
 within 1e-3 relative. The bf16 case first asserts that both packages route
 every token to the same expert slots in every MoE layer, so that a flipped
 expert choice would show as such and not as a numeric difference.
+
+The other five families (MLA, Mamba-2, the hybrid, the encoder-decoder
+with stub frames and the VLM with a stub patch prefix, inputs from numpy
+seeds) hold their fp32 logits, aux, caches and encoder memory within
+rtol = atol = 1e-4, and their parameter trees match the reference's
+shapes, the encoder stack included.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -35,6 +42,7 @@ from repro_torch.models import (  # noqa: E402
     params_from_jax,
 )
 from repro_torch.models import layers, moe  # noqa: E402
+from torch_moe_plans import moe_plans  # noqa: E402
 
 
 def _fields(cfg):
@@ -148,12 +156,12 @@ def test_param_shapes_match(arch):
 # The prefill forward
 # ---------------------------------------------------------------------------
 
-def _run(arch, dtype, tokens, *, plans=None):
+def _run(arch, dtype, tokens, *, plans=None, extra=None):
     """The reference's forward and the port's on the same weights. With
     ``plans`` (a list), both run their periods unrolled and unscanned (the
     same arithmetic) so that each MoE layer's dispatch plan is recorded as
-    ``(reference's, port's)``."""
-    from repro.models import moe as jmoe
+    ``(reference's, port's)``. ``extra`` adds numpy inputs to the batch
+    (``frames``, ``prefix_embeds``)."""
     jcfg = dataclasses.replace(jget_config(arch, reduced=True),
                                compute_dtype=dtype)
     if plans is not None:
@@ -163,28 +171,15 @@ def _run(arch, dtype, tokens, *, plans=None):
                                compute_dtype=dtype)
     jp = jinit(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-    jplans, tplans = [], []
-    jreal, treal = jmoe.moe_dispatch_plan, moe.moe_dispatch_plan
-
-    def jrecord(*a):
-        jplans.append(jreal(*a))
-        return jplans[-1]
-
-    def trecord(*a):
-        tplans.append(treal(*a))
-        return tplans[-1]
-
-    if plans is not None:
-        jmoe.moe_dispatch_plan, moe.moe_dispatch_plan = jrecord, trecord
-    try:
-        j = jforward(jp, {"tokens": jnp.asarray(tokens)}, jcfg,
+    batch = dict(extra or {}, tokens=tokens)
+    hooks = contextlib.nullcontext([]) if plans is None else moe_plans()
+    with hooks as pairs:
+        j = jforward(jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg,
                      return_caches=True)
-        t = forward(tp, {"tokens": torch.from_numpy(tokens)}, tcfg,
-                    return_caches=True)
-    finally:
-        jmoe.moe_dispatch_plan, moe.moe_dispatch_plan = jreal, treal
+        t = forward(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
+                    tcfg, return_caches=True)
     if plans is not None:
-        plans.extend(zip(jplans, tplans))
+        plans.extend(pairs)
     return j, t
 
 
@@ -256,3 +251,70 @@ def test_forward_is_one_path_on_the_cpu():
             setattr(ops, n, real[n])
     assert caches is None and torch.isfinite(logits.float()).all()
     assert sorted(seen) == sorted(names * cfg.num_layers)
+
+
+FAMILIES = ["deepseek-v2-236b", "mamba2-780m", "jamba-v0.1-52b",
+            "seamless-m4t-medium", "phi-3-vision-4.2b"]
+
+
+def _extra(arch, b=2, seed=4):
+    """The stub frontend inputs of an arch: 12 encoder frames, or the
+    config's patch prefix."""
+    cfg = get_config(arch, reduced=True)
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        return {"frames": rng.standard_normal(
+            (b, 12, cfg.d_model)).astype(np.float32)}
+    if cfg.prefix_len:
+        return {"prefix_embeds": rng.standard_normal(
+            (b, cfg.prefix_len, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forward_matches_jax_fp32(arch):
+    tokens = _tokens(5, 512, s=32)
+    (jl, jaux, jc, jmem), (tl, taux, tc, tmem) = _run(
+        arch, "float32", tokens, extra=_extra(arch))
+    # The prefix's positions are cut from the logits.
+    assert tl.shape == jl.shape == (2, 32, 512)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-4,
+                               atol=1e-4)
+    assert (tmem is None) == (jmem is None)
+    if jmem is not None:
+        np.testing.assert_allclose(tmem.numpy(), np.asarray(jmem),
+                                   rtol=1e-4, atol=1e-4)
+    views = list(zip(tc["prefix"], jc["prefix"])) + \
+        list(zip(tc["slots"], jc["slots"]))
+    assert len(views) == len(jc["prefix"]) + len(jc["slots"])
+    for tview, jview in views:
+        assert type(tview).__name__ == type(jview).__name__
+        for a, b in zip(tview, jview):
+            assert tuple(a.shape) == b.shape
+            np.testing.assert_allclose(a.float().numpy(), np.asarray(b),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_param_shapes_match(arch):
+    cfg = get_config(arch, reduced=True)
+    t = param_shapes(cfg)
+    j = jparam_shapes(jget_config(arch, reduced=True))
+    assert sorted(t) == sorted(j)
+    for key in t:
+        if key not in ("stack", "encoder"):
+            assert jax.tree.map(lambda x: tuple(x.shape), t[key]) == \
+                jax.tree.map(lambda x: x.shape, j[key])
+            continue
+        assert len(t[key]["prefix"]) == len(j[key]["prefix"])
+        for tp, jpp in zip(t[key]["prefix"], j[key]["prefix"]):
+            assert jax.tree.map(lambda x: tuple(x.shape), tp) == \
+                jax.tree.map(lambda x: x.shape, jpp)
+        for tslot, jslot in zip(t[key]["slots"], j[key]["slots"]):
+            want = jax.tree.map(lambda x: x.shape[1:], jslot)
+            for period in tslot:
+                assert jax.tree.map(lambda x: tuple(x.shape), period) == want
+            assert {x.shape[0] for x in jax.tree.leaves(jslot)} == \
+                {len(tslot)}

@@ -5,7 +5,11 @@ with the same weights (the reference's, through ``params_from_jax``) in
 fp32 compute, so greedy tokens do not flip on bf16 rounding: completion
 order, the ``serve.*`` counters (all but the wall clock), the request
 latency histogram and every request's greedy output must be identical.
-Everything runs on the CPU.
+The archs cover every kind of decode cache: K/V (qwen2.5-3b), MoE
+(dbrx-132b), MLA's latent (deepseek-v2-236b), Mamba's conv and state
+(mamba2-780m), both in one period (jamba-v0.1-52b), and an
+encoder-decoder, whose engines both decode without encoder memory
+(seamless-m4t-medium). Everything runs on the CPU.
 """
 import dataclasses
 import json
@@ -58,7 +62,9 @@ def _drive(eng, submit_request, request, reqs, poll_every=3):
         uid: list(r.output) for uid, r in eng.completed.items()}
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "dbrx-132b",
+                                  "deepseek-v2-236b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "seamless-m4t-medium"])
 def test_engine_matches_the_reference_engine(arch):
     jcfg, tcfg = (dataclasses.replace(get(arch, reduced=True),
                                       compute_dtype="float32")
@@ -100,10 +106,22 @@ def test_engine_refuses_the_legacy_submit_and_unported_models():
         eng.submit(SubmitRequest())
     ticket = eng.submit(SubmitRequest(request=Request(uid=5, prompt=[3])))
     assert ticket.uid == 5 and ticket.channel == "completion"
-    for arch in ("mamba2-780m", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ServeEngine({}, get_config(arch, reduced=True), capacity=1,
-                        max_len=8, device="cpu")
+    # Every arch builds an engine: mamba2-780m with one MambaCache per
+    # slot, seamless-m4t-medium without cross-attention caches (its
+    # decode runs without encoder memory, as the reference's engine's).
+    mamba = ServeEngine({}, get_config("mamba2-780m", reduced=True),
+                        capacity=2, max_len=8, device="cpu")
+    (slot,) = mamba.state.caches["slots"]
+    assert type(slot).__name__ == "MambaCache" and slot.state.shape[1] == 2
+    slot.state.fill_(1.0)
+    slot.conv.fill_(1.0)
+    mamba._reset_slot_caches(1)
+    assert bool((slot.state[:, 0] == 1).all()) and not slot.state[:, 1].any()
+    assert not slot.conv[:, 1].any()
+    seamless = ServeEngine({}, get_config("seamless-m4t-medium",
+                                          reduced=True),
+                           capacity=1, max_len=8, device="cpu")
+    assert set(seamless.state.caches) == {"prefix", "slots"}
 
 
 def test_engine_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
