@@ -183,12 +183,36 @@ Phases:
    a quarter. Prints the steady prefill's ms and tokens/s (the first,
    cold call's ms beside it), the decode step's median ms and the card's
    busy share of one step, and the peak device memory.
-10. The most active descriptors one copy call received on each path
+10. (p) Training, after (o): ``flash_attention_bwd`` against
+   ``flash_attention_backward_plain`` on the same q, k, v, output,
+   log-sum-exp and dO (and that against autograd of the plain forward),
+   within 2e-4 (fp32) and 3e-2 (bf16) of the largest reference entry, at
+   qwen2.5-3b's training shape (4 x 512, 16/2 heads of 128, causal), a
+   window of 128, a non-causal case and small cases at head dims 64, 96
+   and 192/128, in both dtypes; two launches bit-identical; the forward's
+   log-sum-exp against the plain one; its time at the training shape
+   beside its bound, the plain version and SDPA's backward. Then
+   qwen2.5-3b at its published config (36 layers, fp32 parameters, bf16
+   compute, remat "minimal"; weights from ``--seed``): one
+   ``grads_and_metrics`` on a 4 x 512 batch of the port's
+   ``DataIterator`` through the kernels, held against the same on the
+   plain ops (loss within 2e-3 relative, global norm within 1 %, every
+   leaf's gradient at cosine >= 0.999; the worst leaf printed); 8
+   ``train_step``s through ``make_train_step`` on that batch (the losses
+   finite, the last below the first, the lr on its schedule; 72 flash
+   forwards and 36 backwards a step, checked), with the median step ms,
+   tokens/s, peak memory, and one profiled step's busy share and device
+   time by kernel group. Then the ``Trainer`` at those widths cut to 1
+   layer: 4 steps with a checkpoint every 2 (keep 1) into a directory
+   under ``build/`` that is removed, resumed to 6, against an
+   uninterrupted 6-step run (losses within 1e-5 relative; bit-equality
+   printed).
+11. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
-   launches; a ``kernels`` JSON line (each kernel's launches summed over
-   the main path, (k), (j), (l), (m), (n) and (o), and per path; flash's
-   phase (o) launches by shape and its times at the new head dims), then
-   the ``ok`` JSON line last.
+   launches; a ``kernels`` JSON line (each of the eight kernels' launches
+   summed over the main path, (k), (j), (l), (m), (n), (o) and (p), and
+   per path; flash's phase (o) launches by shape and its times at the
+   new head dims), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -909,8 +933,8 @@ def check_flash(torch, np, dev, rng) -> dict:
     ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, d, 1, 0, 1,
-        stream))
+        o.data_ptr(), None, PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, d, 1, 0,
+        1, stream))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
                                                             causal=True),
                        reps=3, warm=1)
@@ -945,7 +969,7 @@ def check_flash(torch, np, dev, rng) -> dict:
     o = torch.empty_like(q)
     f32_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), b, s, s, h, kv, d, d, 1, 0, 0, stream))
+        o.data_ptr(), None, b, s, s, h, kv, d, d, 1, 0, 0, stream))
     n_bytes, n_ops = flash_work(q, k, True)
     log({"time": "flash_attention_fp32", "B": b, "S": s, "H": h, "KV": kv,
          "D": d, "dtype": "float32", "causal": True, "kernel_ms": f32_ms,
@@ -973,7 +997,7 @@ def time_flash_shape(torch, qkv, spec) -> dict:
     ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), b, s, s, h, kv, d, dv, 1, 0, 1, stream))
+        o.data_ptr(), None, b, s, s, h, kv, d, dv, 1, 0, 1, stream))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
                                                             causal=True),
                        reps=3, warm=1)
@@ -3074,6 +3098,452 @@ def family_path(torch, np, dev, rng, seed: int) -> dict:
     return dict(total), dict(shapes)
 
 
+# ---------------------------------------------------------------------------
+# Phase (p): training qwen2.5-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+#: The flash backward kernel against its plain version: B, S, H, KV, D,
+#: DV, causal, window. The first is qwen2.5-3b's training batch, timed.
+FLASH_BWD_CASES = [
+    (4, 512, 16, 2, 128, 128, True, None),
+    (2, 512, 16, 2, 128, 128, True, 128),      # a window of 128
+    (2, 384, 16, 2, 128, 128, False, None),    # not causal
+    (2, 200, 8, 2, 64, 64, True, None),
+    (2, 200, 8, 8, 96, 96, True, None),
+    (2, 200, 8, 8, 192, 128, True, None),      # MLA's heads
+]
+#: dQ, dK and dV within this share of the largest reference entry: fp32
+#: sums in another order; in bf16 also the gradients' own rounding.
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+#: The kernels' gradients against the plain ops': loss relative, global
+#: norm relative, and the least cosine of any leaf's gradient.
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_MIN_COS = 2e-3, 1e-2, 0.999
+#: The trainer: published widths cut to this many layers, so that a
+#: checkpoint (parameters, m and v) is about 4.7 GB, not 37.
+TRAINER_LAYERS, TRAINER_STEPS, TRAINER_SPLIT, TRAINER_EVERY = 1, 6, 4, 2
+TRAINER_RTOL = 1e-5
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through (positions from 0)."""
+    n = 0
+    for i in range(sq):
+        hi = min(sk, i + 1) if causal else sk
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
+    """(bytes, operations) of the backward: q, k, v, the output, dO and
+    the log-sum-exp read once, dQ, dK and dV written once; per visible
+    pair 2 D (S again), 2 DV (dO V^T), 2 DV (dV), 2 D (dQ) and 2 D (dK)
+    operations: 2.5 times the forward's at D = DV."""
+    b, sq, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    el = q.element_size()
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * el \
+        + 2 * b * sq * h * dv * el + b * h * sq * 4
+    pairs = visible_pairs(sq, sk, causal, window)
+    return int(n_bytes), 2 * b * h * pairs * (3 * d + 2 * dv)
+
+
+def bwd_ptxas(build_log) -> dict:
+    """Registers and spills of each backward kernel, as ptxas reports
+    them (empty when the library was built before this run)."""
+    import re
+    out, name = {}, None
+    for ln in (build_log or "").splitlines():
+        if "Compiling entry function" in ln:
+            kind = next((k for k in ("dkdv_kernel", "dq_kernel",
+                                     "delta_kernel") if k in ln), None)
+            dims = "/".join(re.findall(r"Li(\d+)E", ln))
+            name = kind and (f"{kind}_{'bf16' if 'bfloat16' in ln else 'fp32'}"
+                             f"_{dims}")
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name]["spill_store_bytes"] = nums[1]
+        elif name and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
+def check_flash_backward(torch, np, dev, rng) -> dict:
+    """The backward kernel against ``flash_attention_backward_plain`` on
+    the same inputs (and that against autograd of the plain forward), two
+    launches bit-identical, the forward's log-sum-exp against the plain
+    one; then its times at the training shape beside its bound and SDPA's
+    backward."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def inputs(b, s, h, kv, d, dv, dtype):
+        shapes = ((b, s, h, d), (b, s, kv, d), (b, s, kv, dv), (b, s, h, dv))
+        return [torch.randn(x, device=dev, generator=g).to(dtype)
+                for x in shapes]
+
+    def rel(got, want):
+        return [max_err(torch, a, b) / max(float(b.float().abs().max()),
+                                           1e-30)
+                for a, b in zip(got, want)]
+
+    worst_bf16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_BWD_TOL[str(dtype).split(".")[-1]]
+        for b, s, h, kv, d, dv, causal, window in FLASH_BWD_CASES:
+            q, k, v, dout = inputs(b, s, h, kv, d, dv, dtype)
+            out, lse = _forward(q, k, v, causal, window, with_lse=True)
+            _, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+            lse_err = max_err(torch, lse, lse_p)
+            want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                                  causal=causal,
+                                                  window=window)
+            got = flash_attention_backward(q, k, v, out, lse, dout,
+                                           causal=causal, window=window)
+            again = flash_attention_backward(q, k, v, out, lse, dout,
+                                             causal=causal, window=window)
+            torch.cuda.synchronize()
+            identical = all(torch.equal(a, c) for a, c in zip(got, again))
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(flash_attention_plain(
+                *leaves, causal=causal, window=window), leaves, dout)
+            kernel_err, plain_err = rel(got, want), rel(want, auto)
+            spec = {"dtype": str(dtype), "B": b, "S": s, "H": h, "KV": kv,
+                    "D": d, "DV": dv, "causal": causal, "window": window}
+            log({"check": "flash_attention_bwd", **spec,
+                 "rel_err_dq_dk_dv": kernel_err,
+                 "max_abs_err": max(max_err(torch, a, c)
+                                    for a, c in zip(got, want)),
+                 "plain_vs_autograd_rel_err": plain_err,
+                 "lse_max_abs_err": lse_err, "tolerance": tol,
+                 "bit_identical_across_launches": identical})
+            if not identical:
+                raise AssertionError(f"flash_attention_bwd: two launches "
+                                     f"differ at {spec}")
+            if max(kernel_err) > tol or max(plain_err) > tol \
+                    or lse_err > 1e-3:
+                raise AssertionError(f"flash_attention_bwd disagrees at "
+                                     f"{spec}: {kernel_err}, plain "
+                                     f"{plain_err}, lse {lse_err}")
+            if dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, max(
+                    max_err(torch, a, c) for a, c in zip(got, want)))
+            del q, k, v, dout, out, lse, lse_p, want, got, again, auto
+
+    # Times at the training shape: bf16, causal.
+    b, s, h, kv, d, dv, causal, window = FLASH_BWD_CASES[0]
+    q, k, v, dout = inputs(b, s, h, kv, d, dv, torch.bfloat16)
+    out, lse = _forward(q, k, v, True, None, with_lse=True)
+    dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(torch, lambda: flash_attention_backward(
+        q, k, v, out, lse, dout, causal=True))
+    kernel_ms = time_ms(torch, lambda: build.launch(
+        "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, s, s, h, kv, d, dv,
+        1, 0, 1, stream))
+    plain_ms = time_ms(torch, lambda: flash_attention_backward_plain(
+        q, k, v, out, lse, dout, causal=True), reps=3, warm=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True))
+    lib = torch.autograd.grad(o_lib, (qt, kt, vt), dot)
+    ours = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    n_bytes, n_ops = flash_bwd_work(q, k, v, True, None)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    res = {"max_abs_err": worst_bf16, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": n_bytes, "operations": n_ops}
+    log({"time": "flash_attention_bwd", "B": b, "S": s, "H": h, "KV": kv,
+         "D": d, "DV": dv, "dtype": "bfloat16", "causal": True, **res,
+         "ops_rate": "bf16 tensor cores, 989.4 TFLOP/s",
+         "kernel_share_of_bound": b_ms / kernel_ms,
+         "kernel_tflops": n_ops / kernel_ms / 1e9,
+         "library_tflops": n_ops / library_ms / 1e9,
+         "library": "autograd.grad of scaled_dot_product_attention("
+                    "is_causal, enable_gqa)",
+         "max_abs_diff_to_library": max(
+             max_err(torch, a, c.transpose(1, 2)) for a, c in zip(ours, lib)),
+         "ptxas": bwd_ptxas(build.BUILD_LOG.get("flash_attention_bwd"))})
+    del q, k, v, dout, out, lse, dq, dk, dvv, delta, qt, kt, vt, o_lib, lib
+    del ours
+    torch.cuda.empty_cache()
+    return res
+
+
+def cosine(torch, a, b) -> float:
+    """Cosine of two tensors' entries, summed in float64 in chunks."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    ab = aa = bb = 0.0
+    for i in range(0, a.numel(), 1 << 24):
+        x, y = a[i:i + (1 << 24)].double(), b[i:i + (1 << 24)].double()
+        ab += float(x @ y)
+        aa += float(x @ x)
+        bb += float(y @ y)
+    return ab / max((aa * bb) ** 0.5, 1e-300)
+
+
+def schedule_lr(step: int, lr: float, warmup: int, total: int,
+                min_ratio: float = 0.1) -> float:
+    """The cosine schedule, on the host, for holding the step's lr."""
+    import math
+    warm = min(step / max(warmup, 1), 1.0)
+    frac = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
+    return lr * warm * (min_ratio + (1 - min_ratio) * 0.5
+                        * (1 + math.cos(math.pi * frac)))
+
+
+def kernel_kind(name: str) -> str:
+    """A profiled kernel's group in phase (p)'s breakdown."""
+    low = name.lower()
+    if "flash_attention" in low:
+        return "flash_forward"
+    if any(k in low for k in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+        return "flash_backward"
+    if any(k in low for k in ("gemm", "sm90_xmma", "cutlass", "nvjet")):
+        return "matmul"
+    if "copy" in low:
+        return "copy_cast"
+    if "reduce" in low:
+        return "reduce"
+    if "elementwise" in low or "foreach" in low:
+        return "elementwise"
+    return "other"
+
+
+def train_path(torch, np, dev, rng, seed: int) -> dict:
+    """(p) qwen2.5-3b at its published config, all 36 layers, fp32
+    parameters, bf16 compute, remat "minimal": one ``grads_and_metrics``
+    through the kernels held against the same on the plain ops, then
+    ``TRAIN_STEPS`` train steps through ``make_train_step`` on one batch
+    of the data pipeline. Returns the train steps' launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.train import (TrainConfig, grads_and_metrics,
+                                   init_state, make_train_step)
+    from repro_torch.tree import flatten
+
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    log({"init": TRAIN_ARCH, "layers": layers, "d_model": cfg.d_model,
+         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+         "head_dim": cfg.head_dim_, "vocab": cfg.padded_vocab,
+         "remat_policy": cfg.remat_policy, "compute": str(cfg.cdtype),
+         "params": sum(x.numel() for x in _leaves(params)),
+         "seconds": time.perf_counter() - t0})
+    # One batch of the data pipeline, trained on for every step: the
+    # synthetic stream's tokens are uniform over 151,936 ids, so fresh
+    # batches would hold the loss near ln(V) for far more than 8 steps;
+    # one batch falls as the model fits it (the reference's own
+    # convergence test, tests/test_substrate.py, does the same).
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=seed))
+    try:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()
+                 if k in ("tokens", "labels", "loss_mask")}
+    finally:
+        data.close()
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+
+    # The gradients through the kernels against the plain ops'.
+    before = build.launch_counts()
+    t0 = time.perf_counter()
+    grads, m = grads_and_metrics(params, batch, cfg, 1)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: n - before[k] for k, n in build.launch_counts().items()}
+    expect_launches("p_grads", launched, {"flash_attention": 2 * layers,
+                                          "flash_attention_bwd": layers})
+    before = build.launch_counts()
+    with plain_kernels(torch):
+        grads_p, m_p = grads_and_metrics(params, batch, cfg, 1)
+    torch.cuda.synchronize()
+    if build.launch_counts() != before:
+        raise AssertionError("phase p: the plain gradients launched a kernel")
+    loss, loss_p = float(m["loss"]), float(m_p["loss"])
+    gnorm = float(optim.global_norm(grads))
+    gnorm_p = float(optim.global_norm(grads_p))
+    a, b = flatten(grads), flatten(grads_p)
+    cos = sorted((cosine(torch, a[k], b[k]), k) for k in b)
+    ok = abs(loss - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p) \
+        and abs(gnorm - gnorm_p) <= TRAIN_NORM_RTOL * gnorm_p \
+        and cos[0][0] >= TRAIN_MIN_COS
+    log({"check": "p_grads_vs_plain", "loss": loss, "loss_plain": loss_p,
+         "loss_rel_err": abs(loss - loss_p) / abs(loss_p),
+         "grad_norm": gnorm, "grad_norm_plain": gnorm_p,
+         "grad_norm_rel_err": abs(gnorm - gnorm_p) / gnorm_p,
+         "leaves": len(cos), "worst_leaf": cos[0][1],
+         "worst_cosine": cos[0][0],
+         "next_worst": [{"leaf": k, "cosine": c} for c, k in cos[1:5]],
+         "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                       "grad_norm_rtol": TRAIN_NORM_RTOL,
+                       "min_cosine": TRAIN_MIN_COS},
+         "grads_ms_first_call": grads_ms})
+    if not ok:
+        raise AssertionError("phase p: the gradients through the kernels "
+                             "differ from the plain ops' beyond tolerance")
+    del grads, grads_p, a, b, m, m_p
+    torch.cuda.empty_cache()
+
+    # The train steps.
+    ocfg = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                             total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(optimizer=ocfg)
+    state = init_state(params, tcfg)
+    del params
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()                    # the training path starts here
+    losses, lrs, norms, step_ms = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        lrs.append(float(metrics["lr"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = build.launch_counts()          # the training path ends here
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("p", launches,
+                    {"flash_attention": 2 * layers * TRAIN_STEPS,
+                     "flash_attention_bwd": layers * TRAIN_STEPS})
+    want_lr = [schedule_lr(i + 1, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+               for i in range(TRAIN_STEPS)]
+    median = statistics.median(step_ms)
+    log({"phase": "p_train_qwen2_5_3b", "steps": TRAIN_STEPS,
+         "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+         "step_ms_median": median, "step_ms": step_ms,
+         "tokens_per_s": n_tok / (median / 1e3), "losses": losses,
+         "lr": lrs, "lr_want": want_lr, "grad_norms": norms,
+         "max_memory_allocated": peak,
+         "max_memory_allocated_gb": peak / 1e9,
+         "flash_launches_per_step": launches["flash_attention"] / TRAIN_STEPS,
+         "flash_bwd_launches_per_step":
+             launches["flash_attention_bwd"] / TRAIN_STEPS})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase p: losses {losses}: not all finite, or "
+                             "the last not below the first")
+    if any(abs(a - w) > 1e-6 * w for a, w in zip(lrs, want_lr)):
+        raise AssertionError(f"phase p: lr {lrs} off the schedule {want_lr}")
+
+    # One more step, profiled: the gradients, then AdamW.
+    held = {}
+    rows_g = device_profile(torch, lambda: held.update(g=grads_and_metrics(
+        state.params, batch, cfg, 1)[0]), "p_train_grads")
+    rows_a = device_profile(torch, lambda: optim.apply(
+        ocfg, state.params, held["g"], state.opt), "p_train_adamw")
+    if rows_g and rows_a:
+        by_kind = {}
+        for us, name, n in rows_g:
+            kind = kernel_kind(name)
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        adamw_ms = sum(us for us, _, _ in rows_a) / 1e3
+        device_ms = sum(by_kind.values()) + adamw_ms
+        log({"profile": "p_train_step", "device_ms": device_ms,
+             "device_busy_share_of_step": device_ms / median,
+             "step_ms_median": median,
+             "device_ms_by_kind": dict(by_kind, adamw_update=adamw_ms),
+             "adamw_kernels": sum(n for _, _, n in rows_a),
+             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                     for us, k, n in rows_g[:14]]})
+    del state, held, batch
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def trainer_path(torch, np, dev, seed: int) -> dict:
+    """(p) The ``Trainer`` on the card: qwen2.5-3b's published widths cut
+    to ``TRAINER_LAYERS`` layer, ``TRAINER_SPLIT`` steps with a checkpoint
+    every ``TRAINER_EVERY`` (``keep`` 1), then resumed to
+    ``TRAINER_STEPS``; the losses against an uninterrupted run's. The
+    checkpoints go to a directory under ``build/`` that is removed."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainConfig, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAINER_LAYERS)
+    tcfg = TrainConfig(optimizer=optim.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAINER_STEPS))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="p_trainer_", dir=ROOT / "build"))
+    sigterm = signal.getsignal(signal.SIGTERM)
+
+    def run(name, total, every):
+        t0 = time.perf_counter()
+        out = Trainer(cfg, tcfg, TrainerConfig(
+            total_steps=total, checkpoint_every=every,
+            checkpoint_dir=str(root / name), keep_checkpoints=1, seed=seed,
+            log_every=1000), dcfg, device=dev).train()
+        torch.cuda.empty_cache()
+        return out, time.perf_counter() - t0
+
+    try:
+        whole, s_whole = run("whole", TRAINER_STEPS, 1000)
+        first, s_first = run("split", TRAINER_SPLIT, TRAINER_EVERY)
+        kept = Checkpointer(str(root / "split"), keep=1).committed_steps()
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (root / "split" / f"step_{kept[-1]:09d}").iterdir())
+        second, s_second = run("split", TRAINER_STEPS, TRAINER_EVERY)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    resumed = first["losses"] + second["losses"]
+    want = whole["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, want))
+    out = {"check": "p_trainer_resume", "layers": TRAINER_LAYERS,
+           "losses_resumed": resumed, "losses_uninterrupted": want,
+           "max_rel_diff": rel, "rtol": TRAINER_RTOL,
+           "bit_equal": resumed == want, "kept_after_first_run": kept,
+           "checkpoint_bytes": ckpt_bytes,
+           "final_steps": [first["final_step"], second["final_step"]],
+           "seconds": {"uninterrupted": s_whole, "first": s_first,
+                       "resumed": s_second}}
+    log(out)
+    if len(resumed) != TRAINER_STEPS or rel > TRAINER_RTOL \
+            or kept != [TRAINER_SPLIT] \
+            or second["final_step"] != TRAINER_STEPS:
+        raise AssertionError("phase p: the resumed trainer differs from the "
+                             "uninterrupted one")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3161,6 +3631,12 @@ def main() -> int:
     by_path["o_families"], flash_shapes = family_path(torch, np, dev, rng,
                                                       args.seed)
     log({"phase": "o", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timing["flash_attention_bwd"] = check_flash_backward(torch, np, dev, rng)
+    by_path["p_train"] = train_path(torch, np, dev, rng, args.seed)
+    trainer_path(torch, np, dev, args.seed)
+    log({"phase": "p", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(
@@ -3184,7 +3660,10 @@ def main() -> int:
            "moe_combine": ("moe_combine", "moe_dispatch",
                            "src/repro/kernels/moe_dispatch.py:57"),
            "flash_attention": ("flash_attention", "flash_attention",
-                               "src/repro/kernels/flash_attention.py:78")}
+                               "src/repro/kernels/flash_attention.py:78"),
+           "flash_attention_bwd": ("flash_attention_bwd",
+                                   "flash_attention_bwd",
+                                   "src/repro/kernels/flash_attention.py:78")}
     kernels = []
     for name, (counter, lib, replaces) in src.items():
         t = timing[counter]
@@ -3192,6 +3671,10 @@ def main() -> int:
         if name == "flash_attention":
             extra = {"launches_by_shape_o_families": flash_shapes,
                      "shapes": t["shapes"]}
+        elif name == "flash_attention_bwd":
+            extra = {"derivative_of": "the forward's attention, which the "
+                     "reference differentiates through "
+                     "src/repro/models/attention.py:78 blockwise_attention"}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
                         "replaces": replaces, "launches": launches[counter],

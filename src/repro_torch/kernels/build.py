@@ -49,8 +49,12 @@ _SYMBOLS = {
                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_launch",
+                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                            + [ctypes.c_void_p]),
     "moe_gather": ("moe_dispatch", "moe_gather_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                    + [ctypes.c_void_p]),
@@ -159,6 +163,21 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward that kernel ``name``
+    does not have: grad is enabled and an input requires grad. The kernel
+    writes its output through a raw pointer, so that output would carry no
+    ``grad_fn`` and every gradient below it would be lost without a word.
+    The wrappers call this on their CUDA route only; the plain versions
+    on the CPU are differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            "requires grad; run it under torch.no_grad() or on the CPU")
 
 
 #: Return code of a table launch function when an index is out of range

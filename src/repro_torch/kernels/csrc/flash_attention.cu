@@ -13,6 +13,13 @@
 // score contributes exactly 0, so a row with no visible key comes out as
 // zeros.
 //
+// Training: with a non-null `lse` (B, H, Sq) fp32 both kernels also write
+// each row's log-sum-exp of the scaled scores, m + log(l) in natural-log
+// units, from the epilogue's m and l (one store a row); the backward
+// (flash_attention_bwd.cu) rebuilds P from it. A row with no visible key
+// writes m (-inf or -1e30): its gradients are zeros whatever the value.
+// Serving passes nullptr and the epilogue stores nothing more.
+//
 // Bound: operations. A causal pass does 4 * D operations per visible
 // (query, key) pair: at B 4, S 2,048, H 48, D 128 that is 206 GFLOP, 0.208
 // ms at the bf16 tensor-core rate of 989.4 TFLOP/s, against 235 MB of q, k,
@@ -116,9 +123,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq,
-                       int sk, int heads, int kv_heads, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int sq, int sk, int heads,
+                       int kv_heads, int causal, int window, float scale) {
   constexpr int kLd = D + 4;
   constexpr int kLdV = DV + 4;
   constexpr int kLdKV = kLd > kLdV ? kLd : kLdV;
@@ -270,6 +277,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = 4 * tr + i;
     if (row >= q_rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tc == 0) {
+      lse[(static_cast<long long>(b) * heads + h) * sq + q0 + row] =
+          m[i] + logf(den);
+    }
     T* orow = out + (static_cast<long long>(b) * sq + q0 + row) * o_stride +
               static_cast<long long>(h) * DV + 4 * tc;
 #pragma unroll
@@ -668,8 +679,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ out, int sq, int sk,
-                          int heads, int kv_heads, int causal, int window,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int sq, int sk, int heads,
+                          int kv_heads, int causal, int window,
                           float scale_log2) {
   using Tiles = TcTiles<D, DV>;
   constexpr uint32_t kQk = Tiles::kQk;  // bytes of a Q or K tile
@@ -880,6 +892,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int qi = r0 + 8 * r;
       if (qi >= sq) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && c0 == 0) {
+        // m is in score units, l in exp2 units of scale_log2.
+        lse[(static_cast<long long>(b) * heads + h) * sq + qi] =
+            m[r] == -INFINITY
+                ? -INFINITY
+                : (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f;
+      }
       __nv_bfloat16* orow =
           out + ((static_cast<long long>(b) * sq + qi) * heads + h) * DV + c0;
 #pragma unroll
@@ -892,9 +911,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <typename T, int D, int DV>
-int launch_d(const void* q, const void* k, const void* v, void* out, int batch,
-             int sq, int sk, int heads, int kv_heads, int causal, int window,
-             cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             float* lse, int batch, int sq, int sk, int heads, int kv_heads,
+             int causal, int window, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kBM * static_cast<size_t>(D + 4) +
                        kBN * static_cast<size_t>((D > DV ? D : DV) + 4) +
@@ -909,8 +928,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int batch,
                   static_cast<unsigned>(heads), static_cast<unsigned>(batch));
   flash_attention_kernel<T, D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, heads, kv_heads,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, heads,
+      kv_heads, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -965,10 +984,10 @@ bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
 
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              int batch, int sq, int sk, int heads, int kv_heads, int causal,
-              int window, cudaStream_t stream) {
+              float* lse, int batch, int sq, int sk, int heads, int kv_heads,
+              int causal, int window, cudaStream_t stream) {
   using Tiles = TcTiles<D, DV>;
-  if (sk == 0) {  // no keys: every row is zeros
+  if (sk == 0) {  // no keys: every row is zeros (the wrapper sets lse)
     return static_cast<int>(cudaMemsetAsync(
         out, 0, sizeof(__nv_bfloat16) * batch * sq * heads * DV, stream));
   }
@@ -991,23 +1010,24 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                   static_cast<unsigned>(blocks_z));
   flash_attention_tc_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, sk, heads, kv_heads,
-      causal, window, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,
+      kv_heads, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch for one (D, DV) pair in one dtype (0: float32, 1: bfloat16).
 template <int D, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, void* out,
-                 int batch, int sq, int sk, int heads, int kv_heads,
-                 int causal, int window, int dtype, cudaStream_t s) {
+                 float* lse, int batch, int sq, int sk, int heads,
+                 int kv_heads, int causal, int window, int dtype,
+                 cudaStream_t s) {
   if (dtype == 0) {
-    return launch_d<float, D, DV>(q, k, v, out, batch, sq, sk, heads,
+    return launch_d<float, D, DV>(q, k, v, out, lse, batch, sq, sk, heads,
                                   kv_heads, causal, window, s);
   }
   if (dtype == 1) {
-    return launch_tc<D, DV>(q, k, v, out, batch, sq, sk, heads, kv_heads,
-                            causal, window, s);
+    return launch_tc<D, DV>(q, k, v, out, lse, batch, sq, sk, heads,
+                            kv_heads, causal, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1016,14 +1036,16 @@ int launch_dtype(const void* q, const void* k, const void* v, void* out,
 
 // q: (batch, sq, heads, head_dim); k: (batch, sk, kv_heads, head_dim); v:
 // (batch, sk, kv_heads, v_head_dim); out: (batch, sq, heads, v_head_dim);
-// all of one dtype (0: float32, 1: bfloat16), contiguous and 16-byte
+// lse: (batch, heads, sq) fp32, or nullptr to write no log-sum-exp;
+// all but lse of one dtype (0: float32, 1: bfloat16), contiguous and 16-byte
 // aligned. heads a multiple of kv_heads; (head_dim, v_head_dim) one of
 // (64, 64), (96, 96), (128, 128) and (192, 128). causal 0/1; window <= 0
 // for none. float32 runs the CUDA-core kernel, bfloat16 the tensor-core one.
 // Launches on `stream`; returns cudaGetLastError, or cudaErrorInvalidValue
 // for a shape it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int batch,
+                                      const void* v, void* out, float* lse,
+                                      int batch,
                                       int sq, int sk, int heads, int kv_heads,
                                       int head_dim, int v_head_dim, int causal,
                                       int window, int dtype, void* stream) {
@@ -1036,16 +1058,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int shape = head_dim * 1000 + v_head_dim;
   switch (shape) {
     case 64064:
-      return launch_dtype<64, 64>(q, k, v, out, batch, sq, sk, heads,
+      return launch_dtype<64, 64>(q, k, v, out, lse, batch, sq, sk, heads,
                                   kv_heads, causal, window, dtype, s);
     case 96096:
-      return launch_dtype<96, 96>(q, k, v, out, batch, sq, sk, heads,
+      return launch_dtype<96, 96>(q, k, v, out, lse, batch, sq, sk, heads,
                                   kv_heads, causal, window, dtype, s);
     case 128128:
-      return launch_dtype<128, 128>(q, k, v, out, batch, sq, sk, heads,
+      return launch_dtype<128, 128>(q, k, v, out, lse, batch, sq, sk, heads,
                                     kv_heads, causal, window, dtype, s);
     case 192128:
-      return launch_dtype<192, 128>(q, k, v, out, batch, sq, sk, heads,
+      return launch_dtype<192, 128>(q, k, v, out, lse, batch, sq, sk, heads,
                                     kv_heads, causal, window, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

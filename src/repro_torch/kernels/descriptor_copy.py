@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.core.engine import keep_last
 
-from .build import launch_table
+from .build import launch_table, refuse_grad
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +282,7 @@ def descriptor_copy(src_idx, dst_idx, src: torch.Tensor,
     check_pools(src, dst, "descriptor_copy")
     if dst.get_device() < 0:                       # on the CPU
         return descriptor_copy_plain(src_idx, dst_idx, src, dst)
+    refuse_grad("descriptor_copy", src, dst)
     sidx, didx = int64_streams(src_idx, dst_idx, "descriptor_copy")
     if overlaps(src, dst):
         src, sidx = unaliased_source(src, dst, sidx, didx, _copy_rows)

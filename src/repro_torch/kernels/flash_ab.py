@@ -8,8 +8,10 @@ this one's) is built with :data:`build.NVCC_FLAGS` into its own library
 in a temporary directory and called through its ``flash_attention_launch``
 on the same inputs (the launch function that takes the value head dim
 beside the head dim; a source from before it took one cannot be loaded
-here). At each shape every build is first held against
-:func:`flash_attention_plain` (rtol = atol = 2e-2 in bf16, 2e-5 in fp32),
+here). A source whose launch takes the log-sum-exp pointer gets a null
+one: the serving forward is what is timed, in every build. At each shape
+every build is first held against :func:`flash_attention_plain` (rtol =
+atol = 2e-2 in bf16, 2e-5 in fp32),
 then timed in turns (A, B, ..., B, A: the median of ``--reps`` CUDA-event
 timings each, after a warm-up), with ``scaled_dot_product_attention``
 (``enable_gqa``) timed beside them as the library's yardstick. Prints one
@@ -32,9 +34,11 @@ import torch
 from . import build
 from .flash_attention import flash_attention_plain
 
-#: (B, S, H, KV, D, causal): the dbrx-132b prefill's shape first.
+#: (B, S, H, KV, D, causal): the dbrx-132b prefill's shape first, then
+#: qwen2.5-3b's (phase (l)'s prefill and phase (p)'s training batch).
 SHAPES = {
-    torch.bfloat16: [(4, 2048, 48, 8, 128, 1), (1, 4096, 48, 8, 128, 1),
+    torch.bfloat16: [(4, 2048, 48, 8, 128, 1), (4, 512, 16, 2, 128, 1),
+                     (1, 4096, 48, 8, 128, 1),
                      (4, 2048, 48, 8, 128, 0), (4, 2048, 48, 8, 64, 1)],
     torch.float32: [(1, 2048, 48, 8, 128, 1), (2, 1000, 48, 8, 64, 1)],
 }
@@ -54,6 +58,7 @@ def _launchers(sources):
             text=True)))
     fns = []
     for src, lib, proc in jobs:
+        takes_lse = "float* lse" in Path(src).read_text()
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
@@ -61,9 +66,13 @@ def _launchers(sources):
                  if "C7513" in ln or "spill" in ln]
         print(json.dumps({"build": str(src), "ptxas_notes": notes}))
         fn = ctypes.CDLL(str(lib)).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+        n_ptr = 5 if takes_lse else 4
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if takes_lse:
+            fn = lambda q, k, v, o, *rest, fn=fn: fn(q, k, v, o, None,  # noqa
+                                                     *rest)
         fns.append(fn)
     return fns
 

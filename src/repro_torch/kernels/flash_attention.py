@@ -1,4 +1,5 @@
-"""Flash attention forward: causal or windowed GQA attention over a sequence.
+"""Flash attention, forward and backward: causal or windowed GQA attention
+over a sequence.
 
 ``flash_attention(q, k, v, causal=True, window=None)``:
 
@@ -10,7 +11,7 @@
 * Returns (B, Sq, H, DV) in q's dtype: the softmax of the fp32 scores times
   ``D ** -0.5`` over the visible keys, applied to V in fp32. A row with no
   visible key is zeros (the reference's softmax would average V there; with
-  Sq == Sk every row sees at least itself).
+  Sq == Sk every row sees at least itself), and so are its gradients.
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors, which
 takes (D, DV) of :data:`FLASH_SHAPES` (any other pair raises), and runs
@@ -19,6 +20,14 @@ breaks the kernel's launch count down by (D, DV) and causality, beside
 ``build.LAUNCHES["flash_attention"]``. ``q_block`` and ``kv_block``
 are the TPU kernel's tile sizes; they are accepted for its signature and
 not needed: S need not divide by them.
+
+Training: where grad is enabled and q, k or v requires it, the call goes
+through :class:`FlashAttentionFn`. Its forward also keeps each row's
+log-sum-exp (B, H, Sq) fp32; its backward runs
+``csrc/flash_attention_bwd.cu`` (``build.LAUNCHES["flash_attention_bwd"]``)
+on the card and :func:`flash_attention_backward_plain` on the CPU, both the
+explicit gradient of the same softmax. Without grad (serving) the forward
+writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -89,26 +98,178 @@ def shape_key(d: int, dv: int, causal: bool) -> str:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
     """Plain-PyTorch :func:`flash_attention` (same rules, any D and DV,
-    any device): the full fp32 score matrix, one batch element at a time."""
+    any device): the full fp32 score matrix, one batch element at a time.
+    With ``return_lse`` also each row's log-sum-exp of the scaled scores,
+    (B, H, Sq) fp32 (about -1e30 for a row with no visible key)."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention_plain")
     g, dv = h // kvh, v.shape[-1]
     out = q.new_empty((b, sq, h, dv))
+    lse = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                     device=q.device)
     if sk == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse) if return_lse else out
     mask = _visible(sq, sk, causal, window, q.device)
     for bi in range(b):
         qf = q[bi].float().view(sq, kvh, g, d)
         kf, vf = k[bi].float(), v[bi].float()
         s = torch.einsum("qkgd,skd->kgqs", qf, kf) * d ** -0.5
         s = torch.where(mask, s, NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m) * mask
         den = p.sum(dim=-1).clamp_min(1e-30)
         o = torch.einsum("kgqs,skd->qkgd", p, vf) / \
             den.permute(2, 0, 1)[..., None]
         out[bi] = o.reshape(sq, h, dv).to(q.dtype)
-    return out
+        if return_lse:
+            lse[bi] = (m[..., 0] + den.log()).reshape(h, sq).detach()
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None):
+    """Plain-PyTorch gradient of :func:`flash_attention`: ``(dq, dk, dv)``
+    in the inputs' dtypes from the forward's ``out`` and ``lse`` and the
+    upstream ``dout``. The explicit math, in fp32, one batch element at a
+    time: P = exp(S * scale - LSE) on the visible pairs, D = rowsum(dO * O),
+    dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q *
+    scale, dK and dV summed over the query heads of each KV head. A row
+    with no visible key has P = 0: zero gradients."""
+    b, sq, h, d, sk, kvh = _check(q, k, v, window,
+                                  "flash_attention_backward_plain")
+    g, dv_dim = h // kvh, v.shape[-1]
+    if out.shape != (b, sq, h, dv_dim) or dout.shape != out.shape \
+            or lse.shape != (b, h, sq):
+        raise ValueError("flash_attention_backward_plain: out and dout must "
+                         f"be {(b, sq, h, dv_dim)} and lse {(b, h, sq)}, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}")
+    scale = d ** -0.5
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    if sk and sq:
+        mask = _visible(sq, sk, causal, window, q.device)
+        for bi in range(b):
+            qf = q[bi].float().view(sq, kvh, g, d)
+            kf, vf = k[bi].float(), v[bi].float()
+            of = out[bi].float().view(sq, kvh, g, dv_dim)
+            gf = dout[bi].float().view(sq, kvh, g, dv_dim)
+            s = torch.einsum("qkgd,skd->kgqs", qf, kf) * scale
+            row_lse = lse[bi].float().view(kvh, g, sq)[..., None]
+            p = torch.where(mask, torch.exp(s - row_lse), 0.0)
+            delta = (gf * of).sum(-1).permute(1, 2, 0)[..., None]
+            dp = torch.einsum("qkgd,skd->kgqs", gf, vf)
+            ds = p * (dp - delta)
+            dv[bi] = torch.einsum("kgqs,qkgd->skd", p, gf)
+            dk[bi] = torch.einsum("kgqs,qkgd->skd", ds, qf) * scale
+            dq[bi] = (torch.einsum("kgqs,skd->qkgd", ds, kf)
+                      * scale).reshape(sq, h, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_inputs(api: str, d: int, dv: int, *tensors) -> None:
+    """What the CUDA kernels take beyond :func:`_check`."""
+    if (d, dv) not in FLASH_SHAPES:
+        raise ValueError(f"{api}: the CUDA kernel takes head dims "
+                         f"(D, DV) of {FLASH_SHAPES}, got ({d}, {dv})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{api}: every input must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{api}: every input must be 16-byte aligned")
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int],
+             with_lse: bool):
+    """``(out, lse)`` of the forward, ``lse`` None unless ``with_lse``:
+    the kernel on the card, the plain version on the CPU."""
+    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention")
+    dv = v.shape[-1]
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     window=window), None
+    _kernel_inputs("flash_attention", d, dv, q, k, v)
+    out = q.new_empty((b, sq, h, dv))
+    lse = None
+    if with_lse:   # every row is written by the kernel when there are keys
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        if sk == 0:
+            lse.fill_(NEG_INF)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), None if lse is None else lse.data_ptr(),
+               b, sq, sk, h, kvh, d, dv, int(causal),
+               0 if window is None else int(window), _DTYPE_CODE[q.dtype],
+               stream_of(q.device))
+    LAUNCHES_BY_SHAPE[shape_key(d, dv, causal)] += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """``(dq, dk, dv)`` of :func:`flash_attention`: the backward kernel for
+    CUDA tensors, :func:`flash_attention_backward_plain` for CPU tensors.
+    Deterministic on the card: two calls on the same inputs agree bit for
+    bit."""
+    b, sq, h, d, sk, kvh = _check(q, k, v, window,
+                                  "flash_attention_backward")
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                              causal=causal, window=window)
+    dv_dim = v.shape[-1]
+    if out.shape != (b, sq, h, dv_dim) or dout.shape != out.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("flash_attention_backward: out and dout must be "
+                         f"{(b, sq, h, dv_dim)} in {q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_backward: lse must be "
+                         f"{(b, h, sq)} float32")
+    _kernel_inputs("flash_attention_backward", d, dv_dim, q, k, v, out,
+                   dout, lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if dq.numel() + dk.numel() + dv.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               b, sq, sk, h, kvh, d, dv_dim, int(causal),
+               0 if window is None else int(window), _DTYPE_CODE[q.dtype],
+               stream_of(q.device))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient: the forward keeps ``out``
+    and the log-sum-exp, the backward is :func:`flash_attention_backward`
+    (the kernel on the card, the plain math on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # The output projection's backward hands dout over strided.
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -116,25 +277,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     kv_block: int = 128) -> torch.Tensor:
     """Attention of q over k, v (see the module). ``q_block`` and
     ``kv_block`` are accepted for the TPU kernel's signature only."""
-    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention")
-    dv = v.shape[-1]
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if (d, dv) not in FLASH_SHAPES:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head dims "
-                         f"(D, DV) of {FLASH_SHAPES}, got ({d}, {dv})")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be 16-byte "
-                         "aligned")
-    out = q.new_empty((b, sq, h, dv))
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), b, sq, sk, h, kvh, d, dv, int(causal),
-               0 if window is None else int(window), _DTYPE_CODE[q.dtype],
-               stream_of(q.device))
-    LAUNCHES_BY_SHAPE[shape_key(d, dv, causal)] += 1
-    return out
+    _check(q, k, v, window, "flash_attention")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]

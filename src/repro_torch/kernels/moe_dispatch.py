@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import launch
+from .build import launch, refuse_grad
 from .descriptor_copy import stream_of
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,6 +87,7 @@ def moe_gather(token_idx, tokens) -> torch.Tensor:
     _check_gather(token_idx, tokens, "moe_gather")
     if tokens.device.type == "cpu":
         return moe_gather_plain(token_idx, tokens)
+    refuse_grad("moe_gather", tokens)
     if not (token_idx.is_contiguous() and tokens.is_contiguous()):
         raise ValueError("moe_gather: token_idx and tokens must be contiguous")
     out = torch.empty((token_idx.shape[0], tokens.shape[1]),
@@ -123,6 +124,7 @@ def moe_combine(inv_slot, inv_weight, expert_out) -> torch.Tensor:
     _check_combine(inv_slot, inv_weight, expert_out, "moe_combine")
     if expert_out.device.type == "cpu":
         return moe_combine_plain(inv_slot, inv_weight, expert_out)
+    refuse_grad("moe_combine", inv_weight, expert_out)
     tensors = (inv_slot, inv_weight, expert_out)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("moe_combine: every input must be contiguous")

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import launch
+from .build import launch, refuse_grad
 from .descriptor_copy import stream_of
 
 NEG_INF = -1e30
@@ -110,6 +110,7 @@ def paged_attention(q, k_pages, v_pages, block_tables,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths)
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: every input must be contiguous")

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .build import refuse_grad
 from .descriptor_copy import (
     check_pools,
     host_indices,
@@ -101,6 +102,7 @@ def prefetched_chain_copy(src_idx, dst_idx, src: torch.Tensor,
     if dst.get_device() < 0:                       # on the CPU
         return prefetched_chain_copy_plain(src_idx, dst_idx, src, dst,
                                            depth=depth)
+    refuse_grad("prefetched_chain_copy", src, dst)
     sidx, didx = int64_streams(src_idx, dst_idx, "prefetched_chain_copy")
     depth = clamp_depth(depth, sidx.size)
     if overlaps(src, dst):

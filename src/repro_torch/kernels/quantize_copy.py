@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.optim.compress import BLOCK, _dequantize, _quantize
 
-from .build import launch
+from .build import launch, refuse_grad
 from .descriptor_copy import (
     _launch_copy,
     check_pools,
@@ -81,6 +81,7 @@ def quantize_copy(src_idx, dst_idx, src: torch.Tensor,
     _check(src, dst, "quantize_copy")
     if dst.device.type == "cpu":
         return quantize_copy_plain(src_idx, dst_idx, src, dst)
+    refuse_grad("quantize_copy", src, dst)
     sidx, didx, snapshot = prepare(src_idx, dst_idx, src, dst,
                                    "quantize_copy")
     if not np.any(sidx >= 0):

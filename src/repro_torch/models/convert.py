@@ -10,7 +10,9 @@ it, from ``tree_map(np.asarray, init_params(key, cfg))`` of the reference.
 :func:`decode_state_from_jax` does the same for the reference's
 ``DecodeState`` (K/V and MLA latent caches, Mamba caches and the
 cross-attention caches), so a decode step of each package can start from
-one state.
+one state, and :func:`train_state_from_jax` for the reference's
+``TrainState`` (parameters and AdamW's ``m`` and ``v``, all stacked over
+periods in the reference, and ``step``), so a train step can.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 from .attention import KVCacheView
 from .mamba import MambaCache
 from .model import DecodeState
@@ -47,7 +50,7 @@ def _period(tree, i: int):
 def _stack(stack, periods: int, dev) -> Dict:
     slots = []
     for slot in stack["slots"]:
-        lead = {np.shape(a)[0] for a in _leaves(slot)}
+        lead = {np.shape(a)[0] for a in leaves(slot)}
         if lead != {periods}:
             raise ValueError(f"slot parameters lead with {sorted(lead)}, "
                              f"expected {periods} periods")
@@ -101,9 +104,24 @@ def decode_state_from_jax(state, cfg: ModelConfig, device=None
     return DecodeState(out, _tensors(cur_pos, dev).to(torch.int32))
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def train_state_from_jax(state, cfg: ModelConfig, device=None):
+    """Port train state from the reference's ``TrainState`` of numpy
+    arrays (``tree_map(np.asarray, state)``): the parameters and both
+    moments through :func:`params_from_jax`, the step as an int32 scalar;
+    no residuals (the EF-int8 all-reduce is not ported)."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train import TrainState
+
+    dev = resolve_device(device)
+    params, opt, residuals = state
+    if residuals is not None:
+        raise NotImplementedError("EF-compression residuals: the EF-int8 "
+                                  "all-reduce is not ported")
+    step, m, v = opt
+    return TrainState(
+        params=params_from_jax(params, cfg, dev),
+        opt=AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                         dtype=torch.int32, device=dev),
+                       m=params_from_jax(m, cfg, dev),
+                       v=params_from_jax(v, cfg, dev)),
+        residuals=None)

@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, MLPs, embeddings. Plain functions, dict params.
+"""Shared layers: norms, RoPE, MLPs, embeddings, the loss. Plain functions,
+dict params.
 
 The reference's ``shard(...)`` annotations have no counterpart on one GPU
 and are left out. Parameters are stored in the config's ``pdtype`` and cast
@@ -7,6 +8,7 @@ to the compute dtype at use, as the reference does.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -132,3 +134,25 @@ def unembed(params, x: torch.Tensor, dtype) -> torch.Tensor:
     else:
         w = params["embedding"].to(dtype).T
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_weight: float = 1e-4):
+    """Token-mean CE with z-loss; logits (..., V) in any dtype -> fp32.
+    Returns ``(ce + z_weight * z, {"ce", "z_loss"})``, both means over the
+    masked tokens with denominator ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = lse - ll
+    z = lse.square()
+    mask = torch.ones_like(ce) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    ce_mean = (ce * mask).sum() / denom
+    z_mean = (z * mask).sum() / denom
+    return ce_mean + z_weight * z_mean, {"ce": ce_mean, "z_loss": z_mean}

@@ -13,7 +13,8 @@ does: ``batch["prefix_embeds"]`` (B, P, d), concatenated before the token
 embeddings and cut from the logits (phi-3-vision's patches), and
 ``batch["frames"]`` (B, S_enc, d), the encoder's input (seamless-m4t's
 audio frames). The frontends are stubs; the backbone is exact.
-``loss_fn`` is the reference's and waits for ROADMAP Queue A item 15.
+``loss_fn`` is the training loss: the token-mean cross entropy with the
+z-loss over ``forward``'s logits, plus the MoE auxiliary loss.
 """
 from __future__ import annotations
 
@@ -24,7 +25,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .attention import KVCacheView
-from .layers import embed, init_embed, init_rms_norm, rms_norm, unembed
+from .layers import (
+    embed,
+    init_embed,
+    init_rms_norm,
+    rms_norm,
+    softmax_cross_entropy,
+    unembed,
+)
 from .transformer import (
     init_decode_caches,
     init_stack,
@@ -109,6 +117,16 @@ def forward(params, batch, cfg: ModelConfig, *, return_caches: bool = False):
     x = x[:, _prefix(batch, cfg):]
     logits = unembed(params["embed"], x, cfg.cdtype)
     return logits, aux, caches, memory
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """``(ce + z_weight * z + aux, {"ce", "z_loss", "aux", "loss"})`` of
+    ``batch`` (``tokens``, ``labels`` and an optional ``loss_mask``)."""
+    logits, aux, _, _ = forward(params, batch, cfg)
+    loss, metrics = softmax_cross_entropy(logits, batch["labels"],
+                                          batch.get("loss_mask"))
+    total = loss + aux
+    return total, dict(metrics, aux=aux, loss=total)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,13 @@ A model is ``first_k_dense`` prefix layers plus N identical *periods*; each
 period is the config's ``block_pattern`` (Jamba: 7 mamba + 1 attention with
 alternating MoE). The reference stacks each pattern slot's parameters over
 periods and scans; the port keeps one parameter dict per (slot, period)
-(``params["slots"][j][i]``) and loops. This slice is inference: no remat.
+(``params["slots"][j][i]``) and loops. Under autograd each period runs
+under ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``
+does, by ``cfg.remat_policy``: ``"full"`` saves nothing and recomputes the
+period in the backward, ``"minimal"`` saves the projection matmuls'
+outputs (``aten.mm``/``aten.addmm``, the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+saves everything. Without grad (serving) nothing is wrapped.
 
 An encoder-decoder model has a second stack, the encoder: ``encoder_layers``
 periods of one non-causal (attention, dense) block. Each decoder block then
@@ -21,12 +27,19 @@ encoder-decoder ``cross_prefix`` / ``cross_slots`` of ``CrossCache``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.tree import leaves
 from .attention import (
     attention,
     decode_attention,
@@ -181,6 +194,36 @@ def _stack_caches(caches):
     return type(caches[0])(*(torch.stack(parts) for parts in zip(*caches)))
 
 
+def _save_projections(ctx, op, *args, **kwargs):
+    """The ``"minimal"`` policy: keep the outputs of the 2-D matmuls (the
+    projections), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _needs_grad(x, period_params) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(p.requires_grad
+                                  for p in leaves(period_params))
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy (the caller applies it only
+    under autograd)."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("full", "minimal"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    kwargs = {}
+    if cfg.remat_policy == "minimal":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_projections)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kwargs)
+
+
 def stack_forward(params, x, positions, cfg: ModelConfig, *,
                   encoder: bool = False, memory: Optional[torch.Tensor] = None,
                   return_caches: bool = False):
@@ -199,14 +242,22 @@ def stack_forward(params, x, positions, cfg: ModelConfig, *,
         aux_total = aux_total + aux
         prefix_caches.append(c)
 
+    def period(x, aux_acc, blocks):
+        caches = []
+        for p, (mixer, ffn) in zip(blocks, pattern):
+            x, aux, c = block_forward(p, x, positions, cfg, mixer, ffn,
+                                      causal=causal, memory=memory,
+                                      return_cache=return_caches)
+            aux_acc = aux_acc + aux
+            caches.append(c)
+        return x, aux_acc, caches
+
     slot_caches = tuple([] for _ in pattern)
     for i in range(len(params["slots"][0])):
-        for j, (mixer, ffn) in enumerate(pattern):
-            x, aux, c = block_forward(params["slots"][j][i], x, positions,
-                                      cfg, mixer, ffn, causal=causal,
-                                      memory=memory,
-                                      return_cache=return_caches)
-            aux_total = aux_total + aux
+        blocks = [slot[i] for slot in params["slots"]]
+        run = _remat(period, cfg) if _needs_grad(x, blocks) else period
+        x, aux_total, caches = run(x, aux_total, blocks)
+        for j, c in enumerate(caches):
             slot_caches[j].append(c)
     caches: Optional[dict] = None
     if return_caches:

@@ -682,3 +682,136 @@ def test_cuda_decode_matches_the_cpu(cuda, arch):
     for a, b in zip(gcaches["slots"], wcaches["slots"]):
         assert torch.equal(a.kv_pos, b.kv_pos)
         torch.testing.assert_close(a.k, b.k, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: the flash backward kernel, and the kernels without a
+# backward refusing grad.
+# ---------------------------------------------------------------------------
+
+#: B, S or (Sq, Sk), H, KV, D, DV, causal, window.
+FLASH_BWD_CASES = [
+    (2, 128, 16, 2, 128, 128, True, None),    # qwen2.5-3b's heads, G 8
+    (2, 200, 8, 8, 128, 128, True, 64),       # a window across tile edges
+    (1, 150, 8, 2, 128, 128, False, None),    # not causal
+    (2, 100, 4, 2, 64, 64, True, None),
+    (1, 130, 4, 4, 96, 96, True, None),
+    (1, 97, 4, 4, 192, 128, True, None),      # MLA's 192 over 128
+    (2, (40, 100), 4, 2, 64, 64, False, 16),  # Sq != Sk, windowed
+]
+
+
+def _bwd_inputs(cuda, dtype, b, s, h, kv, d, dv, seed):
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g).to(dtype).to(cuda)
+    k = torch.randn((b, sk, kv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, sk, kv, dv), generator=g).to(dtype).to(cuda)
+    dout = torch.randn((b, sq, h, dv), generator=g).to(dtype).to(cuda)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", FLASH_BWD_CASES)
+def test_cuda_flash_attention_backward_matches_plain(
+        cuda, dtype, tol, b, s, h, kv, d, dv, causal, window):
+    """dQ, dK and dV of the backward kernel against
+    ``flash_attention_backward_plain`` on the same q, k, v, out, lse and
+    dout, within ``tol`` of each reference's largest entry; the forward's
+    log-sum-exp against the plain version's; two launches bit-identical."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_plain)
+    q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, h, kv, d, dv, h + d)
+    out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    seen = want_lse > -1e29                    # rows with a visible key
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-4,
+                               atol=1e-4)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    before = build.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flash_attention_bwd"] == before + 2
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert x.dtype == dtype and x.shape == y.shape
+        assert torch.equal(x, z), f"d{name} differs between launches"
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_flash_attention_autograd_matches_plain_autograd(cuda, dtype,
+                                                             tol):
+    """``flash_attention`` under autograd on the card (forward and
+    backward kernels) against autograd of the plain forward."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 256, 16, 2, 128, 128, 7)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(build.launch_counts())
+    out = flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        flash_attention_plain(*plain, causal=True), plain, dout)
+    for x, y in zip(got, want):
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
+    """Under autograd, every kernel without a backward raises instead of
+    returning a tensor cut from the graph; under no_grad it runs."""
+    from repro_torch.kernels.descriptor_copy import descriptor_copy
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_gather
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.prefetch_pipeline import prefetched_chain_copy
+    from repro_torch.kernels.quantize_copy import quantize_copy
+
+    tokens = torch.randn((8, 64), device=cuda, requires_grad=True)
+    idx = torch.tensor([0, 3, -1, 5], dtype=torch.int32, device=cuda)
+    slots = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=cuda)
+    weights = torch.rand((2, 2), device=cuda, requires_grad=True)
+    rows = torch.randn((4, 64), device=cuda, requires_grad=True)
+    q = torch.randn((2, 4, 64), device=cuda, requires_grad=True)
+    pages = torch.randn((4, 16, 2, 64), device=cuda)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([20, 5], dtype=torch.int32, device=cuda)
+    pool = torch.randn((8, 256), device=cuda, requires_grad=True)
+    sidx, didx = np.array([0, 1]), np.array([2, 3])
+    calls = {
+        "moe_gather": lambda: moe_gather(idx, tokens),
+        "moe_combine": lambda: moe_combine(slots, weights, rows),
+        "paged_attention": lambda: paged_attention(q, pages, pages, tables,
+                                                   lengths),
+        "quantize_copy": lambda: quantize_copy(sidx, didx, pool,
+                                               pool.detach().clone()),
+        "descriptor_copy": lambda: descriptor_copy(sidx, didx, pool,
+                                                   pool.detach().clone()),
+        "prefetched_chain_copy": lambda: prefetched_chain_copy(
+            sidx, didx, pool, pool.detach().clone()),
+    }
+    before = build.launch_counts()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            call()
+    assert build.launch_counts() == before
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()

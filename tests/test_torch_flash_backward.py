@@ -1,0 +1,141 @@
+"""The gradient of flash attention on the CPU: the port's explicit
+backward against autograd and against the reference.
+
+``flash_attention_backward_plain`` (the math the CUDA backward kernel
+computes: P rebuilt from the forward's log-sum-exp, D = rowsum(dO * O),
+dS = P * (dO V^T - D)) is held against ``torch.autograd`` of
+``flash_attention_plain`` and against ``jax.vjp`` of the reference's
+``blockwise_attention`` (``repro/models/attention.py``), on seeded numpy
+inputs in fp32: causal, windowed and not causal, GQA, and (D, DV) of
+(64, 64), (96, 96), (128, 128) and MLA's (192, 128). Each of dQ, dK and dV
+within 1e-5 of its largest reference entry (fp32 sums in other orders).
+``flash_attention`` under autograd on the CPU (``FlashAttentionFn``) is
+held against both the same way, and without grad it runs no backward and
+keeps no log-sum-exp.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models.attention import blockwise_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttentionFn,
+    flash_attention,
+    flash_attention_backward_plain,
+    flash_attention_plain,
+)
+
+TOL = 1e-5
+
+#: B, S, H, KV, D, DV, causal, window.
+CASES = [
+    (2, 48, 8, 2, 64, 64, True, None),        # GQA 4
+    (1, 40, 4, 4, 64, 64, True, 8),           # windowed
+    (2, 32, 4, 2, 64, 64, False, None),       # not causal
+    (1, 30, 6, 3, 96, 96, True, None),
+    (1, 36, 4, 1, 128, 128, True, 16),        # GQA 4, windowed
+    (2, 24, 4, 4, 192, 128, True, None),      # MLA's heads
+    (1, 20, 4, 2, 128, 128, False, 6),        # windowed, not causal
+]
+
+
+def _inputs(b, s, h, kv, d, dv, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    return f(b, s, h, d), f(b, s, kv, d), f(b, s, kv, dv), f(b, s, h, dv)
+
+
+def _reference_vjp(q, k, v, do, causal, window):
+    _, vjp = jax.vjp(lambda q, k, v: blockwise_attention(
+        q, k, v, causal=causal, window=window, q_block=q.shape[1],
+        kv_block=k.shape[1]), *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _autograd(q, k, v, do, causal, window, fn):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, causal=causal, window=window)
+    return out, torch.autograd.grad(out, leaves, torch.from_numpy(do))
+
+
+def _close(got, want, what):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a = a.detach().numpy() if isinstance(a, torch.Tensor) else a
+        b = b.detach().numpy() if isinstance(b, torch.Tensor) else b
+        assert a.shape == b.shape, (what, name)
+        err = float(np.abs(a - b).max())
+        assert err <= TOL * float(np.abs(b).max()), (what, name, err)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", CASES)
+def test_backward_plain_matches_autograd_and_reference(b, s, h, kv, d, dv,
+                                                       causal, window):
+    q, k, v, do = _inputs(b, s, h, kv, d, dv, s + d)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window, return_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    got = flash_attention_backward_plain(tq, tk, tv, out, lse, tdo,
+                                         causal=causal, window=window)
+    _, auto = _autograd(q, k, v, do, causal, window, flash_attention_plain)
+    _close(got, auto, "autograd of the plain forward")
+    _close(got, _reference_vjp(q, k, v, do, causal, window),
+           "jax.vjp of blockwise_attention")
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", CASES[::2])
+def test_autograd_function_on_cpu_matches_both(b, s, h, kv, d, dv, causal,
+                                               window):
+    q, k, v, do = _inputs(b, s, h, kv, d, dv, 7 * s)
+    out, got = _autograd(q, k, v, do, causal, window, flash_attention)
+    assert out.grad_fn is not None
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    _, auto = _autograd(q, k, v, do, causal, window, flash_attention_plain)
+    _close(got, auto, "autograd of the plain forward")
+    _close(got, _reference_vjp(q, k, v, do, causal, window), "jax.vjp")
+
+
+def test_lse_is_the_rows_log_sum_exp():
+    q, k, v, _ = _inputs(1, 16, 4, 2, 64, 64, 1)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    _, lse = flash_attention_plain(tq, tk, tv, causal=True, window=5,
+                                   return_lse=True)
+    s = torch.einsum("qhd,khd->hqk", tq[0],
+                     tk[0].repeat_interleave(2, dim=1)) * 64 ** -0.5
+    i, j = torch.arange(16)[:, None], torch.arange(16)[None]
+    s = s.masked_fill(~((j <= i) & (i - j < 5)), float("-inf"))
+    torch.testing.assert_close(lse[0], torch.logsumexp(s, -1), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_rows_without_keys_get_zero_gradients():
+    """More queries than keys under a window: rows that see no key give
+    zero output and zero gradients, and add nothing to dK and dV."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 10, 2, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 6, 1, 64), np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 6, 1, 64), np.float32))
+    do = torch.from_numpy(rng.standard_normal((1, 10, 2, 64), np.float32))
+    out, lse = flash_attention_plain(q, k, v, causal=True, window=2,
+                                     return_lse=True)
+    dq, dk, dv = flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                causal=True, window=2)
+    assert not out[0, 7:].any() and not dq[0, 7:].any()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention_plain(*leaves, causal=True,
+                                                     window=2), leaves, do)
+    _close((dq, dk, dv), auto, "autograd")
+
+
+def test_no_grad_forward_keeps_nothing():
+    q = torch.randn((1, 8, 2, 64), requires_grad=True)
+    with torch.no_grad():
+        out = flash_attention(q, q.detach(), q.detach())
+    assert out.grad_fn is None
+    out = flash_attention(q.detach(), q.detach(), q.detach())
+    assert out.grad_fn is None and not out.requires_grad
+    assert issubclass(FlashAttentionFn, torch.autograd.Function)

@@ -230,6 +230,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "prefetch_pipeline": 0,
                                      "paged_attention": 0,
                                      "flash_attention": 0,
+                                     "flash_attention_bwd": 0,
                                      "moe_gather": 0,
                                      "moe_combine": 0}
 
