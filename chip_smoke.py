@@ -3103,15 +3103,19 @@ def family_path(torch, np, dev, rng, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 #: The flash backward kernel against its plain version: B, S, H, KV, D,
-#: DV, causal, window. The first is qwen2.5-3b's training batch, timed.
+#: DV, causal, window. The first is qwen2.5-3b's training batch and the
+#: last a long causal sequence, both timed (FLASH_BWD_TIMED).
 FLASH_BWD_CASES = [
     (4, 512, 16, 2, 128, 128, True, None),
     (2, 512, 16, 2, 128, 128, True, 128),      # a window of 128
     (2, 384, 16, 2, 128, 128, False, None),    # not causal
+    (2, 200, 6, 2, 128, 128, True, None),      # an odd group: G 3
     (2, 200, 8, 2, 64, 64, True, None),
     (2, 200, 8, 8, 96, 96, True, None),
     (2, 200, 8, 8, 192, 128, True, None),      # MLA's heads
+    (1, 2048, 16, 2, 128, 128, True, None),
 ]
+FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[-1])
 #: dQ, dK and dV within this share of the largest reference entry: fp32
 #: sums in another order; in bf16 also the gradients' own rounding.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -3141,7 +3145,8 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
     """(bytes, operations) of the backward: q, k, v, the output, dO and
     the log-sum-exp read once, dQ, dK and dV written once; per visible
     pair 2 D (S again), 2 DV (dO V^T), 2 DV (dV), 2 D (dQ) and 2 D (dK)
-    operations: 2.5 times the forward's at D = DV."""
+    operations: 2.5 times the forward's at D = DV. (The tensor-core design
+    runs S and dO V^T twice: 2 D + 2 DV more a pair.)"""
     b, sq, h, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
     el = q.element_size()
@@ -3151,6 +3156,12 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
     return int(n_bytes), 2 * b * h * pairs * (3 * d + 2 * dv)
 
 
+#: The backward's kernels by name: the tensor-core design's (bf16 only)
+#: first, since "dkdv_kernel" is not a substring of theirs.
+BWD_KERNELS = ("dkdv_tc_kernel", "dq_tc_kernel", "delta_lse_kernel",
+               "dkdv_kernel", "dq_kernel", "delta_kernel")
+
+
 def bwd_ptxas(build_log) -> dict:
     """Registers and spills of each backward kernel, as ptxas reports
     them (empty when the library was built before this run)."""
@@ -3158,11 +3169,10 @@ def bwd_ptxas(build_log) -> dict:
     out, name = {}, None
     for ln in (build_log or "").splitlines():
         if "Compiling entry function" in ln:
-            kind = next((k for k in ("dkdv_kernel", "dq_kernel",
-                                     "delta_kernel") if k in ln), None)
+            kind = next((k for k in BWD_KERNELS if k in ln), None)
             dims = "/".join(re.findall(r"Li(\d+)E", ln))
-            name = kind and (f"{kind}_{'bf16' if 'bfloat16' in ln else 'fp32'}"
-                             f"_{dims}")
+            bf16 = "bfloat16" in ln or kind in BWD_KERNELS[:3]
+            name = kind and f"{kind}_{'bf16' if bf16 else 'fp32'}_{dims}"
             if name:
                 out[name] = {}
         elif name and "spill stores" in ln:
@@ -3179,11 +3189,14 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
     """The backward kernel against ``flash_attention_backward_plain`` on
     the same inputs (and that against autograd of the plain forward), two
     launches bit-identical, the forward's log-sum-exp against the plain
-    one; then its times at the training shape beside its bound and SDPA's
-    backward."""
+    one; then its times at FLASH_BWD_TIMED beside its bound, SDPA's
+    backward, its TFLOP/s and ptxas's registers and spills (none allowed
+    in the tensor-core kernels), each through the design ``bwd_design``
+    names."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
-        _forward, flash_attention_backward, flash_attention_backward_plain,
+        LAUNCHES_BY_DESIGN, _forward, bwd_design, bwd_scratch_floats,
+        flash_attention_backward, flash_attention_backward_plain,
         flash_attention_plain)
 
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
@@ -3242,50 +3255,83 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
                     max_err(torch, a, c) for a, c in zip(got, want)))
             del q, k, v, dout, out, lse, lse_p, want, got, again, auto
 
-    # Times at the training shape: bf16, causal.
-    b, s, h, kv, d, dv, causal, window = FLASH_BWD_CASES[0]
-    q, k, v, dout = inputs(b, s, h, kv, d, dv, torch.bfloat16)
-    out, lse = _forward(q, k, v, True, None, with_lse=True)
-    dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty_like(lse)
+    # Times at the training shape and at S 2,048: bf16, causal.
     stream = torch.cuda.current_stream().cuda_stream
-    ms = time_ms(torch, lambda: flash_attention_backward(
-        q, k, v, out, lse, dout, causal=True))
-    kernel_ms = time_ms(torch, lambda: build.launch(
-        "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, s, s, h, kv, d, dv,
-        1, 0, 1, stream))
-    plain_ms = time_ms(torch, lambda: flash_attention_backward_plain(
-        q, k, v, out, lse, dout, causal=True), reps=3, warm=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    o_lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    dot = dout.transpose(1, 2)
-    library_ms = time_ms(torch, lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), dot, retain_graph=True))
-    lib = torch.autograd.grad(o_lib, (qt, kt, vt), dot)
-    ours = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
-    n_bytes, n_ops = flash_bwd_work(q, k, v, True, None)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    res = {"max_abs_err": worst_bf16, "ms": ms, "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": n_bytes, "operations": n_ops}
-    log({"time": "flash_attention_bwd", "B": b, "S": s, "H": h, "KV": kv,
-         "D": d, "DV": dv, "dtype": "bfloat16", "causal": True, **res,
-         "ops_rate": "bf16 tensor cores, 989.4 TFLOP/s",
-         "kernel_share_of_bound": b_ms / kernel_ms,
-         "kernel_tflops": n_ops / kernel_ms / 1e9,
-         "library_tflops": n_ops / library_ms / 1e9,
-         "library": "autograd.grad of scaled_dot_product_attention("
-                    "is_causal, enable_gqa)",
-         "max_abs_diff_to_library": max(
-             max_err(torch, a, c.transpose(1, 2)) for a, c in zip(ours, lib)),
-         "ptxas": bwd_ptxas(build.BUILD_LOG.get("flash_attention_bwd"))})
-    del q, k, v, dout, out, lse, dq, dk, dvv, delta, qt, kt, vt, o_lib, lib
-    del ours
-    torch.cuda.empty_cache()
+    ptxas = bwd_ptxas(build.BUILD_LOG.get("flash_attention_bwd"))
+    res = None
+    for b, s, h, kv, d, dv, causal, window in FLASH_BWD_TIMED:
+        q, k, v, dout = inputs(b, s, h, kv, d, dv, torch.bfloat16)
+        out, lse = _forward(q, k, v, True, None, with_lse=True)
+        dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+        scratch = torch.empty(bwd_scratch_floats(b, s, h),
+                              dtype=torch.float32, device=dev)
+        designs = dict(LAUNCHES_BY_DESIGN)
+        ms = time_ms(torch, lambda: flash_attention_backward(
+            q, k, v, out, lse, dout, causal=True))
+        design = {k_: n - designs.get(k_, 0)
+                  for k_, n in LAUNCHES_BY_DESIGN.items()
+                  if n != designs.get(k_, 0)}
+        if set(design) != {bwd_design(d, dv, torch.bfloat16)}:
+            raise AssertionError(f"flash_attention_bwd at {(b, s, h, d)} "
+                                 f"ran the designs {design}")
+        kernel_ms = time_ms(torch, lambda: build.launch(
+            "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            b, s, s, h, kv, d, dv, 1, 0, 1, stream))
+        plain_ms = time_ms(torch, lambda: flash_attention_backward_plain(
+            q, k, v, out, lse, dout, causal=True), reps=3, warm=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True))
+        lib = torch.autograd.grad(o_lib, (qt, kt, vt), dot)
+        ours = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+        # Device time of each of its kernels, a call (5 calls profiled).
+        rows = device_profile(torch, lambda: [flash_attention_backward(
+            q, k, v, out, lse, dout, causal=True) for _ in range(5)],
+            f"flash_attention_bwd_{s}")
+        by_kernel = {next((k_ for k_ in BWD_KERNELS if k_ in name),
+                          name[:60]): us / 5e3
+                     for us, name, _ in rows or ()}
+        n_bytes, n_ops = flash_bwd_work(q, k, v, True, None)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+        # The tensor-core design's own count: S and dO V^T run twice.
+        ops_run = n_ops + 2 * b * h * visible_pairs(s, s, True, None) \
+            * (d + dv)
+        timed = {"max_abs_err": worst_bf16, "ms": ms,
+                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "bytes": n_bytes, "operations": n_ops}
+        log({"time": "flash_attention_bwd", "B": b, "S": s, "H": h,
+             "KV": kv, "D": d, "DV": dv, "dtype": "bfloat16",
+             "causal": True, **timed, "design": design,
+             "ops_rate": "bf16 tensor cores, 989.4 TFLOP/s",
+             "kernel_share_of_bound": b_ms / kernel_ms,
+             "kernel_tflops": n_ops / kernel_ms / 1e9,
+             "operations_run": ops_run,
+             "kernel_tflops_run": ops_run / kernel_ms / 1e9,
+             "library_tflops": n_ops / library_ms / 1e9,
+             "kernel_over_library": kernel_ms / library_ms,
+             "device_ms_by_kernel": by_kernel,
+             "library": "autograd.grad of scaled_dot_product_attention("
+                        "is_causal, enable_gqa)",
+             "max_abs_diff_to_library": max(
+                 max_err(torch, a, c.transpose(1, 2))
+                 for a, c in zip(ours, lib)),
+             "ptxas": ptxas})
+        if res is None:
+            res = timed                       # the training shape's
+        del q, k, v, dout, out, lse, dq, dk, dvv, scratch, qt, kt, vt
+        del o_lib, lib, ours
+        torch.cuda.empty_cache()
+    spills = {k_: p for k_, p in ptxas.items()
+              if p.get("spill_store_bytes")}
+    if any("_tc_" in k_ or "delta_lse" in k_ for k_ in spills):
+        raise AssertionError(f"flash_attention_bwd: ptxas spills {spills}")
     return res
 
 
@@ -3316,7 +3362,7 @@ def kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_attention" in low:
         return "flash_forward"
-    if any(k in low for k in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+    if any(k in low for k in BWD_KERNELS):
         return "flash_backward"
     if any(k in low for k in ("gemm", "sm90_xmma", "cutlass", "nvjet")):
         return "matmul"
@@ -3339,6 +3385,7 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, DataIterator
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import LAUNCHES_BY_DESIGN
     from repro_torch.models import init_params
     from repro_torch.train import (TrainConfig, grads_and_metrics,
                                    init_state, make_train_step)
@@ -3422,6 +3469,7 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()                    # the training path starts here
+    LAUNCHES_BY_DESIGN.clear()
     losses, lrs, norms, step_ms = [], [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -3431,10 +3479,14 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
         lrs.append(float(metrics["lr"]))
         norms.append(float(metrics["grad_norm"]))
     launches = build.launch_counts()          # the training path ends here
+    designs = dict(LAUNCHES_BY_DESIGN)
     peak = torch.cuda.max_memory_allocated()
     expect_launches("p", launches,
                     {"flash_attention": 2 * layers * TRAIN_STEPS,
                      "flash_attention_bwd": layers * TRAIN_STEPS})
+    if designs != {"tensor_core": layers * TRAIN_STEPS}:
+        raise AssertionError(f"phase p: backward launches by design "
+                             f"{designs}, want {layers} tensor_core a step")
     want_lr = [schedule_lr(i + 1, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
                for i in range(TRAIN_STEPS)]
     median = statistics.median(step_ms)
@@ -3447,7 +3499,9 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
          "max_memory_allocated_gb": peak / 1e9,
          "flash_launches_per_step": launches["flash_attention"] / TRAIN_STEPS,
          "flash_bwd_launches_per_step":
-             launches["flash_attention_bwd"] / TRAIN_STEPS})
+             launches["flash_attention_bwd"] / TRAIN_STEPS,
+         "flash_bwd_launches_by_design_per_step":
+             {k: n / TRAIN_STEPS for k, n in designs.items()}})
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"phase p: losses {losses}: not all finite, or "
                              "the last not below the first")

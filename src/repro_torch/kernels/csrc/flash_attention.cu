@@ -66,7 +66,8 @@
 //   softmax of tile j overlaps that product; O is rescaled by
 //   exp2(m_old - m_new) once it is in, divided once by max(l, 1e-30) and
 //   stored as bf16, rows past Sq skipped.
-// P in bf16 changes each term of P V by at most 2**-9 relative.
+// P in bf16 changes each term of P V by at most 2**-9 relative. The TMA,
+// mbarrier and wgmma pieces are in hopper.cuh, shared with the backward.
 //
 // float32: the CUDA-core kernel (flash_attention_kernel), exact fp32 sums
 // within 2e-5 of the plain version, which TF32 or bf16 products could not
@@ -77,14 +78,16 @@
 // bit per score keeps masked keys at p = 0; the probabilities go through
 // shared memory to the product with V. Tiles wholly above the diagonal or
 // outside the window are never loaded; heavy q tiles first.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached at
-                   // run time through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // float32: the CUDA-core kernel
@@ -300,7 +303,6 @@ constexpr int kTcRows = 128;       // query rows per block: 2 warpgroups of 64
 constexpr int kTcKeys = 128;       // keys per K/V tile
 constexpr int kTcStages = 2;       // K/V ring depth
 constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
-constexpr int kBoxCols = 64;       // bf16 columns per TMA box (128 bytes)
 constexpr uint32_t kBoxBytes = 128 * 128;  // one box of 128 rows
 constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
 
@@ -323,239 +325,6 @@ struct TcTiles {
   static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
   static_assert(kPv == 64 || kPv == 128, "P V is n64 or n128");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
-// shared memory at `dst`; its bytes complete on the mbarrier `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
-// (its swizzle atoms, 8 rows of 128 bytes, 1024-byte aligned): `lbo` and
-// `sbo` are the leading and stride byte offsets.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// Waits until at most N committed wgmma groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence, commit and wait.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (64 x 128, fp32) = A (64 x 16, shared) * B (16 x 128, shared, K-major):
-// the first k16 step, which writes d without reading it.
-__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64],
-                                                          uint64_t a,
-                                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
-        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
-        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(a), "l"(b), "r"(0));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, shared) * B (16 x 128, shared, K-major).
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
-                                                    uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 128,
-// shared, MN-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0,
-                                                   uint32_t a1, uint32_t a2,
-                                                   uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
-        "r"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 64,
-// shared, MN-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0,
-                                                   uint32_t a1, uint32_t a2,
-                                                   uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
-        "r"(1));
-}
-
-// 2**x on the special-function unit (flushes subnormal results to 0;
-// 2**-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // S (64 x 128) = Q K^T for one warpgroup: Q rows at `q_s`, K tile at `k_s`,
 // both K-major in boxes of 64 columns; a k16 step is 32 bytes into a box,
@@ -933,55 +702,6 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver, looked up once.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      return nullptr;
-    }
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A tensor map over a contiguous bf16 (batch, seq, heads, D) tensor as 4-D
-// (D, heads, seq, batch), boxes of 64 columns x 1 head x 128 rows, 128-byte
-// swizzle, zeros outside.
-bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
-               int heads, int d) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {kBoxCols, 1, kTcKeys, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               float* lse, int batch, int sq, int sk, int heads, int kv_heads,
@@ -995,9 +715,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const int blocks_z = (q_tiles + Tiles::kQTiles - 1) / Tiles::kQTiles;
   if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!encode_4d(&tq, q, batch, sq, heads, D) ||
-      !encode_4d(&tk, k, batch, sk, kv_heads, D) ||
-      !encode_4d(&tv, v, batch, sk, kv_heads, DV)) {
+  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
+  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh,
+                       int d) {
+    return encode_4d(m, p, batch, seq, nh, d, d,
+                     static_cast<long long>(d) * nh,
+                     static_cast<long long>(d) * nh * seq, kTcKeys);
+  };
+  if (!map(&tq, q, sq, heads, D) || !map(&tk, k, sk, kv_heads, D) ||
+      !map(&tv, v, sk, kv_heads, DV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = Tiles::kSmem;

@@ -22,7 +22,62 @@
 // key has P = 0, so its dQ is zeros and it adds nothing to dK and dV.
 //
 // Deterministic: no atomics. Each output element is written by one thread,
-// which sums in a fixed order. Three kernels on the caller's stream:
+// which sums in a fixed order; two launches agree bit for bit. Two designs,
+// chosen by dtype and (D, DV) in flash_attention_bwd_launch (and mirrored by
+// kernels/flash_attention.py::bwd_design):
+//
+// Tensor cores: bf16 at (64, 64), (96, 96) and (128, 128) (the training
+// path: qwen2.5-3b, qwen3-14b, starcoder2-15b). Three kernels:
+// * delta_lse_kernel: Delta and lse * log2(e) of every row into scratch
+//   rows padded to a multiple of 128 queries (zeros past Sq), so that a
+//   tile's 64 values are one 256-byte bulk copy; 16-byte loads, 2 or 4 rows
+//   a warp.
+// * dkdv_tc_kernel: a cluster of 1 or 2 blocks of 384 threads per (64
+//   keys, KV head, batch), heavy (early, under causality) key tiles first;
+//   the launch takes 2 where one block a key tile would give fewer than two
+//   blocks an SM (at qwen2.5-3b's training shape: 128 blocks, the heaviest
+//   with 32 pairs, where one block a key tile would give 64 blocks, the
+//   heaviest with 64; clusters of 4 measured slower, their exchange costing
+//   more than their shorter loops gained). In each block a producer
+//   warpgroup gives up its registers (setmaxnreg); one of its
+//   threads loads K and V once by TMA and then streams the block's share of
+//   the key tile's (query head, query tile of 64) pairs, head outer, through
+//   a ring of 4 stages (Q, dO, 64 lse and 64 Delta each). Block r of a
+//   cluster of n takes pairs 2 n m + 2 r + c, its consumer warpgroup c
+//   (c = 0, 1) every other one, so any group size works; each consumer
+//   keeps its own fp32 dK and dV of the 64 keys in registers. Per pair:
+//   S^T = K Q^T and dP^T = V dO^T on wgmma m64n64 (both operands K-major in
+//   shared memory); P^T = exp2(S^T * D**-0.5 * log2(e) - lse * log2(e)),
+//   masked per score only on tiles that cross the diagonal, the window's
+//   edge, Sq or Sk; dV += P^T dO with P^T converted to bf16 in registers as
+//   the A operand (the accumulator fragment is the A fragment) and dO read
+//   MN-major (the transpose bit); dS^T = P^T * (dP^T - Delta) in registers,
+//   then dK += dS^T Q the same way. At the end the two consumers add their
+//   partial sums through shared memory (over the ring), consumer 0's
+//   first, each block pushes the half it does not own to the other block
+//   of its cluster through distributed shared memory, and each block adds
+//   the two blocks' sums of its half, block 0's first, scales dK and
+//   stores.
+// * dq_tc_kernel: one block of 384 threads per (128 query rows, query head,
+//   batch), heavy (late) query tiles first, on a second stream beside
+//   dkdv_tc_kernel so that its blocks take the SMs the other leaves; Q and
+//   dO of the two consumers' 64 rows each stay resident, K and V tiles of
+//   64 keys arrive through a ring of 2 stages. Per tile: S = Q K^T, dP = dO
+//   V^T (m64n64, shared operands), P and dS in registers, dQ += dS K with
+//   dS as the bf16 register A operand and K read MN-major. S and dO V^T are
+//   computed again here: 7 products where 5 would do, the price of having
+//   no atomics.
+// Operands arrive by TMA (4-D tensor maps over (D, heads, S, B) with the
+// tensors' own strides, boxes of 64 columns by 64 rows, 128-byte swizzle;
+// hopper.cuh holds these pieces, shared with the forward). D 96 is two boxes
+// whose columns 96-127 the TMA unit fills with zeros: the dK and dQ products
+// run n 128 and the epilogues never store those columns. Rows past Sq or Sk
+// are zero-filled and masked. P and dS in bf16 change each term of dV, dK
+// and dQ by at most 2**-9 relative.
+//
+// CUDA cores: fp32 at every (D, DV), whose 2e-4 tolerance needs exact fp32
+// sums that bf16 or TF32 products cannot hold, and bf16 at MLA's (192, 128),
+// whose fp32 dK alone would take 96 registers a thread beside dV's 64.
 // * delta_kernel: one warp a row of dO and o, a fixed shuffle tree.
 // * dkdv_kernel: one block per (32 keys, KV head, batch). K and V stay in
 //   shared memory; the block loops over the group's query heads and over
@@ -37,20 +92,33 @@
 // conflicts; P^T and dS^T (dS in dq_kernel) go through shared memory
 // between the two products of a tile.
 //
-// Bound: operations. At qwen2.5-3b's training shape (B 4, S 512, 16 query
-// heads over 2 KV heads of 128, causal, bf16) the backward needs 2.5 times
-// the forward's 4.29 GFLOP, about 10.7 GFLOP: 0.011 ms at the bf16
-// tensor-core rate of 989.4 TFLOP/s, against about 37 MB of q, k, v, o, dO,
-// lse, dQ, dK and dV (0.011 ms at 3.35 TB/s). This kernel runs on the CUDA
-// cores (67 TFLOP/s of fp32) and recomputes S and dO V^T in both of its
-// kernels (7 products where 5 would do), so it is bound far above that; the
-// redesign for wgmma and TMA is ROADMAP Queue B row B4.
+// Bound: operations and bytes alike. At qwen2.5-3b's training shape (B 4,
+// S 512, 16 query heads over 2 KV heads of 128, causal, bf16) the backward
+// needs 2.5 times the forward's 4.29 GFLOP, about 10.7 GFLOP: 0.011 ms at
+// the bf16 tensor-core rate of 989.4 TFLOP/s, against about 37 MB of q, k,
+// v, o, dO, lse, dQ, dK and dV (0.011 ms at 3.35 TB/s). The tensor-core
+// design runs 15.1 GFLOP there (the recomputed S and dO V^T). What stands
+// between it and the bound: the dK/dV kernel's n64 products, whose shared
+// operands take as long to read as to multiply, the waits between a pair's
+// dependent products (S^T before P^T before dV, dP^T before dS^T before
+// dK), and the few pairs a block has at S 512 (at most 16 here), which its
+// fixed costs (K and V, the ring's first fill, the cluster's reduction)
+// weigh on. Overlapping a pair's dK with the next pair's products measured
+// slower, and was left out.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
+
+// ---------------------------------------------------------------------------
+// float32, and bfloat16 at (192, 128): the CUDA-core kernels
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
 constexpr int kBQ = 64;   // query rows per tile
@@ -516,6 +584,733 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at (64, 64), (96, 96), (128, 128): the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 384;         // 2 consumer warpgroups + 1 producer
+constexpr int kTile = 64;               // rows of a box: keys or queries
+constexpr uint32_t kBox = kTile * 128;  // bytes of one box of 64 columns
+constexpr int kKvStages = 4;            // dkdv_tc_kernel's (Q, dO) ring
+constexpr int kQStages = 2;             // dq_tc_kernel's (K, V) ring
+constexpr int kQRows = 128;             // query rows per dq_tc_kernel block
+constexpr int kMaxCluster = 2;          // dkdv_tc_kernel blocks per cluster
+constexpr size_t kSmemMax = 232448;     // a block's dynamic shared memory
+
+// Shared-memory plans of the two kernels for head dims D and DV: a 64-row
+// tile of D columns is kDBoxes boxes; the dK and dQ products are n kN, dV's
+// n kNV (the last box zero-filled past D or DV).
+template <int D, int DV>
+struct BwdTiles {
+  static constexpr int kDBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
+  static constexpr int kN = kDBoxes * kBoxCols;
+  static constexpr int kNV = kVBoxes * kBoxCols;
+  static constexpr uint32_t kQk = kDBoxes * kBox;  // a Q or K tile
+  static constexpr uint32_t kV = kVBoxes * kBox;   // a dO or V tile
+  // dkdv: K and V, then the ring; a stage is Q, dO, 64 lse * log2(e) and 64
+  // Delta, padded to keep the next stage 1,024-byte aligned.
+  static constexpr uint32_t kStage = kQk + kV + 1024;
+  static constexpr size_t kKvSmem =
+      kQk + kV + kKvStages * static_cast<size_t>(kStage) + 1024;
+  // dq: two consumers' Q and dO, then the ring of K and V.
+  static constexpr size_t kQSmem =
+      (2 + kQStages) * static_cast<size_t>(kQk + kV) + 1024;
+  static_assert(kKvSmem <= kSmemMax && kQSmem <= kSmemMax,
+                "tiles exceed shared memory");
+  static_assert(kN <= 128 && kNV <= 128, "products are n64 or n128");
+  // dkdv: a consumer's partial dK and dV, kPairs pairs of fp32 accumulator
+  // registers a thread; both consumers' go over the ring at the end.
+  static constexpr int kPairs = (kN + kNV) / 4;
+  static_assert(2 * 128 * kPairs * sizeof(float2) <=
+                    kKvStages * static_cast<size_t>(kStage),
+                "partial sums exceed the ring");
+  static_assert(kPairs % (2 * kMaxCluster) == 0,
+                "the reduction splits the pairs over the cluster");
+};
+
+// wgmma descriptor of k16 step kk of a K-major 64-row tile at `t`: 32 bytes
+// a step into a box, four steps a box.
+__device__ __forceinline__ uint64_t kmajor(uint32_t t, int kk) {
+  return sw128_desc(t + (kk / 4) * kBox + 32 * (kk % 4), 16, 1024);
+}
+
+// wgmma descriptor of k16 step kk (rows 16 kk .. 16 kk + 15) of an MN-major
+// 64-row tile at `t`: the next 64 columns are the next box.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t t, int kk) {
+  return sw128_desc(t + 2048 * kk, kBox, 1024);
+}
+
+// d (64 x 64) = A B^T over K columns, A and B 64-row tiles at `a` and `b`,
+// both K-major (S = Q K^T, dP = dO V^T and their transposes).
+template <int K>
+__device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a,
+                                            uint32_t b) {
+  wgmma_m64n64k16_ss_first(d, kmajor(a, 0), kmajor(b, 0));
+#pragma unroll
+  for (int kk = 1; kk < K / 16; ++kk) {
+    wgmma_m64n64k16_ss(d, kmajor(a, kk), kmajor(b, kk));
+  }
+}
+
+// acc (64 x N) += A B: A (64 x 64) in bf16 registers, a[4 kk .. 4 kk + 3]
+// its k16 step kk; B the 64-row tile at `b`, MN-major (dV += P^T dO,
+// dK += dS^T Q, dQ += dS K).
+template <int N>
+__device__ __forceinline__ void product_ab(float (&acc)[N / 2],
+                                           const uint32_t (&a)[16],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (N == 128) {
+      wgmma_m64n128k16_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                          a[4 * kk + 3], mnmajor(b, kk));
+    } else {
+      wgmma_m64n64k16_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                         a[4 * kk + 3], mnmajor(b, kk));
+    }
+  }
+}
+
+// The A fragment of a 64 x 64 accumulator fragment: bf16 pairs in order.
+__device__ __forceinline__ void to_a_operand(const float (&x)[32],
+                                             uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// Whether the tile of 64 queries from q0 and 64 keys from k0 needs a
+// per-score mask: it crosses Sq, Sk, the diagonal or the window's edge.
+__device__ __forceinline__ bool pair_tile_masked(int q0, int k0, int sq,
+                                                 int sk, int causal,
+                                                 int window) {
+  return q0 + kTile > sq || k0 + kTile > sk ||
+         (causal && k0 + kTile - 1 > q0) ||
+         (window > 0 && q0 + kTile - 1 - k0 >= window);
+}
+
+// Delta and lse * log2(e) of each row (b, h, i), i < sq_pad, into scratch
+// rows of sq_pad (zeros past Sq): kLanes lanes a row, 8 bf16 (16 bytes) of
+// o and of dO a lane, a fixed shuffle tree.
+template <int DV>
+__global__ void __launch_bounds__(kThreads)
+delta_lse_kernel(const __nv_bfloat16* __restrict__ out,
+                 const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ lse2,
+                 float* __restrict__ delta, long long rows, int sq,
+                 int sq_pad, int heads) {
+  constexpr int kLanes = DV <= 64 ? 8 : 16;
+  static_assert(8 * kLanes >= DV, "a row is one load a lane");
+  const int lane = threadIdx.x % 32;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+       threadIdx.x / 32) * (32 / kLanes) + lane / kLanes;
+  const int c = 8 * (lane % kLanes);
+  float acc = 0.f;
+  float l2 = 0.f;
+  const int i = static_cast<int>(row % sq_pad);
+  const long long bh = row / sq_pad;  // b * heads + h
+  if (row < rows && i < sq) {
+    if (c < DV) {
+      const long long at = ((bh / heads * sq + i) * heads + bh % heads) *
+                           static_cast<long long>(DV) + c;
+      const uint4 x = *reinterpret_cast<const uint4*>(out + at);
+      const uint4 y = *reinterpret_cast<const uint4*>(dout + at);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        __nv_bfloat162 xb, yb;
+        *reinterpret_cast<uint32_t*>(&xb) = xs[u];
+        *reinterpret_cast<uint32_t*>(&yb) = ys[u];
+        const float2 xf = __bfloat1622float2(xb);
+        const float2 yf = __bfloat1622float2(yb);
+        acc = fmaf(xf.y, yf.y, fmaf(xf.x, yf.x, acc));
+      }
+    }
+    l2 = lse[bh * sq + i] * 1.4426950408889634f;
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  }
+  if (row < rows && lane % kLanes == 0) {
+    delta[row] = acc;
+    lse2[row] = l2;
+  }
+}
+
+// dK and dV of 64 keys of one KV head, summed over its query heads, by a
+// cluster of blocks that split the (query head, query tile) pairs.
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse2, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int sq, int sk, int sq_pad, int heads, int kv_heads,
+               int causal, int window, float scale_log2, float scale) {
+  using Tiles = BwdTiles<D, DV>;
+  constexpr int kN = Tiles::kN;
+  constexpr int kNV = Tiles::kNV;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kKvStages];
+  // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + Tiles::kQk;
+  const auto q_s = [&](int st) {
+    return base + Tiles::kQk + Tiles::kV + st * Tiles::kStage;
+  };
+  const auto do_s = [&](int st) { return q_s(st) + Tiles::kQk; };
+  const auto stats_s = [&](int st) { return do_s(st) + Tiles::kV; };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t kv_full = bar0;
+  const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  const auto empty = [&](int st) { return bar0 + 8 * (1 + kKvStages + st); };
+
+  // The cluster's blocks (along x) share a key tile: block `rank` of `ranks`
+  // takes pairs 2 ranks m + 2 rank + c (m = 0, 1, ...), its consumer c
+  // (c = 0, 1) every other one of them.
+  const int ranks = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int kh = blockIdx.x / ranks;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;  // early key tiles (causal: heavy) first
+  const int group = heads / kv_heads;
+  // Queries that may see keys [k0, k_last]: [q_lo, q_hi), in tiles of 64.
+  const int k_last = min(k0 + kTile, sk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int qt_lo = q_lo / kTile;
+  const int n_qt = q_hi > q_lo ? (q_hi + kTile - 1) / kTile - qt_lo : 0;
+  const int n_pairs = group * n_qt;  // pair i: head i / n_qt, tile i % n_qt
+  // This block's pair of local index li (its ring index).
+  const auto pair_of = [&](int li) {
+    return 2 * ranks * (li / 2) + 2 * rank + li % 2;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kKvStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    // Producer warpgroup: one thread issues every load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, Tiles::kQk + Tiles::kV);
+      for (int c = 0; c < Tiles::kDBoxes; ++c) {
+        tma_load_4d(k_s + c * kBox, &tk, kv_full, c * kBoxCols, kh, k0, b);
+      }
+      for (int c = 0; c < Tiles::kVBoxes; ++c) {
+        tma_load_4d(v_s + c * kBox, &tv, kv_full, c * kBoxCols, kh, k0, b);
+      }
+      for (int li = 0; pair_of(li) < n_pairs; ++li) {
+        const int i = pair_of(li);
+        const int st = li % kKvStages;
+        const int h = kh * group + i / n_qt;
+        const int q0 = (qt_lo + i % n_qt) * kTile;
+        mbar_wait(empty(st), ((li / kKvStages) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(full(st), Tiles::kQk + Tiles::kV + 512);
+        for (int c = 0; c < Tiles::kDBoxes; ++c) {
+          tma_load_4d(q_s(st) + c * kBox, &tq, full(st), c * kBoxCols, h, q0,
+                      b);
+        }
+        for (int c = 0; c < Tiles::kVBoxes; ++c) {
+          tma_load_4d(do_s(st) + c * kBox, &tdo, full(st), c * kBoxCols, h,
+                      q0, b);
+        }
+        const long long row =
+            (static_cast<long long>(b) * heads + h) * sq_pad + q0;
+        bulk_load(stats_s(st), lse2 + row, 256, full(st));
+        bulk_load(stats_s(st) + 256, delta + row, 256, full(st));
+      }
+    }
+    // Every block's threads stay for the cluster's two barriers below.
+    cluster_sync();
+    cluster_sync();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup wg takes local pairs wg, wg + 2, ...; of the 64 x 64
+  // fragments this thread owns rows (keys) kr and kr + 8 and, of every 8
+  // columns (queries), c0 and c0 + 1: element 4j + e is key kr + 8 (e / 2),
+  // query 8j + c0 + e % 2.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int kr = 16 * (warp % 4) + lane / 4;
+  float dk_acc[kN / 2], dv_acc[kNV / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNV / 2; ++i) dv_acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+#pragma unroll 1
+  for (int li = wg; pair_of(li) < n_pairs; li += 2) {
+    const int st = li % kKvStages;
+    const int q0 = (qt_lo + pair_of(li) % n_qt) * kTile;
+    mbar_wait(full(st), (li / kKvStages) & 1);
+    const float* stats =
+        reinterpret_cast<const float*>(smem_raw + (stats_s(st) - raw));
+    float s[32], dp[32];
+    wgmma_fence();
+    product_abt<D>(s, k_s, q_s(st));
+    wgmma_commit();
+    product_abt<DV>(dp, v_s, do_s(st));
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in
+    hold(s);
+
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+    const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2_approx(
+            fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
+        s[4 * j + e] =
+            masked && !visible(q0 + 8 * j + c0 + e % 2, k0 + kr + 8 * (e / 2),
+                               sq, sk, causal, window)
+                ? 0.f
+                : x;
+      }
+    }
+    uint32_t pa[16];
+    to_a_operand(s, pa);
+    hold(dv_acc);
+    wgmma_fence();
+    product_ab<kNV>(dv_acc, pa, do_s(st));  // dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<0>();  // dP^T and dV are in
+    hold(dp);
+    hold(dv_acc);
+    hold(pa);
+
+    // dS^T = P^T (dP^T - Delta).
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] *= dp[4 * j + e] - (e % 2 ? dl.y : dl.x);
+      }
+    }
+    uint32_t da[16];
+    to_a_operand(s, da);
+    hold(dk_acc);
+    wgmma_fence();
+    product_ab<kN>(dk_acc, da, q_s(st));  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dk_acc);
+    hold(da);
+    mbar_arrive(empty(st));
+  }
+
+  // The cluster's blocks own equal runs of the kPairs register pairs (dK's
+  // kN / 4, then dV's): block r pairs [r P, r P + P) (P = kPairs / ranks).
+  // Once every block is done with its ring, consumer 1 hands its dK and
+  // consumer 0 its dV to the other through shared memory; consumer 0 adds
+  // consumer 1's dK to its own, consumer 1 its dV to consumer 0's, and each
+  // pushes the block's sum of pair r P + i of thread t to block r's ring at
+  // (q P + i) * 128 + t (q this block's rank). Then each block sums its own
+  // pairs over the cluster in rank order and stores them: every output
+  // element has one writer and one order of sums.
+  constexpr int kPairs = Tiles::kPairs;
+  const int per = kPairs / ranks;
+  const int t = threadIdx.x % 128;
+  const uint32_t handed = q_s(0);                    // kPairs pairs
+  const uint32_t recv = handed + kPairs * 128 * 8;   // ranks * P pairs
+  const auto slot = [&](uint32_t area, int i) {
+    return area + (i * 128 + t) * 8;
+  };
+  const auto local = [&](uint32_t addr) {
+    return reinterpret_cast<float2*>(smem_raw + (addr - raw));
+  };
+  cluster_sync();  // every ring of the cluster is free
+  if (wg == 1) {
+#pragma unroll
+    for (int p = 0; p < kN / 4; ++p) {
+      *local(slot(handed, p)) = make_float2(dk_acc[2 * p], dk_acc[2 * p + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kNV / 4; ++p) {
+      *local(slot(handed, kN / 4 + p)) =
+          make_float2(dv_acc[2 * p], dv_acc[2 * p + 1]);
+    }
+  }
+  named_barrier(1, 256);
+  const auto push = [&](int p, float2 v) {
+    st_cluster_f2(slot(recv, rank * per + p % per), p / per, v);
+  };
+  if (wg == 0) {
+#pragma unroll
+    for (int p = 0; p < kN / 4; ++p) {
+      const float2 x = *local(slot(handed, p));
+      push(p, make_float2(dk_acc[2 * p] + x.x, dk_acc[2 * p + 1] + x.y));
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kNV / 4; ++p) {
+      const float2 x = *local(slot(handed, kN / 4 + p));
+      push(kN / 4 + p,
+           make_float2(x.x + dv_acc[2 * p], x.y + dv_acc[2 * p + 1]));
+    }
+  }
+  cluster_sync();  // every push has landed
+  // Thread t's fragment rows (keys) kr and kr + 8, columns c0 and c0 + 1 of
+  // every 8: register pair p of dK is key kr + 8 (p % 2), columns
+  // 8 (p / 2) + c0 and + 1; dV's pair p - kN / 4 likewise.
+#pragma unroll 1
+  for (int i = wg * per / 2; i < (wg + 1) * per / 2; ++i) {
+    float2 sum = *local(slot(recv, i));
+    for (int q = 1; q < ranks; ++q) {
+      const float2 x = *local(slot(recv, q * per + i));
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    const int p = rank * per + i;
+    const bool is_k = p < kN / 4;
+    const int pp = is_k ? p : p - kN / 4;
+    const int key = k0 + kr + 8 * (pp % 2);
+    const int col = 8 * (pp / 2) + c0;
+    if (key >= sk || col >= (is_k ? D : DV)) continue;
+    const long long at =
+        (static_cast<long long>(b) * sk + key) * kv_heads + kh;
+    if (is_k) {
+      *reinterpret_cast<uint32_t*>(dk + at * D + col) =
+          pack_bf16(sum.x * scale, sum.y * scale);
+    } else {
+      *reinterpret_cast<uint32_t*>(dv + at * DV + col) =
+          pack_bf16(sum.x, sum.y);
+    }
+  }
+}
+
+// dQ of 128 query rows of one query head: two consumers of 64 rows each.
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo,
+             const float* __restrict__ lse2, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
+             int heads, int kv_heads, int causal, int window,
+             float scale_log2, float scale) {
+  using Tiles = BwdTiles<D, DV>;
+  constexpr int kN = Tiles::kN;
+  constexpr uint32_t kKV = Tiles::kQk + Tiles::kV;  // a K and a V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kQStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const auto q_s = [&](int w) { return base + w * Tiles::kQk; };
+  const auto do_s = [&](int w) {
+    return base + 2 * Tiles::kQk + w * Tiles::kV;
+  };
+  const auto k_s = [&](int st) { return base + 2 * kKV + st * kKV; };
+  const auto v_s = [&](int st) { return k_s(st) + Tiles::kQk; };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t q_full = bar0;
+  const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  const auto empty = [&](int st) { return bar0 + 8 * (1 + kQStages + st); };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kQRows;  // late (heavy) first
+  const int kh = h / (heads / kv_heads);
+  // Keys any row of the block may see: [k_lo, k_hi), in tiles of 64 from
+  // k_lo.
+  const int q_last = min(q0 + kQRows, sq) - 1;
+  const int k_hi = causal ? min(sk, q_last + 1) : sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTile - 1) / kTile : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kQStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(q_full, 2 * kKV);
+    for (int w = 0; w < 2; ++w) {
+      for (int c = 0; c < Tiles::kDBoxes; ++c) {
+        tma_load_4d(q_s(w) + c * kBox, &tq, q_full, c * kBoxCols, h,
+                    q0 + kTile * w, b);
+      }
+      for (int c = 0; c < Tiles::kVBoxes; ++c) {
+        tma_load_4d(do_s(w) + c * kBox, &tdo, q_full, c * kBoxCols, h,
+                    q0 + kTile * w, b);
+      }
+    }
+    for (int j = 0; j < n_kt; ++j) {
+      const int st = j % kQStages;
+      const int k0 = k_lo + j * kTile;
+      mbar_wait(empty(st), ((j / kQStages) & 1) ^ 1);  // round 0 passes
+      mbar_expect_tx(full(st), kKV);
+      for (int c = 0; c < Tiles::kDBoxes; ++c) {
+        tma_load_4d(k_s(st) + c * kBox, &tk, full(st), c * kBoxCols, kh, k0,
+                    b);
+      }
+      for (int c = 0; c < Tiles::kVBoxes; ++c) {
+        tma_load_4d(v_s(st) + c * kBox, &tv, full(st), c * kBoxCols, kh, k0,
+                    b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup wg owns rows r_lo .. r_lo + 63; this thread rows
+  // r0 and r0 + 8 and, of every 8 key columns, c0 and c0 + 1.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int r_lo = q0 + kTile * wg;
+  const int r0 = r_lo + 16 * (warp % 4) + lane / 4;
+  const int r_hi = min(r_lo + kTile, sq) - 1;  // < r_lo: no rows
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at =
+        (static_cast<long long>(b) * heads + h) * sq_pad + r0 + 8 * r;
+    l2[r] = lse2[at];
+    dl[r] = delta[at];
+  }
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kQStages;
+    const int k0 = k_lo + j * kTile;
+    mbar_wait(full(st), (j / kQStages) & 1);
+    // Some (row, key) of this warpgroup's rows and the tile is visible: the
+    // largest row - key is not negative (causal) and the least is under
+    // the window.
+    const int k_end = min(k0 + kTile, sk) - 1;
+    if (r_hi >= r_lo && (!causal || k0 <= r_hi) &&
+        (window <= 0 || r_lo - k_end < window)) {
+      float s[32], dp[32];
+      wgmma_fence();
+      product_abt<D>(s, q_s(wg), k_s(st));
+      wgmma_commit();
+      product_abt<DV>(dp, do_s(wg), v_s(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(s);
+      hold(dp);
+      // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked; then
+      // dS = P (dP - Delta).
+      const bool masked = pair_tile_masked(r_lo, k0, sq, sk, causal, window);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const float p = exp2_approx(
+              fmaf(s[4 * jj + e], scale_log2, -l2[r]));
+          const bool ok =
+              !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq,
+                                 sk, causal, window);
+          s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
+        }
+      }
+      uint32_t da[16];
+      to_a_operand(s, da);
+      hold(acc);
+      wgmma_fence();
+      product_ab<kN>(acc, da, k_s(st));  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(acc);
+      hold(da);
+    }
+    mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= sq) continue;
+    __nv_bfloat16* row =
+        dq + ((static_cast<long long>(b) * sq + qi) * heads + h) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(
+          acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// A second stream of the current device, created at first use, and two
+// events for forking work onto it from the caller's stream and joining it
+// back.
+struct SideStream {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr;
+  cudaEvent_t join = nullptr;
+};
+
+cudaError_t side_stream(SideStream** out) {
+  constexpr int kMaxDevices = 64;
+  static SideStream sides[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidValue;
+  SideStream& side = sides[dev];
+  if (side.stream == nullptr) {
+    err = cudaStreamCreateWithFlags(&side.stream, cudaStreamNonBlocking);
+    if (err == cudaSuccess) {
+      err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+    }
+    if (err == cudaSuccess) {
+      err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  *out = &side;
+  return cudaSuccess;
+}
+
+template <int D, int DV>
+int launch_tc(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const float* lse, float* scratch, void* dq,
+              void* dk, void* dv, int batch, int sq, int sk, int heads,
+              int kv_heads, int causal, int window, cudaStream_t stream) {
+  using Tiles = BwdTiles<D, DV>;
+  const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
+  const long long rows = static_cast<long long>(batch) * heads * sq_pad;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  const long long rows_a_block = kThreads / 32 * (DV <= 64 ? 4 : 2);
+  const long long delta_blocks = (rows + rows_a_block - 1) / rows_a_block;
+  const int q_tiles = sq_pad / kQRows;
+  const int k_tiles = (sk + kTile - 1) / kTile;
+  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535 ||
+      kv_heads > 65535 / kMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
+  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh,
+                       int d) {
+    return encode_4d(m, p, batch, seq, nh, d, d,
+                     static_cast<long long>(d) * nh,
+                     static_cast<long long>(d) * nh * seq, kTile);
+  };
+  CUtensorMap tq, tk, tv, tdo;
+  if (!map(&tq, q, sq, heads, D) || !map(&tk, k, sk, kv_heads, D) ||
+      !map(&tv, v, sk, kv_heads, DV) || !map(&tdo, dout, sq, heads, DV)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  delta_lse_kernel<DV><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
+                         stream>>>(
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows, sq,
+      sq_pad, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // The dQ kernel runs on a side stream beside the dK/dV kernel (both read
+  // what delta_lse_kernel wrote, and they write disjoint outputs), so that
+  // its blocks fill the SMs the dK/dV blocks leave; `stream` waits for it.
+  SideStream* side = nullptr;
+  err = side_stream(&side);
+  if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
+  if (err == cudaSuccess) {
+    err = cudaStreamWaitEvent(side->stream, side->fork, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // D ** -0.5 as the reference computes it, in double, then rounded.
+  const double scale_d = pow(static_cast<double>(D), -0.5);
+  const float scale = static_cast<float>(scale_d);
+  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  err = cudaFuncSetAttribute(dkdv_tc_kernel<D, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Tiles::kKvSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Clusters of 2 blocks a key tile where one would give fewer than two
+  // blocks an SM.
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long kv_blocks =
+      static_cast<long long>(kv_heads) * batch * k_tiles;
+  int ranks = 1;
+  while (ranks < kMaxCluster && kv_blocks * ranks < 2LL * sms) ranks *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(kv_heads * ranks),
+                     static_cast<unsigned>(batch),
+                     static_cast<unsigned>(k_tiles));
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = Tiles::kKvSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dkdv_tc_kernel<D, DV>, tq, tk, tv, tdo,
+                           static_cast<const float*>(lse2),
+                           static_cast<const float*>(delta),
+                           static_cast<__nv_bfloat16*>(dk),
+                           static_cast<__nv_bfloat16*>(dv), sq, sk, sq_pad,
+                           heads, kv_heads, causal, window, scale_log2, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Tiles::kQSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                    static_cast<unsigned>(q_tiles));
+  dq_tc_kernel<D, DV><<<q_grid, kTcThreads, Tiles::kQSmem, side->stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
+      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
+  return static_cast<int>(err);
+}
+
 template <int D, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const float* lse, float* delta, void* dq,
@@ -527,12 +1322,18 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
                                     dv, batch, sq, sk, heads, kv_heads,
                                     causal, window, s);
   }
-  if (dtype == 1) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // bfloat16: the tensor cores where a consumer's dK and dV fit its
+  // registers (D <= 128), the CUDA cores at (192, 128).
+  if constexpr (D <= 128) {
+    return launch_tc<D, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                            batch, sq, sk, heads, kv_heads, causal, window,
+                            s);
+  } else {
     return launch_bwd<__nv_bfloat16, D, DV>(q, k, v, out, dout, lse, delta,
                                             dq, dk, dv, batch, sq, sk, heads,
                                             kv_heads, causal, window, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -541,11 +1342,15 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
 // (batch, sk, kv_heads, v_head_dim), out and dout (batch, sq, heads,
 // v_head_dim): one dtype (0: float32, 1: bfloat16), contiguous, 16-byte
 // aligned; lse (batch, heads, sq) fp32 from the forward; delta a scratch
-// of lse's shape; dq, dk, dv of q's, k's and v's shapes and dtype, every
-// element written. (head_dim, v_head_dim) one of (64, 64), (96, 96),
-// (128, 128) and (192, 128); causal 0/1; window <= 0 for none. Launches
-// three kernels on `stream`; returns cudaGetLastError, or
-// cudaErrorInvalidValue for a shape it does not take.
+// of 2 * batch * heads * round_up(sq, 128) floats (the CUDA-core kernels
+// use the first batch * heads * sq); dq, dk, dv of q's, k's and v's shapes
+// and dtype, every element written. (head_dim, v_head_dim) one of (64, 64),
+// (96, 96), (128, 128) and (192, 128); causal 0/1; window <= 0 for none.
+// Launches three kernels, their work ordered on `stream` (the tensor-core
+// design runs its dQ kernel on a second stream that `stream` waits for);
+// returns cudaGetLastError, or cudaErrorInvalidValue for a shape it does
+// not take. The design (tensor or CUDA cores) follows dtype and
+// (head_dim, v_head_dim) as the header says.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,

@@ -27,7 +27,9 @@ log-sum-exp (B, H, Sq) fp32; its backward runs
 ``csrc/flash_attention_bwd.cu`` (``build.LAUNCHES["flash_attention_bwd"]``)
 on the card and :func:`flash_attention_backward_plain` on the CPU, both the
 explicit gradient of the same softmax. Without grad (serving) the forward
-writes no log-sum-exp.
+writes no log-sum-exp. The backward kernel has two designs, chosen by
+:func:`bwd_design` as its launch function chooses them, and
+``LAUNCHES_BY_DESIGN`` counts its launches by design.
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ NEG_INF = -1e30
 FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128))
 #: Kernel launches by shape key (:func:`shape_key`).
 LAUNCHES_BY_SHAPE: Counter = Counter()
+#: (D, DV) pairs whose bf16 backward runs on the tensor cores.
+BWD_TENSOR_CORE_SHAPES = ((64, 64), (96, 96), (128, 128))
+#: Backward kernel launches by design (:func:`bwd_design`).
+LAUNCHES_BY_DESIGN: Counter = Counter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -95,6 +101,23 @@ def shape_key(d: int, dv: int, causal: bool) -> str:
     """The key of one launch shape in :data:`LAUNCHES_BY_SHAPE`."""
     dims = str(d) if d == dv else f"{d}/{dv}"
     return f"{dims} {'causal' if causal else 'non-causal'}"
+
+
+def bwd_design(d: int, dv: int, dtype) -> str:
+    """Which backward kernels ``csrc/flash_attention_bwd.cu`` launches for
+    head dims (D, DV) in ``dtype``: ``"tensor_core"`` (wgmma, TMA) for
+    bf16 at :data:`BWD_TENSOR_CORE_SHAPES`, else ``"cuda_core"`` (fp32,
+    whose tolerance needs exact fp32 sums, and bf16 at MLA's (192, 128),
+    whose dK and dV would not fit a warpgroup's registers)."""
+    if dtype == torch.bfloat16 and (d, dv) in BWD_TENSOR_CORE_SHAPES:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def bwd_scratch_floats(b: int, sq: int, h: int) -> int:
+    """fp32 scratch of the backward kernel: each row's Delta and
+    log-sum-exp * log2(e), rows padded to a multiple of 128 queries."""
+    return 2 * b * h * (-(-sq // 128) * 128)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -239,15 +262,18 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
         torch.empty_like(v)
     if dq.numel() + dk.numel() + dv.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_floats(b, sq, h), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               b, sq, sk, h, kvh, d, dv_dim, int(causal),
+               scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), b, sq, sk, h, kvh, d, dv_dim, int(causal),
                0 if window is None else int(window), _DTYPE_CODE[q.dtype],
                stream_of(q.device))
+    LAUNCHES_BY_DESIGN[bwd_design(d, dv_dim, q.dtype)] += 1
     return dq, dk, dv
+
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -265,7 +291,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        # The output projection's backward hands dout over strided.
+        # The kernels take contiguous tensors. The model's output projection
+        # hands dout over contiguous (on the card as on the CPU), so this
+        # copies nothing there; another caller's strided dout is copied.
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
             window=ctx.window)

@@ -698,6 +698,11 @@ FLASH_BWD_CASES = [
     (1, 130, 4, 4, 96, 96, True, None),
     (1, 97, 4, 4, 192, 128, True, None),      # MLA's 192 over 128
     (2, (40, 100), 4, 2, 64, 64, False, 16),  # Sq != Sk, windowed
+    (2, 200, 6, 2, 128, 128, True, None),     # an odd group (G 3), S 200
+    (2, 150, 4, 4, 128, 128, True, None),     # G 1
+    (1, 333, 4, 2, 96, 96, True, 100),        # S 333 at 96, windowed
+    (1, 2048, 16, 2, 128, 128, True, None),   # long: the rings wrap often
+    (2, 1100, 16, 8, 64, 64, True, 200),      # 288 key tiles: no clusters
 ]
 
 
@@ -720,10 +725,12 @@ def test_cuda_flash_attention_backward_matches_plain(
     """dQ, dK and dV of the backward kernel against
     ``flash_attention_backward_plain`` on the same q, k, v, out, lse and
     dout, within ``tol`` of each reference's largest entry; the forward's
-    log-sum-exp against the plain version's; two launches bit-identical."""
+    log-sum-exp against the plain version's; two launches bit-identical,
+    both counted under the design ``bwd_design`` names (the tensor cores
+    for bf16 at (128, 128))."""
     from repro_torch.kernels.flash_attention import (
-        _forward, flash_attention_backward, flash_attention_backward_plain,
-        flash_attention_plain)
+        LAUNCHES_BY_DESIGN, _forward, bwd_design, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_plain)
     q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, h, kv, d, dv, h + d)
     out, lse = _forward(q, k, v, causal, window, with_lse=True)
     _, want_lse = flash_attention_plain(q, k, v, causal=causal,
@@ -734,12 +741,18 @@ def test_cuda_flash_attention_backward_matches_plain(
     want = flash_attention_backward_plain(q, k, v, out, lse, dout,
                                           causal=causal, window=window)
     before = build.launch_counts()["flash_attention_bwd"]
+    design = bwd_design(d, dv, dtype)
+    by_design = dict(LAUNCHES_BY_DESIGN)
     got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
                                    window=window)
     again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
                                      window=window)
     torch.cuda.synchronize()
     assert build.launch_counts()["flash_attention_bwd"] == before + 2
+    assert LAUNCHES_BY_DESIGN[design] == by_design.get(design, 0) + 2
+    assert sum(LAUNCHES_BY_DESIGN.values()) == sum(by_design.values()) + 2
+    if dtype == torch.bfloat16 and (d, dv) == (128, 128):
+        assert design == "tensor_core"
     for name, x, y, z in zip("qkv", got, want, again):
         assert x.dtype == dtype and x.shape == y.shape
         assert torch.equal(x, z), f"d{name} differs between launches"

@@ -6,12 +6,14 @@ computes: P rebuilt from the forward's log-sum-exp, D = rowsum(dO * O),
 dS = P * (dO V^T - D)) is held against ``torch.autograd`` of
 ``flash_attention_plain`` and against ``jax.vjp`` of the reference's
 ``blockwise_attention`` (``repro/models/attention.py``), on seeded numpy
-inputs in fp32: causal, windowed and not causal, GQA, and (D, DV) of
-(64, 64), (96, 96), (128, 128) and MLA's (192, 128). Each of dQ, dK and dV
+inputs in fp32: causal, windowed and not causal, GQA (an odd group
+too), Sq != Sk both ways, and (D, DV) of (64, 64), (96, 96), (128, 128)
+and MLA's (192, 128). Each of dQ, dK and dV
 within 1e-5 of its largest reference entry (fp32 sums in other orders).
 ``flash_attention`` under autograd on the CPU (``FlashAttentionFn``) is
 held against both the same way, and without grad it runs no backward and
-keeps no log-sum-exp.
+keeps no log-sum-exp. ``bwd_design`` names the backward kernel's design
+(tensor or CUDA cores) for every shape and dtype, as PERF.md's table says.
 """
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FLASH_SHAPES,
     FlashAttentionFn,
+    bwd_design,
     flash_attention,
     flash_attention_backward_plain,
     flash_attention_plain,
@@ -40,13 +44,22 @@ CASES = [
     (1, 36, 4, 1, 128, 128, True, 16),        # GQA 4, windowed
     (2, 24, 4, 4, 192, 128, True, None),      # MLA's heads
     (1, 20, 4, 2, 128, 128, False, 6),        # windowed, not causal
+    (1, 28, 6, 2, 64, 64, True, None),        # GQA 3: an odd group
+    (2, (24, 40), 4, 2, 64, 64, True, None),  # Sq < Sk: keys no query sees
+    (1, (40, 24), 4, 2, 128, 128, True, None),  # Sq > Sk
 ]
 
 
+def _lengths(s):
+    """(Sq, Sk) of a case's S: one length, or the two."""
+    return s if isinstance(s, tuple) else (s, s)
+
+
 def _inputs(b, s, h, kv, d, dv, seed):
+    sq, sk = _lengths(s)
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
-    return f(b, s, h, d), f(b, s, kv, d), f(b, s, kv, dv), f(b, s, h, dv)
+    return f(b, sq, h, d), f(b, sk, kv, d), f(b, sk, kv, dv), f(b, sq, h, dv)
 
 
 def _reference_vjp(q, k, v, do, causal, window):
@@ -74,11 +87,12 @@ def _close(got, want, what):
 @pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", CASES)
 def test_backward_plain_matches_autograd_and_reference(b, s, h, kv, d, dv,
                                                        causal, window):
-    q, k, v, do = _inputs(b, s, h, kv, d, dv, s + d)
+    q, k, v, do = _inputs(b, s, h, kv, d, dv, sum(_lengths(s)) + d)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     out, lse = flash_attention_plain(tq, tk, tv, causal=causal,
                                      window=window, return_lse=True)
-    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert lse.shape == (b, h, _lengths(s)[0]) \
+        and lse.dtype == torch.float32
     got = flash_attention_backward_plain(tq, tk, tv, out, lse, tdo,
                                          causal=causal, window=window)
     _, auto = _autograd(q, k, v, do, causal, window, flash_attention_plain)
@@ -90,7 +104,7 @@ def test_backward_plain_matches_autograd_and_reference(b, s, h, kv, d, dv,
 @pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", CASES[::2])
 def test_autograd_function_on_cpu_matches_both(b, s, h, kv, d, dv, causal,
                                                window):
-    q, k, v, do = _inputs(b, s, h, kv, d, dv, 7 * s)
+    q, k, v, do = _inputs(b, s, h, kv, d, dv, 7 * _lengths(s)[0])
     out, got = _autograd(q, k, v, do, causal, window, flash_attention)
     assert out.grad_fn is not None
     assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
@@ -139,3 +153,17 @@ def test_no_grad_forward_keeps_nothing():
     out = flash_attention(q.detach(), q.detach(), q.detach())
     assert out.grad_fn is None and not out.requires_grad
     assert issubclass(FlashAttentionFn, torch.autograd.Function)
+
+
+#: The backward kernel's design by (D, DV) and dtype, as PERF.md states it:
+#: bf16 on the tensor cores where a consumer's dK and dV fit its registers,
+#: fp32 (exact sums) and bf16 at MLA's (192, 128) on the CUDA cores.
+DESIGNS = {(64, 64): "tensor_core", (96, 96): "tensor_core",
+           (128, 128): "tensor_core", (192, 128): "cuda_core"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", FLASH_SHAPES)
+def test_bwd_design_follows_the_table(d, dv, dtype):
+    want = DESIGNS[(d, dv)] if dtype == torch.bfloat16 else "cuda_core"
+    assert bwd_design(d, dv, dtype) == want
