@@ -207,11 +207,39 @@ Phases:
    under ``build/`` that is removed, resumed to 6, against an
    uninterrupted 6-step run (losses within 1e-5 relative; bit-equality
    printed).
-11. The most active descriptors one copy call received on each path
+11. (q) Every family trains on the card, after (p): ``moe_gather``'s and
+   ``moe_combine``'s backward kernels against their plain versions
+   (``d_tokens`` and ``d_expert_out`` bit for bit, ``d_inv_weight``
+   within 1e-5 of its largest entry, two launches bit-identical) at the
+   training shapes of dbrx-132b (2,048 tokens, k 4, 10,240 slots, d
+   6,144), deepseek-v2-236b (k 6, 15,360 slots, d 5,120) and
+   jamba-v0.1-52b (k 2, 5,120 slots, d 4,096) from skewed routers, and
+   small cases (fp32 and bf16, k 1 and 10, widths of 7, 37 and 100); their
+   times at dbrx's shape beside their bounds, the plain versions,
+   ``index_add_`` (the gather's) and autograd of the plain combine (the
+   combine's). Then six families at their published widths, each drawn
+   from ``--seed``, trained on one ``DataIterator`` batch of 4 x 512
+   tokens and freed before the next: dbrx-132b cut to 1 of 40 layers and
+   deepseek-v2-236b to 2 of 60 (bf16 parameters), jamba-v0.1-52b to one
+   period of 8 (bf16; the kernels' gradients wait on the host while the
+   plain ones are computed), mamba2-780m and seamless-m4t-medium (512 stub
+   frames) uncut and phi-3-vision-4.2b at 16 of 32 layers (576 stub
+   patches; fp32 parameters). Each: one ``grads_and_metrics`` through the
+   kernels (flash forward and backward and the four MoE kernels counted
+   against what the config implies under remat; the recompute's dispatch
+   plans equal to the forward's), held against the same on the plain ops
+   with the first run's expert choices replayed in order (loss within
+   2e-3 relative, global norm within 1 %, every leaf's gradient at cosine
+   >= 0.999; the worst leaf printed; seamless-m4t-medium's in fp32
+   compute, see TRAIN_FAMILIES); then, except for deepseek and jamba, 4
+   ``train_step``s on that batch in bf16 compute (losses finite, the last
+   below the first), with the median step ms, tokens/s and peak memory,
+   and one profiled step's device time by kernel group.
+12. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
-   launches; a ``kernels`` JSON line (each of the eight kernels' launches
-   summed over the main path, (k), (j), (l), (m), (n), (o) and (p), and
-   per path; flash's phase (o) launches by shape and its times at the
+   launches; a ``kernels`` JSON line (each of the ten kernels' launches
+   summed over the main path, (k), (j), (l), (m), (n), (o), (p) and (q),
+   and per path; flash's phase (o) launches by shape and its times at the
    new head dims), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -1718,13 +1746,37 @@ def recording_plans(plans: list):
 
 
 @contextlib.contextmanager
-def plain_kernels(torch, plans=None, flipped=None):
+def recording_routes(routes: list):
+    """Every top-k expert choice the model path makes (the indices of
+    ``models.moe.top_k``, in the plan and for the auxiliary losses),
+    appended to ``routes`` in order."""
+    from unittest import mock
+
+    from repro_torch.models import moe as moe_mod
+    real_top_k = moe_mod.top_k
+
+    def recording(probs, k):
+        values, idx = real_top_k(probs, k)
+        routes.append(idx)
+        return values, idx
+
+    with mock.patch.object(moe_mod, "top_k", recording):
+        yield
+
+
+@contextlib.contextmanager
+def plain_kernels(torch, plans=None, flipped=None, routes=None):
     """The model path's three ops replaced by their plain versions, here
     and nowhere in the package. With ``plans`` (an iterator), the first
     run's dispatch plans are replayed in order so that both runs route
     alike; ``flipped`` receives, per MoE layer, the token copies that the
     plain run's own plan sends to another expert or drops where the first
-    run kept them (a slot index alone also moves with the queue)."""
+    run kept them (a slot index alone also moves with the queue). Under
+    autograd a replayed plan's weights would belong to the first run's
+    graph and cut the router's gradient: there ``routes`` (an iterator of
+    ``recording_routes``' indices) replays the expert choices instead, their
+    weights taken from this run's router, and ``flipped`` receives the
+    copies whose expert this run's own top-k would change."""
     from unittest import mock
 
     from repro_torch.kernels import ops
@@ -1733,6 +1785,7 @@ def plain_kernels(torch, plans=None, flipped=None):
         moe_combine_plain, moe_gather_plain)
     from repro_torch.models import moe as moe_mod
     real_plan = moe_mod.moe_dispatch_plan
+    real_top_k = moe_mod.top_k
 
     def replaying(probs, m, cap):
         ours, theirs = next(plans), real_plan(probs, m, cap)
@@ -1741,16 +1794,32 @@ def plain_kernels(torch, plans=None, flipped=None):
         flipped.append(int((expert[0] != expert[1]).sum()))
         return ours
 
+    def replaying_route(probs, k):
+        idx = next(routes)
+        flipped.append(int((real_top_k(probs, k)[1] != idx).sum()))
+        return probs.gather(-1, idx), idx
+
     def plain_flash(q, k, v, *, causal=True, window=None, **_):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    # Autograd differentiates the plain forwards: the plans' other streams,
+    # which only the kernels' backwards read, are not passed on.
+    def plain_gather(token_idx, tokens, inv_slot=None):
+        return moe_gather_plain(token_idx, tokens)
+
+    def plain_combine(inv_slot, inv_weight, expert_out, token_idx=None):
+        return moe_combine_plain(inv_slot, inv_weight, expert_out)
 
     with contextlib.ExitStack() as stack:
         if plans is not None:
             stack.enter_context(mock.patch.object(
                 moe_mod, "moe_dispatch_plan", replaying))
+        if routes is not None:
+            stack.enter_context(mock.patch.object(
+                moe_mod, "top_k", replaying_route))
         for name, fn in (("flash_attention_op", plain_flash),
-                         ("moe_gather_op", moe_gather_plain),
-                         ("moe_combine_op", moe_combine_plain)):
+                         ("moe_gather_op", plain_gather),
+                         ("moe_combine_op", plain_combine)):
             stack.enter_context(mock.patch.object(ops, name, fn))
         yield
 
@@ -3158,8 +3227,18 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
 
 #: The backward's kernels by name: the tensor-core design's (bf16 only)
 #: first, since "dkdv_kernel" is not a substring of theirs.
-BWD_KERNELS = ("dkdv_tc_kernel", "dq_tc_kernel", "delta_lse_kernel",
+BWD_KERNELS = ("dkdv_tc_kernel", "dq_tc_kernel", "lse_kernel",
                "dkdv_kernel", "dq_kernel", "delta_kernel")
+
+
+def bwd_kernel(name: str) -> str:
+    """A backward kernel's short name from its profiled (demangled) or
+    ptxas (mangled) name; the Delta pass of ``dq_tc_kernel`` (its
+    ``true`` instantiation) apart from the dQ kernel."""
+    kind = next((k for k in BWD_KERNELS if k in name), name[:60])
+    if kind == "dq_tc_kernel" and ("true>" in name or "Lb1E" in name):
+        return "delta_pass_tc_kernel"
+    return kind
 
 
 def bwd_ptxas(build_log) -> dict:
@@ -3169,9 +3248,11 @@ def bwd_ptxas(build_log) -> dict:
     out, name = {}, None
     for ln in (build_log or "").splitlines():
         if "Compiling entry function" in ln:
-            kind = next((k for k in BWD_KERNELS if k in ln), None)
+            kind = next((k for k in BWD_KERNELS if k in ln), None) \
+                and bwd_kernel(ln)
             dims = "/".join(re.findall(r"Li(\d+)E", ln))
-            bf16 = "bfloat16" in ln or kind in BWD_KERNELS[:3]
+            bf16 = "bfloat16" in ln or "_tc_" in str(kind) \
+                or kind == "lse_kernel"
             name = kind and f"{kind}_{'bf16' if bf16 else 'fp32'}_{dims}"
             if name:
                 out[name] = {}
@@ -3294,14 +3375,16 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
         rows = device_profile(torch, lambda: [flash_attention_backward(
             q, k, v, out, lse, dout, causal=True) for _ in range(5)],
             f"flash_attention_bwd_{s}")
-        by_kernel = {next((k_ for k_ in BWD_KERNELS if k_ in name),
-                          name[:60]): us / 5e3
-                     for us, name, _ in rows or ()}
+        by_kernel = {}
+        for us, name, _ in rows or ():
+            key = bwd_kernel(name)
+            by_kernel[key] = by_kernel.get(key, 0.0) + us / 5e3
         n_bytes, n_ops = flash_bwd_work(q, k, v, True, None)
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-        # The tensor-core design's own count: S and dO V^T run twice.
-        ops_run = n_ops + 2 * b * h * visible_pairs(s, s, True, None) \
-            * (d + dv)
+        # The tensor-core design's own count: S and dO V^T three times
+        # (dK/dV, the Delta pass, dQ), dQ's product twice (dS split).
+        ops_run = 2 * b * h * visible_pairs(s, s, True, None) \
+            * (6 * d + 4 * dv)
         timed = {"max_abs_err": worst_bf16, "ms": ms,
                  "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                  "library_ms": library_ms, "bound_ms": b_ms,
@@ -3330,7 +3413,7 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
         torch.cuda.empty_cache()
     spills = {k_: p for k_, p in ptxas.items()
               if p.get("spill_store_bytes")}
-    if any("_tc_" in k_ or "delta_lse" in k_ for k_ in spills):
+    if any("_tc_" in k_ or "lse_kernel" in k_ for k_ in spills):
         raise AssertionError(f"flash_attention_bwd: ptxas spills {spills}")
     return res
 
@@ -3358,12 +3441,14 @@ def schedule_lr(step: int, lr: float, warmup: int, total: int,
 
 
 def kernel_kind(name: str) -> str:
-    """A profiled kernel's group in phase (p)'s breakdown."""
+    """A profiled kernel's group in phase (p)'s and (q)'s breakdowns."""
     low = name.lower()
     if "flash_attention" in low:
         return "flash_forward"
     if any(k in low for k in BWD_KERNELS):
         return "flash_backward"
+    if "moe_" in low:
+        return "moe_dispatch"
     if any(k in low for k in ("gemm", "sm90_xmma", "cutlass", "nvjet")):
         return "matmul"
     if "copy" in low:
@@ -3598,6 +3683,484 @@ def trainer_path(torch, np, dev, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase (q): every family trains on the card
+# ---------------------------------------------------------------------------
+
+#: The MoE backward kernels at each MoE arch's training shapes (a plan for
+#: one DataIterator batch of Q_BATCH x Q_SEQ tokens); dbrx-132b's is timed.
+MOE_BWD_ARCHS = ("dbrx-132b", "deepseek-v2-236b", "jamba-v0.1-52b")
+#: Small cases: dtype, tokens, k, slot rows, d (16-byte chunks, k of 1, k
+#: over the kernel's 8 copies a pass, widths not a multiple of 8).
+MOE_BWD_SMALL = (("float32", 512, 4, 4096, 1024),
+                 ("bfloat16", 512, 1, 1024, 1024),
+                 ("bfloat16", 300, 6, 2048, 100),
+                 ("float32", 256, 10, 4096, 37),
+                 ("bfloat16", 256, 2, 1024, 7))
+#: d_inv_weight against its plain version (a sum in another order): share
+#: of the largest plain entry. d_tokens and d_expert_out are bit-identical.
+MOE_BWD_TOL = 1e-5
+Q_BATCH, Q_SEQ, Q_STEPS = 4, 512, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainFamily:
+    arch: str
+    layers: int | None       # depth cut to this many layers; None: published
+    param_dtype: str         # bfloat16 (12 bytes a parameter with AdamW)
+    steps: int               # train steps after the gradient check
+    frames: int = 0          # encoder stub frames (the encoder-decoder)
+    host_grads: bool = False  # the kernels' gradients wait on the host
+    grads_compute: str | None = None  # the gradient check's compute dtype
+
+
+#: The cuts fit one 80 GB card: dbrx-132b 1 of 40 layers (4.49 B
+#: parameters, 54 GB with AdamW's state at bf16, and its update's fp32
+#: temporaries on a 1.06 B-parameter expert leaf); deepseek-v2-236b its
+#: dense layer 0 and one MoE layer (5.4 B, two gradient trees); jamba one
+#: period of 8 (13.3 B: one tree of gradients on the card, the other on the
+#: host); phi-3-vision-4.2b 16 of 32 layers at fp32 (about 35 GB).
+#: seamless-m4t-medium's gradient check runs in fp32 compute (its train
+#: steps in bf16): over the stub frames its encoder's memory rows share
+#: 99.97 % of their norm, so the cross-attention's V rows differ by less
+#: than a bf16 ulp of their common part, and the query-side gradients
+#: (cross wq, wk, norm_c, about 1e-7 of the global norm) are set by where
+#: the encoder rounded: two bf16 runs that differ in any bit there agree
+#: on them at cosine 0.97, the plain ops' own bf16 run against fp32
+#: included.
+TRAIN_FAMILIES = (
+    TrainFamily("dbrx-132b", 1, "bfloat16", Q_STEPS),
+    TrainFamily("deepseek-v2-236b", 2, "bfloat16", 0),
+    TrainFamily("jamba-v0.1-52b", 8, "bfloat16", 0, host_grads=True),
+    TrainFamily("mamba2-780m", None, "float32", Q_STEPS),
+    TrainFamily("seamless-m4t-medium", None, "float32", Q_STEPS, frames=512,
+                grads_compute="float32"),
+    TrainFamily("phi-3-vision-4.2b", 16, "float32", Q_STEPS),
+)
+MOE_TRAIN_KERNELS = ("moe_gather", "moe_combine", "moe_gather_bwd",
+                     "moe_combine_bwd")
+
+
+def arch_plan(torch, dev, g, arch: str):
+    """A dispatch plan at ``arch``'s training shape: Q_BATCH x Q_SEQ tokens
+    routed by a skewed random router (dropped copies and empty slots)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity, moe_dispatch_plan
+    m = get_config(arch).moe
+    t = Q_BATCH * Q_SEQ
+    skew = torch.linspace(-1.5, 1.5, m.num_experts, device=dev)
+    probs = torch.softmax(torch.randn((t, m.num_experts), device=dev,
+                                      generator=g) + skew, dim=-1)
+    return moe_dispatch_plan(probs, m, capacity(t, m))
+
+
+def dual_plan(torch, dev, g, t: int, k: int, rows: int):
+    """(token_idx, inv_slot, inv_weight) of a random plan with the dispatch
+    plan's duality: each kept copy has a slot of its own, token_idx names
+    the slot's token, the other slots are empty; 30 % of the copies and
+    every copy of the first 16 tokens dropped."""
+    slot = torch.randperm(rows, device=dev, generator=g)[:t * k].view(
+        t, k).int()
+    slot[torch.rand((t, k), device=dev, generator=g) < 0.3] = -1
+    slot[:16] = -1
+    kept = slot >= 0
+    token_idx = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    owner = torch.arange(t, dtype=torch.int32, device=dev)[:, None].expand(
+        t, k)
+    token_idx[slot[kept].long()] = owner[kept]
+    w = torch.where(kept, torch.rand((t, k), device=dev, generator=g), 0.0)
+    return token_idx, slot, w
+
+
+def check_moe_backward(torch, np, dev, rng) -> dict:
+    """Both MoE backward kernels against their plain versions (d_tokens
+    and d_expert_out bit for bit, d_inv_weight within MOE_BWD_TOL; two
+    launches bit-identical), at the MoE archs' training shapes and small
+    cases; then their times at dbrx-132b's shape beside their bounds, the
+    plain versions and the library yardsticks."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_dispatch import (
+        moe_combine_backward, moe_combine_backward_plain, moe_combine_plain,
+        moe_gather_backward, moe_gather_backward_plain)
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def rows(shape, dtype):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def hold(case, token_idx, slot, w, d, dtype):
+        n, (t, k) = token_idx.shape[0], slot.shape
+        d_slots, eo, dy = rows((n, d), dtype), rows((n, d), dtype), \
+            rows((t, d), dtype)
+        want_t = moe_gather_backward_plain(slot, d_slots)
+        got_t = moe_gather_backward(slot, d_slots)
+        again_t = moe_gather_backward(slot, d_slots)
+        want_eo, want_w = moe_combine_backward_plain(slot, w, eo, dy)
+        got_eo, got_w = moe_combine_backward(slot, w, eo, dy,
+                                             token_idx=token_idx)
+        again_eo, again_w = moe_combine_backward(slot, w, eo, dy,
+                                                 token_idx=token_idx)
+        torch.cuda.synchronize()
+        rel = max_err(torch, got_w, want_w) / max(
+            float(want_w.abs().max()), 1e-30)
+        out = {"check": "moe_backward", "case": case, "dtype": str(dtype),
+               "tokens": t, "k": k, "slots": n, "d": d,
+               "kept": int((slot >= 0).sum()),
+               "empty_slots": int((token_idx < 0).sum()),
+               "d_tokens_equal": torch.equal(got_t, want_t),
+               "d_expert_out_equal": torch.equal(got_eo, want_eo),
+               "d_inv_weight_rel_err": rel, "tolerance": MOE_BWD_TOL,
+               "bit_identical_across_launches": all(
+                   torch.equal(a, b) for a, b in ((got_t, again_t),
+                                                  (got_eo, again_eo),
+                                                  (got_w, again_w)))}
+        log(out)
+        if not (out["d_tokens_equal"] and out["d_expert_out_equal"]
+                and out["bit_identical_across_launches"]) \
+                or rel > MOE_BWD_TOL:
+            raise AssertionError(f"MoE backward kernels disagree: {out}")
+        return rel
+
+    worst = 0.0
+    for arch in MOE_BWD_ARCHS:
+        plan = arch_plan(torch, dev, g, arch)
+        worst = max(worst, hold(arch, plan.token_idx, plan.inv_slot,
+                                plan.inv_weight, get_config(arch).d_model,
+                                torch.bfloat16))
+        del plan
+    for dtype, t, k, n, d in MOE_BWD_SMALL:
+        worst = max(worst, hold("small", *dual_plan(torch, dev, g, t, k, n),
+                                d, getattr(torch, dtype)))
+    torch.cuda.empty_cache()
+
+    # Times at dbrx-132b's training shape, bf16.
+    plan = arch_plan(torch, dev, g, "dbrx-132b")
+    token_idx, slot, w = plan.token_idx, plan.inv_slot, plan.inv_weight
+    d, dtype = get_config("dbrx-132b").d_model, torch.bfloat16
+    (t, k), n = slot.shape, token_idx.shape[0]
+    el = 2
+    kept = int((slot >= 0).sum())
+    d_slots, eo, dy = rows((n, d), dtype), rows((n, d), dtype), \
+        rows((t, d), dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    out_t = torch.empty((t, d), dtype=dtype, device=dev)
+    d_eo = torch.empty_like(eo)
+    d_w = torch.empty((t, k), dtype=torch.float32, device=dev)
+    out = {}
+    # The gather's backward reads each kept copy's slot row once and the
+    # plan's inverse stream, and writes every token row once.
+    g_bytes = kept * d * el + 4 * t * k + t * d * el
+    b_ms, b_by = bound_ms(g_bytes, kept * d)
+    safe = torch.where(token_idx >= 0, token_idx, t).long()
+    out["moe_gather_bwd"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: moe_gather_backward(slot, d_slots)),
+        "kernel_ms": time_ms(torch, lambda: build.launch(
+            "moe_gather_bwd", slot.data_ptr(), d_slots.data_ptr(),
+            out_t.data_ptr(), t, d, k, 1, stream)),
+        "plain_ms": time_ms(torch, lambda: moe_gather_backward_plain(
+            slot, d_slots)),
+        "library_ms": time_ms(torch, lambda: torch.zeros(
+            (t + 1, d), dtype=dtype, device=dev).index_add_(0, safe,
+                                                            d_slots)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": g_bytes}
+    log({"time": "moe_gather_bwd", "tokens": t, "k": k, "slots": n,
+         "kept": kept, "d": d, **out["moe_gather_bwd"],
+         "library": "index_add_ of the slot rows by token_idx onto zeros "
+                    "(empty slots to an overflow row)",
+         "share_of_bound": b_ms / out["moe_gather_bwd"]["ms"],
+         "kernel_share_of_bound": b_ms / out["moe_gather_bwd"]["kernel_ms"]})
+    # The combine's backward reads dy, each kept copy's expert row, the
+    # plan's streams, and writes every slot row and d_inv_weight once.
+    c_bytes = t * d * el + kept * d * el + 8 * t * k + 4 * n \
+        + n * d * el + 4 * t * k
+    b_ms, b_by = bound_ms(c_bytes, 3 * kept * d)
+    eo_r, w_r = eo.clone().requires_grad_(), w.clone().requires_grad_()
+    y_lib = moe_combine_plain(slot, w_r, eo_r)
+    w_err = max_err(torch, moe_combine_backward(
+        slot, w, eo, dy, token_idx=token_idx)[1],
+        moe_combine_backward_plain(slot, w, eo, dy)[1])
+    out["moe_combine_bwd"] = {
+        "max_abs_err": w_err,
+        "ms": time_ms(torch, lambda: moe_combine_backward(
+            slot, w, eo, dy, token_idx=token_idx)),
+        "kernel_ms": time_ms(torch, lambda: build.launch(
+            "moe_combine_bwd", slot.data_ptr(), w.data_ptr(), eo.data_ptr(),
+            dy.data_ptr(), token_idx.data_ptr(), d_eo.data_ptr(),
+            d_w.data_ptr(), t, n, d, k, 1, stream)),
+        "plain_ms": time_ms(torch, lambda: moe_combine_backward_plain(
+            slot, w, eo, dy)),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            y_lib, (eo_r, w_r), dy, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": c_bytes,
+        "operations": 3 * kept * d}
+    log({"time": "moe_combine_bwd", "tokens": t, "k": k, "slots": n,
+         "kept": kept, "d": d, **out["moe_combine_bwd"],
+         "library": "autograd.grad of the plain combine (index, multiply, "
+                    "sum), w.r.t. expert_out and inv_weight",
+         "share_of_bound": b_ms / out["moe_combine_bwd"]["ms"],
+         "kernel_share_of_bound": b_ms / out["moe_combine_bwd"]["kernel_ms"],
+         "worst_d_inv_weight_rel_err": worst})
+    del plan, d_slots, eo, dy, out_t, d_eo, d_w, eo_r, w_r, y_lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_launches(cfg) -> dict:
+    """The launches of one ``grads_and_metrics`` under remat: a period's
+    kernels run twice forward (the forward and the recompute) and once
+    backward, a prefix layer's once forward: flash per attention layer
+    (and per encoder layer and cross-attention), the gather and the
+    combine per MoE layer."""
+    from repro_torch.models.transformer import n_periods
+    runs = 1 if cfg.remat_policy == "none" else 2
+    attn = ("attn", "local")
+    prefix = cfg.first_k_dense if cfg.block_pattern[0][0] in attn else 0
+    per_period = sum(m in attn for m, _ in cfg.block_pattern)
+    flash = per_period * n_periods(cfg) * (2 if cfg.is_encdec else 1) \
+        + cfg.encoder_layers
+    moe = sum(f == "moe" for _, f in cfg.block_pattern) * n_periods(cfg)
+    return {"flash_attention": prefix + runs * flash,
+            "flash_attention_bwd": prefix + flash,
+            "moe_gather": runs * moe, "moe_combine": runs * moe,
+            "moe_gather_bwd": moe, "moe_combine_bwd": moe}
+
+
+def recompute_rebuilt(torch, cfg, plans: list) -> int:
+    """The recompute under remat rebuilt every forward dispatch plan: the
+    plans come forward first, then recomputed, periods in reverse order and
+    a period's layers in order. Returns the MoE layers."""
+    n = len(plans) // 2
+    per = sum(f == "moe" for _, f in cfg.block_pattern)
+    if len(plans) != 2 * n or (n and not per):
+        raise AssertionError(f"{len(plans)} dispatch plans under remat")
+    if not n:
+        return 0
+    forward = [plans[i:i + per] for i in range(0, n, per)]
+    again = [plans[n + i:n + i + per] for i in range(0, n, per)]
+    for first, second in zip(forward, reversed(again)):
+        for a, b in zip(first, second):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError("the recompute built another dispatch "
+                                     "plan than the forward")
+    return n
+
+
+def train_batch(torch, np, dev, rng, cfg, spec, seed: int) -> dict:
+    """One DataIterator batch of Q_BATCH x Q_SEQ tokens, and the stub
+    frontend embeddings (frames, patches) from ``rng``."""
+    from repro_torch.data import DataConfig, DataIterator
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=Q_SEQ,
+                                   global_batch=Q_BATCH, seed=seed))
+    try:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()
+                 if k in ("tokens", "labels", "loss_mask")}
+    finally:
+        data.close()
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    if spec.frames:
+        batch["frames"] = torch.randn((Q_BATCH, spec.frames, cfg.d_model),
+                                      device=dev, generator=g) * STUB_SCALE
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = torch.randn(
+            (Q_BATCH, cfg.prefix_len, cfg.d_model), device=dev,
+            generator=g) * STUB_SCALE
+    return batch
+
+
+def train_family_run(torch, np, dev, rng, seed: int,
+                     spec: TrainFamily) -> dict:
+    """One family at its published widths (cut as ``spec`` says): one
+    ``grads_and_metrics`` through the kernels (launches counted, the
+    recompute's plans held to the forward's) against the same on the plain
+    ops with those plans replayed in order; then ``spec.steps`` train steps
+    on the same batch. Returns the launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.train import (TrainConfig, grads_and_metrics,
+                                   init_state, make_train_step)
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get_config(spec.arch),
+                              param_dtype=spec.param_dtype)
+    if spec.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=spec.layers)
+    label = spec.arch.replace("-", "_").replace(".", "_")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    log({"init": spec.arch, "phase": "q", "layers": cfg.num_layers,
+         "published_layers": get_config(spec.arch).num_layers,
+         "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+         "param_dtype": cfg.param_dtype, "compute": str(cfg.cdtype),
+         "remat_policy": cfg.remat_policy,
+         "params": sum(x.numel() for x in _leaves(params)),
+         "param_bytes": sum(x.numel() * x.element_size()
+                            for x in _leaves(params)),
+         "seconds": time.perf_counter() - t0})
+    batch = train_batch(torch, np, dev, rng, cfg, spec, seed)
+    want = train_launches(cfg)
+    gcfg = cfg if spec.grads_compute is None else dataclasses.replace(
+        cfg, compute_dtype=spec.grads_compute)
+
+    # The gradients through the kernels, every dispatch plan and expert
+    # choice recorded.
+    plans, routes = [], []
+    build.reset_launches()                    # the family's path starts here
+    t0 = time.perf_counter()
+    with recording_plans(plans), recording_routes(routes):
+        grads, m = grads_and_metrics(params, batch, gcfg, 1)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    launches = build.launch_counts()          # ... and pauses here
+    expect_launches(f"q {spec.arch} grads", launches, want)
+    n_moe = recompute_rebuilt(torch, cfg, plans)
+    grads_peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(m["loss"]), float(optim.global_norm(grads))
+    ours = flatten(grads)
+    del grads, m
+    if spec.host_grads:                       # two trees do not fit
+        ours = {k: v.to("cpu") for k, v in ours.items()}
+        torch.cuda.empty_cache()
+
+    # The same on the plain ops, the expert choices replayed in the order
+    # made (forward, then the recompute's), so that both runs route alike.
+    del plans
+    flipped = []
+    before = build.launch_counts()
+    with plain_kernels(torch, flipped=flipped, routes=iter(routes)):
+        grads_p, m_p = grads_and_metrics(params, batch, gcfg, 1)
+    torch.cuda.synchronize()
+    if build.launch_counts() != before:
+        raise AssertionError(f"phase q {spec.arch}: the plain gradients "
+                             "launched a kernel")
+    loss_p, gnorm_p = float(m_p["loss"]), float(optim.global_norm(grads_p))
+    plain = flatten(grads_p)
+    del grads_p, m_p, routes
+    cos, both_zero = [], []
+    for k, b in plain.items():
+        a = ours.pop(k).to(dev)
+        if not (a.any() or b.any()):          # a leaf the batch never reached
+            both_zero.append(k)
+            continue
+        cos.append((cosine(torch, a, b), k))
+        del a
+    cos.sort()
+    del ours, plain
+    torch.cuda.empty_cache()
+    ok = abs(loss - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p) \
+        and abs(gnorm - gnorm_p) <= TRAIN_NORM_RTOL * gnorm_p \
+        and cos[0][0] >= TRAIN_MIN_COS
+    log({"check": f"q_{label}_grads_vs_plain", "loss": loss,
+         "loss_plain": loss_p, "loss_rel_err": abs(loss - loss_p) / abs(loss_p),
+         "grad_norm": gnorm, "grad_norm_plain": gnorm_p,
+         "grad_norm_rel_err": abs(gnorm - gnorm_p) / gnorm_p,
+         "leaves": len(cos) + len(both_zero), "leaves_zero_in_both":
+             both_zero, "worst_leaf": cos[0][1], "worst_cosine": cos[0][0],
+         "next_worst": [{"leaf": k, "cosine": c} for c, k in cos[1:4]],
+         "compute": str(gcfg.cdtype),
+         "moe_layers": n_moe, "recompute_rebuilt_plans": True,
+         "copies_routed_otherwise_in_plain_run": flipped,
+         "plain_grads_on_host": spec.host_grads,
+         "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                       "grad_norm_rtol": TRAIN_NORM_RTOL,
+                       "min_cosine": TRAIN_MIN_COS},
+         "grads_ms_first_call": grads_ms, "launches": launches,
+         "max_memory_allocated_grads": grads_peak})
+    if not ok:
+        raise AssertionError(f"phase q {spec.arch}: the gradients through the "
+                             "kernels differ from the plain ops' beyond "
+                             "tolerance")
+    out = {"launches": launches, "grads_peak": grads_peak,
+           "worst_cosine": cos[0][0], "worst_leaf": cos[0][1]}
+
+    if spec.steps:
+        tcfg = TrainConfig(optimizer=optim.AdamWConfig(
+            lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=spec.steps))
+        state = init_state(params, tcfg)
+        del params
+        step = make_train_step(cfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()                # ... resumes here
+        losses, step_ms = [], []
+        for _ in range(spec.steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))   # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps = build.launch_counts()         # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(f"q {spec.arch} steps", steps,
+                        {k: n * spec.steps for k, n in want.items()})
+        launches = {k: launches[k] + steps[k] for k in launches}
+        median = statistics.median(step_ms)
+        log({"phase": f"q_train_{label}", "steps": spec.steps,
+             "batch": Q_BATCH, "seq_len": Q_SEQ,
+             "step_ms_median": median, "step_ms": step_ms,
+             "tokens_per_s": Q_BATCH * Q_SEQ / (median / 1e3),
+             "losses": losses, "max_memory_allocated": peak,
+             "max_memory_allocated_gb": peak / 1e9,
+             "launches_per_step": {k: n / spec.steps
+                                   for k, n in steps.items() if n}})
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"phase q {spec.arch}: losses {losses}: not "
+                                 "all finite, or the last not below the "
+                                 "first")
+        out.update(launches=launches, step_ms_median=median, losses=losses,
+                   peak=peak)
+        # One more step, profiled: the gradients, then AdamW.
+        held = {}
+        rows_g = device_profile(torch, lambda: held.update(
+            g=grads_and_metrics(state.params, batch, cfg, 1)[0]),
+            f"q_{label}_grads")
+        rows_a = device_profile(torch, lambda: optim.apply(
+            tcfg.optimizer, state.params, held["g"], state.opt),
+            f"q_{label}_adamw")
+        if rows_g and rows_a:
+            by_kind = {}
+            for us, name, _ in rows_g:
+                kind = kernel_kind(name)
+                by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+            adamw_ms = sum(us for us, _, _ in rows_a) / 1e3
+            device_ms = sum(by_kind.values()) + adamw_ms
+            log({"profile": f"q_{label}_train_step", "device_ms": device_ms,
+                 "device_busy_share_of_step": device_ms / median,
+                 "step_ms_median": median,
+                 "device_ms_by_kind": dict(by_kind, adamw_update=adamw_ms),
+                 "kernels": sum(n for _, _, n in rows_g + rows_a),
+                 "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": n}
+                         for us, k, n in rows_g[:8]]})
+        del state, held
+    else:
+        del params
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_family_path(torch, np, dev, rng, seed: int) -> dict:
+    """(q) The six families, each freed before the next; both MoE backward
+    kernels must have run. Returns the launches summed over them."""
+    from collections import Counter
+    total = Counter()
+    for spec in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        out = train_family_run(torch, np, dev, rng, seed, spec)
+        total.update(out["launches"])
+        log({"phase": f"q_{spec.arch}", "seconds": time.perf_counter() - t0,
+             "launches": {k: n for k, n in out["launches"].items() if n}})
+    for name in MOE_TRAIN_KERNELS + ("flash_attention", "flash_attention_bwd"):
+        if not total[name]:
+            raise AssertionError(f"phase q: {name} never launched")
+    return dict(total)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3691,6 +4254,12 @@ def main() -> int:
     by_path["p_train"] = train_path(torch, np, dev, rng, args.seed)
     trainer_path(torch, np, dev, args.seed)
     log({"phase": "p", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timing.update(check_moe_backward(torch, np, dev, rng))
+    by_path["q_train_families"] = train_family_path(torch, np, dev, rng,
+                                                    args.seed)
+    log({"phase": "q", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(
@@ -3717,7 +4286,11 @@ def main() -> int:
                                "src/repro/kernels/flash_attention.py:78"),
            "flash_attention_bwd": ("flash_attention_bwd",
                                    "flash_attention_bwd",
-                                   "src/repro/kernels/flash_attention.py:78")}
+                                   "src/repro/kernels/flash_attention.py:78"),
+           "moe_gather_bwd": ("moe_gather_bwd", "moe_dispatch",
+                              "src/repro/kernels/moe_dispatch.py:26"),
+           "moe_combine_bwd": ("moe_combine_bwd", "moe_dispatch",
+                               "src/repro/kernels/moe_dispatch.py:57")}
     kernels = []
     for name, (counter, lib, replaces) in src.items():
         t = timing[counter]
@@ -3729,6 +4302,14 @@ def main() -> int:
             extra = {"derivative_of": "the forward's attention, which the "
                      "reference differentiates through "
                      "src/repro/models/attention.py:78 blockwise_attention"}
+        elif name == "moe_gather_bwd":
+            extra = {"derivative_of": "moe_gather, which the reference's "
+                     "training path differentiates as jnp indexing "
+                     "(src/repro/models/moe.py:233)"}
+        elif name == "moe_combine_bwd":
+            extra = {"derivative_of": "moe_combine, which the reference's "
+                     "training path differentiates as jnp indexing and an "
+                     "einsum (src/repro/models/moe.py:249)"}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
                         "replaces": replaces, "launches": launches[counter],

@@ -20,8 +20,12 @@ from .flash_attention import (  # noqa: F401
 )
 from .moe_dispatch import (  # noqa: F401
     moe_combine,
+    moe_combine_backward,
+    moe_combine_backward_plain,
     moe_combine_plain,
     moe_gather,
+    moe_gather_backward,
+    moe_gather_backward_plain,
     moe_gather_plain,
 )
 from .paged_attention import (  # noqa: F401

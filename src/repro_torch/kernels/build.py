@@ -61,6 +61,12 @@ _SYMBOLS = {
     "moe_combine": ("moe_dispatch", "moe_combine_launch",
                     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
                     + [ctypes.c_int, ctypes.c_void_p]),
+    "moe_gather_bwd": ("moe_dispatch", "moe_gather_bwd_launch",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_int, ctypes.c_void_p]),
+    "moe_combine_bwd": ("moe_dispatch", "moe_combine_bwd_launch",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4
+                        + [ctypes.c_int, ctypes.c_void_p]),
 }
 #: The libraries, one per source.
 LIBRARIES = sorted({lib for lib, _, _ in _SYMBOLS.values()})

@@ -14,12 +14,24 @@
 // j <= i if causal and i - j < window if window > 0; positions from 0 in
 // both). With s = q.k * D**-0.5:
 //   P = exp(s - lse) on visible pairs, 0 elsewhere,
-//   Delta_i = sum_c dO_ic o_ic                       (preprocess kernel)
+//   Delta_i = sum_j P_ij dP_ij (= sum_c dO_ic o_ic, which the CUDA-core
+//             design sums from o),
 //   dV = P^T dO,  dS = P * (dO V^T - Delta),
 //   dQ = dS K * D**-0.5,  dK = dS^T Q * D**-0.5,
 // dK and dV summed over the H / KV query heads of each KV head. Every sum is
 // fp32; dQ, dK and dV are stored in the inputs' dtype. A row with no visible
 // key has P = 0, so its dQ is zeros and it adds nothing to dK and dV.
+//
+// A row of dS sums to 0, so dQ_i = sum_j dS_ij K_j sees only the keys'
+// differences: where the keys share a large mean (a cross-attention over
+// near-identical memory rows), an error e in a row's dS sum adds e times
+// that mean to dQ and can exceed dQ itself. The tensor-core design keeps
+// that sum 0 to fp32 rounding. Its Delta is sum_j P_ij dP_ij / sum_j P_ij
+// over its own P and dP: Delta from the bf16 o is off by 2**-9 of |dO||o|,
+// from an fp32 o it would still be off by the forward's bf16 P, and
+// sum_j P_ij is 1 only up to exp2's and lse's rounding. And dQ's product
+// runs on dS's bf16 part and again on the bf16 of its residual: dS as one
+// bf16 operand is 2**-9 off a term, the pair about 2**-17.
 //
 // Deterministic: no atomics. Each output element is written by one thread,
 // which sums in a fixed order; two launches agree bit for bit. Two designs,
@@ -27,11 +39,14 @@
 // kernels/flash_attention.py::bwd_design):
 //
 // Tensor cores: bf16 at (64, 64), (96, 96) and (128, 128) (the training
-// path: qwen2.5-3b, qwen3-14b, starcoder2-15b). Three kernels:
-// * delta_lse_kernel: Delta and lse * log2(e) of every row into scratch
-//   rows padded to a multiple of 128 queries (zeros past Sq), so that a
-//   tile's 64 values are one 256-byte bulk copy; 16-byte loads, 2 or 4 rows
-//   a warp.
+// path: qwen2.5-3b, qwen3-14b, starcoder2-15b). Four launches:
+// * lse_kernel: lse * log2(e) of every row into scratch rows padded to a
+//   multiple of 128 queries (zeros past Sq), so that a tile's 64 values
+//   are one 256-byte bulk copy, and zeros into Delta's rows.
+// * dq_tc_kernel<..., true>, the Delta pass: the dQ kernel's loop below
+//   without its dQ product, summing P dP of each row over its key tiles in
+//   a fixed order (a thread's columns, then a quad's shuffle), into
+//   Delta's rows below Sq.
 // * dkdv_tc_kernel: a cluster of 1 or 2 blocks of 384 threads per (64
 //   keys, KV head, batch), heavy (early, under causality) key tiles first;
 //   the launch takes 2 where one block a key tile would give fewer than two
@@ -64,9 +79,10 @@
 //   dO of the two consumers' 64 rows each stay resident, K and V tiles of
 //   64 keys arrive through a ring of 2 stages. Per tile: S = Q K^T, dP = dO
 //   V^T (m64n64, shared operands), P and dS in registers, dQ += dS K with
-//   dS as the bf16 register A operand and K read MN-major. S and dO V^T are
-//   computed again here: 7 products where 5 would do, the price of having
-//   no atomics.
+//   dS as bf16 register A operands (its bf16 part, then its residual's)
+//   and K read MN-major. S and dO V^T are computed again here and in the
+//   Delta pass: 10 products where 5 would do, the price of having no
+//   atomics and of exact row sums of dS.
 // Operands arrive by TMA (4-D tensor maps over (D, heads, S, B) with the
 // tensors' own strides, boxes of 64 columns by 64 rows, 128-byte swizzle;
 // hopper.cuh holds these pieces, shared with the forward). D 96 is two boxes
@@ -97,7 +113,8 @@
 // needs 2.5 times the forward's 4.29 GFLOP, about 10.7 GFLOP: 0.011 ms at
 // the bf16 tensor-core rate of 989.4 TFLOP/s, against about 37 MB of q, k,
 // v, o, dO, lse, dQ, dK and dV (0.011 ms at 3.35 TB/s). The tensor-core
-// design runs 15.1 GFLOP there (the recomputed S and dO V^T). What stands
+// design runs 21.5 GFLOP there (S and dO V^T three times: in the dK/dV
+// kernel, the Delta pass and the dQ kernel; dQ's product twice). What stands
 // between it and the bound: the dK/dV kernel's n64 products, whose shared
 // operands take as long to read as to multiply, the waits between a pair's
 // dependent products (S^T before P^T before dV, dP^T before dS^T before
@@ -689,55 +706,19 @@ __device__ __forceinline__ bool pair_tile_masked(int q0, int k0, int sq,
          (window > 0 && q0 + kTile - 1 - k0 >= window);
 }
 
-// Delta and lse * log2(e) of each row (b, h, i), i < sq_pad, into scratch
-// rows of sq_pad (zeros past Sq): kLanes lanes a row, 8 bf16 (16 bytes) of
-// o and of dO a lane, a fixed shuffle tree.
-template <int DV>
+// lse * log2(e) of each row (b, h, i), i < sq_pad, into scratch rows of
+// sq_pad (zeros past Sq), and zeros into Delta's rows (the Delta pass of
+// dq_tc_kernel fills those below Sq).
 __global__ void __launch_bounds__(kThreads)
-delta_lse_kernel(const __nv_bfloat16* __restrict__ out,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, float* __restrict__ lse2,
-                 float* __restrict__ delta, long long rows, int sq,
-                 int sq_pad, int heads) {
-  constexpr int kLanes = DV <= 64 ? 8 : 16;
-  static_assert(8 * kLanes >= DV, "a row is one load a lane");
-  const int lane = threadIdx.x % 32;
+lse_kernel(const float* __restrict__ lse, float* __restrict__ lse2,
+           float* __restrict__ delta, long long rows, int sq, int sq_pad) {
   const long long row =
-      (static_cast<long long>(blockIdx.x) * (kThreads / 32) +
-       threadIdx.x / 32) * (32 / kLanes) + lane / kLanes;
-  const int c = 8 * (lane % kLanes);
-  float acc = 0.f;
-  float l2 = 0.f;
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
   const int i = static_cast<int>(row % sq_pad);
   const long long bh = row / sq_pad;  // b * heads + h
-  if (row < rows && i < sq) {
-    if (c < DV) {
-      const long long at = ((bh / heads * sq + i) * heads + bh % heads) *
-                           static_cast<long long>(DV) + c;
-      const uint4 x = *reinterpret_cast<const uint4*>(out + at);
-      const uint4 y = *reinterpret_cast<const uint4*>(dout + at);
-      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        __nv_bfloat162 xb, yb;
-        *reinterpret_cast<uint32_t*>(&xb) = xs[u];
-        *reinterpret_cast<uint32_t*>(&yb) = ys[u];
-        const float2 xf = __bfloat1622float2(xb);
-        const float2 yf = __bfloat1622float2(yb);
-        acc = fmaf(xf.y, yf.y, fmaf(xf.x, yf.x, acc));
-      }
-    }
-    l2 = lse[bh * sq + i] * 1.4426950408889634f;
-  }
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  }
-  if (row < rows && lane % kLanes == 0) {
-    delta[row] = acc;
-    lse2[row] = l2;
-  }
+  lse2[row] = i < sq ? lse[bh * sq + i] * 1.4426950408889634f : 0.f;
+  delta[row] = 0.f;
 }
 
 // dK and dV of 64 keys of one KV head, summed over its query heads, by a
@@ -1005,13 +986,15 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // dQ of 128 query rows of one query head: two consumers of 64 rows each.
-template <int D, int DV>
+// With kDelta, the Delta pass: each row's sum_j P_ij dP_ij into `delta`
+// (rows below Sq), and no dQ.
+template <int D, int DV, bool kDelta>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo,
-             const float* __restrict__ lse2, const float* __restrict__ delta,
+             const float* __restrict__ lse2, float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
              int heads, int kv_heads, int causal, int window,
              float scale_log2, float scale) {
@@ -1094,13 +1077,14 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = q0 + kTile * wg;
   const int r0 = r_lo + 16 * (warp % 4) + lane / 4;
   const int r_hi = min(r_lo + kTile, sq) - 1;  // < r_lo: no rows
-  float l2[2], dl[2];
+  float l2[2], dl[2], ps[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long at =
         (static_cast<long long>(b) * heads + h) * sq_pad + r0 + 8 * r;
     l2[r] = lse2[at];
-    dl[r] = delta[at];
+    dl[r] = kDelta ? 0.f : delta[at];  // the pass sums P dP into dl
+    ps[r] = 0.f;                       // and P into ps
   }
   float acc[kN / 2];
 #pragma unroll
@@ -1128,7 +1112,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       hold(s);
       hold(dp);
       // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked; then
-      // dS = P (dP - Delta).
+      // dS = P (dP - Delta), or in the Delta pass Delta += P dP.
       const bool masked = pair_tile_masked(r_lo, k0, sq, sk, causal, window);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -1140,20 +1124,58 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
           const bool ok =
               !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq,
                                  sk, causal, window);
-          s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
+          if constexpr (kDelta) {
+            if (ok) {
+              dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
+              ps[r] += p;
+            }
+          } else {
+            s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
+          }
         }
       }
-      uint32_t da[16];
-      to_a_operand(s, da);
-      hold(acc);
-      wgmma_fence();
-      product_ab<kN>(acc, da, k_s(st));  // dQ += dS K
-      wgmma_commit();
-      wgmma_wait<0>();
-      hold(acc);
-      hold(da);
+      if constexpr (!kDelta) {
+        // dS's bf16 part and the bf16 of its residual (see the header).
+        uint32_t da[16], dr[16];
+        to_a_operand(s, da);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          __nv_bfloat162 hi;
+          *reinterpret_cast<uint32_t*>(&hi) = da[i];
+          const float2 f = __bfloat1622float2(hi);
+          dr[i] = pack_bf16(s[2 * i] - f.x, s[2 * i + 1] - f.y);
+        }
+        hold(acc);
+        wgmma_fence();
+        product_ab<kN>(acc, da, k_s(st));  // dQ += dS K
+        product_ab<kN>(acc, dr, k_s(st));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(da);
+        hold(dr);
+      }
     }
     mbar_arrive(empty(st));
+  }
+
+  if constexpr (kDelta) {
+    // A row's 64 columns a tile lie with the 4 lanes of a quad. Delta is
+    // sum P dP over sum P (1 up to exp2's and lse's rounding), so that the
+    // row's dS, from these same P, sums to 0 to fp32 rounding.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      const int qi = r0 + 8 * r;
+      if (qi < sq && lane % 4 == 0) {
+        delta[(static_cast<long long>(b) * heads + h) * sq_pad + qi] =
+            ps[r] > 0.f ? dl[r] / ps[r] : 0.f;
+      }
+    }
+    return;
   }
 
 #pragma unroll
@@ -1202,17 +1224,16 @@ cudaError_t side_stream(SideStream** out) {
 }
 
 template <int D, int DV>
-int launch_tc(const void* q, const void* k, const void* v, const void* out,
-              const void* dout, const float* lse, float* scratch, void* dq,
-              void* dk, void* dv, int batch, int sq, int sk, int heads,
-              int kv_heads, int causal, int window, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, float* scratch, void* dq, void* dk, void* dv,
+              int batch, int sq, int sk, int heads, int kv_heads, int causal,
+              int window, cudaStream_t stream) {
   using Tiles = BwdTiles<D, DV>;
   const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
   const long long rows = static_cast<long long>(batch) * heads * sq_pad;
   float* lse2 = scratch;
   float* delta = scratch + rows;
-  const long long rows_a_block = kThreads / 32 * (DV <= 64 ? 4 : 2);
-  const long long delta_blocks = (rows + rows_a_block - 1) / rows_a_block;
+  const long long delta_blocks = (rows + kThreads - 1) / kThreads;
   const int q_tiles = sq_pad / kQRows;
   const int k_tiles = (sk + kTile - 1) / kTile;
   if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535 ||
@@ -1231,16 +1252,29 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
       !map(&tv, v, sk, kv_heads, DV) || !map(&tdo, dout, sq, heads, DV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  delta_lse_kernel<DV><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
-                         stream>>>(
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows, sq,
-      sq_pad, heads);
+  lse_kernel<<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
+      lse, lse2, delta, rows, sq, sq_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+
+  // D ** -0.5 as the reference computes it, in double, then rounded.
+  const double scale_d = pow(static_cast<double>(D), -0.5);
+  const float scale = static_cast<float>(scale_d);
+  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                    static_cast<unsigned>(q_tiles));
+  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Tiles::kQSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_tc_kernel<D, DV, true><<<q_grid, kTcThreads, Tiles::kQSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
+      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   // The dQ kernel runs on a side stream beside the dK/dV kernel (both read
-  // what delta_lse_kernel wrote, and they write disjoint outputs), so that
-  // its blocks fill the SMs the dK/dV blocks leave; `stream` waits for it.
+  // the Delta pass's rows, and they write disjoint outputs), so that its
+  // blocks fill the SMs the dK/dV blocks leave; `stream` waits for it.
   SideStream* side = nullptr;
   err = side_stream(&side);
   if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
@@ -1248,11 +1282,6 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
     err = cudaStreamWaitEvent(side->stream, side->fork, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  // D ** -0.5 as the reference computes it, in double, then rounded.
-  const double scale_d = pow(static_cast<double>(D), -0.5);
-  const float scale = static_cast<float>(scale_d);
-  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
   err = cudaFuncSetAttribute(dkdv_tc_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Tiles::kKvSmem));
@@ -1296,13 +1325,12 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV>,
+  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Tiles::kQSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
-                    static_cast<unsigned>(q_tiles));
-  dq_tc_kernel<D, DV><<<q_grid, kTcThreads, Tiles::kQSmem, side->stream>>>(
+  dq_tc_kernel<D, DV, false><<<q_grid, kTcThreads, Tiles::kQSmem,
+                               side->stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
       sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
   err = cudaGetLastError();
@@ -1326,9 +1354,10 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
   // bfloat16: the tensor cores where a consumer's dK and dV fit its
   // registers (D <= 128), the CUDA cores at (192, 128).
   if constexpr (D <= 128) {
-    return launch_tc<D, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                            batch, sq, sk, heads, kv_heads, causal, window,
-                            s);
+    // The tensor-core design sums Delta itself (the Delta pass): it reads
+    // no output.
+    return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                            sq, sk, heads, kv_heads, causal, window, s);
   } else {
     return launch_bwd<__nv_bfloat16, D, DV>(q, k, v, out, dout, lse, delta,
                                             dq, dk, dv, batch, sq, sk, heads,
@@ -1341,13 +1370,15 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
 // q (batch, sq, heads, head_dim), k (batch, sk, kv_heads, head_dim), v
 // (batch, sk, kv_heads, v_head_dim), out and dout (batch, sq, heads,
 // v_head_dim): one dtype (0: float32, 1: bfloat16), contiguous, 16-byte
-// aligned; lse (batch, heads, sq) fp32 from the forward; delta a scratch
+// aligned (the tensor-core design reads no out: its Delta pass sums
+// P dP); lse (batch, heads, sq) fp32 from the forward; delta a scratch
 // of 2 * batch * heads * round_up(sq, 128) floats (the CUDA-core kernels
 // use the first batch * heads * sq); dq, dk, dv of q's, k's and v's shapes
 // and dtype, every element written. (head_dim, v_head_dim) one of (64, 64),
 // (96, 96), (128, 128) and (192, 128); causal 0/1; window <= 0 for none.
-// Launches three kernels, their work ordered on `stream` (the tensor-core
-// design runs its dQ kernel on a second stream that `stream` waits for);
+// Launches three kernels (the tensor-core design four), their work
+// ordered on `stream` (the tensor-core design runs its dQ kernel on a
+// second stream that `stream` waits for);
 // returns cudaGetLastError, or cudaErrorInvalidValue for a shape it does
 // not take. The design (tensor or CUDA cores) follows dtype and
 // (head_dim, v_head_dim) as the header says.

@@ -158,10 +158,13 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
     """Plain-PyTorch gradient of :func:`flash_attention`: ``(dq, dk, dv)``
     in the inputs' dtypes from the forward's ``out`` and ``lse`` and the
     upstream ``dout``. The explicit math, in fp32, one batch element at a
-    time: P = exp(S * scale - LSE) on the visible pairs, D = rowsum(dO * O),
-    dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q *
-    scale, dK and dV summed over the query heads of each KV head. A row
-    with no visible key has P = 0: zero gradients."""
+    time: P = exp(S * scale - LSE) on the visible pairs, dP = dO V^T,
+    D = rowsum(P * dP) / rowsum(P) (rowsum(dO * O) with O unrounded, as
+    rowsum(P) is 1: from the bf16 output it would be off by 2**-9 of
+    |dO||O|, and a row of dS must sum to 0), dV = P^T dO, dS = P * (dP - D), dQ = dS K * scale, dK = dS^T Q
+    * scale, dK and dV summed over the query heads of each KV head. A row
+    with no visible key has P = 0: zero gradients. ``out`` is checked for
+    its shape only."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window,
                                   "flash_attention_backward_plain")
     g, dv_dim = h // kvh, v.shape[-1]
@@ -180,13 +183,13 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
         for bi in range(b):
             qf = q[bi].float().view(sq, kvh, g, d)
             kf, vf = k[bi].float(), v[bi].float()
-            of = out[bi].float().view(sq, kvh, g, dv_dim)
             gf = dout[bi].float().view(sq, kvh, g, dv_dim)
             s = torch.einsum("qkgd,skd->kgqs", qf, kf) * scale
             row_lse = lse[bi].float().view(kvh, g, sq)[..., None]
             p = torch.where(mask, torch.exp(s - row_lse), 0.0)
-            delta = (gf * of).sum(-1).permute(1, 2, 0)[..., None]
             dp = torch.einsum("qkgd,skd->kgqs", gf, vf)
+            delta = (p * dp).sum(-1, keepdim=True) \
+                / p.sum(-1, keepdim=True).clamp_min(1e-30)
             ds = p * (dp - delta)
             dv[bi] = torch.einsum("kgqs,qkgd->skd", p, gf)
             dk[bi] = torch.einsum("kgqs,qkgd->skd", ds, qf) * scale

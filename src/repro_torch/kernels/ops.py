@@ -43,12 +43,12 @@ def paged_attention_op(q, k_pages, v_pages, block_tables, lengths):
     return paged_attention(q, k_pages, v_pages, block_tables, lengths)
 
 
-def moe_gather_op(token_idx, tokens):
-    return moe_gather(token_idx, tokens)
+def moe_gather_op(token_idx, tokens, inv_slot=None):
+    return moe_gather(token_idx, tokens, inv_slot=inv_slot)
 
 
-def moe_combine_op(inv_slot, inv_weight, expert_out):
-    return moe_combine(inv_slot, inv_weight, expert_out)
+def moe_combine_op(inv_slot, inv_weight, expert_out, token_idx=None):
+    return moe_combine(inv_slot, inv_weight, expert_out, token_idx=token_idx)
 
 
 def prefetched_chain_copy_op(src_idx, dst_idx, src, dst,

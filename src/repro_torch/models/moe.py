@@ -6,7 +6,13 @@ slot). :func:`moe_dispatch_plan` emits it; :func:`moe_ffn` executes it with
 the hand-written gather and combine kernels
 (:func:`repro_torch.kernels.ops.moe_gather_op` and ``moe_combine_op``), and
 the expert products stay plain batched matrix products, as the reference
-leaves them outside any kernel.
+leaves them outside any kernel. Under autograd each op also takes the
+plan's other stream, which its backward kernel reads (the gather's
+backward gathers through ``inv_slot``; the combine's zeroes the slots
+``token_idx`` leaves empty). A recompute under remat rebuilds the same
+plan: the router's logits come from the saved projection (remat
+"minimal") or the same deterministic product, and the top-k and the sorts
+are stable.
 
 Routing: softmax router, top-k (optionally renormalised), capacity-bounded
 with token dropping (GShard-style), shared experts added densely
@@ -147,7 +153,8 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     aux, metrics = aux_losses(probs, topi, m, logits)
 
     # Gather tokens into (E, C, d): the descriptor-engine gather.
-    xe = ops.moe_gather_op(plan.token_idx, xt.contiguous())
+    xe = ops.moe_gather_op(plan.token_idx, xt.contiguous(),
+                           inv_slot=plan.inv_slot)
     xe = xe.to(dt).view(m.num_experts, cap, d)
 
     act = activation(act_fn)
@@ -159,7 +166,8 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
 
     # Combine via the inverse descriptor stream, fp32 accumulation.
     y = ops.moe_combine_op(plan.inv_slot, plan.inv_weight,
-                           ye.view(m.num_experts * cap, d))
+                           ye.view(m.num_experts * cap, d),
+                           token_idx=plan.token_idx)
     y = y.to(dt)
     if m.num_shared_experts:
         y = y + mlp(params["shared"], xt, act_fn, dt)

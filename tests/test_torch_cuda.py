@@ -8,8 +8,10 @@ toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The copies and the MoE gather and combine must be bit-identical to their
-plain versions; the attention kernels agree within rtol = atol = 2e-5 in
-float32 and 2e-2 in bfloat16 (the sums run in another order).
+plain versions, and so must the gather's backward and the combine's
+expert-row gradient (its weight gradient within 1e-5 of its largest
+entry); the attention kernels agree within rtol = atol = 2e-5 in float32
+and 2e-2 in bfloat16 (the sums run in another order).
 """
 import dataclasses
 
@@ -381,6 +383,180 @@ def test_cuda_moe_combine_matches_plain(cuda, dtype, d, k):
     assert torch.isfinite(got.float()).all() and not got[5].float().any()
 
 
+def _dual_plan(t, k, rows, seed, drop=0.3):
+    """(token_idx, inv_slot, inv_weight) of a random plan that keeps the
+    dispatch plan's duality: each kept copy has a slot of its own among
+    ``rows``, ``token_idx`` names the slot's token, the other slots are
+    empty (-1); some copies dropped, token 5 with all of its."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    slot = torch.randperm(rows, generator=g)[:t * k].view(t, k).int()
+    slot[torch.rand((t, k), generator=g) < drop] = -1
+    slot[5] = -1
+    kept = slot >= 0
+    token_idx = torch.full((rows,), -1, dtype=torch.int32)
+    token_idx[slot[kept].long()] = torch.arange(t, dtype=torch.int32)[
+        :, None].expand(t, k)[kept]
+    w = torch.where(kept, torch.rand((t, k), generator=g), 0.0)
+    return token_idx, slot, w
+
+
+def _dbrx_plan(cuda, seed):
+    """A dispatch plan at dbrx-132b's training shape: 2,048 tokens, 16
+    experts top-4, capacity 640, a skewed router (drops and empty slots)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity, moe_dispatch_plan
+    m = get_config("dbrx-132b").moe
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = torch.randn((2048, m.num_experts), generator=g) \
+        + torch.linspace(-1.5, 1.5, m.num_experts)
+    plan = moe_dispatch_plan(torch.softmax(logits, -1).to(cuda), m,
+                             capacity(2048, m))
+    return plan.token_idx, plan.inv_slot, plan.inv_weight
+
+
+MOE_BWD_CASES = [  # dtype, T, k, rows, d
+    (torch.bfloat16, 64, 4, 400, 6144),   # 16-byte chunks
+    (torch.float32, 64, 6, 512, 512),
+    (torch.bfloat16, 64, 1, 128, 256),    # k 1
+    (torch.bfloat16, 64, 2, 200, 100),    # d not a multiple of 8
+    (torch.float32, 48, 10, 600, 37),     # k over 8: two passes of copies
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t,k,rows,d", MOE_BWD_CASES + [("dbrx", 2048, 4, 10240, 6144)])
+def test_cuda_moe_gather_backward_matches_plain(cuda, dtype, t, k, rows, d):
+    """d_tokens bit-identical to the plain backward and across launches."""
+    from repro_torch.kernels.moe_dispatch import (
+        moe_gather_backward, moe_gather_backward_plain)
+    if dtype == "dbrx":
+        dtype = torch.bfloat16
+        _, slot, _ = _dbrx_plan(cuda, 30)
+    else:
+        _, slot, _ = _dual_plan(t, k, rows, 30 + k)
+    slot = slot.to(cuda)
+    d_slots = _rows((rows, d), dtype, cuda, 31)
+    want = moe_gather_backward_plain(slot, d_slots)
+    before = build.launch_counts()["moe_gather_bwd"]
+    got = moe_gather_backward(slot, d_slots)
+    again = moe_gather_backward(slot, d_slots)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["moe_gather_bwd"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert not got[(slot < 0).all(1)].float().any()   # every copy dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t,k,rows,d", MOE_BWD_CASES + [("dbrx", 2048, 4, 10240, 6144)])
+def test_cuda_moe_combine_backward_matches_plain(cuda, dtype, t, k, rows, d):
+    """d_expert_out bit-identical to the plain backward (zeros in the empty
+    slots, which the kernel writes), d_inv_weight within 1e-5 of its
+    largest entry (0 for a dropped copy); both bit-identical across
+    launches."""
+    from repro_torch.kernels.moe_dispatch import (
+        moe_combine_backward, moe_combine_backward_plain)
+    if dtype == "dbrx":
+        dtype = torch.bfloat16
+        token_idx, slot, w = _dbrx_plan(cuda, 32)
+    else:
+        token_idx, slot, w = _dual_plan(t, k, rows, 32 + k)
+    token_idx, slot, w = token_idx.to(cuda), slot.to(cuda), w.to(cuda)
+    eo = _rows((rows, d), dtype, cuda, 33)
+    dy = _rows((slot.shape[0], d), dtype, cuda, 34)
+    want_eo, want_w = moe_combine_backward_plain(slot, w, eo, dy)
+    before = build.launch_counts()["moe_combine_bwd"]
+    got_eo, got_w = moe_combine_backward(slot, w, eo, dy, token_idx=token_idx)
+    again_eo, again_w = moe_combine_backward(slot, w, eo, dy,
+                                             token_idx=token_idx)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["moe_combine_bwd"] == before + 2
+    assert got_eo.dtype == dtype and torch.equal(got_eo, want_eo)
+    assert torch.equal(got_eo, again_eo) and torch.equal(got_w, again_w)
+    err = float((got_w - want_w).abs().max())
+    assert err <= 1e-5 * float(want_w.abs().max()), err
+    assert not got_w[slot < 0].any()
+    assert not got_eo[token_idx < 0].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_moe_functions_match_plain_autograd(cuda, dtype, tol):
+    """``moe_gather``/``moe_combine`` under autograd on the card (forward
+    and backward kernels) against autograd of the plain forwards, within
+    ``tol`` of each gradient's largest entry (autograd's scatter-add sums
+    in bf16 and in another order)."""
+    from repro_torch.kernels.moe_dispatch import (
+        moe_combine, moe_combine_plain, moe_gather, moe_gather_plain)
+    token_idx, slot, w = (x.to(cuda) for x in _dual_plan(64, 4, 320, 35))
+    tokens = _rows((64, 512), dtype, cuda, 36) / 50
+    eo = _rows((320, 512), dtype, cuda, 37) / 50
+    g = torch.Generator(device="cpu").manual_seed(38)
+    dg = torch.randn((320, 512), generator=g).to(dtype).to(cuda)
+    dc = torch.randn((64, 512), generator=g).to(dtype).to(cuda)
+    ours = [x.clone().requires_grad_() for x in (tokens, eo, w)]
+    plain = [x.clone().requires_grad_() for x in (tokens, eo, w)]
+    before = dict(build.launch_counts())
+    outs = (moe_gather(token_idx, ours[0], inv_slot=slot),
+            moe_combine(slot, ours[2], ours[1], token_idx=token_idx))
+    torch.autograd.backward(outs, (dg, dc))
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for name in ("moe_gather", "moe_combine", "moe_gather_bwd",
+                 "moe_combine_bwd"):
+        assert after[name] == before[name] + 1, name
+    torch.autograd.backward(
+        (moe_gather_plain(token_idx, plain[0]),
+         moe_combine_plain(slot, plain[2], plain[1])), (dg, dc))
+    for x, y in zip(ours, plain):
+        err = float((x.grad.float() - y.grad.float()).abs().max())
+        assert err <= tol * float(y.grad.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_grads_match_plain_ops(cuda):
+    """The reduced dbrx-132b's MoE layer under autograd on the card, through
+    the four MoE kernels, against the same layer on the plain ops (the same
+    routing: fp32, and the router's top-k margin checked)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_dispatch import (moe_combine_plain,
+                                                  moe_gather_plain)
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("dbrx-132b", reduced=True),
+                              compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(39)
+    params = moe.init_moe(gen, cfg, cuda)
+    x = torch.randn((2, 64, cfg.d_model), device=cuda, generator=gen)
+    dy = torch.randn(x.shape, device=cuda, generator=gen)
+
+    def grads():
+        leaves = [x] + [params[k] for k in sorted(params)]
+        leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        p = dict(zip(sorted(params), leaves[1:]))
+        y, aux, _ = moe.moe_ffn(p, leaves[0], cfg)
+        return torch.autograd.grad((y * dy).sum() + aux, leaves)
+
+    before = dict(build.launch_counts())
+    got = grads()
+    after = build.launch_counts()
+    for name in ("moe_gather", "moe_combine", "moe_gather_bwd",
+                 "moe_combine_bwd"):
+        assert after[name] == before[name] + 1, name
+    with mock.patch.object(ops, "moe_gather_op",
+                           lambda i, t, inv_slot=None: moe_gather_plain(i, t)), \
+            mock.patch.object(ops, "moe_combine_op",
+                              lambda s, w, e, token_idx=None:
+                              moe_combine_plain(s, w, e)):
+        want = grads()
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()) + 1e-12, err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
@@ -703,6 +879,11 @@ FLASH_BWD_CASES = [
     (1, 333, 4, 2, 96, 96, True, 100),        # S 333 at 96, windowed
     (1, 2048, 16, 2, 128, 128, True, None),   # long: the rings wrap often
     (2, 1100, 16, 8, 64, 64, True, 200),      # 288 key tiles: no clusters
+    (1, 256, 48, 8, 128, 128, True, None),    # dbrx-132b's heads, G 6
+    (2, 256, 32, 32, 96, 96, True, None),     # phi-3-vision's heads, G 1
+    (2, 256, 16, 16, 64, 64, True, None),     # seamless's heads, G 1
+    (2, (200, 512), 16, 16, 64, 64, False, None),  # its cross-attention
+    (1, 128, 128, 128, 192, 128, True, None),  # deepseek-v2's 128 MLA heads
 ]
 
 
@@ -761,6 +942,45 @@ def test_cuda_flash_attention_backward_matches_plain(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("h,kv,d", [(16, 16, 64), (16, 2, 128), (8, 8, 96)])
+def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
+        cuda, h, kv, d, causal):
+    """bf16 keys and values whose rows share 99.9 % of their norm (a
+    cross-attention over near-identical memory rows): dQ is a small
+    difference there, which Delta from the rounded output, or dS as one
+    bf16 operand, would swamp. The tensor-core backward (its Delta pass,
+    dQ on dS's two bf16 parts) holds dQ, dK and dV at cosine 0.9999 to
+    fp64 autograd on the same inputs."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_backward)
+    g = torch.Generator(device="cpu").manual_seed(h + d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g)
+
+    b, s = 2, 256
+    k = rnd(1, 1, kv, d) * 3 + 0.05 * rnd(b, s, kv, d)
+    v = rnd(1, 1, kv, d) * 3 + 0.05 * rnd(b, s, kv, d)
+    q, k, v, do = (x.to(torch.bfloat16).to(cuda)
+                   for x in (rnd(b, s, h, d), k, v, rnd(b, s, h, d)))
+    out, lse = _forward(q, k, v, causal, None, with_lse=True)
+    got = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    kk, vv = (x.repeat_interleave(h // kv, dim=2) for x in leaves[1:])
+    sc = torch.einsum("bqhd,bkhd->bhqk", leaves[0], kk) * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool,
+                                        device=cuda).tril(), float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
+    want = torch.autograd.grad(ref, leaves, do.double())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.double().flatten(), w.flatten()
+        cos = float(a @ w / (a.norm() * w.norm()))
+        assert cos >= 0.9999, (name, cos)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_flash_attention_autograd_matches_plain_autograd(cuda, dtype,
@@ -789,7 +1009,8 @@ def test_cuda_flash_attention_autograd_matches_plain_autograd(cuda, dtype,
 @pytest.mark.cuda
 def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
     """Under autograd, every kernel without a backward raises instead of
-    returning a tensor cut from the graph; under no_grad it runs."""
+    returning a tensor cut from the graph; under no_grad it runs. The MoE
+    kernels have their backwards: their outputs carry a ``grad_fn``."""
     from repro_torch.kernels.descriptor_copy import descriptor_copy
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_gather
     from repro_torch.kernels.paged_attention import paged_attention
@@ -798,7 +1019,10 @@ def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
 
     tokens = torch.randn((8, 64), device=cuda, requires_grad=True)
     idx = torch.tensor([0, 3, -1, 5], dtype=torch.int32, device=cuda)
+    inv = torch.tensor([[0], [-1], [-1], [1], [-1], [3], [-1], [-1]],
+                       dtype=torch.int32, device=cuda)
     slots = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=cuda)
+    owner = torch.tensor([0, 0, 1, -1], dtype=torch.int32, device=cuda)
     weights = torch.rand((2, 2), device=cuda, requires_grad=True)
     rows = torch.randn((4, 64), device=cuda, requires_grad=True)
     q = torch.randn((2, 4, 64), device=cuda, requires_grad=True)
@@ -808,8 +1032,6 @@ def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
     pool = torch.randn((8, 256), device=cuda, requires_grad=True)
     sidx, didx = np.array([0, 1]), np.array([2, 3])
     calls = {
-        "moe_gather": lambda: moe_gather(idx, tokens),
-        "moe_combine": lambda: moe_combine(slots, weights, rows),
         "paged_attention": lambda: paged_attention(q, pages, pages, tables,
                                                    lengths),
         "quantize_copy": lambda: quantize_copy(sidx, didx, pool,
@@ -827,4 +1049,8 @@ def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
     with torch.no_grad():
         for call in calls.values():
             call()
+    gathered = moe_gather(idx, tokens, inv_slot=inv)
+    combined = moe_combine(slots, weights, rows, token_idx=owner)
+    assert type(gathered.grad_fn).__name__ == "MoEGatherFnBackward"
+    assert type(combined.grad_fn).__name__ == "MoECombineFnBackward"
     torch.cuda.synchronize()

@@ -2,7 +2,7 @@
 backward against autograd and against the reference.
 
 ``flash_attention_backward_plain`` (the math the CUDA backward kernel
-computes: P rebuilt from the forward's log-sum-exp, D = rowsum(dO * O),
+computes: P rebuilt from the forward's log-sum-exp, D = rowsum(P * dP),
 dS = P * (dO V^T - D)) is held against ``torch.autograd`` of
 ``flash_attention_plain`` and against ``jax.vjp`` of the reference's
 ``blockwise_attention`` (``repro/models/attention.py``), on seeded numpy
@@ -12,7 +12,11 @@ and MLA's (192, 128). Each of dQ, dK and dV
 within 1e-5 of its largest reference entry (fp32 sums in other orders).
 ``flash_attention`` under autograd on the CPU (``FlashAttentionFn``) is
 held against both the same way, and without grad it runs no backward and
-keeps no log-sum-exp. ``bwd_design`` names the backward kernel's design
+keeps no log-sum-exp. In bf16, over keys and values that share a large
+mean (a cross-attention over near-identical memory rows), dQ is a small
+difference that D from the rounded output would swamp: the plain
+backward holds it at cosine 0.9999 to fp64. ``bwd_design`` names the
+backward kernel's design
 (tensor or CUDA cores) for every shape and dtype, as PERF.md's table says.
 """
 import numpy as np
@@ -167,3 +171,42 @@ DESIGNS = {(64, 64): "tensor_core", (96, 96): "tensor_core",
 def test_bwd_design_follows_the_table(d, dv, dtype):
     want = DESIGNS[(d, dv)] if dtype == torch.bfloat16 else "cuda_core"
     assert bwd_design(d, dv, dtype) == want
+
+
+def _common_mean(seed, b=2, s=96, h=4, d=64):
+    """bf16 q, dO and k, v whose rows share 99.9 % of their norm."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    mean_k, mean_v = f(1, 1, h, d) * 3, f(1, 1, h, d) * 3
+    k = mean_k + 0.05 * f(b, s, h, d)
+    v = mean_v + 0.05 * f(b, s, h, d)
+    return [torch.from_numpy(x).to(torch.bfloat16)
+            for x in (f(b, s, h, d), k, v, f(b, s, h, d))]
+
+
+def _fp64_grads(q, k, v, do, causal):
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    sc = torch.einsum("bqhd,bkhd->bhqk", leaves[0], leaves[1]) \
+        * q.shape[-1] ** -0.5
+    if causal:
+        sq, sk = sc.shape[-2:]
+        sc = sc.masked_fill(~torch.ones(sq, sk, dtype=torch.bool).tril(),
+                            float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), leaves[2])
+    return torch.autograd.grad(out, leaves, do.double())
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_plain_is_exact_over_keys_with_a_common_mean(causal):
+    q, k, v, do = _common_mean(7)
+    out, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_backward_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    want = _fp64_grads(q, k, v, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _cos(a, b) >= 0.9999, (name, _cos(a, b))

@@ -222,9 +222,13 @@ def test_cpu_tensors_never_launch_a_kernel():
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_gather
     q = torch.ones((1, 8, 2, 64))
     flash_attention(q, q, q)
+    from repro_torch.kernels.moe_dispatch import (moe_combine_backward,
+                                                  moe_gather_backward)
     rows = moe_gather(torch.tensor([0, -1], dtype=torch.int32), f)
-    moe_combine(torch.tensor([[0, 1]], dtype=torch.int32),
-                torch.ones((1, 2)), rows)
+    slots = torch.tensor([[0, 1]], dtype=torch.int32)
+    moe_combine(slots, torch.ones((1, 2)), rows)
+    moe_gather_backward(slots, rows)
+    moe_combine_backward(slots, torch.ones((1, 2)), rows, f[:1])
     assert build.launch_counts() == {"descriptor_copy": 0,
                                      "quantize_copy": 0,
                                      "prefetch_pipeline": 0,
@@ -232,7 +236,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "flash_attention": 0,
                                      "flash_attention_bwd": 0,
                                      "moe_gather": 0,
-                                     "moe_combine": 0}
+                                     "moe_combine": 0,
+                                     "moe_gather_bwd": 0,
+                                     "moe_combine_bwd": 0}
 
 
 # ---------------------------------------------------------------------------

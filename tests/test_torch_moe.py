@@ -15,6 +15,14 @@ near 0 is a difference of such terms);
 every case asserts that its router's top-k margin exceeds 1e-4, so that a
 flipped expert choice would show as such. ``tests/test_torch_cuda.py``
 holds the CUDA kernels against these plain versions on the card.
+
+The backwards' plain versions are held against ``jax.vjp`` of the
+reference's own gather and combine expressions (``d_tokens`` and
+``d_expert_out`` within 1e-6 relative, fp32 summation order;
+``d_inv_weight`` within 1e-5 of its largest entry); the plan's duality,
+on which the backwards rest, is a property over T, E, k and capacity; and
+``moe_ffn``'s gradients through the ops' autograd Functions are held
+against the reference's layer within 1e-4 of each largest entry.
 """
 import dataclasses
 
@@ -40,8 +48,10 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.moe_dispatch import (  # noqa: E402
     moe_combine,
+    moe_combine_backward_plain,
     moe_combine_plain,
     moe_gather,
+    moe_gather_backward_plain,
     moe_gather_plain,
 )
 from repro_torch.models import moe  # noqa: E402
@@ -331,3 +341,243 @@ def test_moe_ffn_matches_jax(arch, dtype, tol):
     for key in ("moe_lb", "moe_z"):
         np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The backwards: the plain versions against jax.vjp of the reference's own
+# gather and combine expressions, the plan's duality, moe_ffn's gradients
+# ---------------------------------------------------------------------------
+
+def _jax_gather(plan, e, cap, dt):
+    """The reference's gather, ``src/repro/models/moe.py:233-235``."""
+    def gather(xt):
+        d = xt.shape[-1]
+        safe = jnp.maximum(plan.token_idx, 0)
+        xe = xt[safe].reshape(e, cap, d).astype(dt)
+        return xe * (plan.token_idx >= 0).reshape(e, cap, 1).astype(dt)
+    return gather
+
+
+def _jax_combine(inv_slot, dt):
+    """The reference's combine, ``src/repro/models/moe.py:249-252``, as a
+    function of the flat expert outputs and the combine weights."""
+    def combine(flat_y, inv_weight):
+        rows = flat_y[jnp.maximum(inv_slot, 0)]          # (T, k, d)
+        w = jnp.where(inv_slot >= 0, inv_weight, 0.0)
+        return jnp.einsum("tk,tkd->td", w.astype(jnp.float32),
+                          rows.astype(jnp.float32)).astype(dt)
+    return combine
+
+
+def _skewed_plans(name, t, seed):
+    """Both packages' plans for one skewed router (drops and empty slots)."""
+    kw = MOE_CFGS[name]
+    e = kw["num_experts"]
+    rng = np.random.default_rng(seed)
+    probs = _softmax(rng.standard_normal((t, e)) * 2
+                     + np.linspace(-2, 2, e))
+    cap = jmoe.capacity(t, JMoEConfig(**kw))
+    jp, tp = _plans(probs, kw, cap)
+    _assert_plans_equal(jp, tp)
+    return jp, tp, e, cap
+
+
+@pytest.mark.parametrize("name", ["dbrx-reduced", "deepseek-reduced",
+                                  "no-renorm"])
+def test_moe_gather_backward_plain_matches_jax_vjp(name):
+    """d_tokens = the scatter-add XLA differentiates the gather into,
+    computed as a gather through inv_slot: exact up to fp32 summation
+    order."""
+    jp, tp, e, cap = _skewed_plans(name, 96, 21)
+    assert int(tp.num_dropped) > 0 and int((tp.token_idx < 0).sum()) > 0
+    rng = np.random.default_rng(22)
+    d = 24
+    xt = rng.standard_normal((96, d)).astype(np.float32)
+    g = rng.standard_normal((e * cap, d)).astype(np.float32)
+    _, vjp = jax.vjp(_jax_gather(jp, e, cap, jnp.float32), jnp.asarray(xt))
+    want = np.asarray(vjp(jnp.asarray(g).reshape(e, cap, d))[0])
+    got = moe_gather_backward_plain(tp.inv_slot, torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == (96, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", ["dbrx-reduced", "deepseek-reduced",
+                                  "no-renorm"])
+def test_moe_combine_backward_plain_matches_jax_vjp(name):
+    """d_expert_out = w * dy in each kept copy's slot (zeros elsewhere),
+    d_inv_weight = dy . row (0 for a dropped copy)."""
+    jp, tp, e, cap = _skewed_plans(name, 96, 23)
+    rng = np.random.default_rng(24)
+    d = 24
+    eo = rng.standard_normal((e * cap, d)).astype(np.float32)
+    dy = rng.standard_normal((96, d)).astype(np.float32)
+    _, vjp = jax.vjp(_jax_combine(jp.inv_slot, jnp.float32), jnp.asarray(eo),
+                     jp.inv_weight)
+    want_eo, want_w = (np.asarray(x) for x in vjp(jnp.asarray(dy)))
+    got_eo, got_w = moe_combine_backward_plain(
+        tp.inv_slot, tp.inv_weight, torch.from_numpy(eo),
+        torch.from_numpy(dy))
+    assert got_eo.shape == eo.shape and got_w.shape == tp.inv_slot.shape
+    np.testing.assert_allclose(got_eo.numpy(), want_eo, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_eo).max())
+    assert float(np.abs(got_w.numpy() - want_w).max()) \
+        <= 1e-5 * np.abs(want_w).max()
+    dropped = (tp.inv_slot < 0).numpy()
+    assert dropped.any() and not got_w.numpy()[dropped].any()
+    empty = (tp.token_idx < 0).numpy()
+    assert empty.any() and not got_eo.numpy()[empty].any()
+
+
+def test_moe_backward_plain_rounds_as_the_kernel_does():
+    """bf16: d_tokens sums in fp32 and rounds once; d_expert_out is the fp32
+    product w * dy rounded once (the CUDA kernel's __fmul_rn, then one
+    cast)."""
+    rng = np.random.default_rng(25)
+    slots = torch.tensor([[0, 2], [1, -1], [-1, -1]], dtype=torch.int32)
+    d_slots = torch.from_numpy(rng.standard_normal((4, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = moe_gather_backward_plain(slots, d_slots)
+    want = (d_slots[0].float() + d_slots[2].float()).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[0], want) and torch.equal(got[1], d_slots[1])
+    assert not got[2].any()
+    w = torch.tensor([[0.3, 0.7], [0.9, 0.0], [0.0, 0.0]])
+    dy = torch.from_numpy(rng.standard_normal((3, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    d_eo, d_w = moe_combine_backward_plain(slots, w, d_slots, dy)
+    assert d_eo.dtype == torch.bfloat16 and d_w.dtype == torch.float32
+    for t, j in ((0, 0), (0, 1), (1, 0)):
+        s = int(slots[t, j])
+        assert torch.equal(d_eo[s], (w[t, j] * dy[t].float()).to(
+            torch.bfloat16))
+    assert not d_eo[3].any()                      # no copy points at slot 3
+    assert float(d_w[1, 1]) == 0.0 and not d_w[2].any()
+
+
+def _plan_duality(plan, t):
+    """Each filled slot is the inv_slot of exactly one kept copy, of the
+    token it holds; no kept copy points at an empty slot; a dropped copy
+    has weight 0."""
+    token_idx = plan.token_idx.numpy()
+    inv_slot = plan.inv_slot.numpy()
+    tt, jj = np.nonzero(inv_slot >= 0)
+    kept = inv_slot[tt, jj]
+    assert len(np.unique(kept)) == len(kept)
+    np.testing.assert_array_equal(token_idx[kept], tt)
+    filled = np.nonzero(token_idx >= 0)[0]
+    np.testing.assert_array_equal(np.sort(kept), filled)
+    assert ((token_idx >= -1) & (token_idx < t)).all()
+    assert not plan.inv_weight.numpy()[inv_slot < 0].any()
+
+
+@pytest.mark.parametrize("t,e,k,cf", [(1, 4, 1, 1.0), (37, 8, 2, 0.5),
+                                      (96, 16, 4, 1.25), (64, 160, 6, 1.0),
+                                      (200, 4, 2, 3.0)])
+def test_dispatch_plan_duality(t, e, k, cf):
+    m = MoEConfig(num_experts=e, experts_per_token=k, expert_d_ff=8,
+                  capacity_factor=cf)
+    rng = np.random.default_rng(t + e)
+    probs = torch.from_numpy(_softmax(rng.standard_normal((t, e)) * 2
+                                      + np.linspace(-2, 2, e)))
+    _plan_duality(moe.moe_dispatch_plan(probs, m, moe.capacity(t, m)), t)
+
+
+def test_dispatch_plan_duality_property():
+    hyp = pytest.importorskip("hypothesis")
+    st = pytest.importorskip("hypothesis.strategies")
+
+    @hyp.settings(max_examples=60, deadline=None, derandomize=True)
+    @hyp.given(t=st.integers(1, 80), e=st.integers(1, 24),
+               k=st.integers(1, 6), cap=st.integers(1, 40),
+               ties=st.booleans(), seed=st.integers(0, 2 ** 31 - 1))
+    def prop(t, e, k, cap, ties, seed):
+        k = min(k, e)
+        m = MoEConfig(num_experts=e, experts_per_token=k, expert_d_ff=8)
+        rng = np.random.default_rng(seed)
+        logits = rng.standard_normal((t, e)) * 3
+        if ties:                                  # many exact ties
+            logits = np.round(logits)
+        probs = torch.from_numpy(_softmax(logits))
+        _plan_duality(moe.moe_dispatch_plan(probs, m, cap), t)
+
+    prop()
+
+
+def test_moe_ops_need_the_other_stream_under_grad():
+    """Under autograd the gather needs inv_slot and the combine token_idx
+    (their backwards read them); without grad neither is asked for."""
+    tokens = torch.randn((4, 8), requires_grad=True)
+    idx = torch.tensor([0, 3, -1, 1], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="inv_slot"):
+        moe_gather(idx, tokens)
+    rows = torch.randn((4, 8), requires_grad=True)
+    slots = torch.tensor([[0, 2], [1, -1]], dtype=torch.int32)
+    w = torch.rand((2, 2))
+    with pytest.raises(RuntimeError, match="token_idx"):
+        moe_combine(slots, w, rows)
+    with torch.no_grad():
+        moe_gather(idx, tokens)
+        moe_combine(slots, w, rows)
+
+
+def test_moe_functions_on_cpu_match_autograd_of_the_plain_forward():
+    """On the CPU the autograd Functions' backwards (the plain backwards)
+    give what autograd of the plain forwards gives."""
+    from repro_torch.kernels.moe_dispatch import MoECombineFn, MoEGatherFn
+    _, tp, e, cap = _skewed_plans("deepseek-reduced", 64, 26)
+    rng = np.random.default_rng(27)
+    d = 20
+    xt = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32))
+    eo = torch.from_numpy(rng.standard_normal((e * cap, d)).astype(
+        np.float32))
+    a = [x.clone().requires_grad_() for x in (xt, eo, tp.inv_weight)]
+    b = [x.clone().requires_grad_() for x in (xt, eo, tp.inv_weight)]
+    g1 = ops.moe_gather_op(tp.token_idx, a[0], inv_slot=tp.inv_slot)
+    c1 = ops.moe_combine_op(tp.inv_slot, a[2], a[1], token_idx=tp.token_idx)
+    assert type(g1.grad_fn).__name__ == MoEGatherFn.__name__ + "Backward"
+    assert type(c1.grad_fn).__name__ == MoECombineFn.__name__ + "Backward"
+    g2 = moe_gather_plain(tp.token_idx, b[0])
+    c2 = moe_combine_plain(tp.inv_slot, b[2], b[1])
+    dg = torch.from_numpy(rng.standard_normal(g1.shape).astype(np.float32))
+    dc = torch.from_numpy(rng.standard_normal(c1.shape).astype(np.float32))
+    torch.autograd.backward([g1, c1], [dg, dc])
+    torch.autograd.backward([g2, c2], [dg, dc])
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b"])
+def test_moe_ffn_grads_match_jax(arch):
+    """The layer's gradients (router, experts, shared experts and the input)
+    through the ops' Functions against jax.vjp of the reference's layer, in
+    fp32: each within 1e-4 of its largest reference entry."""
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch, reduced=True),
+                               compute_dtype="float32")
+    params = jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(5),
+                                                    jcfg))
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 16, jcfg.d_model)).astype(np.float32)
+    assert _margin(x, params["router"], jcfg.moe.experts_per_token) > 1e-4
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, xx):
+        y, aux, _ = jmoe.moe_ffn(p, xx, jcfg)
+        return jnp.sum(y * jnp.asarray(dy)) + aux
+
+    jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a, copy=True))
+                      .requires_grad_(), params)
+    tx = torch.from_numpy(x).requires_grad_()
+    y, aux, _ = moe.moe_ffn(tp, tx, tcfg)
+    (y * torch.from_numpy(dy)).sum().add(aux).backward()
+    pairs = [(tx.grad, jg_x)] + [
+        (a.grad, b) for a, b in zip(jax.tree.leaves(tp),
+                                    jax.tree.leaves(jg_p))]
+    for got, want in pairs:
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 1e-4 * np.abs(want).max() + 1e-12, err

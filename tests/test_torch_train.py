@@ -10,7 +10,9 @@ few ulps of fp32 arithmetic: the loss within 1e-5 relative, each leaf
 within 1e-4 of its largest reference entry. In bf16 (the configs' default)
 the frameworks round at other places: the loss within 1e-3 relative and
 every leaf's gradient at cosine >= 0.999 to the reference's. Every
-other family's reduced config trains too (finite gradients under remat).
+other family's reduced config trains too (finite gradients under remat);
+``test_torch_train_families.py`` and ``test_torch_train_family_steps.py``
+hold those six against the reference as well.
 
 Three ``train_step``s from one state (``train_state_from_jax``) hold every
 metric within 1e-5 relative, both moments within 1e-4 of their largest
