@@ -189,9 +189,14 @@ Phases:
    within 2e-4 (fp32) and 3e-2 (bf16) of the largest reference entry, at
    qwen2.5-3b's training shape (4 x 512, 16/2 heads of 128, causal), a
    window of 128, a non-causal case and small cases at head dims 64, 96
-   and 192/128, in both dtypes; two launches bit-identical; the forward's
-   log-sum-exp against the plain one; its time at the training shape
-   beside its bound, the plain version and SDPA's backward. Then
+   and 192/128 (windowed, not causal, G 4), and deepseek-v2-236b's
+   training shape (4 x 512, 128 heads of 192 over 128), in both dtypes,
+   each through the design ``bwd_design`` names (bf16 on the tensor cores
+   at every head dim, MLA's through ``dkdv_mla_kernel``; fp32 on the CUDA
+   cores); two launches bit-identical; the forward's log-sum-exp against
+   the plain one; its time at both training shapes and at S 2,048 beside
+   its bound, the plain version and SDPA's backward, and ptxas's
+   registers and spills (none allowed in a tensor-core kernel). Then
    qwen2.5-3b at its published config (36 layers, fp32 parameters, bf16
    compute, remat "minimal"; weights from ``--seed``): one
    ``grads_and_metrics`` on a 4 x 512 batch of the port's
@@ -226,8 +231,11 @@ Phases:
    frames) uncut and phi-3-vision-4.2b at 16 of 32 layers (576 stub
    patches; fp32 parameters). Each: one ``grads_and_metrics`` through the
    kernels (flash forward and backward and the four MoE kernels counted
-   against what the config implies under remat; the recompute's dispatch
-   plans equal to the forward's), held against the same on the plain ops
+   against what the config implies under remat, the flash backward's
+   launches all of the design its compute dtype takes: the tensor cores in
+   bf16, deepseek-v2-236b's MLA heads included; the recompute's
+   dispatch plans equal to the forward's), held against the same on the
+   plain ops
    with the first run's expert choices replayed in order (loss within
    2e-3 relative, global norm within 1 %, every leaf's gradient at cosine
    >= 0.999; the worst leaf printed; seamless-m4t-medium's in fp32
@@ -3172,8 +3180,9 @@ def family_path(torch, np, dev, rng, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 #: The flash backward kernel against its plain version: B, S, H, KV, D,
-#: DV, causal, window. The first is qwen2.5-3b's training batch and the
-#: last a long causal sequence, both timed (FLASH_BWD_TIMED).
+#: DV, causal, window. The first is qwen2.5-3b's training batch, the last
+#: but one deepseek-v2-236b's (its 128 MLA heads of 192 over 128) and the
+#: last a long causal sequence, all three timed (FLASH_BWD_TIMED).
 FLASH_BWD_CASES = [
     (4, 512, 16, 2, 128, 128, True, None),
     (2, 512, 16, 2, 128, 128, True, 128),      # a window of 128
@@ -3182,9 +3191,14 @@ FLASH_BWD_CASES = [
     (2, 200, 8, 2, 64, 64, True, None),
     (2, 200, 8, 8, 96, 96, True, None),
     (2, 200, 8, 8, 192, 128, True, None),      # MLA's heads
+    (2, 333, 16, 16, 192, 128, True, 100),     # ... windowed, S 333
+    (2, 256, 8, 8, 192, 128, False, None),     # ... not causal
+    (2, 200, 8, 2, 192, 128, True, None),      # ... summed over G 4
+    (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2-236b's batch
     (1, 2048, 16, 2, 128, 128, True, None),
 ]
-FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[-1])
+FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[-2],
+                   FLASH_BWD_CASES[-1])
 #: dQ, dK and dV within this share of the largest reference entry: fp32
 #: sums in another order; in bf16 also the gradients' own rounding.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -3211,8 +3225,9 @@ def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
 
 
 def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
-    """(bytes, operations) of the backward: q, k, v, the output, dO and
-    the log-sum-exp read once, dQ, dK and dV written once; per visible
+    """(bytes, operations) of the backward: q, k, v, dO and the
+    log-sum-exp read once, dQ, dK and dV written once (the function needs
+    no output: Delta comes from P and dP); per visible
     pair 2 D (S again), 2 DV (dO V^T), 2 DV (dV), 2 D (dQ) and 2 D (dK)
     operations: 2.5 times the forward's at D = DV. (The tensor-core design
     runs S and dO V^T twice: 2 D + 2 DV more a pair.)"""
@@ -3220,15 +3235,17 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
     sk, dv = k.shape[1], v.shape[-1]
     el = q.element_size()
     n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * el \
-        + 2 * b * sq * h * dv * el + b * h * sq * 4
+        + b * sq * h * dv * el + b * h * sq * 4
     pairs = visible_pairs(sq, sk, causal, window)
     return int(n_bytes), 2 * b * h * pairs * (3 * d + 2 * dv)
 
 
-#: The backward's kernels by name: the tensor-core design's (bf16 only)
-#: first, since "dkdv_kernel" is not a substring of theirs.
-BWD_KERNELS = ("dkdv_tc_kernel", "dq_tc_kernel", "lse_kernel",
-               "dkdv_kernel", "dq_kernel", "delta_kernel")
+#: The backward's kernels by name: the tensor-core design's (bf16 only;
+#: ``dkdv_mla_kernel`` at MLA's (192, 128)) first, then the CUDA-core
+#: design's (fp32 only).
+BWD_TC_KERNELS = ("dkdv_mla_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
+                  "lse_kernel")
+BWD_KERNELS = BWD_TC_KERNELS + ("dkdv_kernel", "dq_kernel", "delta_kernel")
 
 
 def bwd_kernel(name: str) -> str:
@@ -3243,7 +3260,8 @@ def bwd_kernel(name: str) -> str:
 
 def bwd_ptxas(build_log) -> dict:
     """Registers and spills of each backward kernel, as ptxas reports
-    them (empty when the library was built before this run)."""
+    them (empty when the library was built before this run), by kernel,
+    dtype and head dims."""
     import re
     out, name = {}, None
     for ln in (build_log or "").splitlines():
@@ -3251,8 +3269,7 @@ def bwd_ptxas(build_log) -> dict:
             kind = next((k for k in BWD_KERNELS if k in ln), None) \
                 and bwd_kernel(ln)
             dims = "/".join(re.findall(r"Li(\d+)E", ln))
-            bf16 = "bfloat16" in ln or "_tc_" in str(kind) \
-                or kind == "lse_kernel"
+            bf16 = "bfloat16" in ln or any(k in ln for k in BWD_TC_KERNELS)
             name = kind and f"{kind}_{'bf16' if bf16 else 'fp32'}_{dims}"
             if name:
                 out[name] = {}
@@ -3274,6 +3291,8 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
     backward, its TFLOP/s and ptxas's registers and spills (none allowed
     in the tensor-core kernels), each through the design ``bwd_design``
     names."""
+    from collections import Counter
+
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         LAUNCHES_BY_DESIGN, _forward, bwd_design, bwd_scratch_floats,
@@ -3304,11 +3323,20 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
             want = flash_attention_backward_plain(q, k, v, out, lse, dout,
                                                   causal=causal,
                                                   window=window)
+            before = Counter(LAUNCHES_BY_DESIGN)
             got = flash_attention_backward(q, k, v, out, lse, dout,
                                            causal=causal, window=window)
             again = flash_attention_backward(q, k, v, out, lse, dout,
                                              causal=causal, window=window)
             torch.cuda.synchronize()
+            ran = dict(Counter(LAUNCHES_BY_DESIGN) - before)
+            want_design = "tensor_core" if dtype == torch.bfloat16 \
+                else "cuda_core"
+            if ran != {want_design: 2} \
+                    or bwd_design(d, dv, dtype) != want_design:
+                raise AssertionError(f"flash_attention_bwd at {dtype} "
+                                     f"{(b, s, h, kv, d, dv)} ran the "
+                                     f"designs {ran}")
             identical = all(torch.equal(a, c) for a, c in zip(got, again))
             leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
             auto = torch.autograd.grad(flash_attention_plain(
@@ -3316,7 +3344,7 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
             kernel_err, plain_err = rel(got, want), rel(want, auto)
             spec = {"dtype": str(dtype), "B": b, "S": s, "H": h, "KV": kv,
                     "D": d, "DV": dv, "causal": causal, "window": window}
-            log({"check": "flash_attention_bwd", **spec,
+            log({"check": "flash_attention_bwd", **spec, "design": ran,
                  "rel_err_dq_dk_dv": kernel_err,
                  "max_abs_err": max(max_err(torch, a, c)
                                     for a, c in zip(got, want)),
@@ -3340,7 +3368,7 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ptxas = bwd_ptxas(build.BUILD_LOG.get("flash_attention_bwd"))
-    res = None
+    res, shapes = None, []
     for b, s, h, kv, d, dv, causal, window in FLASH_BWD_TIMED:
         q, k, v, dout = inputs(b, s, h, kv, d, dv, torch.bfloat16)
         out, lse = _forward(q, k, v, True, None, with_lse=True)
@@ -3365,12 +3393,18 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
             q, k, v, out, lse, dout, causal=True), reps=3, warm=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        o_lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = dout.transpose(1, 2)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (qt, kt, vt), dot, retain_graph=True))
-        lib = torch.autograd.grad(o_lib, (qt, kt, vt), dot)
         ours = flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+        try:
+            o_lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            library_ms = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), dot, retain_graph=True))
+            lib = torch.autograd.grad(o_lib, (qt, kt, vt), dot)
+            lib_diff, lib_error = max(max_err(torch, a, c.transpose(1, 2))
+                                      for a, c in zip(ours, lib)), None
+        except RuntimeError as e:              # SDPA refuses the shape
+            o_lib = lib = library_ms = lib_diff = None
+            lib_error = str(e)[:300]
         # Device time of each of its kernels, a call (5 calls profiled).
         rows = device_profile(torch, lambda: [flash_attention_backward(
             q, k, v, out, lse, dout, causal=True) for _ in range(5)],
@@ -3397,25 +3431,48 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
              "kernel_tflops": n_ops / kernel_ms / 1e9,
              "operations_run": ops_run,
              "kernel_tflops_run": ops_run / kernel_ms / 1e9,
-             "library_tflops": n_ops / library_ms / 1e9,
-             "kernel_over_library": kernel_ms / library_ms,
+             "library_tflops": library_ms and n_ops / library_ms / 1e9,
+             "kernel_over_library": library_ms and kernel_ms / library_ms,
              "device_ms_by_kernel": by_kernel,
              "library": "autograd.grad of scaled_dot_product_attention("
                         "is_causal, enable_gqa)",
-             "max_abs_diff_to_library": max(
-                 max_err(torch, a, c.transpose(1, 2))
-                 for a, c in zip(ours, lib)),
+             "library_error": lib_error,
+             "max_abs_diff_to_library": lib_diff,
              "ptxas": ptxas})
         if res is None:
             res = timed                       # the training shape's
+        shapes.append({"B": b, "S": s, "H": h, "KV": kv, "D": d, "DV": dv,
+                       **timed, "design": design})
         del q, k, v, dout, out, lse, dq, dk, dvv, scratch, qt, kt, vt
         del o_lib, lib, ours
         torch.cuda.empty_cache()
+    check_bwd_ptxas(ptxas)
+    return dict(res, shapes=shapes)
+
+
+def check_bwd_ptxas(ptxas: dict) -> None:
+    """No tensor-core backward kernel spills; where the library was built
+    in this run, every bf16 head-dim pair has its tensor-core kernels,
+    MLA's (192, 128) its own dK/dV kernel, and no CUDA-core kernel is
+    built for bf16."""
+    tensor_core = BWD_TC_KERNELS + ("delta_pass_tc_kernel",)
     spills = {k_: p for k_, p in ptxas.items()
               if p.get("spill_store_bytes")}
-    if any("_tc_" in k_ or "lse_kernel" in k_ for k_ in spills):
+    if any(k_.startswith(tensor_core) for k_ in spills):
         raise AssertionError(f"flash_attention_bwd: ptxas spills {spills}")
-    return res
+    if not ptxas:
+        return
+    want = {"dkdv_mla_kernel_bf16_192/128", "dq_tc_kernel_bf16_192/128",
+            "delta_pass_tc_kernel_bf16_192/128"} | {
+        f"{k_}_bf16_{d}/{d}" for d in (64, 96, 128)
+        for k_ in ("dkdv_tc_kernel", "dq_tc_kernel", "delta_pass_tc_kernel")}
+    cuda_core_bf16 = [k_ for k_ in ptxas if k_.rsplit("_", 2)[1] == "bf16"
+                      and not k_.startswith(tensor_core)]
+    if want - set(ptxas) or cuda_core_bf16:
+        raise AssertionError(f"flash_attention_bwd: ptxas names "
+                             f"{sorted(ptxas)}; missing "
+                             f"{sorted(want - set(ptxas))}, CUDA-core bf16 "
+                             f"{cuda_core_bf16}")
 
 
 def cosine(torch, a, b) -> float:
@@ -3976,9 +4033,12 @@ def train_family_run(torch, np, dev, rng, seed: int,
     recompute's plans held to the forward's) against the same on the plain
     ops with those plans replayed in order; then ``spec.steps`` train steps
     on the same batch. Returns the launches."""
+    from collections import Counter
+
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import LAUNCHES_BY_DESIGN
     from repro_torch.models import init_params
     from repro_torch.train import (TrainConfig, grads_and_metrics,
                                    init_state, make_train_step)
@@ -4011,6 +4071,7 @@ def train_family_run(torch, np, dev, rng, seed: int,
     # The gradients through the kernels, every dispatch plan and expert
     # choice recorded.
     plans, routes = [], []
+    by_design = Counter(LAUNCHES_BY_DESIGN)
     build.reset_launches()                    # the family's path starts here
     t0 = time.perf_counter()
     with recording_plans(plans), recording_routes(routes):
@@ -4019,6 +4080,15 @@ def train_family_run(torch, np, dev, rng, seed: int,
     grads_ms = (time.perf_counter() - t0) * 1e3
     launches = build.launch_counts()          # ... and pauses here
     expect_launches(f"q {spec.arch} grads", launches, want)
+    # bf16 compute takes the tensor-core flash backward at every head dim
+    # (MLA's 192/128 included), fp32 the CUDA-core one.
+    designs = dict(Counter(LAUNCHES_BY_DESIGN) - by_design)
+    bwd = want["flash_attention_bwd"]
+    want_designs = {"tensor_core" if gcfg.cdtype == torch.bfloat16
+                    else "cuda_core": bwd} if bwd else {}
+    if designs != want_designs:
+        raise AssertionError(f"phase q {spec.arch}: flash backward launches "
+                             f"by design {designs}, want {want_designs}")
     n_moe = recompute_rebuilt(torch, cfg, plans)
     grads_peak = torch.cuda.max_memory_allocated()
     loss, gnorm = float(m["loss"]), float(optim.global_norm(grads))
@@ -4070,7 +4140,8 @@ def train_family_run(torch, np, dev, rng, seed: int,
          "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
                        "grad_norm_rtol": TRAIN_NORM_RTOL,
                        "min_cosine": TRAIN_MIN_COS},
-         "grads_ms_first_call": grads_ms, "launches": launches,
+         "grads_ms_first_call": grads_ms,
+         "flash_bwd_launches_by_design": designs, "launches": launches,
          "max_memory_allocated_grads": grads_peak})
     if not ok:
         raise AssertionError(f"phase q {spec.arch}: the gradients through the "
@@ -4301,7 +4372,8 @@ def main() -> int:
         elif name == "flash_attention_bwd":
             extra = {"derivative_of": "the forward's attention, which the "
                      "reference differentiates through "
-                     "src/repro/models/attention.py:78 blockwise_attention"}
+                     "src/repro/models/attention.py:78 blockwise_attention",
+                     "shapes": t["shapes"]}
         elif name == "moe_gather_bwd":
             extra = {"derivative_of": "moe_gather, which the reference's "
                      "training path differentiates as jnp indexing "

@@ -37,10 +37,12 @@ from repro_torch.tree import flatten, map_with_path
 
 
 def _host_array(x) -> np.ndarray:
-    """A leaf as a numpy array on the host: bfloat16 as raw 2-byte void."""
+    """A leaf as a numpy array on the host: bfloat16 as raw 2-byte void. A
+    copy, also of a CPU tensor: the save writes it on a thread while the
+    next step updates the tree in place."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
-    x = x.detach().cpu()
+    x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.dtype("V2"))
     return x.numpy()

@@ -45,9 +45,11 @@
 //   adds 0 to the 32 output columns that the epilogue never stores. D 192
 //   is three boxes, and its blocks take one query tile instead of two:
 //   two tiles of Q, the K ring and the V ring would need 257 KB of shared
-//   memory, one Q tile 209 KB. Each Q tile has its own buffer; K
-//   and V tiles of 128 keys go through a ring of 2 stages, each with a full
-//   and an empty mbarrier, so the next tile loads while this one is
+//   memory, one Q tile 209 KB. (The two layouts that fit two Q tiles, K/V
+//   tiles of 64 keys or a K ring of one stage, both ran slower at
+//   deepseek-v2's prefill shape: PERF.md.) Each Q tile has its own buffer;
+//   K and V tiles of 128 keys go through a ring of 2 stages, each with a
+//   full and an empty mbarrier, so the next tile loads while this one is
 //   multiplied. Rows past S are zero-filled by the TMA unit and masked here.
 // * S = Q K^T on wgmma m64n128k16 (bf16 in, fp32 out), both operands read
 //   from shared memory through 128-byte-swizzle descriptors (K-major: a k16
@@ -481,13 +483,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const auto stage = [](int it) { return it % kTcStages; };
   const auto phase = [](int it) { return (it / kTcStages) & 1u; };
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  // Grid (heads, batch, query tiles), or at MLA's (192, 128) with one
+  // query head a KV head (query tiles, heads, batch): see launch_tc.
+  const bool tiles_first = D > 128 && heads == kv_heads;
+  const int h = tiles_first ? blockIdx.y : blockIdx.x;
+  const int b = tiles_first ? blockIdx.z : blockIdx.y;
   const int kh = h / (heads / kv_heads);
   // The block's query tiles: tile T - 1 - z, then tile z (one tile where
   // they meet), so every block has the same causal work, the heavy first.
   // With one Q tile a block (kQTiles 1), block z takes tile T - 1 - z.
-  const int z = blockIdx.z;
+  const int z = tiles_first ? blockIdx.x : blockIdx.z;
   const int qt_first = (sq + kTcRows - 1) / kTcRows - 1 - z;
   const int n_q = kQTiles == 2 && z < qt_first ? 2 : 1;
   struct Span {
@@ -733,8 +738,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = static_cast<float>(
       pow(static_cast<double>(D), -0.5) * 1.4426950408889634);
-  const dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
-                  static_cast<unsigned>(blocks_z));
+  // Blocks ordered head fastest, so that the G query heads of one KV head
+  // run side by side and share its K/V tiles through L2. At MLA's (192,
+  // 128) with one query head a KV head (deepseek-v2) nothing is shared
+  // across heads and the K and V of the heads in flight outgrow L2, so a
+  // head's query tiles go side by side instead: its K and V come from
+  // device memory once, not once a query tile. (At phi-3-vision's G 1 and
+  // head dim 96 they fit L2, and that order measured 1 % slower.)
+  const dim3 grid =
+      D > 128 && heads == kv_heads
+          ? dim3(static_cast<unsigned>(blocks_z),
+                 static_cast<unsigned>(heads), static_cast<unsigned>(batch))
+          : dim3(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                 static_cast<unsigned>(blocks_z));
   flash_attention_tc_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,
       kv_heads, causal, window, scale_log2);

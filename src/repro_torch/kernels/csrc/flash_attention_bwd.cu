@@ -35,11 +35,12 @@
 //
 // Deterministic: no atomics. Each output element is written by one thread,
 // which sums in a fixed order; two launches agree bit for bit. Two designs,
-// chosen by dtype and (D, DV) in flash_attention_bwd_launch (and mirrored by
+// chosen by dtype in flash_attention_bwd_launch (and mirrored by
 // kernels/flash_attention.py::bwd_design):
 //
-// Tensor cores: bf16 at (64, 64), (96, 96) and (128, 128) (the training
-// path: qwen2.5-3b, qwen3-14b, starcoder2-15b). Four launches:
+// Tensor cores: bf16 at every (D, DV), (64, 64), (96, 96), (128, 128) (the
+// training path: qwen2.5-3b, qwen3-14b, starcoder2-15b) and MLA's (192, 128)
+// (deepseek-v2-236b). Four launches:
 // * lse_kernel: lse * log2(e) of every row into scratch rows padded to a
 //   multiple of 128 queries (zeros past Sq), so that a tile's 64 values
 //   are one 256-byte bulk copy, and zeros into Delta's rows.
@@ -73,6 +74,26 @@
 //   of its cluster through distributed shared memory, and each block adds
 //   the two blocks' sums of its half, block 0's first, scales dK and
 //   stores.
+//   At (192, 128) a consumer's fp32 dK (96 registers a thread) and dV (64)
+//   beside S^T and dP^T (32 each) would not fit the 240 registers that
+//   setmaxnreg gives it, so dkdv_mla_kernel takes its place: one block per
+//   (two key tiles of 64, KV head, batch), tile z and tile T - 1 - z so
+//   that every block has the same causal work, no cluster, all of a key
+//   tile's pairs through a ring of 4 stages. Its two consumers split each
+//   pair's work, not the pairs: the score warpgroup runs S^T and dP^T,
+//   builds P^T and dS^T as above and stores both in bf16, 128-byte
+//   swizzled, into shared memory; the gradient warpgroup holds the whole
+//   dK and dV of a key tile and runs dV += P^T dO (n128) and dK += dS^T Q
+//   (n128 + n64) with both operands in shared memory (A K-major, B
+//   MN-major). The two halves of a pair take about the same tensor-core
+//   time (20 k16 steps of n64 each), no product runs twice, P and dS are
+//   the same bf16 operands as in the register design, and nothing is left
+//   to add at the end: the gradient warpgroup stores its sums as they
+//   stand. The blocks of one KV head, and (at G 1) the dQ kernel's and the
+//   Delta pass's blocks of one query head, run side by side: at
+//   deepseek's training shape Q and dO take 168 MB, K and V as much, far
+//   more than L2, and a head's tiles are then read from device memory
+//   once, not once a block.
 // * dq_tc_kernel: one block of 384 threads per (128 query rows, query head,
 //   batch), heavy (late) query tiles first, on a second stream beside
 //   dkdv_tc_kernel so that its blocks take the SMs the other leaves; Q and
@@ -87,13 +108,13 @@
 // tensors' own strides, boxes of 64 columns by 64 rows, 128-byte swizzle;
 // hopper.cuh holds these pieces, shared with the forward). D 96 is two boxes
 // whose columns 96-127 the TMA unit fills with zeros: the dK and dQ products
-// run n 128 and the epilogues never store those columns. Rows past Sq or Sk
-// are zero-filled and masked. P and dS in bf16 change each term of dV, dK
-// and dQ by at most 2**-9 relative.
+// run n 128 and the epilogues never store those columns. D 192 is three
+// boxes; its dK and dQ products run as n128 over columns 0-127 and n64 over
+// 128-191. Rows past Sq or Sk are zero-filled and masked. P and dS in bf16
+// change each term of dV, dK and dQ by at most 2**-9 relative.
 //
 // CUDA cores: fp32 at every (D, DV), whose 2e-4 tolerance needs exact fp32
-// sums that bf16 or TF32 products cannot hold, and bf16 at MLA's (192, 128),
-// whose fp32 dK alone would take 96 registers a thread beside dV's 64.
+// sums that bf16 or TF32 products cannot hold.
 // * delta_kernel: one warp a row of dO and o, a fixed shuffle tree.
 // * dkdv_kernel: one block per (32 keys, KV head, batch). K and V stay in
 //   shared memory; the block loops over the group's query heads and over
@@ -121,7 +142,12 @@
 // dK), and the few pairs a block has at S 512 (at most 16 here), which its
 // fixed costs (K and V, the ring's first fill, the cluster's reduction)
 // weigh on. Overlapping a pair's dK with the next pair's products measured
-// slower, and was left out.
+// slower, and was left out (as did, at MLA's shape, running the score
+// warpgroup's next products, or the Delta pass's next tile, beside this
+// one's softmax: the two register sets hold a stage more of the ring). At
+// deepseek-v2-236b's training shape (B 4, S 512, 128 heads of 192 over
+// 128, causal) the backward needs about 112 GFLOP and 672 MB (0.20 ms at
+// 3.35 TB/s); this design runs 224 GFLOP there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,7 +160,7 @@ namespace {
 using namespace hopper;
 
 // ---------------------------------------------------------------------------
-// float32, and bfloat16 at (192, 128): the CUDA-core kernels
+// float32: the CUDA-core kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
@@ -153,29 +179,6 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ float4 gload4(const float* p) { return ld4(p); }
-
-__device__ __forceinline__ float4 gload4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void gstore4(float* p, float4 v) { st4(p, v); }
-
-__device__ __forceinline__ void gstore4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
@@ -187,17 +190,17 @@ __device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
   acc.w = fmaf(a, x.w, acc.w);
 }
 
-// Rows [0, rows) of kRows x W values of T (row stride `stride` elements)
-// into fp32 shared memory with row stride W + kPad; zeros past rows.
-template <typename T, int W, int kRows>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// Rows [0, rows) of kRows x W floats (row stride `stride` elements) into
+// shared memory with row stride W + kPad; zeros past rows.
+template <int W, int kRows>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int rows) {
   constexpr int kChunks = W / 4;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = gload4(src + r * stride + 4 * c);
+    if (r < rows) v = ld4(src + r * stride + 4 * c);
     st4(dst + r * (W + kPad) + 4 * c, v);
   }
 }
@@ -209,9 +212,9 @@ __device__ __forceinline__ bool visible(int i, int j, int sq, int sk,
 }
 
 // delta[b, h, i] = sum_c dO[b, i, h, c] * o[b, i, h, c], one warp a row.
-template <typename T, int DV>
+template <int DV>
 __global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
              float* __restrict__ delta, long long rows, int sq, int heads) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
@@ -219,7 +222,7 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (row >= rows) return;
   float acc = 0.f;
   for (int c = 4 * lane; c < DV; c += 128) {
-    acc = dot4(gload4(out + row * DV + c), gload4(dout + row * DV + c), acc);
+    acc = dot4(ld4(out + row * DV + c), ld4(dout + row * DV + c), acc);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -234,13 +237,13 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 // dK and dV of kBKV keys of one KV head, summed over its query heads.
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int heads,
-            int kv_heads, int causal, int window, float scale) {
+            float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+            int heads, int kv_heads, int causal, int window, float scale) {
   constexpr int kLdD = D + kPad;
   constexpr int kLdV = DV + kPad;
   constexpr int kColsD = D / 32;   // float4 columns of dK per thread
@@ -273,8 +276,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long v_off =
       (static_cast<long long>(b) * sk + k0) * v_stride +
       static_cast<long long>(kh) * DV;
-  load_rows<T, D, kBKV>(ks, k + k_off, k_stride, k_rows);
-  load_rows<T, DV, kBKV>(vs, v + v_off, v_stride, k_rows);
+  load_rows<D, kBKV>(ks, k + k_off, k_stride, k_rows);
+  load_rows<DV, kBKV>(vs, v + v_off, v_stride, k_rows);
 
   // Queries that may see keys [k0, k0 + k_rows): [q_lo, q_hi).
   const int q_lo = causal ? k0 : 0;
@@ -297,9 +300,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int q_rows = min(kBQ, sq - q0);
       __syncthreads();  // the previous tile is no longer read
       const long long qo = (static_cast<long long>(b) * sq + q0);
-      load_rows<T, D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
+      load_rows<D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
                            q_stride, q_rows);
-      load_rows<T, DV, kBQ>(dos,
+      load_rows<DV, kBQ>(dos,
                             dout + qo * o_stride + static_cast<long long>(h) * DV,
                             o_stride, q_rows);
       if (threadIdx.x < kBQ) {
@@ -384,26 +387,26 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 2; ++a) {
     const int key = 2 * tr + a;
     if (key >= k_rows) continue;
-    T* krow = dk + k_off + key * k_stride + 4 * tc;
-    T* vrow = dv + v_off + key * v_stride + 4 * tc;
+    float* krow = dk + k_off + key * k_stride + 4 * tc;
+    float* vrow = dv + v_off + key * v_stride + 4 * tc;
 #pragma unroll
     for (int c = 0; c < kColsD; ++c) {
       const float4 x = acc_k[a][c];
-      gstore4(krow + 32 * c,
+      st4(krow + 32 * c,
               make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
     }
 #pragma unroll
-    for (int c = 0; c < kColsV; ++c) gstore4(vrow + 32 * c, acc_v[a][c]);
+    for (int c = 0; c < kColsV; ++c) st4(vrow + 32 * c, acc_v[a][c]);
   }
 }
 
 // dQ of kBQ query rows of one query head.
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int sq, int sk, int heads, int kv_heads,
+          float* __restrict__ dq, int sq, int sk, int heads, int kv_heads,
           int causal, int window, float scale) {
   constexpr int kLdD = D + kPad;
   constexpr int kLdV = DV + kPad;
@@ -431,9 +434,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long k_stride = static_cast<long long>(kv_heads) * D;
   const long long v_stride = static_cast<long long>(kv_heads) * DV;
   const long long qo = static_cast<long long>(b) * sq + q0;
-  load_rows<T, D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
+  load_rows<D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
                        q_stride, q_rows);
-  load_rows<T, DV, kBQ>(dos, dout + qo * o_stride + static_cast<long long>(h) * DV,
+  load_rows<DV, kBQ>(dos, dout + qo * o_stride + static_cast<long long>(h) * DV,
                         o_stride, q_rows);
   if (threadIdx.x < kBQ) {
     const long long at = (static_cast<long long>(b) * heads + h) * sq + q0;
@@ -456,9 +459,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_rows = min(kBK, sk - kt);
     __syncthreads();  // the previous tile is no longer read
     const long long ko = static_cast<long long>(b) * sk + kt;
-    load_rows<T, D, kBK>(ks, k + ko * k_stride + static_cast<long long>(kh) * D,
+    load_rows<D, kBK>(ks, k + ko * k_stride + static_cast<long long>(kh) * D,
                          k_stride, k_rows);
-    load_rows<T, DV, kBK>(vs, v + ko * v_stride + static_cast<long long>(kh) * DV,
+    load_rows<DV, kBK>(vs, v + ko * v_stride + static_cast<long long>(kh) * DV,
                           v_stride, k_rows);
     __syncthreads();
 
@@ -529,34 +532,36 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = 4 * tr + i;
     if (row >= q_rows) continue;
-    T* drow = dq + (qo + row) * q_stride + static_cast<long long>(h) * D +
+    float* drow = dq + (qo + row) * q_stride + static_cast<long long>(h) * D +
               4 * tc;
 #pragma unroll
     for (int c = 0; c < kColsD; ++c) {
       const float4 x = acc[i][c];
-      gstore4(drow + 32 * c,
+      st4(drow + 32 * c,
               make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
     }
   }
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int batch, int sq, int sk, int heads,
                int kv_heads, int causal, int window, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* o_ = static_cast<const T*>(out);
-  const T* do_ = static_cast<const T*>(dout);
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* o_ = static_cast<const float*>(out);
+  const float* do_ = static_cast<const float*>(dout);
   // D ** -0.5 as the reference computes it, in double, then rounded.
   const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
 
   const long long rows = static_cast<long long>(batch) * sq * heads;
   const long long delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (delta_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  delta_kernel<T, DV><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
+  if (delta_blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  delta_kernel<DV><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
                         stream>>>(o_, do_, delta, rows, sq, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -567,15 +572,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        kBQ * static_cast<size_t>(D + kPad) +
                        kBQ * static_cast<size_t>(DV + kPad) +
                        2 * kBKV * static_cast<size_t>(kLdQ) + 2 * kBQ);
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D, DV>,
+  err = cudaFuncSetAttribute(dkdv_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kv_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(static_cast<unsigned>((sk + kBKV - 1) / kBKV),
                      static_cast<unsigned>(kv_heads),
                      static_cast<unsigned>(batch));
-  dkdv_kernel<T, D, DV><<<kv_grid, kThreads, kv_smem, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+  dkdv_kernel<D, DV><<<kv_grid, kThreads, kv_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv),
       sq, sk, heads, kv_heads, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -588,21 +594,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        kBQ * static_cast<size_t>(kLdK) + 2 * kBQ);
   static_assert(q_smem <= 232448 && kv_smem <= 232448,
                 "tiles exceed shared memory");
-  err = cudaFuncSetAttribute(dq_kernel<T, D, DV>,
+  err = cudaFuncSetAttribute(dq_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ),
                     static_cast<unsigned>(heads),
                     static_cast<unsigned>(batch));
-  dq_kernel<T, D, DV><<<q_grid, kThreads, q_smem, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), sq, sk, heads,
+  dq_kernel<D, DV><<<q_grid, kThreads, q_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<float*>(dq), sq, sk, heads,
       kv_heads, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at (64, 64), (96, 96), (128, 128): the tensor-core kernels
+// bfloat16: the tensor-core kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = 384;         // 2 consumer warpgroups + 1 producer
@@ -635,7 +641,8 @@ struct BwdTiles {
       (2 + kQStages) * static_cast<size_t>(kQk + kV) + 1024;
   static_assert(kKvSmem <= kSmemMax && kQSmem <= kSmemMax,
                 "tiles exceed shared memory");
-  static_assert(kN <= 128 && kNV <= 128, "products are n64 or n128");
+  static_assert(kN <= 192 && kNV <= 128,
+                "products are n64 or n128 (n192 as both, product_ab)");
   // dkdv: a consumer's partial dK and dV, kPairs pairs of fp32 accumulator
   // registers a thread; both consumers' go over the ring at the end.
   static constexpr int kPairs = (kN + kNV) / 4;
@@ -679,7 +686,16 @@ __device__ __forceinline__ void product_ab(float (&acc)[N / 2],
                                            uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (N == 128) {
+    if constexpr (N == 192) {
+      // Columns 0-127 (boxes 0 and 1), then 128-191 (box 2): element
+      // 64 + i of acc is element i of the n64 fragment, as in an n192 one.
+      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(acc), a[4 * kk],
+                          a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                          mnmajor(b, kk));
+      wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(acc + 64),
+                         a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                         a[4 * kk + 3], mnmajor(b + 2 * kBox, kk));
+    } else if constexpr (N == 128) {
       wgmma_m64n128k16_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                           a[4 * kk + 3], mnmajor(b, kk));
     } else {
@@ -985,6 +1001,329 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// MLA's (192, 128): dK and dV of two tiles of 64 keys of one KV head (tile
+// z and tile T - 1 - z), summed over its query heads, by one block whose
+// two consumers split the work of a pair rather than the pairs: the score
+// warpgroup (0) runs S^T and dP^T and hands P^T and dS^T in bf16 to the
+// gradient warpgroup (1) through shared memory; the gradient warpgroup
+// holds the whole fp32 dK (96 registers a thread) and dV (64) of a key tile
+// and runs dV += P^T dO and dK += dS^T Q with both operands in shared
+// memory. No partial sums to add at the end, and no product runs twice.
+// Ring depths as measured best at deepseek-v2's training shape (PERF.md):
+// 4 (Q, dO) stages beside one P^T / dS^T stage (3 beside 2, and one key
+// tile a block, were 1 % and 4 % slower).
+constexpr int kMlaStages = 4;  // dkdv_mla_kernel's (Q, dO) ring
+constexpr int kMlaHand = 1;    // its P^T / dS^T stages
+
+template <int D, int DV>
+struct MlaTiles {
+  using Tiles = BwdTiles<D, DV>;
+  // K and V, the (Q, dO, lse, Delta) ring, then the P^T / dS^T stages
+  // (two 64 x 64 bf16 tiles each), and 1 KB of alignment slack.
+  static constexpr size_t kSmem =
+      Tiles::kQk + Tiles::kV + kMlaStages * static_cast<size_t>(Tiles::kStage) +
+      kMlaHand * 2 * static_cast<size_t>(kBox) + 1024;
+  static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
+  static_assert(Tiles::kN == 192 && Tiles::kNV == 128,
+                "the gradient warpgroup's products are n128 + n64 and n128");
+};
+
+// Stores x (64 x 64 fp32 accumulator fragment: element 4j + e at row
+// kr + 8 (e / 2), column 8j + c0 + e % 2) as bf16 into the 64-row tile at
+// `t` (a byte offset from smem_raw), K-major and 128-byte swizzled as TMA
+// lays out a box: row r's 16-byte chunk c sits at chunk c ^ (r % 8) of its
+// 128-byte line.
+__device__ __forceinline__ void store_swizzled(uint8_t* t, const float (&x)[32],
+                                               int kr, int c0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kr + 8 * r;
+      *reinterpret_cast<uint32_t*>(t + (row / 8) * 1024 + (row % 8) * 128 +
+                                   ((j ^ (row % 8)) * 16) + 2 * c0) =
+          pack_bf16(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse2, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                int sq, int sk, int sq_pad, int heads, int kv_heads,
+                int causal, int window, float scale_log2, float scale) {
+  using Tiles = BwdTiles<D, DV>;
+  constexpr int kN = Tiles::kN;
+  constexpr int kNV = Tiles::kNV;
+  (void)MlaTiles<D, DV>::kSmem;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kMlaStages + 2 * kMlaHand];
+  // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + Tiles::kQk;
+  const auto q_s = [&](int st) {
+    return base + Tiles::kQk + Tiles::kV + st * Tiles::kStage;
+  };
+  const auto do_s = [&](int st) { return q_s(st) + Tiles::kQk; };
+  const auto stats_s = [&](int st) { return do_s(st) + Tiles::kV; };
+  const auto p_s = [&](int hs) {  // P^T, then dS^T one box on
+    return q_s(kMlaStages) + hs * 2 * kBox;
+  };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t kv_full = bar0;
+  const uint32_t kv_empty = bar0 + 8;
+  const auto full = [&](int st) { return bar0 + 8 * (2 + st); };
+  const auto empty = [&](int st) { return bar0 + 8 * (2 + kMlaStages + st); };
+  const auto handed = [&](int hs) {
+    return bar0 + 8 * (2 + 2 * kMlaStages + hs);
+  };
+  const auto taken = [&](int hs) {
+    return bar0 + 8 * (2 + 2 * kMlaStages + kMlaHand + hs);
+  };
+
+  // Grid (key tile pairs, KV heads, batch): the blocks of one KV head side
+  // by side, so that its query heads' Q and dO tiles, which every key tile
+  // reads, come from device memory once.
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = heads / kv_heads;
+  // The block's key tiles of 64: tile z, then tile T - 1 - z (one tile
+  // where they meet), so that under causality every block has the same
+  // pairs, and the second tile's K/V load overlaps the first's last pairs.
+  const int z = blockIdx.x;
+  const int n_kt = (sk + kTile - 1) / kTile;
+  const int n_t = n_kt - 1 - z > z ? 2 : 1;
+  struct Keys {
+    int k0, qt_lo, n_qt, first;  // first: ring index of its first pair
+  };
+  const auto keys = [&](int t) {
+    Keys ks;
+    ks.k0 = (t == 0 ? z : n_kt - 1 - z) * kTile;
+    // Queries that may see keys [k0, k_last]: [q_lo, q_hi), in tiles of 64.
+    const int k_last = min(ks.k0 + kTile, sk) - 1;
+    const int q_lo = causal ? ks.k0 : 0;
+    const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+    ks.qt_lo = q_lo / kTile;
+    ks.n_qt = q_hi > q_lo ? (q_hi + kTile - 1) / kTile - ks.qt_lo : 0;
+    ks.first = 0;
+    return ks;
+  };
+  // Pair i of a tile: head i / n_qt, query tile i % n_qt.
+  const Keys first = keys(0);
+  Keys second = keys(n_t - 1);
+  second.first = group * first.n_qt;
+  const auto tile = [&](int t) { return t == 0 ? first : second; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 128);
+    for (int st = 0; st < kMlaStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);  // both consumers read every stage
+    }
+    for (int hs = 0; hs < kMlaHand; ++hs) {
+      mbar_init(handed(hs), 128);
+      mbar_init(taken(hs), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    // Producer warpgroup: one thread loads each tile's K and V (the second
+    // once the score warpgroup is done with the first), another streams
+    // every pair's Q, dO, lse and Delta through the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == 288) {
+      for (int t = 0; t < n_t; ++t) {
+        if (t > 0) mbar_wait(kv_empty, 0);
+        mbar_expect_tx(kv_full, Tiles::kQk + Tiles::kV);
+        for (int c = 0; c < Tiles::kDBoxes; ++c) {
+          tma_load_4d(k_s + c * kBox, &tk, kv_full, c * kBoxCols, kh,
+                      tile(t).k0, b);
+        }
+        for (int c = 0; c < Tiles::kVBoxes; ++c) {
+          tma_load_4d(v_s + c * kBox, &tv, kv_full, c * kBoxCols, kh,
+                      tile(t).k0, b);
+        }
+      }
+    }
+    if (threadIdx.x != 256) return;
+    for (int t = 0; t < n_t; ++t) {
+      const Keys ks = tile(t);
+      for (int i = 0; i < group * ks.n_qt; ++i) {
+        const int g = ks.first + i;  // ring index
+        const int st = g % kMlaStages;
+        const int h = kh * group + i / ks.n_qt;
+        const int q0 = (ks.qt_lo + i % ks.n_qt) * kTile;
+        mbar_wait(empty(st), ((g / kMlaStages) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(full(st), Tiles::kQk + Tiles::kV + 512);
+        for (int c = 0; c < Tiles::kDBoxes; ++c) {
+          tma_load_4d(q_s(st) + c * kBox, &tq, full(st), c * kBoxCols, h, q0,
+                      b);
+        }
+        for (int c = 0; c < Tiles::kVBoxes; ++c) {
+          tma_load_4d(do_s(st) + c * kBox, &tdo, full(st), c * kBoxCols, h,
+                      q0, b);
+        }
+        const long long row =
+            (static_cast<long long>(b) * heads + h) * sq_pad + q0;
+        bulk_load(stats_s(st), lse2 + row, 256, full(st));
+        bulk_load(stats_s(st) + 256, delta + row, 256, full(st));
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Of the 64 x 64 fragments this thread owns rows (keys) kr and kr + 8
+  // and, of every 8 columns, c0 and c0 + 1.
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int kr = 16 * (warp % 4) + lane / 4;
+
+  if (warp < 4) {
+    // The score warpgroup: per pair S^T = K Q^T and dP^T = V dO^T (m64n64,
+    // shared operands), P^T = exp2(S^T scale log2(e) - lse log2(e)),
+    // masked per score only on tiles that cross the diagonal, the window's
+    // edge, Sq or Sk, and dS^T = P^T (dP^T - Delta), both stored in bf16.
+#pragma unroll 1
+    for (int t = 0; t < n_t; ++t) {
+      const Keys ks = tile(t);
+      const int n_pairs = group * ks.n_qt;
+      mbar_wait(kv_full, t & 1);
+#pragma unroll 1
+      for (int i = 0; i < n_pairs; ++i) {
+        const int g = ks.first + i;
+        const int st = g % kMlaStages;
+        const int hs = g % kMlaHand;
+        const int q0 = (ks.qt_lo + i % ks.n_qt) * kTile;
+        mbar_wait(full(st), (g / kMlaStages) & 1);
+        const float* stats =
+            reinterpret_cast<const float*>(smem_raw + (stats_s(st) - raw));
+        float s[32], dp[32];
+        wgmma_fence();
+        product_abt<D>(s, k_s, q_s(st));
+        wgmma_commit();
+        product_abt<DV>(dp, v_s, do_s(st));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(s);
+        hold(dp);
+        // The tile's last products have read K and V: the next tile's may
+        // load.
+        if (t + 1 < n_t && i == n_pairs - 1) mbar_arrive(kv_empty);
+        const bool masked =
+            pair_tile_masked(q0, ks.k0, sq, sk, causal, window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = exp2_approx(
+                fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
+            s[4 * j + e] = masked && !visible(q0 + 8 * j + c0 + e % 2,
+                                              ks.k0 + kr + 8 * (e / 2), sq,
+                                              sk, causal, window)
+                               ? 0.f
+                               : x;
+          }
+        }
+        mbar_wait(taken(hs), ((g / kMlaHand) & 1) ^ 1);  // round 0 passes
+        uint8_t* pt = smem_raw + (p_s(hs) - raw);
+        store_swizzled(pt, s, kr, c0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * j + e] *= dp[4 * j + e] - (e % 2 ? dl.y : dl.x);
+          }
+        }
+        store_swizzled(pt + kBox, s, kr, c0);
+        fence_async_shared();  // the gradient warpgroup's wgmma reads them
+        mbar_arrive(handed(hs));
+        mbar_arrive(empty(st));
+      }
+      if (t + 1 < n_t && n_pairs == 0) mbar_arrive(kv_empty);
+    }
+    return;
+  }
+
+  // The gradient warpgroup: dV += P^T dO (n128), dK += dS^T Q (n128 over
+  // columns 0-127, n64 over 128-191); A K-major and B MN-major, both in
+  // shared memory. Each tile's sums are stored as they stand.
+#pragma unroll 1
+  for (int t = 0; t < n_t; ++t) {
+    const Keys ks = tile(t);
+    float dk_acc[kN / 2], dv_acc[kNV / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kNV / 2; ++i) dv_acc[i] = 0.f;
+    float(&dk_lo)[64] = *reinterpret_cast<float(*)[64]>(dk_acc);
+    float(&dk_hi)[32] = *reinterpret_cast<float(*)[32]>(dk_acc + 64);
+#pragma unroll 1
+    for (int i = 0; i < group * ks.n_qt; ++i) {
+      const int g = ks.first + i;
+      const int st = g % kMlaStages;
+      const int hs = g % kMlaHand;
+      mbar_wait(full(st), (g / kMlaStages) & 1);
+      mbar_wait(handed(hs), (g / kMlaHand) & 1);
+      hold(dk_acc);
+      hold(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n128k16_ss_mn(dv_acc, kmajor(p_s(hs), kk),
+                               mnmajor(do_s(st), kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t a = kmajor(p_s(hs) + kBox, kk);
+        wgmma_m64n128k16_ss_mn(dk_lo, a, mnmajor(q_s(st), kk));
+        wgmma_m64n64k16_ss_mn(dk_hi, a, mnmajor(q_s(st) + 2 * kBox, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dk_acc);
+      hold(dv_acc);
+      mbar_arrive(taken(hs));
+      mbar_arrive(empty(st));
+    }
+
+    // Register pair p of dK is key kr + 8 (p % 2), columns 8 (p / 2) + c0
+    // and + 1; dV's likewise. Every element has this one writer.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = ks.k0 + kr + 8 * r;
+      if (key >= sk) continue;
+      const long long at =
+          (static_cast<long long>(b) * sk + key) * kv_heads + kh;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at * D + 8 * j + c0) = pack_bf16(
+            dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+      }
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dv + at * DV + 8 * j + c0) =
+            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // dQ of 128 query rows of one query head: two consumers of 64 rows each.
 // With kDelta, the Delta pass: each row's sum_j P_ij dP_ij into `delta`
 // (rows below Sq), and no dQ.
@@ -1015,9 +1354,14 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
   const auto empty = [&](int st) { return bar0 + 8 * (1 + kQStages + st); };
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kQRows;  // late (heavy) first
+  // Grid (heads, batch, query tiles), or at MLA's (192, 128) with one
+  // query head a KV head (query tiles, heads, batch): see launch_tc.
+  const bool tiles_first = D > 128 && heads == kv_heads;
+  const int h = tiles_first ? blockIdx.y : blockIdx.x;
+  const int b = tiles_first ? blockIdx.z : blockIdx.y;
+  const int q_tiles = tiles_first ? gridDim.x : gridDim.z;
+  const int q0 =  // late (heavy) tiles first
+      (q_tiles - 1 - (tiles_first ? blockIdx.x : blockIdx.z)) * kQRows;
   const int kh = h / (heads / kv_heads);
   // Keys any row of the block may see: [k_lo, k_hi), in tiles of 64 from
   // k_lo.
@@ -1223,6 +1567,74 @@ cudaError_t side_stream(SideStream** out) {
   return cudaSuccess;
 }
 
+// The dK/dV kernel on `stream`: dkdv_mla_kernel at MLA's (192, 128), one
+// block a key tile; else dkdv_tc_kernel in clusters of 2 blocks a key tile
+// where one would give fewer than two blocks an SM.
+template <int D, int DV>
+cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, const CUtensorMap& tdo,
+                        const float* lse2, const float* delta, void* dk,
+                        void* dv, int batch, int sq, int sk, int sq_pad,
+                        int heads, int kv_heads, int causal, int window,
+                        float scale_log2, float scale, cudaStream_t stream) {
+  const int k_tiles = (sk + kTile - 1) / kTile;
+  __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
+  if constexpr (D > 128) {
+    constexpr size_t smem = MlaTiles<D, DV>::kSmem;
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_mla_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>((k_tiles + 1) / 2),
+                    static_cast<unsigned>(kv_heads),
+                    static_cast<unsigned>(batch));
+    dkdv_mla_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
+        tq, tk, tv, tdo, lse2, delta, dk_, dv_, sq, sk, sq_pad, heads,
+        kv_heads, causal, window, scale_log2, scale);
+    return cudaGetLastError();
+  } else {
+    using Tiles = BwdTiles<D, DV>;
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tiles::kKvSmem));
+    if (err != cudaSuccess) return err;
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      }
+      if (err != cudaSuccess) return err;
+    }
+    const long long kv_blocks =
+        static_cast<long long>(kv_heads) * batch * k_tiles;
+    int ranks = 1;
+    while (ranks < kMaxCluster && kv_blocks * ranks < 2LL * sms) ranks *= 2;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(kv_heads * ranks),
+                       static_cast<unsigned>(batch),
+                       static_cast<unsigned>(k_tiles));
+    cfg.blockDim = dim3(kTcThreads);
+    cfg.dynamicSmemBytes = Tiles::kKvSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = ranks;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, dkdv_tc_kernel<D, DV>, tq, tk, tv, tdo,
+                             lse2, delta, dk_, dv_, sq, sk, sq_pad, heads,
+                             kv_heads, causal, window, scale_log2, scale);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+}
+
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, float* scratch, void* dq, void* dk, void* dv,
@@ -1261,8 +1673,18 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   const double scale_d = pow(static_cast<double>(D), -0.5);
   const float scale = static_cast<float>(scale_d);
   const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
-  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
-                    static_cast<unsigned>(q_tiles));
+  // The query heads of one KV head side by side, so that they find its K
+  // and V tiles in L2. At MLA's (192, 128) with one query head a KV head
+  // (deepseek-v2) nothing is shared across heads, and the K and V of the
+  // heads in flight outgrow L2 (deepseek's training batch: 168 MB), so a
+  // head's query tiles go side by side instead: its K and V come from
+  // device memory once, not once a query tile.
+  const dim3 q_grid =
+      D > 128 && heads == kv_heads
+          ? dim3(static_cast<unsigned>(q_tiles), static_cast<unsigned>(heads),
+                 static_cast<unsigned>(batch))
+          : dim3(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                 static_cast<unsigned>(q_tiles));
   err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Tiles::kQSmem));
@@ -1282,47 +1704,9 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
     err = cudaStreamWaitEvent(side->stream, side->fork, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dkdv_tc_kernel<D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles::kKvSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Clusters of 2 blocks a key tile where one would give fewer than two
-  // blocks an SM.
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long kv_blocks =
-      static_cast<long long>(kv_heads) * batch * k_tiles;
-  int ranks = 1;
-  while (ranks < kMaxCluster && kv_blocks * ranks < 2LL * sms) ranks *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(kv_heads * ranks),
-                     static_cast<unsigned>(batch),
-                     static_cast<unsigned>(k_tiles));
-  cfg.blockDim = dim3(kTcThreads);
-  cfg.dynamicSmemBytes = Tiles::kKvSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = ranks;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dkdv_tc_kernel<D, DV>, tq, tk, tv, tdo,
-                           static_cast<const float*>(lse2),
-                           static_cast<const float*>(delta),
-                           static_cast<__nv_bfloat16*>(dk),
-                           static_cast<__nv_bfloat16*>(dv), sq, sk, sq_pad,
-                           heads, kv_heads, causal, window, scale_log2, scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
+  err = launch_dkdv<D, DV>(tq, tk, tv, tdo, lse2, delta, dk, dv, batch, sq,
+                           sk, sq_pad, heads, kv_heads, causal, window,
+                           scale_log2, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, false>,
@@ -1346,23 +1730,15 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
                  int kv_heads, int causal, int window, int dtype,
                  cudaStream_t s) {
   if (dtype == 0) {
-    return launch_bwd<float, D, DV>(q, k, v, out, dout, lse, delta, dq, dk,
-                                    dv, batch, sq, sk, heads, kv_heads,
-                                    causal, window, s);
+    return launch_bwd<D, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                             batch, sq, sk, heads, kv_heads, causal, window,
+                             s);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  // bfloat16: the tensor cores where a consumer's dK and dV fit its
-  // registers (D <= 128), the CUDA cores at (192, 128).
-  if constexpr (D <= 128) {
-    // The tensor-core design sums Delta itself (the Delta pass): it reads
-    // no output.
-    return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
-                            sq, sk, heads, kv_heads, causal, window, s);
-  } else {
-    return launch_bwd<__nv_bfloat16, D, DV>(q, k, v, out, dout, lse, delta,
-                                            dq, dk, dv, batch, sq, sk, heads,
-                                            kv_heads, causal, window, s);
-  }
+  // bfloat16: the tensor cores. The design sums Delta itself (the Delta
+  // pass): it reads no output.
+  return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq,
+                          sk, heads, kv_heads, causal, window, s);
 }
 
 }  // namespace

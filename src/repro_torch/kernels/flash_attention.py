@@ -28,7 +28,7 @@ log-sum-exp (B, H, Sq) fp32; its backward runs
 on the card and :func:`flash_attention_backward_plain` on the CPU, both the
 explicit gradient of the same softmax. Without grad (serving) the forward
 writes no log-sum-exp. The backward kernel has two designs, chosen by
-:func:`bwd_design` as its launch function chooses them, and
+dtype in :func:`bwd_design` as its launch function chooses them, and
 ``LAUNCHES_BY_DESIGN`` counts its launches by design.
 """
 from __future__ import annotations
@@ -47,8 +47,6 @@ NEG_INF = -1e30
 FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128))
 #: Kernel launches by shape key (:func:`shape_key`).
 LAUNCHES_BY_SHAPE: Counter = Counter()
-#: (D, DV) pairs whose bf16 backward runs on the tensor cores.
-BWD_TENSOR_CORE_SHAPES = ((64, 64), (96, 96), (128, 128))
 #: Backward kernel launches by design (:func:`bwd_design`).
 LAUNCHES_BY_DESIGN: Counter = Counter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,13 +103,13 @@ def shape_key(d: int, dv: int, causal: bool) -> str:
 
 def bwd_design(d: int, dv: int, dtype) -> str:
     """Which backward kernels ``csrc/flash_attention_bwd.cu`` launches for
-    head dims (D, DV) in ``dtype``: ``"tensor_core"`` (wgmma, TMA) for
-    bf16 at :data:`BWD_TENSOR_CORE_SHAPES`, else ``"cuda_core"`` (fp32,
-    whose tolerance needs exact fp32 sums, and bf16 at MLA's (192, 128),
-    whose dK and dV would not fit a warpgroup's registers)."""
-    if dtype == torch.bfloat16 and (d, dv) in BWD_TENSOR_CORE_SHAPES:
-        return "tensor_core"
-    return "cuda_core"
+    head dims (D, DV) of :data:`FLASH_SHAPES` in ``dtype``:
+    ``"tensor_core"`` (wgmma, TMA) for bf16 at every pair, MLA's (192, 128)
+    through a dK/dV kernel of its own whose two warpgroups split each
+    (key tile, query tile) pair's products; ``"cuda_core"`` for fp32,
+    whose tolerance needs exact fp32 sums that bf16 products cannot
+    hold."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def bwd_scratch_floats(b: int, sq: int, h: int) -> int:

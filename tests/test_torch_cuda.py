@@ -599,7 +599,9 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
     (1, 777, 8, 4, 96, 96, True, 100),
     (2, (64, 300), 8, 8, 96, 96, False, None),
     (1, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's MLA prefill
-    (2, 333, 16, 16, 192, 128, True, None),    # one query tile a block
+    (2, 333, 16, 16, 192, 128, True, None),    # 3 query tiles of 128
+    (1, 640, 16, 16, 192, 128, True, None),    # 5 query tiles of 128
+    (1, 777, 8, 4, 192, 128, True, 100),       # GQA, a window, 7 tiles
     (2, 200, 8, 8, 192, 128, False, None),
     (1, (64, 300), 8, 8, 192, 128, False, None),
 ])
@@ -884,6 +886,11 @@ FLASH_BWD_CASES = [
     (2, 256, 16, 16, 64, 64, True, None),     # seamless's heads, G 1
     (2, (200, 512), 16, 16, 64, 64, False, None),  # its cross-attention
     (1, 128, 128, 128, 192, 128, True, None),  # deepseek-v2's 128 MLA heads
+    (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's training batch
+    (2, 300, 8, 8, 192, 128, True, 100),       # MLA, a window across tiles
+    (1, 256, 8, 8, 192, 128, False, None),     # MLA, not causal
+    (2, (128, 333), 8, 8, 192, 128, False, None),  # MLA, Sk 333
+    (1, 200, 8, 2, 192, 128, True, None),      # MLA, summed over G 4
 ]
 
 
@@ -908,7 +915,7 @@ def test_cuda_flash_attention_backward_matches_plain(
     dout, within ``tol`` of each reference's largest entry; the forward's
     log-sum-exp against the plain version's; two launches bit-identical,
     both counted under the design ``bwd_design`` names (the tensor cores
-    for bf16 at (128, 128))."""
+    for bf16 at every head-dim pair)."""
     from repro_torch.kernels.flash_attention import (
         LAUNCHES_BY_DESIGN, _forward, bwd_design, flash_attention_backward,
         flash_attention_backward_plain, flash_attention_plain)
@@ -932,7 +939,7 @@ def test_cuda_flash_attention_backward_matches_plain(
     assert build.launch_counts()["flash_attention_bwd"] == before + 2
     assert LAUNCHES_BY_DESIGN[design] == by_design.get(design, 0) + 2
     assert sum(LAUNCHES_BY_DESIGN.values()) == sum(by_design.values()) + 2
-    if dtype == torch.bfloat16 and (d, dv) == (128, 128):
+    if dtype == torch.bfloat16:
         assert design == "tensor_core"
     for name, x, y, z in zip("qkv", got, want, again):
         assert x.dtype == dtype and x.shape == y.shape
@@ -943,15 +950,16 @@ def test_cuda_flash_attention_backward_matches_plain(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("h,kv,d", [(16, 16, 64), (16, 2, 128), (8, 8, 96)])
+@pytest.mark.parametrize("h,kv,d,dv", [(16, 16, 64, 64), (16, 2, 128, 128),
+                                       (8, 8, 96, 96), (8, 8, 192, 128)])
 def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
-        cuda, h, kv, d, causal):
+        cuda, h, kv, d, dv, causal):
     """bf16 keys and values whose rows share 99.9 % of their norm (a
     cross-attention over near-identical memory rows): dQ is a small
     difference there, which Delta from the rounded output, or dS as one
     bf16 operand, would swamp. The tensor-core backward (its Delta pass,
     dQ on dS's two bf16 parts) holds dQ, dK and dV at cosine 0.9999 to
-    fp64 autograd on the same inputs."""
+    fp64 autograd on the same inputs, MLA's (192, 128) included."""
     from repro_torch.kernels.flash_attention import (
         _forward, flash_attention_backward)
     g = torch.Generator(device="cpu").manual_seed(h + d)
@@ -961,9 +969,9 @@ def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
 
     b, s = 2, 256
     k = rnd(1, 1, kv, d) * 3 + 0.05 * rnd(b, s, kv, d)
-    v = rnd(1, 1, kv, d) * 3 + 0.05 * rnd(b, s, kv, d)
+    v = rnd(1, 1, kv, dv) * 3 + 0.05 * rnd(b, s, kv, dv)
     q, k, v, do = (x.to(torch.bfloat16).to(cuda)
-                   for x in (rnd(b, s, h, d), k, v, rnd(b, s, h, d)))
+                   for x in (rnd(b, s, h, d), k, v, rnd(b, s, h, dv)))
     out, lse = _forward(q, k, v, causal, None, with_lse=True)
     got = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
     leaves = [x.double().requires_grad_() for x in (q, k, v)]

@@ -8,16 +8,17 @@ dS = P * (dO V^T - D)) is held against ``torch.autograd`` of
 ``blockwise_attention`` (``repro/models/attention.py``), on seeded numpy
 inputs in fp32: causal, windowed and not causal, GQA (an odd group
 too), Sq != Sk both ways, and (D, DV) of (64, 64), (96, 96), (128, 128)
-and MLA's (192, 128). Each of dQ, dK and dV
+and MLA's (192, 128) (G 1 causal, not causal, windowed and at Sq < Sk).
+Each of dQ, dK and dV
 within 1e-5 of its largest reference entry (fp32 sums in other orders).
 ``flash_attention`` under autograd on the CPU (``FlashAttentionFn``) is
 held against both the same way, and without grad it runs no backward and
 keeps no log-sum-exp. In bf16, over keys and values that share a large
 mean (a cross-attention over near-identical memory rows), dQ is a small
 difference that D from the rounded output would swamp: the plain
-backward holds it at cosine 0.9999 to fp64. ``bwd_design`` names the
-backward kernel's design
-(tensor or CUDA cores) for every shape and dtype, as PERF.md's table says.
+backward holds it at cosine 0.9999 to fp64, at head dims 64 and MLA's
+(192, 128). ``bwd_design`` names the backward kernel's design (tensor
+or CUDA cores) for every shape and dtype, as PERF.md's table says.
 """
 import numpy as np
 import pytest
@@ -51,6 +52,9 @@ CASES = [
     (1, 28, 6, 2, 64, 64, True, None),        # GQA 3: an odd group
     (2, (24, 40), 4, 2, 64, 64, True, None),  # Sq < Sk: keys no query sees
     (1, (40, 24), 4, 2, 128, 128, True, None),  # Sq > Sk
+    (1, (20, 36), 4, 4, 192, 128, True, None),  # MLA, G 1: Sq < Sk
+    (2, 28, 4, 4, 192, 128, False, None),       # MLA, not causal
+    (1, 40, 4, 4, 192, 128, True, 8),           # MLA, windowed
 ]
 
 
@@ -160,10 +164,10 @@ def test_no_grad_forward_keeps_nothing():
 
 
 #: The backward kernel's design by (D, DV) and dtype, as PERF.md states it:
-#: bf16 on the tensor cores where a consumer's dK and dV fit its registers,
-#: fp32 (exact sums) and bf16 at MLA's (192, 128) on the CUDA cores.
+#: bf16 on the tensor cores at every pair (MLA's (192, 128) through its own
+#: dK/dV kernel), fp32 (exact sums) on the CUDA cores.
 DESIGNS = {(64, 64): "tensor_core", (96, 96): "tensor_core",
-           (128, 128): "tensor_core", (192, 128): "cuda_core"}
+           (128, 128): "tensor_core", (192, 128): "tensor_core"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -173,15 +177,15 @@ def test_bwd_design_follows_the_table(d, dv, dtype):
     assert bwd_design(d, dv, dtype) == want
 
 
-def _common_mean(seed, b=2, s=96, h=4, d=64):
+def _common_mean(seed, b=2, s=96, h=4, d=64, dv=64):
     """bf16 q, dO and k, v whose rows share 99.9 % of their norm."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
-    mean_k, mean_v = f(1, 1, h, d) * 3, f(1, 1, h, d) * 3
+    mean_k, mean_v = f(1, 1, h, d) * 3, f(1, 1, h, dv) * 3
     k = mean_k + 0.05 * f(b, s, h, d)
-    v = mean_v + 0.05 * f(b, s, h, d)
+    v = mean_v + 0.05 * f(b, s, h, dv)
     return [torch.from_numpy(x).to(torch.bfloat16)
-            for x in (f(b, s, h, d), k, v, f(b, s, h, d))]
+            for x in (f(b, s, h, d), k, v, f(b, s, h, dv))]
 
 
 def _fp64_grads(q, k, v, do, causal):
@@ -209,4 +213,18 @@ def test_backward_plain_is_exact_over_keys_with_a_common_mean(causal):
                                          causal=causal)
     want = _fp64_grads(q, k, v, do, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _cos(a, b) >= 0.9999, (name, _cos(a, b))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_plain_is_exact_over_mla_keys_with_a_common_mean(causal):
+    """The same at MLA's heads of 192 over values of 128, the Delta the
+    tensor-core kernel at (192, 128) is held to."""
+    q, k, v, do = _common_mean(11, d=192, dv=128)
+    out, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_backward_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    want = _fp64_grads(q, k, v, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
         assert _cos(a, b) >= 0.9999, (name, _cos(a, b))
