@@ -243,7 +243,20 @@ Phases:
    ``train_step``s on that batch in bf16 compute (losses finite, the last
    below the first), with the median step ms, tokens/s and peak memory,
    and one profiled step's device time by kernel group.
-12. The most active descriptors one copy call received on each path
+12. (r) Every step (j), (l), (p) and (q) timed, read against the dry
+   run's FLOP and byte count of the same step (``launch/dryrun.py`` on the
+   meta device: the same config, depth and batch, a 1x1 mesh of this
+   card; deepseek-v2-236b's and jamba-v0.1-52b's gradient-only first
+   calls against a count of the gradients alone) and the H100's peaks
+   (989.4 TFLOP/s dense bf16, 3.35 TB/s): one line each with the model
+   FLOPs, the counted FLOPs and bytes (a train step's also AdamW's share),
+   the roofline's compute and memory terms, step and bottleneck, the
+   measured step, ``mfu`` (model FLOPs over the peak times the measured
+   step), ``roofline_share`` and the card's name and power limit. The
+   counts must read more than 0 and allocate nothing on the card. Then
+   the dry-run CLI's qwen3-14b x train_4k x single cell into a temporary
+   directory, which must end ``ok`` with the reference's keys.
+13. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
    launches; a ``kernels`` JSON line (each of the ten kernels' launches
    summed over the main path, (k), (j), (l), (m), (n), (o), (p) and (q),
@@ -2102,6 +2115,8 @@ def steady_forward(torch, forward, params, batch, cfg, first, n_tok):
     if not same and max_err(torch, again, first) > LOGIT_TOL:
         raise AssertionError("phase j: a second forward gave other logits")
     del again
+    READINGS["j"] = StepReading(cfg, "prefill", PROMPTS, PROMPT_LEN, ms,
+                                "j_prefill_steady ms, 1 forward")
     log({"phase": "j_prefill_steady", "ms": ms,
          "tokens_per_s": n_tok / (ms / 1e3), "bit_identical_to_first": same})
     rows = device_profile(torch, lambda: forward(params, batch, cfg),
@@ -2217,6 +2232,9 @@ def serve_path(torch, np, dev, rng, seed: int) -> tuple:
             f"{probe.serve.completions_observed} observed")
     n_tok = SERVE_PROMPTS * SERVE_PROMPT_LEN
     decode_ms = statistics.median(step_ms)
+    READINGS["l"] = StepReading(cfg, "prefill", SERVE_PROMPTS,
+                                SERVE_PROMPT_LEN, prefill_ms,
+                                "l_prefill_qwen2_5_3b ms, 1 prefill")
     log({"phase": "l_prefill_qwen2_5_3b", "ms": prefill_ms,
          "tokens_per_s": n_tok / (prefill_ms / 1e3),
          "prompts": SERVE_PROMPTS, "prompt_len": SERVE_PROMPT_LEN,
@@ -3214,6 +3232,22 @@ TRAINER_LAYERS, TRAINER_STEPS, TRAINER_SPLIT, TRAINER_EVERY = 1, 6, 4, 2
 TRAINER_RTOL = 1e-5
 
 
+@dataclasses.dataclass(frozen=True)
+class StepReading:
+    """One timed step of a phase, for phase (r) to read against its count."""
+    cfg: object          # the ModelConfig the phase ran (depth cut and all)
+    kind: str            # "train" (train_step), "grads" (loss and
+                         # gradients, no AdamW) or "prefill" (forward)
+    batch: int
+    seq: int             # positions a row: the tokens and any patches
+    ms: float            # host wall time of the step, as the phase logs it
+    reading: str         # the phase's log line and key the time is from
+
+
+#: Filled by phases (j), (l), (p) and (q) as they run; read by (r).
+READINGS: dict = {}
+
+
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """(query, key) pairs the mask lets through (positions from 0)."""
     n = 0
@@ -3632,6 +3666,9 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
     want_lr = [schedule_lr(i + 1, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
                for i in range(TRAIN_STEPS)]
     median = statistics.median(step_ms)
+    READINGS["p"] = StepReading(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, median,
+                                f"p_train_qwen2_5_3b step_ms_median, "
+                                f"{TRAIN_STEPS} steps")
     log({"phase": "p_train_qwen2_5_3b", "steps": TRAIN_STEPS,
          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
          "step_ms_median": median, "step_ms": step_ms,
@@ -4149,6 +4186,11 @@ def train_family_run(torch, np, dev, rng, seed: int,
                              "tolerance")
     out = {"launches": launches, "grads_peak": grads_peak,
            "worst_cosine": cos[0][0], "worst_leaf": cos[0][1]}
+    seq = Q_SEQ + cfg.prefix_len
+    if not spec.steps:            # no train step fits: the gradients' call
+        READINGS[f"q_{label}"] = StepReading(
+            gcfg, "grads", Q_BATCH, seq, grads_ms,
+            f"q_{label}_grads_vs_plain grads_ms_first_call, 1 call")
 
     if spec.steps:
         tcfg = TrainConfig(optimizer=optim.AdamWConfig(
@@ -4171,6 +4213,9 @@ def train_family_run(torch, np, dev, rng, seed: int,
                         {k: n * spec.steps for k, n in want.items()})
         launches = {k: launches[k] + steps[k] for k in launches}
         median = statistics.median(step_ms)
+        READINGS[f"q_{label}"] = StepReading(
+            cfg, "train", Q_BATCH, seq, median,
+            f"q_train_{label} step_ms_median, {spec.steps} steps")
         log({"phase": f"q_train_{label}", "steps": spec.steps,
              "batch": Q_BATCH, "seq_len": Q_SEQ,
              "step_ms_median": median, "step_ms": step_ms,
@@ -4230,6 +4275,157 @@ def train_family_path(torch, np, dev, rng, seed: int) -> dict:
         if not total[name]:
             raise AssertionError(f"phase q: {name} never launched")
     return dict(total)
+
+
+# ---------------------------------------------------------------------------
+# Phase (r): each timed training and prefill step against its count
+# ---------------------------------------------------------------------------
+
+#: Phase (r)'s production cell of the dry-run CLI.
+R_CELL = ("qwen3-14b", "train_4k", "single")
+
+
+def grads_count(cfg, shape) -> dict:
+    """The dry run's method for the gradients alone (``grads_and_metrics``,
+    no AdamW), global: P=1 and P=2 periods counted with the core skipped,
+    extrapolated, and the analytic core added."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import train_input_specs
+    from repro_torch.models import param_shapes
+    from repro_torch.roofline import analysis as ra
+    from repro_torch.train import grads_and_metrics
+
+    batch = train_input_specs(cfg, shape)
+
+    def counted(n):
+        c = dryrun._with_periods(cfg, n)
+        params = param_shapes(c)
+        return dryrun.count(lambda: grads_and_metrics(params, batch, c,
+                                                      1))[0]
+    m1, m2 = counted(1), counted(2)
+    periods = (cfg.num_layers - cfg.first_k_dense) // len(cfg.block_pattern)
+    core_f, core_b = ra.core_totals(cfg, shape)
+    return {"flops": ra.extrapolate(m1["flops"], m2["flops"], periods)
+            + core_f,
+            "bytes": ra.extrapolate(m1["bytes"], m2["bytes"], periods)
+            + core_b}
+
+
+def roofline_path(torch, dev, smi: str) -> dict:
+    """(r) Each step phases (j), (l), (p) and (q) timed, read against the
+    dry run's count of the same step (same config, depth and batch) on a
+    1x1 mesh of this card and the H100's peaks: model FLOPs, the counted
+    FLOPs and bytes, the roofline's terms, step time and bottleneck, the
+    measured step, the model-FLOP share of the card's peak over it (mfu)
+    and the roofline step's share of it. The count runs on the meta device
+    and must allocate nothing on the card. A train step's line also gives
+    the bytes its AdamW update adds (the step's count less the gradients').
+    Then one production cell of the dry-run CLI into a temporary
+    directory. Returns the lines."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.roofline import analysis as ra
+
+    want = {"p", "j", "l"} | {f"q_{f.arch.replace('-', '_').replace('.', '_')}"
+                              for f in TRAIN_FAMILIES}
+    if set(READINGS) != want:
+        raise AssertionError(f"phase r: readings {sorted(READINGS)}, want "
+                             f"{sorted(want)}")
+    mesh = make_debug_mesh(1, 1, devices=dev)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    lines = {}
+    for key, r in READINGS.items():
+        kind = "train" if r.kind == "grads" else r.kind
+        shape = ShapeConfig(f"{key}_{r.batch}x{r.seq}", r.seq, r.batch, kind)
+        t0 = time.perf_counter()
+        if r.kind == "grads":
+            c = grads_count(r.cfg, shape)
+            roof = ra.Roofline(
+                arch=r.cfg.name, shape=shape.name, mesh="1x1", chips=1,
+                hlo_flops_per_chip=c["flops"], hlo_bytes_per_chip=c["bytes"],
+                wire_bytes_per_chip=None, collectives=None,
+                model_flops=ra.model_flops(r.cfg, shape),
+                bytes_per_chip_hbm=None)
+        else:
+            cell = dryrun.count_cell(r.cfg, shape, mesh, "1x1")
+            roof = ra.Roofline(**{k: cell["roofline"][k] for k in (
+                "arch", "shape", "mesh", "chips", "hlo_flops_per_chip",
+                "hlo_bytes_per_chip", "wire_bytes_per_chip", "collectives",
+                "model_flops", "bytes_per_chip_hbm")})
+        # A train step's bytes without AdamW's: the optimizer's share.
+        grads_bytes = grads_count(r.cfg, shape)["bytes"] \
+            if r.kind == "train" else None
+        count_s = time.perf_counter() - t0
+        if not (roof.hlo_flops_per_chip > 0 and roof.hlo_bytes_per_chip > 0
+                and roof.model_flops > 0 and r.ms > 0):
+            raise AssertionError(f"phase r {key}: a count or reading of 0: "
+                                 f"{roof.to_dict()}, {r.ms} ms")
+        measured_s = r.ms / 1e3
+        line = {"phase": f"r_{key}", "arch": r.cfg.name,
+                "layers": r.cfg.num_layers, "step": r.kind,
+                "batch": r.batch, "seq_len": r.seq,
+                "model_flops": roof.model_flops,
+                "counted_flops": roof.hlo_flops_per_chip,
+                "counted_bytes": roof.hlo_bytes_per_chip,
+                "counted_bytes_adamw": None if grads_bytes is None
+                else roof.hlo_bytes_per_chip - grads_bytes,
+                "useful_flops_ratio": roof.useful_flops_ratio,
+                "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+                "collective_s": roof.collective_s,
+                "step_time_s": roof.step_time_s,
+                "bottleneck": roof.bottleneck,
+                "measured_ms": r.ms, "measured": r.reading,
+                "mfu": roof.model_flops / (ra.PEAK_FLOPS * measured_s),
+                "roofline_share": roof.step_time_s / measured_s,
+                "peak_flops": ra.PEAK_FLOPS, "hbm_bytes_per_s": ra.HBM_BW,
+                "count_s": count_s, "card": smi}
+        log(line)
+        lines[key] = line
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError(
+            f"phase r: the counts allocated on the card: "
+            f"{torch.cuda.memory_allocated() - allocated} bytes")
+
+    # One production cell of the dry-run CLI.
+    arch, shape_name, mesh_name = R_CELL
+    old = os.environ.get("REPRO_DRYRUN_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_DRYRUN_DIR"] = tmp
+        try:
+            t0 = time.perf_counter()
+            rc = dryrun.main(["--arch", arch, "--shape", shape_name,
+                              "--mesh", mesh_name, "--force"])
+            seconds = time.perf_counter() - t0
+        finally:
+            if old is None:
+                del os.environ["REPRO_DRYRUN_DIR"]
+            else:
+                os.environ["REPRO_DRYRUN_DIR"] = old
+        path = Path(tmp) / mesh_name / f"{arch}__{shape_name}.json"
+        cell = json.loads(path.read_text())
+    roof = cell.get("roofline", {})
+    if rc != 0 or cell["status"] != "ok"             or any(k not in cell for k in dryrun.RESULT_KEYS)             or cell["chips"] != 256 or roof["wire_bytes_per_chip"] is not None             or roof["compute_s"] != roof["hlo_flops_per_chip"] / ra.PEAK_FLOPS:
+        raise AssertionError(f"phase r: the dry-run cell {R_CELL}: rc {rc}, "
+                             f"{json.dumps(cell)[:2000]}")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError("phase r: the dry-run cell allocated on the "
+                             "card")
+    log({"phase": "r_dryrun_cell", "arch": arch, "shape": shape_name,
+         "mesh": mesh_name, "status": cell["status"], "chips": cell["chips"],
+         "seconds": seconds, "memory": cell["memory"],
+         "roofline": {k: roof[k] for k in (
+             "model_flops", "hlo_flops_per_chip", "hlo_bytes_per_chip",
+             "compute_s", "memory_s", "collective_s", "bottleneck",
+             "useful_flops_ratio", "mfu")},
+         "peak_flops": ra.PEAK_FLOPS, "card": smi})
+    return lines
 
 
 def _leaves(tree):
@@ -4331,6 +4527,9 @@ def main() -> int:
     by_path["q_train_families"] = train_family_path(torch, np, dev, rng,
                                                     args.seed)
     log({"phase": "q", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    roofline_path(torch, dev, smi)
+    log({"phase": "r", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(

@@ -19,7 +19,7 @@ as their raw 2-byte void view with the manifest dtype ``"bfloat16"``, as the
 reference's do, so a checkpoint of a nested dict written by either package
 restores in the other. ``restore`` rebuilds the tree of ``like`` on
 ``device``; the reference's elastic re-mesh (its ``shardings``) waits for
-the port of ``distributed/sharding.py``.
+the collective half of ROADMAP Queue A item 15(d).
 """
 from __future__ import annotations
 

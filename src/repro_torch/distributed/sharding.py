@@ -1,0 +1,308 @@
+"""Sharding policies: FSDP x TP x EP (x SP for long-context decode).
+
+The reference's partition specs, as pure functions of shapes and named
+mesh axes. Parameters and optimizer state shard (fsdp_axes, "model")
+MaxText-style (ZeRO-3 equivalent). Activations shard batch over (pod,
+data); logical axes inside the model map via shardlib rules. KV/SSM caches
+shard batch over data — or the *sequence/page* axis when global_batch <
+data-axis size (long-context SP with distributed partial softmax).
+
+No program is partitioned here: the specs serve the dry run's per-chip
+counts (:func:`shard_shape`, :func:`per_device`), which take the place of
+the reference's ``to_named``/``NamedSharding``. A spec is a :class:`P`,
+one entry per leading dim (``None``, a mesh axis, or a tuple of axes).
+
+Layout of stacked parameters: the reference stacks a pattern slot's blocks
+over periods (a leading periods axis under ``slots``, which its specs
+lead with ``None``); the port keeps one dict per (slot, period),
+``params["slots"][j][i]``, so its spec for a block leaf is the reference's
+stacked spec without that leading ``None``, checked for divisibility on the
+unstacked shape. Decode caches keep the reference's stacked layout in both
+packages, so their specs are the reference's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import flatten, map_with_path
+
+
+class P:
+    """A partition spec: a tuple of entries (``None``, an axis name, or a
+    tuple of axis names), one per leading dim. Not a tuple, so the port's
+    tree walkers take it as a leaf."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, P) and self.entries == other.entries
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"P{self.entries!r}"
+
+
+def _axes(mesh) -> Dict[str, int]:
+    return dict(mesh.shape)
+
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def activation_rules(mesh) -> dict:
+    """Logical-axis -> mesh-axis map consumed by shardlib."""
+    fs = fsdp_axes(mesh)
+    return {
+        "batch": fs if len(fs) > 1 else (fs[0] if fs else None),
+        "seq": None,
+        "heads": "model" if "model" in mesh.shape else None,
+        "kv_heads": None,          # GQA kv heads replicated across TP
+        "d_ff": "model" if "model" in mesh.shape else None,
+        "experts": "model" if "model" in mesh.shape else None,
+        "expert_cap": fs if len(fs) > 1 else (fs[0] if fs else None),
+        "vocab": "model" if "model" in mesh.shape else None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def _param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], mesh) -> P:
+    """The spec of the parameter leaf at ``path`` (its names, root first)."""
+    fs = fsdp_axes(mesh)
+    axes = _axes(mesh)
+    FSDP = fs if len(fs) > 1 else (fs[0] if fs else None)
+    M = "model" if "model" in mesh.shape else None
+    leaf = path[-1]
+    ndim = len(shape)
+
+    def spec(*entries):
+        # Guard divisibility: drop axes that don't divide the dim.
+        fixed = []
+        for i, e in enumerate(entries):
+            if e is None:
+                fixed.append(None)
+                continue
+            size = math.prod(axes.get(a, 1)
+                             for a in (e if isinstance(e, tuple) else (e,)))
+            dim = shape[i] if i < ndim else 1
+            fixed.append(e if dim % size == 0 else None)
+        return P(*fixed)
+
+    if leaf == "embedding":
+        return spec(M, FSDP)
+    if leaf == "unembed":
+        return spec(FSDP, M)
+    if leaf == "wq":
+        return spec(FSDP, M, None)
+    if leaf in ("wk", "wv"):
+        return spec(FSDP, None, None)
+    if leaf == "wo":
+        return spec(M, None, FSDP)
+    if leaf == "bq":
+        return spec(M, None)
+    if leaf in ("bk", "bv"):
+        return spec(None, None)
+    if leaf in ("q_down", "kv_down"):
+        return spec(FSDP, None)
+    if leaf in ("q_up", "kv_up"):
+        return spec(None, M, None)
+    if leaf == "router":
+        return spec(None, None)
+    if leaf in ("w_gate", "w_up"):
+        if ndim == 3:               # MoE experts (E, d, f)
+            return spec(M, FSDP, None)
+        return spec(FSDP, M)
+    if leaf == "w_down":
+        if ndim == 3:
+            return spec(M, None, FSDP)
+        return spec(M, FSDP)
+    if leaf == "in_proj":
+        return spec(FSDP, None)
+    if leaf == "out_proj":
+        return spec(None, FSDP)
+    # conv_w, conv_b, dt_bias, A_log, D, scale, and anything else: replicate.
+    return spec(*(None,) * ndim)
+
+
+def param_specs(cfg: ModelConfig, mesh, shapes_tree: Any) -> Any:
+    """A :class:`P` tree congruent with ``shapes_tree`` (``param_shapes``)."""
+    return map_with_path(
+        lambda path, leaf: _param_spec(tuple(path.split("/")),
+                                       tuple(leaf.shape), mesh),
+        shapes_tree)
+
+
+def _strip(spec: P, drop: Tuple[str, ...]) -> P:
+    entries = []
+    for e in spec:
+        if e is None:
+            entries.append(None)
+        elif isinstance(e, tuple):
+            kept = tuple(a for a in e if a not in drop)
+            entries.append(kept if len(kept) > 1 else
+                           (kept[0] if kept else None))
+        else:
+            entries.append(None if e in drop else e)
+    return P(*entries)
+
+
+def serving_param_specs(cfg: ModelConfig, mesh, shapes_tree: Any) -> Any:
+    """Serving layout: TP over ``model`` only; replicated over (pod, data).
+
+    Training's FSDP layout would re-all-gather every parameter on every
+    decode step; serving replicas keep full TP shards resident instead.
+    """
+    fs = fsdp_axes(mesh)
+    return map_with_path(
+        lambda path, leaf: _strip(_param_spec(tuple(path.split("/")),
+                                              tuple(leaf.shape), mesh), fs),
+        shapes_tree)
+
+
+# ---------------------------------------------------------------------------
+# Batch / state specs
+# ---------------------------------------------------------------------------
+
+def batch_axis(mesh, global_batch: int):
+    """Largest prefix of (pod, data) that divides global_batch."""
+    axes = []
+    size = 1
+    for a in ("pod", "data"):
+        if a in mesh.shape and global_batch % (size * mesh.shape[a]) == 0:
+            axes.append(a)
+            size *= mesh.shape[a]
+    if not axes:
+        return None
+    return tuple(axes) if len(axes) > 1 else axes[0]
+
+
+def train_batch_specs(mesh, global_batch: int, batch: Any) -> Any:
+    BA = batch_axis(mesh, global_batch)
+    return map_with_path(
+        lambda _, leaf: P(*((BA,) + (None,) * (leaf.ndim - 1))), batch)
+
+
+def train_state_specs(cfg: ModelConfig, mesh, state_shapes: Any) -> Any:
+    """TrainState(params, opt(step,m,v), residuals) -> spec tree."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.step import TrainState
+    return TrainState(
+        params=param_specs(cfg, mesh, state_shapes.params),
+        opt=AdamWState(step=P(),
+                       m=param_specs(cfg, mesh, state_shapes.opt.m),
+                       v=param_specs(cfg, mesh, state_shapes.opt.v)),
+        residuals=None if state_shapes.residuals is None
+        else param_specs(cfg, mesh, state_shapes.residuals),
+    )
+
+
+def decode_state_specs(cfg: ModelConfig, mesh, state_shapes: Any,
+                       global_batch: int, *,
+                       kv_seq_axis: Optional[str] = None) -> Any:
+    """DecodeState spec tree. Batch shards over data when divisible;
+    otherwise the cache *sequence* axis shards over data (long-context SP).
+    kv_seq_axis="model" additionally shards cache positions over TP ranks
+    (GQA kv-heads < TP degree make head-sharding impossible; sequence
+    sharding is the lever)."""
+    from repro_torch.models.attention import KVCacheView
+    from repro_torch.models.mamba import MambaCache
+    from repro_torch.models.model import DecodeState
+    from repro_torch.models.transformer import CrossCache
+
+    BA = batch_axis(mesh, global_batch)
+    seq_shard = "data" if BA is None and "data" in mesh.shape else None
+    if kv_seq_axis and kv_seq_axis in mesh.shape and seq_shard is None:
+        seq_shard = kv_seq_axis
+    M = "model" if "model" in mesh.shape else None
+
+    def walk(node, stacked: bool):
+        lead = (None,) if stacked else ()
+        if isinstance(node, KVCacheView):
+            return KVCacheView(
+                k=P(*lead, BA, seq_shard, None, None),
+                v=P(*lead, BA, seq_shard, None, None),
+                kv_pos=P(*lead, BA, seq_shard))
+        if isinstance(node, MambaCache):
+            hdim = node.state.shape[len(lead) + 1]
+            h_ax = M if (M and hdim % mesh.shape["model"] == 0) else None
+            return MambaCache(
+                conv=P(*lead, BA, None, None),
+                state=P(*lead, BA, h_ax, None, None))
+        if isinstance(node, CrossCache):
+            return CrossCache(k=P(*lead, BA, None, None, None),
+                              v=P(*lead, BA, None, None, None))
+        if isinstance(node, dict):
+            return {k: walk(v, stacked or k in ("slots", "cross_slots"))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
+            return type(node)(walk(v, stacked) for v in node)
+        # Leaves outside caches (cur_pos etc.): batch-sharded on axis 0.
+        nd = getattr(node, "ndim", 0)
+        return P(*((BA,) + (None,) * max(nd - 1, 0)))
+
+    if not isinstance(state_shapes, DecodeState):
+        raise TypeError(f"decode_state_specs: a DecodeState, got "
+                        f"{type(state_shapes).__name__}")
+    return DecodeState(caches=walk(state_shapes.caches, False),
+                       cur_pos=P(BA))
+
+
+# ---------------------------------------------------------------------------
+# Per-device shards (in place of to_named / NamedSharding)
+# ---------------------------------------------------------------------------
+
+class Shard(NamedTuple):
+    shape: Tuple[int, ...]     # the per-device block (ceil division)
+    nbytes: int
+
+
+def shard_shape(shape: Tuple[int, ...], spec: P, mesh) -> Tuple[int, ...]:
+    """The per-device block of a ``shape`` array under ``spec``: each dim
+    divided (rounded up, as a padded shard is) by the product of its
+    entry's axis sizes; dims past the spec are whole."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    axes = _axes(mesh)
+    out = []
+    for i, dim in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        size = 1 if e is None else math.prod(
+            axes[a] for a in (e if isinstance(e, tuple) else (e,)))
+        out.append(-(-dim // size))
+    return tuple(out)
+
+
+def per_device(shapes_tree: Any, specs_tree: Any, mesh) -> Dict[str, Shard]:
+    """{leaf path: :class:`Shard`} of every leaf of ``shapes_tree`` (tensors,
+    meta ones included) under the congruent ``specs_tree`` and ``mesh``."""
+    specs = flatten(specs_tree)
+    out = {}
+    for path, leaf in flatten(shapes_tree).items():
+        block = shard_shape(tuple(leaf.shape), specs[path], mesh)
+        out[path] = Shard(block, math.prod(block) * leaf.element_size())
+    return out
+
+
+def per_device_bytes(shapes_tree: Any, specs_tree: Any, mesh) -> int:
+    """Bytes one device holds of ``shapes_tree`` under ``specs_tree``."""
+    return sum(s.nbytes for s in per_device(shapes_tree, specs_tree,
+                                            mesh).values())

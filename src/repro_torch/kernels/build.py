@@ -171,6 +171,20 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+#: Device types whose tensors take a wrapper's plain version: the CPU, and
+#: the meta device (shapes only: the dry run counts the plain version's
+#: operations there, and nothing runs or launches).
+PLAIN_DEVICES = ("cpu", "meta")
+#: Device types a wrapper takes at all.
+DEVICES = PLAIN_DEVICES + ("cuda",)
+
+
+def plain_device(t) -> bool:
+    """Whether tensor ``t`` takes its wrapper's plain version (it lies on
+    the CPU or the meta device) rather than the kernel (on the card)."""
+    return t.device.type in PLAIN_DEVICES
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where autograd would need a backward that kernel ``name``
     does not have: grad is enabled and an input requires grad. The kernel

@@ -15,7 +15,8 @@ over a sequence.
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors, which
 takes (D, DV) of :data:`FLASH_SHAPES` (any other pair raises), and runs
-:func:`flash_attention_plain` for CPU tensors. ``LAUNCHES_BY_SHAPE``
+:func:`flash_attention_plain` for CPU tensors (and for meta tensors, whose
+operations the dry run counts). ``LAUNCHES_BY_SHAPE``
 breaks the kernel's launch count down by (D, DV) and causality, beside
 ``build.LAUNCHES["flash_attention"]``. ``q_block`` and ``kv_block``
 are the TPU kernel's tile sizes; they are accepted for its signature and
@@ -38,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from .build import launch
+from .build import DEVICES, launch, plain_device
 from .descriptor_copy import stream_of
 
 NEG_INF = -1e30
@@ -59,7 +60,7 @@ def _check(q, k, v, window, api: str):
             raise TypeError(f"{api}: {name} must be a torch.Tensor")
         if t.device != q.device:
             raise ValueError(f"{api}: {name} on {t.device}, q on {q.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in DEVICES:
         raise ValueError(f"{api}: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{api}: dtype {q.dtype} not supported "
@@ -210,10 +211,10 @@ def _kernel_inputs(api: str, d: int, dv: int, *tensors) -> None:
 def _forward(q, k, v, causal: bool, window: Optional[int],
              with_lse: bool):
     """``(out, lse)`` of the forward, ``lse`` None unless ``with_lse``:
-    the kernel on the card, the plain version on the CPU."""
+    the kernel on the card, the plain version on the CPU (or meta)."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention")
     dv = v.shape[-1]
-    if q.device.type == "cpu":
+    if plain_device(q):
         if with_lse:
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window, return_lse=True)
@@ -246,7 +247,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     bit."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window,
                                   "flash_attention_backward")
-    if q.device.type == "cpu":
+    if plain_device(q):
         return flash_attention_backward_plain(q, k, v, out, lse, dout,
                                               causal=causal, window=window)
     dv_dim = v.shape[-1]

@@ -32,7 +32,8 @@ other stream too: ``moe_gather(..., inv_slot=)`` and ``moe_combine(...,
 token_idx=)``, and raise without it.
 
 Each wrapper launches ``csrc/moe_dispatch.cu`` for CUDA tensors (or
-raises) and runs its plain version for CPU tensors; under autograd it goes
+raises) and runs its plain version for CPU tensors (and meta tensors,
+whose operations the dry run counts); under autograd it goes
 through :class:`MoEGatherFn` / :class:`MoECombineFn`, whose backward is the
 backward kernel on the card and the plain backward on the CPU. Kernels and
 plain versions are bit-identical, ``d_inv_weight`` aside (a sum in another
@@ -43,14 +44,14 @@ from __future__ import annotations
 
 import torch
 
-from .build import launch
+from .build import DEVICES, launch, plain_device
 from .descriptor_copy import stream_of
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_tensors(api: str, **tensors) -> None:
-    """Tensors, all on one CPU or CUDA device."""
+    """Tensors, all on one CPU, meta or CUDA device."""
     dev = None
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -59,7 +60,7 @@ def _check_tensors(api: str, **tensors) -> None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{api}: {name} on {t.device}, expected {dev}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in DEVICES:
         raise ValueError(f"{api}: unsupported device {dev}")
 
 
@@ -108,7 +109,7 @@ def moe_gather_plain(token_idx, tokens) -> torch.Tensor:
 def _gather(token_idx, tokens) -> torch.Tensor:
     """The forward gather: the kernel on the card, the plain version on
     the CPU."""
-    if tokens.device.type == "cpu":
+    if plain_device(tokens):
         return moe_gather_plain(token_idx, tokens)
     if not (token_idx.is_contiguous() and tokens.is_contiguous()):
         raise ValueError("moe_gather: token_idx and tokens must be contiguous")
@@ -157,7 +158,7 @@ def moe_combine_plain(inv_slot, inv_weight, expert_out) -> torch.Tensor:
 def _combine(inv_slot, inv_weight, expert_out) -> torch.Tensor:
     """The forward combine: the kernel on the card, the plain version on
     the CPU."""
-    if expert_out.device.type == "cpu":
+    if plain_device(expert_out):
         return moe_combine_plain(inv_slot, inv_weight, expert_out)
     tensors = (inv_slot, inv_weight, expert_out)
     if not all(x.is_contiguous() for x in tensors):
@@ -241,7 +242,7 @@ def moe_gather_backward(inv_slot, d_slots) -> torch.Tensor:
     """(T, d) gradient of :func:`moe_gather`'s tokens from the (rows, d)
     gradient of its slots, through the inverse plan (see the module)."""
     _check_slots(inv_slot, d_slots, "moe_gather_backward", "d_slots")
-    if d_slots.device.type == "cpu":
+    if plain_device(d_slots):
         return moe_gather_backward_plain(inv_slot, d_slots)
     if not (inv_slot.is_contiguous() and d_slots.is_contiguous()):
         raise ValueError("moe_gather_backward: every input must be "
@@ -301,7 +302,7 @@ def moe_combine_backward(inv_slot, inv_weight, expert_out, dy,
     the CPU does not."""
     _check_combine_backward(inv_slot, inv_weight, expert_out, dy,
                             "moe_combine_backward")
-    if expert_out.device.type == "cpu":
+    if plain_device(expert_out):
         return moe_combine_backward_plain(inv_slot, inv_weight, expert_out,
                                           dy)
     if token_idx is None:

@@ -6,8 +6,9 @@
 Without ``--reduced`` it trains the published config at full width, with
 random weights drawn by ``init_params`` on ``--device`` (``cuda`` unless
 given). The reference's multi-host flags (``--mesh-data``, ``--multi-pod``,
-``--compress-pods``, ``--distributed-init``) wait for the port of
-``distributed/sharding.py`` (ROADMAP Queue A item 15) and raise.
+``--compress-pods``, ``--distributed-init``) wait for the collective half
+of ROADMAP Queue A item 15(d) (process groups, the sharded step) and
+raise; ``distributed/sharding.py``'s specs alone do not run a step.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
 from repro_torch.train import Trainer, TrainConfig, TrainerConfig
 
-_SHARDING = ("waits for the port of distributed/sharding.py "
-             "(ROADMAP Queue A item 15)")
+_SHARDING = ("waits for the collective half of ROADMAP Queue A item "
+             "15(d): process groups and a sharded step")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

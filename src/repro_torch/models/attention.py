@@ -236,16 +236,20 @@ def attention(params, x, positions, cfg: ModelConfig, *,
               kind: str = "attn", causal: bool = True,
               return_cache: bool = False):
     """Full-sequence attention. kind: 'attn' (full) or 'local' (windowed)."""
-    if cfg.attention_impl != "blockwise":
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported")
+    if cfg.attention_impl not in ("blockwise", "proj_only"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.mla is not None:
         return _mla_attention(params, x, positions, cfg,
                               return_cache=return_cache)
     dt = cfg.cdtype
     q, k, v = _project_qkv(params, x, cfg, positions)
     window = cfg.sliding_window if kind == "local" else None
-    out = _core(q, k, v, positions, cfg, causal=causal, window=window)
+    if cfg.attention_impl == "proj_only":
+        # Dry-run accounting mode: projections kept, the core replaced by
+        # a shape-correct pass-through (its cost is added analytically).
+        out = v.repeat_interleave(cfg.num_heads // cfg.num_kv_heads, dim=2)
+    else:
+        out = _core(q, k, v, positions, cfg, causal=causal, window=window)
     b, s = x.shape[:2]
     y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, x.shape[-1])
     if return_cache:
@@ -293,8 +297,11 @@ def _mla_attention(params, x, positions, cfg: ModelConfig, *,
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], -1)
     q = torch.cat([q_nope, q_rope], -1)
-    out = _core(q, k, v.contiguous(), positions, cfg, causal=True,
-                window=None)
+    if cfg.attention_impl == "proj_only":
+        out = v        # dry-run accounting mode (core added analytically)
+    else:
+        out = _core(q, k, v.contiguous(), positions, cfg, causal=True,
+                    window=None)
     y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, dm)
     if return_cache:
         # MLA caches the compressed latents: (c_kv | k_rope) per position.

@@ -13,7 +13,9 @@ Batches are dicts of tensors on the parameters' device: ``tokens`` and
 ``labels`` (B, S) int, ``loss_mask`` (B, S) float.
 
 The cross-pod error-feedback int8 all-reduce (``compress_pod_axis``) waits
-for ``distributed/sharding.py`` (ROADMAP Queue A item 15) and raises.
+for the collective half of ROADMAP Queue A item 15(d) and raises: the
+sharding specs (``distributed/sharding.py``) are ported, the all-reduce
+across process groups is not.
 """
 from __future__ import annotations
 
@@ -29,7 +31,9 @@ from repro_torch.models.model import loss_fn
 from repro_torch.tree import flatten, map_with_path, tree_map
 
 _NO_COMPRESSION = ("compress_pod_axis (the EF-int8 all-reduce) waits for "
-                   "distributed/sharding.py, ROADMAP Queue A item 15")
+                   "the collective half of ROADMAP Queue A item 15(d): "
+                   "distributed/sharding.py's specs are ported, the "
+                   "all-reduce across process groups is not")
 
 
 class TrainState(NamedTuple):
