@@ -256,12 +256,45 @@ Phases:
    counts must read more than 0 and allocate nothing on the card. Then
    the dry-run CLI's qwen3-14b x train_4k x single cell into a temporary
    directory, which must end ``ok`` with the reference's keys.
-13. The most active descriptors one copy call received on each path
+13. (s) The collective path, after (r): worlds of ranks, one process a
+   mesh position, all on this card over gloo (whose collectives copy
+   through host memory: its times are loopback, not NVLink), each world
+   finished before the next and held against one process on the card;
+   a rank that fails or passes S_TIMEOUT fails the smoke. First NCCL with
+   two ranks on the card, which must refuse (a duplicate GPU). A world of
+   4 ranks, (s2): qwen2.5-3b at published widths cut to 4 of 36 layers
+   (fp32 parameters, bf16 compute) on data 2 x model 2, each rank its
+   blocks of every state leaf (shaped as ``shard_shape`` says) and 2 x
+   512 of the 4 x 512 batch: 3 sharded steps through flash forward and
+   backward, a checkpoint rank 0 writes, a fourth step; each rank in turn
+   then runs the one-process steps on the whole batch (each step's loss
+   within 2e-3 relative and global norm within 1 %, every leaf's moments
+   at cosine >= 0.999 but the key bias's, every parameter within 2 lr a
+   step). A world of 2 ranks: (s1) dbrx-132b's MoE FFN at published
+   widths in bf16, 4 x 512 tokens on model 2 through ``_moe_ffn_ep``
+   (each rank launching ``moe_gather``, ``moe_combine`` and both
+   backwards), its output within four bf16 half-ulps of the largest, aux
+   and drops equal, the gradients of x, the router and the rank's
+   experts at cosine >= 0.999 against the one-process ``moe_ffn``, both
+   timed; (s3) dbrx-132b cut to 1 of 40 layers (bf16 parameters) on data
+   1 x model 2, 2 sharded steps held as (s2), the ranks' summed peak
+   under 72 GB; (s4) the EF-int8 step on pod 2: 3 steps without
+   clipping, every leaf and each pod's residual bit for bit against the
+   reference's formula recomputed in one process, the wire bytes of both
+   forms and the residuals' largest entry printed; (s5) (s2)'s checkpoint
+   through ``survive_shrink`` onto data 1 x model 2 (its first mesh,
+   (s2)'s, refused), bit-equal, then a step whose loss is (s2)'s fourth
+   within 2e-3. (s6) ``torch.distributed.run`` of the training launcher
+   with ``--distributed-init --mesh-data 1`` on NCCL, a world of one:
+   qwen2.5-3b at published widths cut to 1 layer (``--layers``; the
+   reduced config's head dim of 16 has no flash kernel), 2 steps of 4 x
+   512 tokens and the trainer's final checkpoint (about 4.7 GB).
+14. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
    launches; a ``kernels`` JSON line (each of the ten kernels' launches
-   summed over the main path, (k), (j), (l), (m), (n), (o), (p) and (q),
-   and per path; flash's phase (o) launches by shape and its times at the
-   new head dims), then the ``ok`` JSON line last.
+   summed over the main path, (k), (j), (l), (m), (n), (o), (p), (q) and
+   every rank of (s), and per path; flash's phase (o) launches by shape
+   and its times at the new head dims), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -273,6 +306,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4428,6 +4462,677 @@ def roofline_path(torch, dev, smi: str) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Phase (s): the collective path, worlds of ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+#: A world's time limit: past it every rank is killed and the smoke fails.
+S_TIMEOUT = 420
+#: Every rank's device, and the module whose functions the ranks run.
+S_DEVICE, S_RANKS_MODULE = "cuda:0", "chip_smoke"
+S_ARCH, S_LAYERS = "qwen2.5-3b", 4          # (s2), (s4), (s5)
+S_MOE_ARCH, S_MOE_LAYERS = "dbrx-132b", 1   # (s1), (s3)
+S_BATCH, S_SEQ = 4, 512
+S_STEPS, S_MOE_STEPS = 3, 2
+S_LR, S_WARMUP = TRAIN_LR, TRAIN_WARMUP
+#: (s1): the output of expert parallelism sums each rank's bf16 partial in
+#: bf16 (gloo's all-reduce), where one process rounds its fp32 sum once:
+#: four bf16 half-ulps of the largest output apart at most.
+S_Y_TOL = 2.0 ** -6
+#: (s2)-(s5) against one process, bf16 compute: the ranks' gradients are
+#: bf16 partial sums over their rows added in fp32, so (p)'s bounds hold
+#: each step's loss and global norm and the moments of every leaf
+#: (cosine), except the key bias's: its true gradient is 0, so both runs
+#: move it by rounding noise (tests/test_torch_train.py). Each parameter
+#: within 2 lr a step (an AdamW step moves a parameter by about lr at
+#: most, either way) and, in bf16, one half-ulp of its largest entry.
+S_PARAM_STEP_LRS = 2.0
+S_NOISE_LEAVES = ("bk",)
+
+
+def s_cfgs(arch: str, layers: int, param_dtype=None):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
+    return cfg
+
+
+def s_rank_setup():
+    """Every rank's start: the card, no TF32 (as the smoke's own process)."""
+    import torch
+    torch.cuda.set_device(S_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, torch.device(S_DEVICE)
+
+
+def s_batch(torch, cfg, seed: int, dev) -> dict:
+    """The global batch of S_BATCH x S_SEQ tokens of the data pipeline;
+    every rank draws it and takes its rows (``local_batch``)."""
+    from repro_torch.data import DataConfig, DataIterator
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=S_SEQ,
+                                   global_batch=S_BATCH, seed=seed))
+    try:
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()
+                if k in ("tokens", "labels", "loss_mask")}
+    finally:
+        data.close()
+
+
+def s_tcfg(steps: int, grad_clip: float = 1.0, compress=None):
+    from repro_torch import optim
+    from repro_torch.train import TrainConfig
+    return TrainConfig(optimizer=optim.AdamWConfig(
+        lr=S_LR, warmup_steps=S_WARMUP, total_steps=steps + 1,
+        grad_clip=grad_clip), compress_pod_axis=compress)
+
+
+def s_steps(torch, state, batch, cfg, tcfg, n: int, mesh=None):
+    """``n`` train steps: the state, each step's metrics and host ms."""
+    from repro_torch.distributed import shardlib
+    from repro_torch.distributed.sharding import activation_rules
+    from repro_torch.train import train_step
+    metrics, ms = [], []
+    ctx = shardlib.use_mesh(mesh, activation_rules(mesh)) if mesh \
+        else contextlib.nullcontext()
+    with ctx:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch, cfg, tcfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, ms
+
+
+def s_host(state):
+    """A state's leaves copied to the host, by path (its card memory can
+    then go to a one-process reference)."""
+    from repro_torch.tree import flatten
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in flatten(state).items()}
+
+
+def s_hold_leaves(torch, blocks: dict, ref_state, specs: dict, mesh,
+                  steps: int) -> dict:
+    """This rank's blocks (host) against its blocks of the one-process
+    state: the moments' cosine (the noise leaves apart), the parameters'
+    largest difference against S_PARAM_STEP_LRS lr a step (and a bf16
+    parameter's half-ulp)."""
+    from repro_torch.distributed.sharding import take_block
+    from repro_torch.tree import flatten
+    ref = flatten(ref_state)
+    worst_cos, worst_param, over = (2.0, ""), (0.0, ""), []
+    for k, blk in blocks.items():
+        want = take_block(ref[k], specs[k], mesh)
+        got = blk.to(want.device)
+        if tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"phase s: {k} block {tuple(got.shape)}, "
+                                 f"expected {tuple(want.shape)}")
+        noise = k.rsplit("/", 1)[-1] in S_NOISE_LEAVES
+        if k.startswith(".opt/.m/") or k.startswith(".opt/.v/"):
+            if not noise and got.numel() > 1:
+                c = cosine(torch, got, want)
+                worst_cos = min(worst_cos, (c, k))
+                if c < TRAIN_MIN_COS:
+                    over.append((k, c))
+        elif k.startswith(".params/"):
+            err = max_err(torch, got, want)
+            bound = S_PARAM_STEP_LRS * S_LR * steps
+            if want.dtype == torch.bfloat16:
+                bound += 2.0 ** -8 * float(want.float().abs().max())
+            worst_param = max(worst_param, (err / bound, k))
+            if err > bound:
+                over.append((k, err))
+    return {"worst_moment_cosine": worst_cos[0],
+            "worst_moment_leaf": worst_cos[1],
+            "worst_param_share_of_bound": worst_param[0],
+            "worst_param_leaf": worst_param[1], "over": over}
+
+
+def s_each_rank(rank: int, world: int, fn):
+    """``fn()`` on one rank at a time, in rank order (the others wait)."""
+    import torch.distributed as dist
+    out = None
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def s_nccl_rank(rank, world):
+    """(s) NCCL with two ranks on the one card: make_process_mesh must
+    raise (NCCL refuses a duplicate GPU), not fall back to gloo."""
+    s_rank_setup()
+    from repro_torch.launch.mesh import make_process_mesh
+    try:
+        make_process_mesh(1, 2, backend="nccl", device=S_DEVICE)
+    except Exception as e:  # noqa: BLE001 — the refusal is the result
+        return {"refused": True, "error": f"{type(e).__name__}: {e}"}
+    return {"refused": False}
+
+
+def s2_rank(rank, world, *, seed, ckpt):
+    """(s2) qwen2.5-3b cut to S_LAYERS on data 2 x model 2: S_STEPS sharded
+    steps, a checkpoint (rank 0 writes), one more step; then each rank in
+    turn runs the one-process steps on the whole batch and holds its
+    blocks against them."""
+    torch, dev = s_rank_setup()
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding import shard_shape, \
+        train_state_specs
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import (init_state, local_batch, shard_state,
+                                   state_block_specs, state_shapes)
+    from repro_torch.tree import flatten
+
+    cfg = s_cfgs(S_ARCH, S_LAYERS)
+    tcfg = s_tcfg(S_STEPS)
+    mesh = make_process_mesh(2, 2, backend="gloo", device=S_DEVICE)
+    gen = torch.Generator(device=dev)
+    state = shard_state(init_params(gen.manual_seed(seed), cfg, dev), cfg,
+                        tcfg, mesh)
+    torch.cuda.empty_cache()
+    specs = flatten(state_block_specs(cfg, mesh, tcfg))
+    whole = flatten(state_shapes(cfg, tcfg))
+    dry = flatten(train_state_specs(cfg, mesh, state_shapes(cfg, tcfg)))
+    shapes_ok = all(tuple(v.shape) == shard_shape(tuple(whole[k].shape),
+                                                  dry[k], mesh)
+                    for k, v in flatten(state).items())
+    batch = s_batch(torch, cfg, seed, dev)
+    rows = local_batch(batch, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()                  # the sharded steps start here
+    state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_STEPS, mesh)
+    launches = build.launch_counts()        # ... and end here
+    peak = torch.cuda.max_memory_allocated()
+    blocks = s_host(state)
+    t0 = time.perf_counter()
+    Checkpointer(ckpt).save(S_STEPS, state, extra={"phase": "s2"},
+                            mesh=mesh, specs=state_block_specs(cfg, mesh,
+                                                               tcfg))
+    save_s = time.perf_counter() - t0
+    state, next_m, _ = s_steps(torch, state, rows, cfg, tcfg, 1, mesh)
+    del state
+    torch.cuda.empty_cache()
+
+    def reference():
+        st = init_state(init_params(gen.manual_seed(seed), cfg, dev), tcfg)
+        st, ref_m, ref_ms = s_steps(torch, st, batch, cfg, tcfg, S_STEPS)
+        held = s_hold_leaves(torch, blocks, st, specs, mesh, S_STEPS)
+        st, ref_next, _ = s_steps(torch, st, batch, cfg, tcfg, 1)
+        del st
+        torch.cuda.empty_cache()
+        return ref_m, ref_ms, ref_next, held
+
+    ref_m, ref_ms, ref_next, held = s_each_rank(rank, world, reference)
+    return {"coords": dict(mesh.coords), "metrics": metrics, "ms": ms,
+            "ref_metrics": ref_m, "ref_ms": ref_ms, "next": next_m[0],
+            "ref_next": ref_next[0], "held": held, "launches": launches,
+            "peak_bytes": peak, "shapes_ok": shapes_ok, "save_s": save_s,
+            "block_bytes": sum(v.numel() * v.element_size()
+                               for v in blocks.values())}
+
+
+def s1_ep(torch, dev, seed: int) -> dict:
+    """(s1) dbrx-132b's MoE FFN at published widths, bf16 weights, on model
+    2 of the rank's world: y, aux and the gradients of x, the router and
+    the rank's experts against the one-process moe_ffn on the same card."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import shardlib
+    from repro_torch.distributed.sharding import activation_rules
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    cfg = s_cfgs(S_MOE_ARCH, S_MOE_LAYERS, "bfloat16")
+    mesh = make_process_mesh(1, 2, backend="gloo", device=S_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_moe(gen, cfg, dev)
+    x = (torch.randn((S_BATCH, S_SEQ, cfg.d_model), device=dev,
+                     generator=gen) * 0.5).to(cfg.cdtype)
+    w = torch.randn(x.shape, device=dev, generator=gen).to(cfg.cdtype)
+    e_loc = cfg.moe.num_experts // 2
+    lo = mesh.coords["model"] * e_loc
+    experts = ("w_gate", "w_up", "w_down")
+
+    def run(p, ep: bool):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xin = x.detach().requires_grad_()
+        ctx = shardlib.use_mesh(mesh, activation_rules(mesh)) if ep \
+            else contextlib.nullcontext()
+        with ctx:
+            y, aux, metrics = moe_ffn(leaves, xin, cfg, cfg.act_fn)
+            ((y.float() * w.float()).sum() + aux).backward()
+        torch.cuda.synchronize()
+        return {"y": y.detach(), "aux": aux.detach(),
+                "dropped": metrics["moe_dropped"].detach(),
+                "grads": {"x": xin.grad, **{k: v.grad
+                                            for k, v in leaves.items()}}}
+
+    # The rank's experts as views: its leaves are E_loc experts.
+    mine = {k: (v[lo:lo + e_loc] if k in experts else v)
+            for k, v in params.items()}
+    build.reset_launches()                  # the EP call starts here
+    ep = run(mine, True)
+    launches = build.launch_counts()        # ... and ends here
+
+    def timed(p, is_ep):
+        return time_ms(torch, lambda: run(p, is_ep), reps=5, warm=1)
+    ep_ms = timed(mine, True)
+    dist.barrier()
+    one = s_each_rank(mesh.rank, 2, lambda: run(params, False))
+    one_ms = s_each_rank(mesh.rank, 2, lambda: timed(params, False))
+    y_err = max_err(torch, ep["y"], one["y"])
+    y_bound = S_Y_TOL * float(one["y"].float().abs().max())
+    cos = {}
+    for k, g in ep["grads"].items():
+        want = one["grads"][k][lo:lo + e_loc] if k in experts \
+            else one["grads"][k]
+        cos[k] = cosine(torch, g, want)
+    out = {"y_err": y_err, "y_bound": y_bound,
+           "aux_equal": bool(torch.equal(ep["aux"], one["aux"])),
+           "dropped_equal": bool(torch.equal(ep["dropped"],
+                                             one["dropped"])),
+           "dropped": float(one["dropped"]), "grad_cosines": cos,
+           "launches": launches, "ep_ms": ep_ms, "one_ms": one_ms}
+    del ep, one, params, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def s3_moe_steps(torch, dev, seed: int) -> dict:
+    """(s3) dbrx-132b cut to S_MOE_LAYERS, bf16 parameters, data 1 x model
+    2: S_MOE_STEPS sharded steps through _moe_ffn_ep; then each rank in
+    turn (its state on the host) the one-process steps, held as (s2)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import (init_state, local_batch, shard_state,
+                                   state_block_specs)
+    from repro_torch.tree import flatten
+
+    cfg = s_cfgs(S_MOE_ARCH, S_MOE_LAYERS, "bfloat16")
+    tcfg = s_tcfg(S_MOE_STEPS)
+    mesh = make_process_mesh(1, 2, backend="gloo", device=S_DEVICE)
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state = shard_state(init_params(gen.manual_seed(seed), cfg, dev), cfg,
+                        tcfg, mesh)
+    torch.cuda.empty_cache()
+    specs = flatten(state_block_specs(cfg, mesh, tcfg))
+    batch = s_batch(torch, cfg, seed, dev)
+    rows = local_batch(batch, mesh)
+    build.reset_launches()                  # the sharded steps start here
+    state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_MOE_STEPS,
+                                 mesh)
+    launches = build.launch_counts()        # ... and end here
+    peak = torch.cuda.max_memory_allocated()
+    blocks = s_host(state)
+    del state
+    torch.cuda.empty_cache()
+
+    def reference():
+        torch.cuda.reset_peak_memory_stats()
+        st = init_state(init_params(gen.manual_seed(seed), cfg, dev), tcfg)
+        st, ref_m, ref_ms = s_steps(torch, st, batch, cfg, tcfg,
+                                    S_MOE_STEPS)
+        held = s_hold_leaves(torch, blocks, st, specs, mesh, S_MOE_STEPS)
+        del st
+        ref_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        return ref_m, ref_ms, held, ref_peak
+
+    ref_m, ref_ms, held, ref_peak = s_each_rank(mesh.rank, 2, reference)
+    return {"metrics": metrics, "ms": ms, "ref_metrics": ref_m,
+            "ref_ms": ref_ms, "held": held, "launches": launches,
+            "peak_bytes": peak, "ref_peak_bytes": ref_peak}
+
+
+def s4_ef_int8(torch, dev, seed: int) -> dict:
+    """(s4) the EF-int8 step: (s2)'s cut on pod 2 x data 1 x model 1 with
+    compress_pod_axis="pod", without clipping, so that the one-process
+    recomputation of the reference's formula (each pod's gradient of its
+    rows through grads_and_metrics, flat = g + r in blocks of 256, the
+    mean of what was sent, AdamW) must match bit for bit."""
+    from repro_torch import optim
+    from repro_torch.distributed.sharding import take_block
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import compress
+    from repro_torch.train import (grads_and_metrics, local_batch,
+                                   shard_state, state_block_specs)
+    from repro_torch.tree import flatten, map_with_path
+
+    cfg = s_cfgs(S_ARCH, S_LAYERS)
+    tcfg = s_tcfg(S_STEPS, grad_clip=0.0, compress="pod")
+    mesh = make_process_mesh(1, 1, pod=2, backend="gloo", device=S_DEVICE)
+    gen = torch.Generator(device=dev)
+    state = shard_state(init_params(gen.manual_seed(seed), cfg, dev), cfg,
+                        tcfg, mesh)
+    torch.cuda.empty_cache()
+    batch = s_batch(torch, cfg, seed, dev)
+    rows = local_batch(batch, mesh)
+    wire0 = dict(compress.WIRE_BYTES)
+    build.reset_launches()                  # the EF-int8 steps start here
+    state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_STEPS, mesh)
+    launches = build.launch_counts()        # ... and end here
+    wire = {k: compress.WIRE_BYTES[k] - wire0[k] for k in wire0}
+    blocks = s_host(state)
+    res_max = max(float(v.abs().max()) for k, v in blocks.items()
+                  if k.startswith(".residuals/"))
+    del state
+    torch.cuda.empty_cache()
+    specs = flatten(state_block_specs(cfg, mesh, tcfg))
+    pod = mesh.coords["pod"]
+
+    def reference():
+        params = init_params(gen.manual_seed(seed), cfg, dev)
+        opt = optim.init(params)
+        res = [{k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+                for k, v in flatten(params).items()} for _ in range(2)]
+        halves = [{k: v[2 * p:2 * p + 2] for k, v in batch.items()}
+                  for p in range(2)]
+        for _ in range(S_STEPS):
+            sent = []
+            for p in range(2):
+                g, _ = grads_and_metrics(params, halves[p], cfg, 1)
+                s = {}
+                for k, gk in flatten(g).items():
+                    flat = gk.float().reshape(-1) + res[p][k].reshape(-1)
+                    n = flat.numel()
+                    padded = torch.nn.functional.pad(flat, (0, (-n) % 256))
+                    s[k] = compress._dequantize(
+                        *compress._quantize(padded))[:n]
+                    res[p][k] = (flat - s[k]).reshape(gk.shape)
+                    s[k] = s[k].reshape(gk.shape)
+                del g
+                sent.append(s)
+            two = torch.tensor(2.0, device=dev)
+            reduced = {k: (sent[0][k] + sent[1][k]) / two for k in sent[0]}
+            del sent
+            params, opt, _ = optim.apply(
+                tcfg.optimizer, params,
+                map_with_path(lambda k, _: reduced[k], params), opt)
+        ref = {**{f".params/{k}": v for k, v in flatten(params).items()},
+               **{f".opt/.m/{k}": v for k, v in flatten(opt.m).items()},
+               **{f".opt/.v/{k}": v for k, v in flatten(opt.v).items()},
+               **{f".residuals/{k}": v for k, v in res[pod].items()}}
+        differ = [k for k, blk in blocks.items() if k in ref and not
+                  torch.equal(blk.to(dev), take_block(ref[k], specs[k],
+                                                      mesh))]
+        del params, opt, res, ref
+        torch.cuda.empty_cache()
+        return differ
+
+    differ = s_each_rank(mesh.rank, 2, reference)
+    return {"metrics": metrics, "ms": ms, "launches": launches,
+            "wire_bytes": wire, "residual_max_abs": res_max,
+            "leaves": len(blocks), "leaves_not_bit_equal": differ}
+
+
+def s5_elastic(torch, dev, seed: int, ckpt: str) -> dict:
+    """(s5) (s2)'s checkpoint onto data 1 x model 2 through survive_shrink:
+    its first mesh, (s2)'s data 2 x model 2, no longer fits the world of 2
+    and is refused; every leaf bit-equal to the saved one, each block of
+    the new mesh's shape; then one step on the whole batch."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.fault import survive_shrink
+    from repro_torch.distributed.sharding import (shard_shape, take_block,
+                                                  train_state_specs)
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.train import local_batch, state_shapes
+    from repro_torch.tree import flatten
+
+    cfg = s_cfgs(S_ARCH, S_LAYERS)
+    tcfg = s_tcfg(S_STEPS)
+    shapes = state_shapes(cfg, tcfg)
+    tried = []
+
+    def make_mesh(attempt):
+        tried.append(attempt)
+        data = 2 if attempt == 0 else 1
+        return make_process_mesh(data, 2, backend="gloo", device=S_DEVICE)
+
+    ck = Checkpointer(ckpt)
+    t0 = time.perf_counter()
+    state, extra, mesh = survive_shrink(ck, cfg, shapes, make_mesh)
+    restore_s = time.perf_counter() - t0
+    saved, _ = ck.restore(ck.latest_step(), shapes, device="cpu")
+    dry = flatten(train_state_specs(cfg, mesh, shapes))
+    whole = flatten(shapes)
+    got = flatten(state)
+    bit_equal = all(torch.equal(got[k].cpu(), take_block(v, dry[k], mesh))
+                    for k, v in flatten(saved).items())
+    shapes_ok = all(tuple(got[k].shape) == shard_shape(
+        tuple(whole[k].shape), dry[k], mesh) for k in got)
+    del saved
+    rows = local_batch(s_batch(torch, cfg, seed, dev), mesh)
+    build.reset_launches()                  # the step after the restore
+    state, m, ms = s_steps(torch, state, rows, cfg, tcfg, 1, mesh)
+    launches = build.launch_counts()
+    del state
+    torch.cuda.empty_cache()
+    return {"attempts": tried, "extra": extra, "restore_s": restore_s,
+            "bit_equal": bit_equal, "shapes_ok": shapes_ok, "next": m[0],
+            "ms": ms[0], "launches": launches}
+
+
+def s_pair_rank(rank, world, *, seed, ckpt):
+    """The world of 2 ranks: (s1), (s3), (s4) and (s5) in turn, each with
+    its own process mesh over the same two processes."""
+    torch, dev = s_rank_setup()
+    out = {"s1": s1_ep(torch, dev, seed)}
+    out["s3"] = s3_moe_steps(torch, dev, seed)
+    out["s4"] = s4_ef_int8(torch, dev, seed)
+    out["s5"] = s5_elastic(torch, dev, seed, ckpt)
+    return out
+
+
+def s_world(target: str, n: int, workdir: Path, backend: str = "gloo",
+            **kwargs) -> list:
+    from repro_torch.distributed.world import run_world
+    t0 = time.perf_counter()
+    out = run_world(f"{S_RANKS_MODULE}:{target}", n, backend=backend,
+                    workdir=workdir, kwargs=kwargs, timeout=S_TIMEOUT,
+                    python_path=[str(ROOT)])
+    log({"world": target, "ranks": n, "backend": backend,
+         "seconds": time.perf_counter() - t0})
+    return out
+
+
+def s_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def s_hold_steps(label: str, got: list, want: list) -> dict:
+    """Each step's loss and global norm against the one-process run's,
+    within (p)'s bounds."""
+    errs = [{"loss_rel_err": s_rel(g["loss"], w["loss"]),
+             "grad_norm_rel_err": s_rel(g["grad_norm"], w["grad_norm"])}
+            for g, w in zip(got, want)]
+    if len(got) != len(want) or any(
+            e["loss_rel_err"] > TRAIN_LOSS_RTOL
+            or e["grad_norm_rel_err"] > TRAIN_NORM_RTOL for e in errs):
+        raise AssertionError(f"phase {label}: steps differ from one "
+                             f"process beyond tolerance: {errs}")
+    return {"losses": [g["loss"] for g in got],
+            "losses_one_process": [w["loss"] for w in want], "errors": errs}
+
+
+def s_hold_launches(label: str, ranks: list, names) -> dict:
+    for r, launches in enumerate(ranks):
+        missing = [k for k in names if launches.get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"phase {label}: rank {r} did not launch "
+                                 f"{missing}")
+    return {k: sum(x.get(k, 0) for x in ranks) for k in ranks[0]}
+
+
+S_FLASH = ("flash_attention", "flash_attention_bwd")
+
+
+def collective_path(torch, np, smi: str, seed: int) -> dict:
+    """(s) The collective path: worlds of ranks that all share the card
+    over gloo, each held against one process on the same card; the
+    launcher on NCCL, a world of one. Returns the launches summed over
+    every rank of every world."""
+    import shutil
+    torch.cuda.empty_cache()
+    base = ROOT / "build" / "s_worlds"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    launches = []
+    log({"phase": "s", "card": smi, "collectives": "gloo over host "
+         "loopback (one card: no NCCL world of two ranks, no NVLink)"})
+    try:
+        # NCCL refuses two ranks on one card; the error stands.
+        refused = s_world("s_nccl_rank", 2, base / "nccl", backend="nccl")
+        if not all(r["refused"] for r in refused):
+            raise AssertionError("phase s: NCCL took two ranks on one card")
+        log({"check": "s_nccl_duplicate_gpu", "ranks": refused})
+
+        ckpt = str(base / "ckpt")
+        four = s_world("s2_rank", 4, base / "s2", seed=seed, ckpt=ckpt)
+        for r in four:
+            held = s_hold_steps("s2", r["metrics"], r["ref_metrics"])
+            if r["held"]["over"] or not r["shapes_ok"]:
+                raise AssertionError(f"phase s2: rank {r['coords']}: "
+                                     f"{r['held']['over']} shapes_ok="
+                                     f"{r['shapes_ok']}")
+        launches.append(s_hold_launches("s2", [r["launches"] for r in four],
+                                        S_FLASH))
+        log({"check": "s2_sharded_step", "arch": S_ARCH,
+             "layers": S_LAYERS, "mesh": {"data": 2, "model": 2},
+             "batch": [S_BATCH, S_SEQ], **held,
+             "leaves_held": [r["held"] for r in four],
+             "step_ms": [r["ms"] for r in four],
+             "one_process_step_ms": [r["ref_ms"] for r in four],
+             "peak_bytes_per_rank": [r["peak_bytes"] for r in four],
+             "block_bytes_per_rank": [r["block_bytes"] for r in four],
+             "save_s": four[0]["save_s"], "launches": launches[-1],
+             "next_loss": four[0]["next"]["loss"],
+             "next_loss_one_process": four[0]["ref_next"]["loss"],
+             "card": smi, "collectives": "gloo, host-staged loopback"})
+
+        pair = s_world("s_pair_rank", 2, base / "pair", seed=seed,
+                       ckpt=ckpt)
+        s1 = [r["s1"] for r in pair]
+        for r in s1:
+            bad = {k: c for k, c in r["grad_cosines"].items()
+                   if c < TRAIN_MIN_COS}
+            if r["y_err"] > r["y_bound"] or bad or not r["aux_equal"] \
+                    or not r["dropped_equal"]:
+                raise AssertionError(f"phase s1: {r}")
+        launches.append(s_hold_launches("s1", [r["launches"] for r in s1],
+                                        MOE_TRAIN_KERNELS))
+        log({"check": "s1_ep_moe", "arch": S_MOE_ARCH, "tokens":
+             S_BATCH * S_SEQ, "mesh": {"data": 1, "model": 2},
+             "ranks": [{k: v for k, v in r.items() if k != "launches"}
+                       for r in s1],
+             "tolerance": {"y_share_of_max": S_Y_TOL,
+                           "min_cosine": TRAIN_MIN_COS},
+             "launches": launches[-1], "card": smi,
+             "collectives": "gloo, host-staged loopback"})
+        s3 = [r["s3"] for r in pair]
+        for r in s3:
+            held = s_hold_steps("s3", r["metrics"], r["ref_metrics"])
+            if r["held"]["over"]:
+                raise AssertionError(f"phase s3: {r['held']['over']}")
+        launches.append(s_hold_launches(
+            "s3", [r["launches"] for r in s3], MOE_TRAIN_KERNELS + S_FLASH))
+        world_peak = sum(r["peak_bytes"] for r in s3)
+        log({"check": "s3_moe_step", "arch": S_MOE_ARCH,
+             "layers": S_MOE_LAYERS, "mesh": {"data": 1, "model": 2},
+             **held, "leaves_held": [r["held"] for r in s3],
+             "step_ms": [r["ms"] for r in s3],
+             "one_process_step_ms": [r["ref_ms"] for r in s3],
+             "peak_bytes_per_rank": [r["peak_bytes"] for r in s3],
+             "world_peak_bytes": world_peak,
+             "one_process_peak_bytes": [r["ref_peak_bytes"] for r in s3],
+             "launches": launches[-1], "card": smi,
+             "collectives": "gloo, host-staged loopback"})
+        if world_peak > 72e9:
+            raise AssertionError(f"phase s3: the world's peaks sum to "
+                                 f"{world_peak / 1e9:.1f} GB")
+        s4 = [r["s4"] for r in pair]
+        for r in s4:
+            if r["leaves_not_bit_equal"]:
+                raise AssertionError(f"phase s4: not bit-equal: "
+                                     f"{r['leaves_not_bit_equal'][:8]}")
+        if s4[0]["metrics"] != s4[1]["metrics"]:
+            raise AssertionError("phase s4: the pods disagree on metrics")
+        launches.append(s_hold_launches("s4", [r["launches"] for r in s4],
+                                        S_FLASH))
+        log({"check": "s4_ef_int8", "arch": S_ARCH, "layers": S_LAYERS,
+             "mesh": {"pod": 2, "data": 1, "model": 1},
+             "losses": [m["loss"] for m in s4[0]["metrics"]],
+             "grad_norms": [m["grad_norm"] for m in s4[0]["metrics"]],
+             "leaves_bit_equal": s4[0]["leaves"],
+             "residual_max_abs": [r["residual_max_abs"] for r in s4],
+             "wire_bytes_per_rank": s4[0]["wire_bytes"],
+             "wire_ratio": s4[0]["wire_bytes"]["int8"]
+             / s4[0]["wire_bytes"]["fp32"],
+             "step_ms": [r["ms"] for r in s4], "launches": launches[-1],
+             "card": smi, "collectives": "gloo, host-staged loopback"})
+        s5 = [r["s5"] for r in pair]
+        for r in s5:
+            if r["attempts"] != [0, 1] or not r["bit_equal"] \
+                    or not r["shapes_ok"]:
+                raise AssertionError(f"phase s5: {r}")
+        want = four[0]["next"]["loss"]
+        err = s_rel(s5[0]["next"]["loss"], want)
+        if err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"phase s5: the step after the restore "
+                                 f"gave {s5[0]['next']['loss']}, (s2)'s "
+                                 f"world {want}")
+        launches.append(s_hold_launches("s5", [r["launches"] for r in s5],
+                                        S_FLASH))
+        log({"check": "s5_elastic", "from": {"data": 2, "model": 2},
+             "to": {"data": 1, "model": 2}, "attempts": s5[0]["attempts"],
+             "restore_s": [r["restore_s"] for r in s5],
+             "next_loss": s5[0]["next"]["loss"], "s2_world_next_loss": want,
+             "loss_rel_err": err, "step_ms": [r["ms"] for r in s5],
+             "launches": launches[-1], "card": smi})
+
+        # (s6) The launcher's flags on NCCL, a world of one on the card.
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+             "--arch", S_ARCH, "--layers", "1", "--distributed-init",
+             "--mesh-data", "1", "--steps", "2", "--global-batch",
+             str(S_BATCH), "--seq-len", str(S_SEQ),
+             "--device", S_DEVICE.split(":")[0],
+             "--ckpt-dir", str(base / "launcher_ckpt")],
+            capture_output=True, text=True, env=env, timeout=S_TIMEOUT,
+            cwd=str(base))
+        if proc.returncode != 0 or "finished at step 2" not in proc.stdout:
+            raise AssertionError(f"phase s6: the launcher exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        log({"check": "s6_launcher_nccl", "backend": "nccl", "world": 1,
+             "seconds": time.perf_counter() - t0,
+             "stdout_tail": proc.stdout.strip().splitlines()[-1:]})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    total = {}
+    for d in launches:
+        for k, n in d.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4530,6 +5235,9 @@ def main() -> int:
     t0 = time.perf_counter()
     roofline_path(torch, dev, smi)
     log({"phase": "r", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path["s_collective"] = collective_path(torch, np, smi, args.seed)
+    log({"phase": "s", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(

@@ -18,8 +18,19 @@ reference's do (:mod:`repro_torch.tree`), and bfloat16 leaves go to the npz
 as their raw 2-byte void view with the manifest dtype ``"bfloat16"``, as the
 reference's do, so a checkpoint of a nested dict written by either package
 restores in the other. ``restore`` rebuilds the tree of ``like`` on
-``device``; the reference's elastic re-mesh (its ``shardings``) waits for
-the collective half of ROADMAP Queue A item 15(d).
+``device``.
+
+On a mesh backed by process groups (``launch.mesh.make_process_mesh``),
+``save(..., mesh=, specs=)`` takes each rank's blocks of a tree under a
+spec tree (``distributed.sharding.train_state_block_specs``), gathers
+them to rank 0, which lays them into whole leaves and alone writes the
+layout above, unchanged; the other ranks wait for its ``COMMIT``. A leaf
+whose spec owns an axis (a pod's error-feedback residual) is written once
+per position along it: position 0 under its own name, so that the other
+package reads it, position ``i`` under ``<name>@<axis><i>``.
+``restore(..., mesh=, specs=)`` gives each rank its block of every leaf:
+the counterpart of the reference's ``shardings=`` (elastic re-mesh), onto
+any mesh whose axes divide the leaves.
 """
 from __future__ import annotations
 
@@ -34,6 +45,11 @@ import numpy as np
 import torch
 
 from repro_torch.tree import flatten, map_with_path
+
+
+def _own_name(path: str, axis: str, i: int) -> str:
+    """The name of position ``i``'s copy of a leaf owned along ``axis``."""
+    return path if i == 0 else f"{path}@{axis}{i}"
 
 
 def _host_array(x) -> np.ndarray:
@@ -63,7 +79,13 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, *, blocking: bool = False,
-             extra: Optional[Dict] = None) -> None:
+             extra: Optional[Dict] = None, mesh=None,
+             specs: Any = None) -> None:
+        """Write ``tree`` as step ``step``: its leaves whole, or on a process
+        ``mesh`` its blocks under ``specs``, gathered to rank 0 (blocking;
+        every rank calls it)."""
+        if mesh is not None:
+            return self._save_blocks(step, tree, extra, mesh, specs)
         # Copy to the host *now* (the step may update the tree in place),
         # write async.
         self.wait()
@@ -80,6 +102,39 @@ class Checkpointer:
         t.start()
         if blocking:
             self.wait()
+
+    def _save_blocks(self, step: int, tree: Any, extra: Optional[Dict],
+                     mesh, specs: Any) -> None:
+        import torch.distributed as dist
+        from repro_torch.distributed import sharding, shardlib
+        self.wait()
+        spec_of = flatten(specs)
+        flat: Dict[str, np.ndarray] = {}
+        done = self._committed(step)
+        for path, block in flatten(tree).items():
+            if done:
+                break
+            blocks = shardlib.gather_to_first(block, mesh)
+            if blocks is None:
+                continue
+            spec = spec_of[path]
+            whole = sharding.assemble(
+                blocks, sharding.leaf_shape(block.shape, spec, mesh), spec,
+                mesh)
+            if not spec.own:
+                flat[path] = _host_array(whole)
+                continue
+            (axis,) = spec.own
+            for i, leaf in enumerate(whole):
+                flat[_own_name(path, axis, i)] = _host_array(leaf)
+        if mesh.rank == 0 and not done:
+            self._write(step, flat, extra)
+        elif mesh.rank == 0:
+            self._gc()
+        dist.barrier()
+        if not self._committed(step):
+            raise RuntimeError(f"rank {mesh.rank}: step {step} has no COMMIT "
+                               f"after rank 0's save")
 
     def wait(self):
         if self._pending is not None:
@@ -141,12 +196,14 @@ class Checkpointer:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *,
-                device=None) -> Tuple[Any, Dict]:
+    def restore(self, step: int, like: Any, *, device=None, mesh=None,
+                specs: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like`` (its leaves give each
         array's dtype; a leaf that is not a tensor gives a tensor of the
         stored dtype), as tensors on ``device`` (default: each leaf's own
-        device). Returns ``(tree, extra)``."""
+        device). On a process ``mesh``, each leaf is this rank's block of
+        it under ``specs``, on the mesh's device unless ``device`` is
+        given. Returns ``(tree, extra)``."""
         d = os.path.join(self.dir, f"step_{step:09d}")
         if not os.path.exists(os.path.join(d, "COMMIT")):
             raise FileNotFoundError(f"no committed checkpoint at step {step}")
@@ -162,14 +219,27 @@ class Checkpointer:
         if missing:
             raise KeyError(f"checkpoint missing arrays: {sorted(missing)[:5]}")
 
+        spec_of = flatten(specs) if mesh is not None else {}
+        if mesh is not None and device is None:
+            device = mesh.device
+
         def rebuild(path, leaf):
-            arr = data[path]
+            spec = spec_of.get(path)
+            name = path
+            if spec is not None and spec.own:
+                (axis,) = spec.own
+                own = _own_name(path, axis, mesh.coords.get(axis, 0))
+                name = own if own in data else path
+            arr = data[name]
             if arr.dtype.kind == "V":
                 # bf16 round-trips through npz as raw 2-byte void.
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr, copy=True))
+            if spec is not None:
+                from repro_torch.distributed.sharding import take_block
+                t = take_block(t, spec, mesh).clone()
             if isinstance(leaf, torch.Tensor):
                 dev = leaf.device if device is None else device
                 return t.to(device=dev, dtype=leaf.dtype)

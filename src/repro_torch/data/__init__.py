@@ -4,5 +4,6 @@ from .pipeline import (  # noqa: F401
     DataIterator,
     IteratorState,
     make_batch,
+    mesh_hosts,
     pack_documents,
 )

@@ -47,6 +47,16 @@ class IteratorState:
         return IteratorState(step=int(d["step"]))
 
 
+def mesh_hosts(mesh) -> Tuple[int, int]:
+    """``(host_id, num_hosts)`` of this rank on a process mesh: its
+    position along the batch axes (``pod``, ``data``) and their size. The
+    ``model`` axis does not count: ranks along it take the same rows. (The
+    reference reads ``jax.process_index()``, a host there driving many
+    chips; here a process is a mesh position.)"""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return mesh.index(axes), mesh.size(axes)
+
+
 def _doc_stream(cfg: DataConfig, step: int) -> np.random.Generator:
     # Counter-based: host and step fully determine the stream (restartable,
     # disjoint across hosts).

@@ -26,4 +26,8 @@ from .sharded_runtime import (  # noqa: F401
     ShardedServeEngine,
     resolve_num_shards,
 )
-from .fault import ungraceful_resize  # noqa: F401
+from .fault import (  # noqa: F401
+    reshard_checkpoint,
+    survive_shrink,
+    ungraceful_resize,
+)

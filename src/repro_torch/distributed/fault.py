@@ -1,27 +1,65 @@
-"""Elastic scaling of the sharded serving layer: losing a shard.
+"""Elastic scaling: restore a checkpoint onto a *different* mesh topology,
+and lose a shard of the sharded serving layer.
 
-:func:`ungraceful_resize` treats a shard lost while fabric tickets are in
-flight as an unplanned mesh resize (DESIGN.md §10): outstanding hops are
-re-routed, the lost shard's live pages are handed off to survivors, and
-the mesh quiesces on N-1 shards.
+On node failure the controller rebuilds a smaller mesh (e.g. 2 pods -> 1),
+calls :func:`reshard_checkpoint` to land the last committed state on the new
+topology, and training resumes — the checkpoint manifest (descriptor-style
+array records, DESIGN.md §3) carries everything needed. Meshes here are
+process meshes (``launch.mesh.make_process_mesh``): every rank of the new
+world calls these, and each gets its block of every leaf.
+
+The serving-side counterpart is :func:`ungraceful_resize`: losing a shard
+while fabric tickets are in flight is treated as an unplanned mesh resize
+(DESIGN.md §10) — outstanding hops are re-routed, the lost shard's live
+pages are handed off to survivors, and the mesh quiesces on N-1 shards.
 
 The lost shard's "recovered image" is its pools as they stand: the port's
 pools are the same tensors the drains write in place, so the recovery
 drain reads every byte an egress gather was submitted to read (each
 channel drains in submission order, as in the JAX package).
-
-The training-side counterparts of the JAX package (``reshard_checkpoint``
-and ``survive_shrink``) restore checkpoints onto a new mesh; they need the
-checkpoint layer and the training state's sharding specs, which this
-package does not have.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from .fabric import IN_FLIGHT, INGRESS
+from .sharding import train_state_block_specs
+
+
+def reshard_checkpoint(ckpt, step: int, cfg, new_mesh,
+                       state_shapes: Any) -> Tuple[Any, dict]:
+    """Restore ``step`` as this rank's blocks on ``new_mesh``.
+
+    ``state_shapes`` is the TrainState shape tree for the *same model* (the
+    mesh changes placement, not shapes), e.g. ``param_shapes`` on the meta
+    device with moments of the same shapes.
+    """
+    specs = train_state_block_specs(cfg, new_mesh, state_shapes)
+    return ckpt.restore(step, state_shapes, mesh=new_mesh, specs=specs)
+
+
+def survive_shrink(ckpt, cfg, state_shapes: Any, make_mesh, *,
+                   max_attempts: int = 3) -> Optional[Tuple[Any, dict, Any]]:
+    """Controller-side recovery loop: try the meshes ``make_mesh(attempt)``
+    gives (progressively smaller ones) until the latest committed
+    checkpoint restores onto one. Returns ``(state, extra, mesh)``, or
+    None without a committed checkpoint."""
+    step = ckpt.latest_step()
+    if step is None:
+        return None
+    last_err = None
+    for attempt in range(max_attempts):
+        try:
+            mesh = make_mesh(attempt)
+            state, extra = reshard_checkpoint(ckpt, step, cfg, mesh,
+                                              state_shapes)
+            return state, extra, mesh
+        except Exception as e:  # noqa: BLE001 — controller retries smaller
+            last_err = e
+    raise RuntimeError(
+        f"elastic recovery failed after {max_attempts} topologies: {last_err}")
 
 
 def ungraceful_resize(kv, lost_shard: int, *,

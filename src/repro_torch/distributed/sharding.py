@@ -7,10 +7,16 @@ data); logical axes inside the model map via shardlib rules. KV/SSM caches
 shard batch over data — or the *sequence/page* axis when global_batch <
 data-axis size (long-context SP with distributed partial softmax).
 
-No program is partitioned here: the specs serve the dry run's per-chip
-counts (:func:`shard_shape`, :func:`per_device`), which take the place of
-the reference's ``to_named``/``NamedSharding``. A spec is a :class:`P`,
-one entry per leading dim (``None``, a mesh axis, or a tuple of axes).
+The specs serve the dry run's per-chip counts (:func:`shard_shape`,
+:func:`per_device`), which take the place of the reference's
+``to_named``/``NamedSharding``, and the sharded train step on a process
+mesh (``train/step.py``): :func:`take_block` cuts a rank's block of a
+leaf, :func:`gather_leaf` all-gathers the blocks back, and
+:func:`assemble` lays every rank's block into the leaf (a checkpoint's
+save). A spec is a :class:`P`, one entry per leading dim (``None``, a
+mesh axis, or a tuple of axes); its ``own`` names axes along which each
+position keeps a block of its own that spans every position's share (a
+pod's error-feedback residual, :func:`train_state_block_specs`).
 
 Layout of stacked parameters: the reference stacks a pattern slot's blocks
 over periods (a leading periods axis under ``slots``, which its specs
@@ -34,10 +40,11 @@ class P:
     tuple of axis names), one per leading dim. Not a tuple, so the port's
     tree walkers take it as a leaf."""
 
-    __slots__ = ("entries",)
+    __slots__ = ("entries", "own")
 
-    def __init__(self, *entries):
+    def __init__(self, *entries, own: Tuple[str, ...] = ()):
         self.entries = tuple(entries)
+        self.own = tuple(own)
 
     def __iter__(self):
         return iter(self.entries)
@@ -49,13 +56,15 @@ class P:
         return self.entries[i]
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, P) and self.entries == other.entries
+        return (isinstance(other, P) and self.entries == other.entries
+                and self.own == other.own)
 
     def __hash__(self) -> int:
-        return hash(self.entries)
+        return hash((self.entries, self.own))
 
     def __repr__(self) -> str:
-        return f"P{self.entries!r}"
+        v = f", own={self.own!r}" if self.own else ""
+        return f"P{self.entries!r}{v}"
 
 
 def _axes(mesh) -> Dict[str, int]:
@@ -151,7 +160,8 @@ def param_specs(cfg: ModelConfig, mesh, shapes_tree: Any) -> Any:
         shapes_tree)
 
 
-def _strip(spec: P, drop: Tuple[str, ...]) -> P:
+def strip(spec: P, drop: Tuple[str, ...]) -> P:
+    """``spec`` without the axes in ``drop``."""
     entries = []
     for e in spec:
         if e is None:
@@ -162,7 +172,7 @@ def _strip(spec: P, drop: Tuple[str, ...]) -> P:
                            (kept[0] if kept else None))
         else:
             entries.append(None if e in drop else e)
-    return P(*entries)
+    return P(*entries, own=tuple(a for a in spec.own if a not in drop))
 
 
 def serving_param_specs(cfg: ModelConfig, mesh, shapes_tree: Any) -> Any:
@@ -173,7 +183,7 @@ def serving_param_specs(cfg: ModelConfig, mesh, shapes_tree: Any) -> Any:
     """
     fs = fsdp_axes(mesh)
     return map_with_path(
-        lambda path, leaf: _strip(_param_spec(tuple(path.split("/")),
+        lambda path, leaf: strip(_param_spec(tuple(path.split("/")),
                                               tuple(leaf.shape), mesh), fs),
         shapes_tree)
 
@@ -306,3 +316,125 @@ def per_device_bytes(shapes_tree: Any, specs_tree: Any, mesh) -> int:
     """Bytes one device holds of ``shapes_tree`` under ``specs_tree``."""
     return sum(s.nbytes for s in per_device(shapes_tree, specs_tree,
                                             mesh).values())
+
+
+# ---------------------------------------------------------------------------
+# Blocks on a process mesh
+# ---------------------------------------------------------------------------
+
+def _entry_axes(mesh, e) -> Tuple[str, ...]:
+    return mesh.axes(e) if e is not None else ()
+
+
+def _grid_view(x, spec: P, mesh, coords):
+    """A view of ``x`` at the block of mesh position ``coords``, each split
+    dim left as (the ``spec.own`` axes' positions..., block rows), and the
+    block's shape with those merged. The specs' divisibility guard makes
+    every block an exact slice."""
+    y, merged = x, list(x.shape)
+    # From the last dim down: splitting dim i leaves dims < i in place.
+    for i in reversed(range(min(len(spec), x.ndim))):
+        axes = _entry_axes(mesh, spec[i])
+        if not axes:
+            continue
+        sizes = [mesh.shape[a] for a in axes]
+        if x.shape[i] % math.prod(sizes):
+            raise ValueError(f"dim {x.shape[i]} does not split over {axes}")
+        b = x.shape[i] // math.prod(sizes)
+        y = y.view(*y.shape[:i], *sizes, b, *y.shape[i + 1:])
+        y = y[(slice(None),) * i + tuple(
+            slice(None) if a in spec.own else coords[a] for a in axes)]
+        merged[i] = b * math.prod(mesh.shape[a] for a in axes
+                                  if a in spec.own)
+    return y, tuple(merged)
+
+
+def take_block(x, spec: P, mesh):
+    """This rank's block of the whole leaf ``x`` under ``spec`` (a view
+    where the block is one, else a copy)."""
+    y, shape = _grid_view(x, spec, mesh, mesh.coords)
+    return y.reshape(shape)
+
+
+def block_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
+    """The shape of every rank's block of a ``shape`` leaf under ``spec``."""
+    import torch
+    meta = torch.empty(shape, device="meta")
+    return _grid_view(meta, spec, mesh,
+                      {a: 0 for a in mesh.axis_names})[1]
+
+
+def leaf_shape(block: Tuple[int, ...], spec: P, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from its block's under ``spec``."""
+    out = list(block)
+    for i in range(min(len(spec), len(out))):
+        out[i] *= math.prod(mesh.shape[a]
+                            for a in _entry_axes(mesh, spec[i])
+                            if a not in spec.own)
+    return tuple(out)
+
+
+def gather_leaf(block, spec: P, mesh):
+    """The whole leaf from this rank's ``block`` under ``spec`` (no
+    ``own`` axes): an all-gather along each split dim's axes, dim by dim."""
+    import torch
+    from .shardlib import all_gather
+    x = block
+    for i in range(min(len(spec), x.ndim)):
+        axes = _entry_axes(mesh, spec[i])
+        if axes and mesh.size(axes) > 1:
+            x = torch.cat(all_gather(x, axes, mesh), dim=i)
+    return x
+
+
+def replicas(spec: P, mesh) -> int:
+    """How many ranks hold each block of a leaf under ``spec``: the
+    product of the axes it neither splits over nor owns."""
+    used = {a for e in spec for a in _entry_axes(mesh, e)} | set(spec.own)
+    return math.prod(n for a, n in mesh.shape.items() if a not in used)
+
+
+def assemble(blocks, shape, spec: P, mesh):
+    """The whole leaf from every rank's block, ``blocks[r]`` being world
+    rank ``r``'s (host tensors). With ``spec.own``, a list of leaves, one
+    per position along those axes (mesh order), each from the blocks of
+    the ranks at that position."""
+    import numpy as np
+    import torch
+    grid = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    own = mesh.axes(spec.own)
+    out = []
+    for pos in np.ndindex(*[mesh.shape[a] for a in own]):
+        full = torch.empty(shape, dtype=blocks[0].dtype)
+        for r in range(grid.size):
+            coords = dict(zip(mesh.axis_names,
+                              map(int, np.unravel_index(r, grid.shape))))
+            if any(coords[a] != p for a, p in zip(own, pos)):
+                continue
+            view, _ = _grid_view(full, spec, mesh, coords)
+            view.copy_(blocks[r].reshape(view.shape))
+        out.append(full)
+    return out if own else out[0]
+
+
+def is_expert_leaf(path: str, spec: P) -> bool:
+    """An MoE expert stack (E, ., .) split over ``model`` on its experts:
+    expert parallelism keeps that slice (the rank's experts) in compute."""
+    return (path.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down")
+            and len(spec) == 3 and spec[0] == "model")
+
+
+def train_state_block_specs(cfg: ModelConfig, mesh, state_shapes: Any,
+                            compress_axis: Optional[str] = "pod") -> Any:
+    """The specs of a rank's blocks of a :class:`TrainState` on a process
+    mesh: :func:`train_state_specs`, except the error-feedback residuals.
+    Each position along ``compress_axis`` keeps its own residual of what
+    it sends across the axis: for every position's share of the leaf
+    along it, since each sends them all. So a residual's spec owns the
+    axis."""
+    specs = train_state_specs(cfg, mesh, state_shapes)
+    if specs.residuals is None or compress_axis not in mesh.shape:
+        return specs
+    res = map_with_path(lambda _, sp: P(*sp, own=(compress_axis,)),
+                        specs.residuals)
+    return specs._replace(residuals=res)

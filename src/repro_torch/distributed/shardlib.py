@@ -1,11 +1,30 @@
-"""Logical-axis sharding state: the thread's mesh and its rule table.
+"""Logical-axis sharding state: the thread's mesh and its rule table, and
+the collectives along a mesh's axes.
 
 Models annotate tensors with *logical* axis names; a per-launch rule table
 maps them to mesh axes (MaxText-style). In this package a mesh is a
-:class:`Mesh` — a tuple of ``torch.device`` objects with a named ``shape``
-— and :func:`shard` is the identity: the sharded DMA runtime places each
-shard's pools on its mesh device itself (``ShardedDMARuntime._place``), and
-no model code is partitioned across devices.
+:class:`Mesh` — an array of ``torch.device`` objects with a named
+``shape`` — and :func:`shard` is the identity: the sharded DMA runtime
+places each shard's pools on its mesh device itself
+(``ShardedDMARuntime._place``), and no tensor is partitioned by a
+constraint.
+
+A mesh may be backed by process groups (:func:`repro_torch.launch.mesh.
+make_process_mesh`): SPMD over ``torch.distributed``, one process per mesh
+position, which holds the process group along every set of axes and its
+own coordinates. The training path runs its collectives there: the
+differentiable :func:`reduce_from`, :func:`copy_to` and :func:`pmean` (the
+counterparts of ``psum`` and ``pmean`` inside the reference's
+``shard_map``), and :func:`all_reduce_` / :func:`all_gather` for
+gradients, parameters and checkpoints. A mesh without that backing (the
+sharded runtime's logical shards, the production meshes of ``meta``
+devices, :func:`make_debug_mesh` over one device) has none of them.
+
+Collectives run on the tensors' own device over the world's backend;
+nothing switches either. gloo runs ``all_reduce``, ``broadcast``,
+``all_gather`` and ``gather`` on CUDA tensors itself (int8, fp32 and
+bf16 checked on the H100 with torch 2.11): it copies through host memory
+inside the collective, so its times measure loopback, not NVLink.
 
 Lifecycle contract: the mesh and the rule table live and die together.
 ``set_mesh(None)`` (== ``clear_mesh()``) drops the rules too — rules are
@@ -17,13 +36,16 @@ thread) never observe each other's mesh; ``use_mesh`` is the scoped form.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
-from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Dict, Iterator, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 Rules = Dict[str, Union[str, Tuple[str, ...], None]]
+Axes = Union[str, Sequence[str], None]
 
 _state = threading.local()
 
@@ -37,7 +59,8 @@ class Mesh:
     devices in mesh order.
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 rank: Optional[int] = None, backend: Optional[str] = None):
         arr = np.empty(np.shape(devices), dtype=object)
         for idx, d in np.ndenumerate(np.asarray(devices, dtype=object)):
             arr[idx] = torch.device(d)
@@ -47,9 +70,78 @@ class Mesh:
         self.devices = arr
         self.axis_names = tuple(axis_names)
         self.shape: Mapping[str, int] = dict(zip(self.axis_names, arr.shape))
+        self.rank = rank
+        self.backend = backend
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if rank is not None:
+            self._new_groups()
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)!r})"
+
+    # -- process-group backing ----------------------------------------------
+    def _new_groups(self) -> None:
+        """One process group for every set of axes, over the ranks that
+        share the other axes' coordinates, in mesh order (the first axis
+        major). Every rank creates every group, in one order, as
+        ``torch.distributed.new_group`` requires."""
+        import torch.distributed as dist
+        ranks = np.arange(self.devices.size).reshape(self.devices.shape)
+        if not 0 <= self.rank < ranks.size:
+            raise ValueError(f"rank {self.rank} outside a mesh of "
+                             f"{ranks.size}")
+        self.coords: Dict[str, int] = dict(zip(
+            self.axis_names,
+            map(int, np.unravel_index(self.rank, ranks.shape))))
+        for n in range(1, len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, n):
+                keep = [self.axis_names.index(a) for a in axes]
+                rest = [i for i in range(ranks.ndim) if i not in keep]
+                cols = ranks.transpose(rest + keep).reshape(
+                    -1, int(np.prod([ranks.shape[i] for i in keep])))
+                for col in cols:
+                    g = dist.new_group([int(r) for r in col])
+                    if self.rank in col:
+                        self._groups[axes] = g
+
+    @property
+    def is_process_mesh(self) -> bool:
+        """Whether process groups back this mesh (one process a position)."""
+        return self.rank is not None
+
+    def axes(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` (a name, names, or None) as a tuple in mesh order, the
+        names this mesh lacks left out."""
+        if axes is None:
+            return ()
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in names)
+
+    def size(self, axes: Axes) -> int:
+        """The number of positions along ``axes``."""
+        return int(np.prod([self.shape[a] for a in self.axes(axes)]))
+
+    def index(self, axes: Axes) -> int:
+        """This rank's position along ``axes``, in mesh order (the first
+        axis major): its index in :meth:`group`'s ranks."""
+        i = 0
+        for a in self.axes(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes: Axes):
+        """The process group along ``axes`` that holds this rank."""
+        if not self.is_process_mesh:
+            raise RuntimeError(f"{self!r} is not backed by process groups")
+        key = self.axes(axes)
+        if not key:
+            raise ValueError(f"no axis of {self!r} in {axes!r}")
+        return self._groups[key]
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices.flat[self.rank]
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -126,3 +218,137 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         raise ValueError(
             f"shard(): got {len(logical_axes)} axes for rank-{x.ndim} tensor")
     return x
+
+
+# ---------------------------------------------------------------------------
+# Collectives along a process mesh's axes
+# ---------------------------------------------------------------------------
+
+def process_mesh() -> Optional[Mesh]:
+    """The thread's mesh if process groups back it, else None."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.is_process_mesh else None
+
+
+def _mesh_for(mesh: Optional[Mesh]) -> Mesh:
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or not mesh.is_process_mesh:
+        raise RuntimeError("a collective needs a mesh backed by process "
+                           "groups (launch.mesh.make_process_mesh)")
+    return mesh
+
+
+def all_reduce_(t: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
+    """Sum ``t`` over ``axes`` in place (every rank gets the same bytes);
+    the identity along a single position."""
+    mesh = _mesh_for(mesh)
+    if mesh.size(axes) > 1:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=mesh.group(axes))
+    return t
+
+
+def all_gather(t: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
+               ) -> List[torch.Tensor]:
+    """Every rank's ``t`` along ``axes`` (equal shapes), in mesh order."""
+    mesh = _mesh_for(mesh)
+    n = mesh.size(axes)
+    if n == 1:
+        return [t]
+    import torch.distributed as dist
+    src = t.contiguous()
+    outs = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(outs, src, group=mesh.group(axes))
+    return outs
+
+
+def gather_to_first(t: torch.Tensor, mesh: Optional[Mesh] = None
+                    ) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``t`` (equal shapes) on rank 0 of the world, by rank,
+    as host tensors; None on the other ranks. For checkpoints: each block
+    crosses once, to the one writer (from the host under gloo, from the
+    device under NCCL, which gathers device tensors only)."""
+    import torch.distributed as dist
+    mesh = _mesh_for(mesh)
+    src = t.detach().contiguous()
+    if mesh.backend != "nccl":
+        src = src.cpu()
+    n = mesh.devices.size
+    if n == 1:
+        return [src.to("cpu", copy=True)]
+    outs = [torch.empty_like(src) for _ in range(n)] if mesh.rank == 0 \
+        else None
+    dist.gather(src, outs, dst=0)
+    return None if outs is None else [o.cpu() for o in outs]
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over ``axes`` forward; identity backward (the cotangent of the
+    sum is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return all_reduce_(x.clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; sum of the gradient over ``axes`` backward (each
+    rank's consumers see part of the uses of ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.axes, ctx.mesh), None, None
+
+
+class _PMean(torch.autograd.Function):
+    """Mean over ``axes`` forward; the gradient over the size backward,
+    with no communication: the step sums gradients over the batch axes,
+    so each rank carries its own share of a replicated mean."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.n = mesh.size(axes)
+        return all_reduce_(x.clone(), axes, mesh) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _collective(fn, x: torch.Tensor, axes: Axes, mesh: Optional[Mesh]):
+    mesh = process_mesh() if mesh is None else mesh
+    if mesh is None or mesh.size(axes) == 1:
+        return x
+    return fn.apply(x, mesh.axes(axes), mesh)
+
+
+def reduce_from(x: torch.Tensor, axes: Axes,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``psum`` of a partial result over ``axes`` whose consumer is
+    replicated: all-reduce forward, identity backward. The identity off a
+    process mesh or along one position."""
+    return _collective(_ReduceFrom, x, axes, mesh)
+
+
+def copy_to(x: torch.Tensor, axes: Axes,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """A replicated input entering rank-local work along ``axes``:
+    identity forward, all-reduce of the gradient backward."""
+    return _collective(_CopyTo, x, axes, mesh)
+
+
+def pmean(x: torch.Tensor, axes: Axes,
+          mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean over ``axes`` (the reference's ``lax.pmean``); the gradient
+    divided by their size (see :class:`_PMean`)."""
+    return _collective(_PMean, x, axes, mesh)

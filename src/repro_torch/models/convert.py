@@ -106,17 +106,14 @@ def decode_state_from_jax(state, cfg: ModelConfig, device=None
 
 def train_state_from_jax(state, cfg: ModelConfig, device=None):
     """Port train state from the reference's ``TrainState`` of numpy
-    arrays (``tree_map(np.asarray, state)``): the parameters and both
-    moments through :func:`params_from_jax`, the step as an int32 scalar;
-    no residuals (the EF-int8 all-reduce is not ported)."""
+    arrays (``tree_map(np.asarray, state)``): the parameters, both
+    moments and the EF-int8 residuals (when the reference has them)
+    through :func:`params_from_jax`, the step as an int32 scalar."""
     from repro_torch.optim import AdamWState
     from repro_torch.train import TrainState
 
     dev = resolve_device(device)
     params, opt, residuals = state
-    if residuals is not None:
-        raise NotImplementedError("EF-compression residuals: the EF-int8 "
-                                  "all-reduce is not ported")
     step, m, v = opt
     return TrainState(
         params=params_from_jax(params, cfg, dev),
@@ -124,4 +121,5 @@ def train_state_from_jax(state, cfg: ModelConfig, device=None):
                                          dtype=torch.int32, device=dev),
                        m=params_from_jax(m, cfg, dev),
                        v=params_from_jax(v, cfg, dev)),
-        residuals=None)
+        residuals=None if residuals is None
+        else params_from_jax(residuals, cfg, dev))

@@ -142,17 +142,19 @@ def unembed(params, x: torch.Tensor, dtype) -> torch.Tensor:
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          z_weight: float = 1e-4):
+                          z_weight: float = 1e-4,
+                          denom: Optional[torch.Tensor] = None):
     """Token-mean CE with z-loss; logits (..., V) in any dtype -> fp32.
     Returns ``(ce + z_weight * z, {"ce", "z_loss"})``, both means over the
-    masked tokens with denominator ``max(sum(mask), 1)``."""
+    masked tokens with denominator ``max(sum(mask), 1)``, or ``denom`` (a
+    rank's share of a batch whose mask sums to it across ranks)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     ce = lse - ll
     z = lse.square()
     mask = torch.ones_like(ce) if mask is None else mask.float()
-    denom = mask.sum().clamp_min(1.0)
+    denom = (mask.sum() if denom is None else denom).clamp_min(1.0)
     ce_mean = (ce * mask).sum() / denom
     z_mean = (z * mask).sum() / denom
     return ce_mean + z_weight * z_mean, {"ce": ce_mean, "z_loss": z_mean}

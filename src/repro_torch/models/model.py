@@ -119,12 +119,15 @@ def forward(params, batch, cfg: ModelConfig, *, return_caches: bool = False):
     return logits, aux, caches, memory
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, *, denom=None):
     """``(ce + z_weight * z + aux, {"ce", "z_loss", "aux", "loss"})`` of
-    ``batch`` (``tokens``, ``labels`` and an optional ``loss_mask``)."""
+    ``batch`` (``tokens``, ``labels`` and an optional ``loss_mask``); the
+    token means over ``denom`` when it is given (a rank's rows of a batch
+    whose mask sums to ``denom`` over the ranks)."""
     logits, aux, _, _ = forward(params, batch, cfg)
     loss, metrics = softmax_cross_entropy(logits, batch["labels"],
-                                          batch.get("loss_mask"))
+                                          batch.get("loss_mask"),
+                                          denom=denom)
     total = loss + aux
     return total, dict(metrics, aux=aux, loss=total)
 

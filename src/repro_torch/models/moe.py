@@ -21,8 +21,14 @@ go to the lower expert index, as the reference's top-k orders them: the
 top-k is a stable sort of the negated probabilities (``torch.topk``
 promises no order among ties).
 
-The expert-parallel form of the reference (``_moe_ffn_ep``, shard_map) is
-not ported: one GPU runs :func:`moe_ffn` as the reference's GSPMD form.
+Under a mesh backed by process groups with a ``model`` axis that divides
+the experts, :func:`moe_ffn` runs expert-parallel, as the reference's
+``_moe_ffn_ep`` does inside ``shard_map``: each rank dispatches its own
+tokens to every expert (per-shard capacity), gathers and runs only its
+experts' slots, combines only those, and the partial token outputs are
+summed over ``model`` (:func:`repro_torch.distributed.shardlib.reduce_from`).
+Any other mesh (the dry run's ``meta`` meshes, the logical shards) runs
+the one-device form.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import shardlib
 from repro_torch.kernels import ops
 from .layers import activation, dense_init, init_mlp, mlp
 
@@ -135,10 +142,111 @@ def aux_losses(router_probs: torch.Tensor, topi: torch.Tensor, m: MoEConfig,
     return lb + m.router_z_weight * z, {"moe_lb": lb, "moe_z": z}
 
 
+def _experts(h: torch.Tensor, params, act_fn: str, dt) -> torch.Tensor:
+    """(E, C, d) slot rows through their experts' gated MLPs."""
+    act = activation(act_fn)
+    gate = torch.bmm(h, params["w_gate"].to(dt))
+    up = torch.bmm(h, params["w_up"].to(dt))
+    h = act(gate) * up
+    del gate, up
+    return torch.bmm(h, params["w_down"].to(dt))
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the rules split the batch over: each rank's tokens
+    are its own along them."""
+    return mesh.axes(shardlib.current_rules().get("batch"))
+
+
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
             act_fn: str = "silu") -> Tuple[torch.Tensor, torch.Tensor, dict]:
-    """x: (B, S, d) -> (y, aux_loss, metrics): the reference's GSPMD form
-    on one device, with the gather and the combine as kernels."""
+    """x: (B, S, d) -> (y, aux_loss, metrics).
+
+    Expert-parallel (:func:`_moe_ffn_ep`) under a process mesh whose
+    ``model`` axis divides the experts, as the reference picks its
+    ``shard_map`` form; otherwise the reference's GSPMD form on one
+    device, with the gather and the combine as kernels."""
+    mesh = shardlib.process_mesh()
+    if (mesh is not None and "model" in mesh.shape
+            and cfg.moe.num_experts % mesh.shape["model"] == 0):
+        return _moe_ffn_ep(params, x, cfg, act_fn, mesh)
+    y, aux, metrics = _moe_ffn_one(params, x, cfg, act_fn)
+    if mesh is not None:
+        # The step sums gradients over the batch axes: a replicated mean.
+        batch = _batch_axes(mesh)
+        aux = shardlib.pmean(aux, batch, mesh)
+        metrics = dict(metrics, moe_dropped=shardlib.pmean(
+            metrics["moe_dropped"], batch, mesh))
+    return y, aux, metrics
+
+
+def _moe_ffn_ep(params, x: torch.Tensor, cfg: ModelConfig, act_fn: str,
+                mesh) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Expert-parallel MoE on a process mesh: rank ``r`` of ``model``
+    builds the plan over its own tokens, gathers only its slots ``[r *
+    E_loc * cap, (r + 1) * E_loc * cap)`` (``moe_gather``), runs its
+    ``E_loc`` experts, combines only its own slots (``moe_combine``) and
+    the partial outputs sum over ``model``. Dispatch moves no token across
+    ranks. The expert leaves are the rank's ``E_loc`` experts (the sharded
+    step's blocks), or all ``E``, of which the rank takes its own.
+
+    Gradients: the sum's backward is the identity (every rank's consumer
+    is the same), and the tokens and router probabilities entering the
+    rank's slots go through :func:`shardlib.copy_to`, whose backward sums
+    the rank's partial gradients over ``model``; the auxiliary loss reads
+    the probabilities themselves, whole on every rank. Both kernels'
+    backwards take the other stream of the rank's *local* sub-plan, which
+    keeps the plan's duality. The aux loss and the drop share are means
+    over the batch axes (the reference's ``pmean``); the batch there is
+    the step's rows, split over every batch axis."""
+    m = cfg.moe
+    dt = cfg.cdtype
+    b, s, d = x.shape
+    t = b * s
+    n_model = mesh.shape["model"]
+    e_loc = m.num_experts // n_model
+    xt = x.reshape(t, d)
+
+    logits = xt.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    cap = capacity(t, m)
+    plan = moe_dispatch_plan(shardlib.copy_to(probs, "model", mesh), m, cap)
+    _, topi = top_k(probs, m.experts_per_token)
+    aux, _ = aux_losses(probs, topi, m, logits)
+
+    # The rank's sub-plan: its slots, and the copies that point at them.
+    n_slots = e_loc * cap
+    slot0 = mesh.coords["model"] * n_slots
+    own_tokens = plan.token_idx[slot0:slot0 + n_slots].contiguous()
+    rel = plan.inv_slot - slot0
+    own = (rel >= 0) & (rel < n_slots)
+    local_inv = torch.where(own, rel, -1).to(torch.int32)
+    local_w = torch.where(own, plan.inv_weight, 0.0)
+
+    xe = ops.moe_gather_op(own_tokens,
+                           shardlib.copy_to(xt, "model", mesh).contiguous(),
+                           inv_slot=local_inv)
+    experts = params
+    if params["w_gate"].shape[0] == m.num_experts and e_loc != m.num_experts:
+        lo = mesh.coords["model"] * e_loc
+        experts = {k: params[k][lo:lo + e_loc]
+                   for k in ("w_gate", "w_up", "w_down")}
+    ye = _experts(xe.to(dt).view(e_loc, cap, d), experts, act_fn, dt)
+    y = ops.moe_combine_op(local_inv, local_w, ye.view(n_slots, d),
+                           token_idx=own_tokens).to(dt)
+    y = shardlib.reduce_from(y, "model", mesh)
+
+    batch = _batch_axes(mesh)
+    aux = shardlib.pmean(aux, batch, mesh)
+    dropped = shardlib.pmean(plan.num_dropped / max(t, 1), batch, mesh)
+    if m.num_shared_experts:
+        y = y + mlp(params["shared"], xt, act_fn, dt)
+    return y.view(b, s, d), aux, {"moe_dropped": dropped}
+
+
+def _moe_ffn_one(params, x: torch.Tensor, cfg: ModelConfig,
+                 act_fn: str) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """The reference's GSPMD form on one device."""
     m = cfg.moe
     dt = cfg.cdtype
     b, s, d = x.shape
@@ -155,14 +263,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     # Gather tokens into (E, C, d): the descriptor-engine gather.
     xe = ops.moe_gather_op(plan.token_idx, xt.contiguous(),
                            inv_slot=plan.inv_slot)
-    xe = xe.to(dt).view(m.num_experts, cap, d)
-
-    act = activation(act_fn)
-    gate = torch.bmm(xe, params["w_gate"].to(dt))
-    up = torch.bmm(xe, params["w_up"].to(dt))
-    h = act(gate) * up
-    del gate, up
-    ye = torch.bmm(h, params["w_down"].to(dt))
+    ye = _experts(xe.to(dt).view(m.num_experts, cap, d), params, act_fn, dt)
 
     # Combine via the inverse descriptor stream, fp32 accumulation.
     y = ops.moe_combine_op(plan.inv_slot, plan.inv_weight,

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import shardlib
 from repro_torch.kernels import ops
 from repro_torch.tree import leaves
 from .attention import (
@@ -220,7 +221,15 @@ def _remat(fn, cfg: ModelConfig):
     if cfg.remat_policy == "minimal":
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_projections)
-    return functools.partial(checkpoint, fn, use_reentrant=False,
+    mesh, rules = shardlib.current_mesh(), dict(shardlib.current_rules())
+
+    def under_mesh(*args):
+        # The recompute runs on autograd's thread for the card, which has
+        # no thread mesh of its own: it takes the forward's (expert
+        # parallelism and its collectives read it).
+        with shardlib.use_mesh(mesh, rules):
+            return fn(*args)
+    return functools.partial(checkpoint, under_mesh, use_reentrant=False,
                              preserve_rng_state=False, **kwargs)
 
 

@@ -1,5 +1,11 @@
-"""Optimizers and schedules (AdamW), and the int8 block format."""
-from .compress import BLOCK, compression_ratio  # noqa: F401
+"""Optimizers, schedules, gradient compression."""
+from .compress import (  # noqa: F401
+    BLOCK,
+    compress_allreduce_leaf,
+    compressed_psum_tree,
+    compression_ratio,
+    init_residuals,
+)
 from .optimizer import (  # noqa: F401
     AdamWConfig,
     AdamWState,

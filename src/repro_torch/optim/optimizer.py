@@ -10,17 +10,23 @@ reference (ROADMAP Queue C). The clipping scale and the learning rate are
 ``apply`` updates the parameters, ``m`` and ``v`` in place and returns
 them, where the reference returns new trees (its jitted step donates the
 old ones): at qwen2.5-3b's size a second copy of the parameters and both
-moments would not fit beside the gradients on one card.
+moments would not fit beside the gradients on one card. A leaf over
+``CHUNK`` elements is updated a piece at a time, with the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.tree import leaves, tree_map
+
+
+#: Elements a pass of the update takes at once (fp32 temporaries of a
+#: few times 256 MiB, whatever the leaf's size).
+CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -78,11 +84,28 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def apply(cfg: AdamWConfig, params, grads, state: AdamWState,
+def _chunks(p, g, m, v):
+    """A leaf's (p, g, m, v) in pieces of at most CHUNK elements (views;
+    the whole leaf when it is smaller or not contiguous). The update is
+    elementwise, so pieces give the same bits, and a piece bounds its fp32
+    temporaries to a few times CHUNK * 4 bytes."""
+    if p.numel() <= CHUNK or not all(x.is_contiguous() for x in (p, m, v)):
+        yield p, g, m, v
+        return
+    flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+    for i in range(0, p.numel(), CHUNK):
+        yield tuple(x[i:i + CHUNK] for x in flat)
+
+
+def apply(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+          gnorm: Optional[torch.Tensor] = None,
           ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW update, in place. Returns (params, new_state, metrics),
-    the parameters and moments being the objects passed in."""
-    gnorm = global_norm(grads)
+    the parameters and moments being the objects passed in. ``gnorm`` is
+    the gradients' global norm when ``grads`` are a rank's blocks of
+    them (the sharded step); by default, theirs."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -93,18 +116,19 @@ def apply(cfg: AdamWConfig, params, grads, state: AdamWState,
     b1c = 1 - torch.pow(cfg.b1, step.float())
     b2c = 1 - torch.pow(cfg.b2, step.float())
 
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
-                          leaves(state.v)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square_())
-        del g
-        delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay:
-            delta.add_(cfg.weight_decay * p.float())
-        if p.dtype == torch.float32:
-            p.sub_(lr * delta)
-        else:
-            p.copy_((p.float() - lr * delta).to(p.dtype))
+    for leaf in zip(leaves(params), leaves(grads), leaves(state.m),
+                    leaves(state.v)):
+        for p, g, m, v in _chunks(*leaf):
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square_())
+            del g
+            delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+            if cfg.weight_decay:
+                delta.add_(cfg.weight_decay * p.float())
+            if p.dtype == torch.float32:
+                p.sub_(lr * delta)
+            else:
+                p.copy_((p.float() - lr * delta).to(p.dtype))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step, state.m, state.v), metrics

@@ -1,4 +1,5 @@
-"""Train step: microbatched gradient accumulation and AdamW.
+"""Train step: microbatched gradient accumulation, AdamW, optional cross-pod
+gradient compression, and the sharded step on a process mesh.
 
 The reference's ``repro/train/step.py`` in PyTorch: ``(TrainState, batch)
 -> (TrainState, metrics)``. Gradients come from autograd through
@@ -12,10 +13,14 @@ returns a state holding them, as the reference's donated jitted step does.
 Batches are dicts of tensors on the parameters' device: ``tokens`` and
 ``labels`` (B, S) int, ``loss_mask`` (B, S) float.
 
-The cross-pod error-feedback int8 all-reduce (``compress_pod_axis``) waits
-for the collective half of ROADMAP Queue A item 15(d) and raises: the
-sharding specs (``distributed/sharding.py``) are ported, the all-reduce
-across process groups is not.
+Under a mesh backed by process groups (``launch.mesh.make_process_mesh``)
+the same call is the sharded step, SPMD over the ranks (:func:`_sharded`):
+the state holds the rank's block of every leaf
+(:func:`shard_state`, under ``distributed.sharding.train_state_block_specs``)
+and the batch its rows (:func:`local_batch`). ``compress_pod_axis`` names
+the axis whose gradient reduction is the EF-int8 all-reduce
+(``optim.compress``); it needs such a mesh, as the reference's needs its
+``shard_map`` over pods (ROADMAP Queue A item 15(d), closed).
 """
 from __future__ import annotations
 
@@ -27,13 +32,10 @@ import torch
 
 from repro_torch import optim
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import loss_fn
+from repro_torch.distributed import shardlib
+from repro_torch.distributed import sharding as sh
+from repro_torch.models.model import loss_fn, param_shapes
 from repro_torch.tree import flatten, map_with_path, tree_map
-
-_NO_COMPRESSION = ("compress_pod_axis (the EF-int8 all-reduce) waits for "
-                   "the collective half of ROADMAP Queue A item 15(d): "
-                   "distributed/sharding.py's specs are ported, the "
-                   "all-reduce across process groups is not")
 
 
 class TrainState(NamedTuple):
@@ -52,9 +54,11 @@ class TrainConfig:
 
 
 def init_state(params, tcfg: TrainConfig) -> TrainState:
+    residuals = None
     if tcfg.compress_pod_axis:
-        raise NotImplementedError(_NO_COMPRESSION)
-    return TrainState(params=params, opt=optim.init(params), residuals=None)
+        residuals = optim.init_residuals(params)
+    return TrainState(params=params, opt=optim.init(params),
+                      residuals=residuals)
 
 
 def _split_microbatches(batch, n: int):
@@ -74,14 +78,15 @@ def _cast_params(params, dtype):
     return tree_map(cast, params)
 
 
-def _value_and_grad(params, batch, cfg: ModelConfig, cast_bf16: bool):
+def _value_and_grad(params, batch, cfg: ModelConfig, cast_bf16: bool,
+                    denom=None):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``: gradients of
     the parameters' own dtype, a tree of their structure (zeros for a leaf
     the loss does not reach)."""
     with torch.enable_grad():
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         p_in = _cast_params(leaves, cfg.cdtype) if cast_bf16 else leaves
-        loss, metrics = loss_fn(p_in, batch, cfg)
+        loss, metrics = loss_fn(p_in, batch, cfg, denom=denom)
         flat = flatten(leaves)
         grads = torch.autograd.grad(loss, list(flat.values()),
                                     allow_unused=True)
@@ -116,8 +121,13 @@ def grads_and_metrics(params, batch, cfg: ModelConfig, microbatches: int,
 
 def train_step(state: TrainState, batch, cfg: ModelConfig,
                tcfg: TrainConfig) -> Tuple[TrainState, dict]:
+    mesh = shardlib.process_mesh()
+    if mesh is not None:
+        return _sharded(state, batch, cfg, tcfg, mesh)
     if tcfg.compress_pod_axis:
-        raise NotImplementedError(_NO_COMPRESSION)
+        raise ValueError(f"compress_pod_axis={tcfg.compress_pod_axis!r} "
+                         "reduces over that axis of a process mesh "
+                         "(launch.mesh.make_process_mesh); none is set")
     grads, metrics = grads_and_metrics(state.params, batch, cfg,
                                        tcfg.microbatches,
                                        cast_bf16=tcfg.cast_params_bf16)
@@ -126,6 +136,201 @@ def train_step(state: TrainState, batch, cfg: ModelConfig,
     del grads
     metrics = {**metrics, **opt_metrics}
     return TrainState(new_params, new_opt, state.residuals), metrics
+
+
+# ---------------------------------------------------------------------------
+# The sharded step on a process mesh
+# ---------------------------------------------------------------------------
+
+def state_shapes(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    """The whole :class:`TrainState` as ``meta`` tensors (shapes and
+    dtypes): what a checkpoint's restore fills."""
+    params = param_shapes(cfg)
+    fp32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                 device="meta")
+    return TrainState(
+        params,
+        optim.AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                         tree_map(fp32, params), tree_map(fp32, params)),
+        tree_map(fp32, params) if tcfg.compress_pod_axis else None)
+
+
+def state_block_specs(cfg: ModelConfig, mesh, tcfg: TrainConfig):
+    """The spec tree of a rank's :class:`TrainState` blocks on ``mesh``."""
+    key = (cfg, tcfg.compress_pod_axis)
+    cache = mesh.__dict__.setdefault("_state_specs", {})
+    if key not in cache:
+        cache[key] = sh.train_state_block_specs(
+            cfg, mesh, state_shapes(cfg, tcfg), tcfg.compress_pod_axis)
+    return cache[key]
+
+
+def shard_state(params, cfg: ModelConfig, tcfg: TrainConfig,
+                mesh) -> TrainState:
+    """A fresh :class:`TrainState` of this rank's blocks, from the whole
+    ``params`` (the same on every rank): its parameter blocks (copies),
+    zero moments and residuals of the blocks' shapes, step 0."""
+    specs = state_block_specs(cfg, mesh, tcfg)
+    ps = flatten(specs.params)
+    blocks = map_with_path(
+        lambda k, p: sh.take_block(p, ps[k], mesh).clone(), params)
+    residuals = None
+    if tcfg.compress_pod_axis:
+        rs = flatten(specs.residuals)
+        residuals = map_with_path(
+            lambda k, p: torch.zeros(sh.block_shape(p.shape, rs[k], mesh),
+                                     dtype=torch.float32, device=p.device),
+            params)
+    return TrainState(blocks, optim.init(blocks), residuals)
+
+
+def state_blocks(state: TrainState, cfg: ModelConfig, tcfg: TrainConfig,
+                 mesh) -> TrainState:
+    """This rank's blocks (copies) of a whole :class:`TrainState`."""
+    specs = flatten(state_block_specs(cfg, mesh, tcfg))
+    return map_with_path(
+        lambda k, v: sh.take_block(v, specs[k], mesh).clone(), state)
+
+
+def local_batch(batch, mesh):
+    """This rank's rows of the global ``batch``: the batch splits over
+    every batch axis (``train_batch_specs``); ranks along ``model`` take
+    the same rows."""
+    b = next(iter(batch.values())).shape[0]
+    fs = sh.fsdp_axes(mesh)
+    got = sh.batch_axis(mesh, b)
+    if mesh.axes(got) != fs:
+        raise ValueError(f"a global batch of {b} rows does not split over "
+                         f"the batch axes {fs} of {mesh!r}")
+    specs = sh.train_batch_specs(mesh, b, batch)
+    return {k: sh.take_block(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def _mask_count(batch) -> torch.Tensor:
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.tensor(float(batch["labels"].numel()),
+                            device=batch["labels"].device)
+    return mask.float().sum()
+
+
+def _sharded_grads(full, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                   sum_axes):
+    """Gradients of this rank's share of the loss at the whole (gathered)
+    parameters, and the metrics of the batch across ``sum_axes``.
+
+    The token means divide by the mask count summed over ``sum_axes``,
+    never a mean of per-rank means: the rank's gradients then sum to the
+    batch's. The auxiliary loss is already a mean over them (``pmean`` in
+    ``moe_ffn``)."""
+    n = tcfg.microbatches
+    mbs = [batch] if n == 1 else [
+        {k: v[i] for k, v in _split_microbatches(batch, n).items()}
+        for i in range(n)]
+    acc, metrics = None, None
+    for b in mbs:
+        denom = shardlib.all_reduce_(_mask_count(b), sum_axes, mesh) \
+            if sum_axes else None
+        _, m, grads = _value_and_grad(full, b, cfg, tcfg.cast_params_bf16,
+                                      denom=denom)
+        aux = m["aux"]
+        parts = torch.stack([m["loss"] - aux, m["ce"], m["z_loss"]])
+        if sum_axes:
+            shardlib.all_reduce_(parts, sum_axes, mesh)
+        m = {"ce": parts[1], "z_loss": parts[2], "aux": aux,
+             "loss": parts[0] + aux}
+        if n == 1:
+            return grads, m
+        acc = tree_map(lambda g: g.float(), grads) if acc is None else \
+            tree_map(torch.add, acc, grads)
+        metrics = m["loss"] if metrics is None else metrics + m["loss"]
+    return tree_map(lambda g: g / n, acc), {"loss": metrics / n}
+
+
+def _sharded(state: TrainState, batch, cfg: ModelConfig, tcfg: TrainConfig,
+             mesh) -> Tuple[TrainState, dict]:
+    """One step on this rank's blocks and rows (see the module).
+
+    1. Each parameter leaf is all-gathered over the axes of its spec; an
+       expert stack keeps its ``model`` slice, the rank's experts, which
+       expert-parallel ``moe_ffn`` takes as they are. Dense compute is
+       replicated over ``model``.
+    2. Forward and backward on the rank's rows.
+    3. Gradients are summed over the batch axes (in fp32); over
+       ``compress_pod_axis``, the EF-int8 mean instead: each pod is then a
+       replica whose loss is its own rows' mean, as inside the
+       reference's ``shard_map`` over pods, and each rank compresses the
+       whole of its leaf along that axis with its own residual.
+    4. Each gradient is cut to the rank's block; AdamW runs on the blocks,
+       clipped by the global norm of the reduced gradients.
+    """
+    specs = state_block_specs(cfg, mesh, tcfg)
+    pspecs = flatten(specs.params)
+    pod = tcfg.compress_pod_axis
+    if pod and (pod not in mesh.shape or state.residuals is None):
+        raise ValueError(f"compress_pod_axis={pod!r}: the mesh needs that "
+                         "axis and the state its residuals (shard_state)")
+    sum_axes = tuple(a for a in sh.fsdp_axes(mesh) if a != pod)
+
+    def computed(k):
+        """The spec of the part of leaf ``k`` the rank computes with: the
+        leaf's, less ``model`` for an expert stack."""
+        if sh.is_expert_leaf(k, pspecs[k]):
+            return sh.strip(pspecs[k], ("model",))
+        return pspecs[k]
+
+    full = map_with_path(
+        lambda k, b: sh.gather_leaf(b, computed(k), mesh), state.params)
+    rules = dict(shardlib.current_rules() or sh.activation_rules(mesh),
+                 batch=sum_axes or None)
+    with shardlib.use_mesh(mesh, rules):
+        grads, metrics = _sharded_grads(full, batch, cfg, tcfg, mesh,
+                                        sum_axes)
+    del full
+
+    flat = flatten(grads)
+    del grads
+    if sum_axes and mesh.size(sum_axes) > 1:
+        flat = {k: shardlib.all_reduce_(g.float(), sum_axes, mesh)
+                for k, g in flat.items()}
+    residuals = state.residuals
+    if pod:
+        # Each rank sends the whole of its leaf along the pod axis (every
+        # pod's share), compressed against its own residual; then keeps
+        # its pod's share of the mean.
+        cols = {k: sh.take_block(g, sh.P(*computed(k), own=(pod,)), mesh)
+                for k, g in flat.items()}
+        reduced, residuals = optim.compressed_psum_tree(
+            map_with_path(lambda k, _: cols[k], state.params),
+            state.residuals, pod)
+        others = tuple(a for a in mesh.axis_names if a != pod)
+        out = {k: sh.take_block(g, sh.strip(pspecs[k], others), mesh)
+               for k, g in flatten(reduced).items()}
+        metrics = {k: shardlib.all_reduce_(v.clone(), pod, mesh)
+                   / mesh.size(pod) for k, v in metrics.items()}
+    else:
+        out = {}
+        for k in list(flat):
+            # A copy of the block, so the whole gradient goes now (not
+            # after AdamW).
+            g = flat.pop(k)
+            out[k] = sh.take_block(g, computed(k), mesh)
+            if out[k].numel() < g.numel():
+                out[k] = out[k].clone()
+            del g
+    del flat
+
+    # Global norm: every block once, its copies on other ranks not again.
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for k, g in out.items():
+        g32 = g.reshape(-1).float()
+        sq = sq + torch.dot(g32, g32) / sh.replicas(pspecs[k], mesh)
+    gnorm = shardlib.all_reduce_(sq, mesh.axis_names, mesh).sqrt()
+    block_grads = map_with_path(lambda k, _: out[k], state.params)
+    new_params, new_opt, opt_metrics = optim.apply(
+        tcfg.optimizer, state.params, block_grads, state.opt, gnorm=gnorm)
+    return (TrainState(new_params, new_opt, residuals),
+            {**metrics, **opt_metrics})
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):

@@ -6,6 +6,11 @@ The reference's ``repro/train/trainer.py``, on ``device`` (``cuda`` unless
 the caller passes ``"cpu"``): parameters come from the port's
 ``init_params(seed, cfg, device)``, numpy batches from the
 :class:`DataIterator` are moved to the device each step.
+
+Under a process mesh (the launcher's ``--mesh-data``), each rank trains
+its blocks of the state (``train.shard_state``) on its mesh device, reads
+the rows of its position along the batch axes (``data.mesh_hosts``), and
+saves and resumes through the checkpointer's mesh form: rank 0 writes.
 """
 from __future__ import annotations
 
@@ -20,11 +25,14 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data import DataConfig, DataIterator, IteratorState
+from repro_torch.data import (DataConfig, DataIterator, IteratorState,
+                              mesh_hosts)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import shardlib
 from repro_torch.models import init_params
 
-from .step import TrainConfig, init_state, make_train_step
+from .step import (TrainConfig, init_state, make_train_step, shard_state,
+                   state_block_specs, state_shapes)
 
 
 @dataclasses.dataclass
@@ -64,6 +72,12 @@ class Trainer:
                  run: TrainerConfig, data_cfg: DataConfig,
                  log_fn: Callable[[int, Dict], None] = None, device=None):
         self.cfg, self.tcfg, self.run = cfg, tcfg, run
+        self.mesh = shardlib.process_mesh()
+        if self.mesh is not None:
+            host_id, num_hosts = mesh_hosts(self.mesh)
+            data_cfg = dataclasses.replace(data_cfg, host_id=host_id,
+                                           num_hosts=num_hosts)
+            device = self.mesh.device
         self.data_cfg = data_cfg
         self.device = resolve_device(device)
         self.ckpt = Checkpointer(run.checkpoint_dir,
@@ -84,16 +98,36 @@ class Trainer:
     # -- lifecycle -----------------------------------------------------------
     def init_or_resume(self):
         params = init_params(self.run.seed, self.cfg, self.device)
-        state = init_state(params, self.tcfg)
+        if self.mesh is None:
+            state = init_state(params, self.tcfg)
+        else:
+            state = shard_state(params, self.cfg, self.tcfg, self.mesh)
+        del params
         start_step = 0
         it_state = IteratorState()
         latest = self.ckpt.latest_step()
         if latest is not None:
-            state, extra = self.ckpt.restore(latest, state)
+            if self.mesh is None:
+                state, extra = self.ckpt.restore(latest, state)
+            else:
+                state, extra = self.ckpt.restore(
+                    latest, state_shapes(self.cfg, self.tcfg),
+                    mesh=self.mesh, specs=self._specs())
             start_step = latest
             it_state = IteratorState.from_dict(
                 extra.get("iterator", {"step": latest}))
         return state, start_step, it_state
+
+    def _specs(self):
+        return state_block_specs(self.cfg, self.mesh, self.tcfg)
+
+    def _save(self, step: int, state, data, blocking: bool = False):
+        extra = {"iterator": data.state.to_dict()}
+        if self.mesh is None:
+            self.ckpt.save(step, state, blocking=blocking, extra=extra)
+        else:
+            self.ckpt.save(step, state, extra=extra, mesh=self.mesh,
+                           specs=self._specs())
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)
@@ -120,13 +154,11 @@ class Trainer:
                     self.log_fn(step, {"loss": loss, "step_time": dt})
                 if (step + 1) % self.run.checkpoint_every == 0 \
                         or self._preempted:
-                    self.ckpt.save(step + 1, state,
-                                   extra={"iterator": data.state.to_dict()})
+                    self._save(step + 1, state, data)
                 if self._preempted:
                     break
         finally:
-            self.ckpt.save(step + 1, state, blocking=True,
-                           extra={"iterator": data.state.to_dict()})
+            self._save(step + 1, state, data, blocking=True)
             data.close()
         return {"final_step": step + 1, "losses": losses,
                 "stragglers": self.monitor.flagged}

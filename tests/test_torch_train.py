@@ -339,18 +339,6 @@ def test_loss_falls_over_eight_steps():
     assert losses[-1] < losses[0] - 0.5
 
 
-def test_compression_and_sharding_wait_for_their_port():
-    _, tc = _configs("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        init_state(init_params(0, tc, "cpu"),
-                   TrainConfig(compress_pod_axis="pod"))
-    for flag in (["--mesh-data", "2"], ["--multi-pod"], ["--compress-pods"],
-                 ["--distributed-init"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch_train.main(["--arch", "qwen2.5-3b", "--reduced",
-                               "--device", "cpu", *flag])
-
-
 # ---------------------------------------------------------------------------
 # The trainer and its launcher
 # ---------------------------------------------------------------------------
