@@ -266,19 +266,25 @@ Phases:
    (fp32 parameters, bf16 compute) on data 2 x model 2, each rank its
    blocks of every state leaf (shaped as ``shard_shape`` says) and 2 x
    512 of the 4 x 512 batch: 3 sharded steps through flash forward and
-   backward, a checkpoint rank 0 writes, a fourth step; each rank in turn
-   then runs the one-process steps on the whole batch (each step's loss
-   within 2e-3 relative and global norm within 1 %, every leaf's moments
-   at cosine >= 0.999 but the key bias's, every parameter within 2 lr a
-   step). A world of 2 ranks: (s1) dbrx-132b's MoE FFN at published
+   backward, tensor-parallel over model (attention, MLP and vocabulary
+   leaves as the rank's blocks, gradients reduce-scattered onto theirs),
+   a checkpoint rank 0 writes, a fourth step, a fifth at 2 microbatches;
+   each rank in turn then runs the one-process steps on the whole batch
+   (each step's loss within 2e-3 relative and global norm within 1 %,
+   every leaf's moments at cosine >= 0.999 but the key bias's, every
+   parameter within 2 lr a step; the fifth against one process's
+   ``grads_and_metrics`` at 2 microbatches). Each world prints a
+   ``traffic`` line a rank: the bytes a step it gathered and reduced, by
+   form, and its peak memory. A world of 2 ranks: (s1) dbrx-132b's MoE FFN at published
    widths in bf16, 4 x 512 tokens on model 2 through ``_moe_ffn_ep``
    (each rank launching ``moe_gather``, ``moe_combine`` and both
    backwards), its output within four bf16 half-ulps of the largest, aux
    and drops equal, the gradients of x, the router and the rank's
    experts at cosine >= 0.999 against the one-process ``moe_ffn``, both
    timed; (s3) dbrx-132b cut to 1 of 40 layers (bf16 parameters) on data
-   1 x model 2, 2 sharded steps held as (s2), the ranks' summed peak
-   under 72 GB; (s4) the EF-int8 step on pod 2: 3 steps without
+   1 x model 2, 2 sharded steps held as (s2), no byte gathered (every
+   leaf split over model computed as the rank's block), the ranks'
+   summed peak under 72 GB; (s4) the EF-int8 step on pod 2: 3 steps without
    clipping, every leaf and each pod's residual bit for bit against the
    reference's formula recomputed in one process, the wire bytes of both
    forms and the residuals' largest entry printed; (s5) (s2)'s checkpoint
@@ -4474,6 +4480,12 @@ S_ARCH, S_LAYERS = "qwen2.5-3b", 4          # (s2), (s4), (s5)
 S_MOE_ARCH, S_MOE_LAYERS = "dbrx-132b", 1   # (s1), (s3)
 S_BATCH, S_SEQ = 4, 512
 S_STEPS, S_MOE_STEPS = 3, 2
+#: (s2)'s last step, in the reference's microbatches (ROADMAP C1).
+S_MICROBATCHES = 2
+#: How the sharded step reduces a gradient its spec splits over the batch
+#: axes: gloo runs reduce_scatter_tensor on CUDA tensors (fp32 and bf16,
+#: torch 2.11 on the H100, tools/gloo_collectives_probe.py).
+S_REDUCE_FORM = "reduce_scatter_tensor (gloo, on the card's tensors)"
 S_LR, S_WARMUP = TRAIN_LR, TRAIN_WARMUP
 #: (s1): the output of expert parallelism sums each rank's bf16 partial in
 #: bf16 (gloo's all-reduce), where one process rounds its fp32 sum once:
@@ -4526,6 +4538,15 @@ def s_tcfg(steps: int, grad_clip: float = 1.0, compress=None):
     return TrainConfig(optimizer=optim.AdamWConfig(
         lr=S_LR, warmup_steps=S_WARMUP, total_steps=steps + 1,
         grad_clip=grad_clip), compress_pod_axis=compress)
+
+
+def s_traffic(mesh, before: dict, steps: int) -> dict:
+    """Bytes a step, per kind, that the sharded step moved through
+    ``mesh``'s collectives since ``before`` (``Mesh.traffic``): the
+    parameters' gathers (received) and the gradients put into each form
+    of reduction."""
+    return {k: (v - before.get(k, 0)) / steps
+            for k, v in mesh.traffic.items()}
 
 
 def s_steps(torch, state, batch, cfg, tcfg, n: int, mesh=None):
@@ -4618,9 +4639,10 @@ def s_nccl_rank(rank, world):
 
 def s2_rank(rank, world, *, seed, ckpt):
     """(s2) qwen2.5-3b cut to S_LAYERS on data 2 x model 2: S_STEPS sharded
-    steps, a checkpoint (rank 0 writes), one more step; then each rank in
-    turn runs the one-process steps on the whole batch and holds its
-    blocks against them."""
+    steps, a checkpoint (rank 0 writes), one more step, and one at
+    S_MICROBATCHES; then each rank in turn runs the one-process steps on
+    the whole batch and holds its blocks against them (and the last
+    step's loss and norm against one process's grads_and_metrics)."""
     torch, dev = s_rank_setup()
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.distributed.sharding import shard_shape, \
@@ -4648,10 +4670,12 @@ def s2_rank(rank, world, *, seed, ckpt):
     batch = s_batch(torch, cfg, seed, dev)
     rows = local_batch(batch, mesh)
     torch.cuda.reset_peak_memory_stats()
+    before = dict(mesh.traffic)
     build.reset_launches()                  # the sharded steps start here
     state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_STEPS, mesh)
     launches = build.launch_counts()        # ... and end here
     peak = torch.cuda.max_memory_allocated()
+    traffic = s_traffic(mesh, before, S_STEPS)
     blocks = s_host(state)
     t0 = time.perf_counter()
     Checkpointer(ckpt).save(S_STEPS, state, extra={"phase": "s2"},
@@ -4659,25 +4683,36 @@ def s2_rank(rank, world, *, seed, ckpt):
                                                                tcfg))
     save_s = time.perf_counter() - t0
     state, next_m, _ = s_steps(torch, state, rows, cfg, tcfg, 1, mesh)
+    # One more step in the reference's microbatches (C1).
+    mb_tcfg = dataclasses.replace(tcfg, microbatches=S_MICROBATCHES)
+    state, mb_m, mb_ms = s_steps(torch, state, rows, cfg, mb_tcfg, 1, mesh)
     del state
     torch.cuda.empty_cache()
 
     def reference():
+        from repro_torch.optim import global_norm
+        from repro_torch.train import grads_and_metrics
         st = init_state(init_params(gen.manual_seed(seed), cfg, dev), tcfg)
         st, ref_m, ref_ms = s_steps(torch, st, batch, cfg, tcfg, S_STEPS)
         held = s_hold_leaves(torch, blocks, st, specs, mesh, S_STEPS)
         st, ref_next, _ = s_steps(torch, st, batch, cfg, tcfg, 1)
-        del st
+        grads, m = grads_and_metrics(st.params, batch, cfg, S_MICROBATCHES)
+        ref_mb = {"loss": float(m["loss"]),
+                  "grad_norm": float(global_norm(grads))}
+        del st, grads
         torch.cuda.empty_cache()
-        return ref_m, ref_ms, ref_next, held
+        return ref_m, ref_ms, ref_next, held, ref_mb
 
-    ref_m, ref_ms, ref_next, held = s_each_rank(rank, world, reference)
+    ref_m, ref_ms, ref_next, held, ref_mb = s_each_rank(rank, world,
+                                                        reference)
     return {"coords": dict(mesh.coords), "metrics": metrics, "ms": ms,
             "ref_metrics": ref_m, "ref_ms": ref_ms, "next": next_m[0],
             "ref_next": ref_next[0], "held": held, "launches": launches,
             "peak_bytes": peak, "shapes_ok": shapes_ok, "save_s": save_s,
             "block_bytes": sum(v.numel() * v.element_size()
-                               for v in blocks.values())}
+                               for v in blocks.values()),
+            "traffic_per_step": traffic, "microbatched": mb_m[0],
+            "microbatched_ms": mb_ms[0], "ref_microbatched": ref_mb}
 
 
 def s1_ep(torch, dev, seed: int) -> dict:
@@ -4770,11 +4805,13 @@ def s3_moe_steps(torch, dev, seed: int) -> dict:
     specs = flatten(state_block_specs(cfg, mesh, tcfg))
     batch = s_batch(torch, cfg, seed, dev)
     rows = local_batch(batch, mesh)
+    before = dict(mesh.traffic)
     build.reset_launches()                  # the sharded steps start here
     state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_MOE_STEPS,
                                  mesh)
     launches = build.launch_counts()        # ... and end here
     peak = torch.cuda.max_memory_allocated()
+    traffic = s_traffic(mesh, before, S_MOE_STEPS)
     blocks = s_host(state)
     del state
     torch.cuda.empty_cache()
@@ -4793,7 +4830,8 @@ def s3_moe_steps(torch, dev, seed: int) -> dict:
     ref_m, ref_ms, held, ref_peak = s_each_rank(mesh.rank, 2, reference)
     return {"metrics": metrics, "ms": ms, "ref_metrics": ref_m,
             "ref_ms": ref_ms, "held": held, "launches": launches,
-            "peak_bytes": peak, "ref_peak_bytes": ref_peak}
+            "peak_bytes": peak, "ref_peak_bytes": ref_peak,
+            "traffic_per_step": traffic}
 
 
 def s4_ef_int8(torch, dev, seed: int) -> dict:
@@ -4822,9 +4860,13 @@ def s4_ef_int8(torch, dev, seed: int) -> dict:
     batch = s_batch(torch, cfg, seed, dev)
     rows = local_batch(batch, mesh)
     wire0 = dict(compress.WIRE_BYTES)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(mesh.traffic)
     build.reset_launches()                  # the EF-int8 steps start here
     state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_STEPS, mesh)
     launches = build.launch_counts()        # ... and end here
+    peak = torch.cuda.max_memory_allocated()
+    traffic = s_traffic(mesh, before, S_STEPS)
     wire = {k: compress.WIRE_BYTES[k] - wire0[k] for k in wire0}
     blocks = s_host(state)
     res_max = max(float(v.abs().max()) for k, v in blocks.items()
@@ -4876,7 +4918,8 @@ def s4_ef_int8(torch, dev, seed: int) -> dict:
     differ = s_each_rank(mesh.rank, 2, reference)
     return {"metrics": metrics, "ms": ms, "launches": launches,
             "wire_bytes": wire, "residual_max_abs": res_max,
-            "leaves": len(blocks), "leaves_not_bit_equal": differ}
+            "leaves": len(blocks), "leaves_not_bit_equal": differ,
+            "peak_bytes": peak, "traffic_per_step": traffic}
 
 
 def s5_elastic(torch, dev, seed: int, ckpt: str) -> dict:
@@ -4917,14 +4960,19 @@ def s5_elastic(torch, dev, seed: int, ckpt: str) -> dict:
         tuple(whole[k].shape), dry[k], mesh) for k in got)
     del saved
     rows = local_batch(s_batch(torch, cfg, seed, dev), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(mesh.traffic)
     build.reset_launches()                  # the step after the restore
     state, m, ms = s_steps(torch, state, rows, cfg, tcfg, 1, mesh)
     launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    traffic = s_traffic(mesh, before, 1)
     del state
     torch.cuda.empty_cache()
     return {"attempts": tried, "extra": extra, "restore_s": restore_s,
             "bit_equal": bit_equal, "shapes_ok": shapes_ok, "next": m[0],
-            "ms": ms[0], "launches": launches}
+            "ms": ms[0], "launches": launches, "peak_bytes": peak,
+            "traffic_per_step": traffic}
 
 
 def s_pair_rank(rank, world, *, seed, ckpt):
@@ -4981,6 +5029,21 @@ def s_hold_launches(label: str, ranks: list, names) -> dict:
 S_FLASH = ("flash_attention", "flash_attention_bwd")
 
 
+def s_log_traffic(label: str, ranks: list, smi: str) -> None:
+    """A world's bytes a step per rank (the parameters gathered, received;
+    the gradients put into each form of reduction) and peak memory, one
+    line for each rank."""
+    for i, r in enumerate(ranks):
+        t = r["traffic_per_step"]
+        log({"traffic": label, "rank": i,
+             "params_gathered_bytes_per_step": t.get("params_gathered", 0),
+             "grads_reduce_scatter_bytes_per_step":
+                 t.get("grads_reduce_scatter", 0),
+             "grads_all_reduce_bytes_per_step": t.get("grads_all_reduce", 0),
+             "reduce_form": S_REDUCE_FORM,
+             "peak_bytes": r["peak_bytes"], "card": smi})
+
+
 def collective_path(torch, np, smi: str, seed: int) -> dict:
     """(s) The collective path: worlds of ranks that all share the card
     over gloo, each held against one process on the same card; the
@@ -5009,8 +5072,11 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
                 raise AssertionError(f"phase s2: rank {r['coords']}: "
                                      f"{r['held']['over']} shapes_ok="
                                      f"{r['shapes_ok']}")
+            mb = s_hold_steps("s2 microbatches", [r["microbatched"]],
+                              [r["ref_microbatched"]])
         launches.append(s_hold_launches("s2", [r["launches"] for r in four],
                                         S_FLASH))
+        s_log_traffic("s2", four, smi)
         log({"check": "s2_sharded_step", "arch": S_ARCH,
              "layers": S_LAYERS, "mesh": {"data": 2, "model": 2},
              "batch": [S_BATCH, S_SEQ], **held,
@@ -5023,6 +5089,14 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
              "next_loss": four[0]["next"]["loss"],
              "next_loss_one_process": four[0]["ref_next"]["loss"],
              "card": smi, "collectives": "gloo, host-staged loopback"})
+        log({"check": "s2_microbatches", "microbatches": S_MICROBATCHES,
+             "loss": mb["losses"][0],
+             "loss_one_process": mb["losses_one_process"][0],
+             "errors": mb["errors"][0],
+             "grad_norm": four[0]["microbatched"]["grad_norm"],
+             "grad_norm_one_process":
+                 four[0]["ref_microbatched"]["grad_norm"],
+             "step_ms": [r["microbatched_ms"] for r in four], "card": smi})
 
         pair = s_world("s_pair_rank", 2, base / "pair", seed=seed,
                        ckpt=ckpt)
@@ -5050,6 +5124,13 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
                 raise AssertionError(f"phase s3: {r['held']['over']}")
         launches.append(s_hold_launches(
             "s3", [r["launches"] for r in s3], MOE_TRAIN_KERNELS + S_FLASH))
+        s_log_traffic("s3", s3, smi)
+        gathered = [r["traffic_per_step"].get("params_gathered", 0)
+                    for r in s3]
+        if any(gathered):
+            # data 1: every leaf split over model is computed as its block.
+            raise AssertionError(f"phase s3: the ranks gathered {gathered} "
+                                 "bytes a step over model")
         world_peak = sum(r["peak_bytes"] for r in s3)
         log({"check": "s3_moe_step", "arch": S_MOE_ARCH,
              "layers": S_MOE_LAYERS, "mesh": {"data": 1, "model": 2},
@@ -5073,6 +5154,7 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
             raise AssertionError("phase s4: the pods disagree on metrics")
         launches.append(s_hold_launches("s4", [r["launches"] for r in s4],
                                         S_FLASH))
+        s_log_traffic("s4", s4, smi)
         log({"check": "s4_ef_int8", "arch": S_ARCH, "layers": S_LAYERS,
              "mesh": {"pod": 2, "data": 1, "model": 1},
              "losses": [m["loss"] for m in s4[0]["metrics"]],
@@ -5097,6 +5179,7 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
                                  f"world {want}")
         launches.append(s_hold_launches("s5", [r["launches"] for r in s5],
                                         S_FLASH))
+        s_log_traffic("s5", s5, smi)
         log({"check": "s5_elastic", "from": {"data": 2, "model": 2},
              "to": {"data": 1, "model": 2}, "attempts": s5[0]["attempts"],
              "restore_s": [r["restore_s"] for r in s5],

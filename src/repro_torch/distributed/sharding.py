@@ -424,6 +424,39 @@ def is_expert_leaf(path: str, spec: P) -> bool:
             and len(spec) == 3 and spec[0] == "model")
 
 
+def computed_on_model(cfg: ModelConfig, path: str, spec: P) -> bool:
+    """Whether the sharded step computes with the parameter leaf at
+    ``path`` as this rank's block on ``model`` (gathered over the batch
+    axes only, its gradient left a block there), the one rule for the step
+    and the model:
+
+    * an expert stack split over ``model`` (expert parallelism);
+    * tensor parallelism, Megatron's split, where ``spec`` splits the leaf
+      over ``model`` (``_param_spec`` drops the axis where it does not
+      divide): GQA attention's ``wq`` and ``bq`` over heads (column) and
+      ``wo`` (row); the dense MLP's ``w_gate`` and ``w_up`` over ``d_ff``
+      (column) and ``w_down`` (row); the embedding and the unembedding
+      over ``vocab``.
+
+    MLA, an encoder-decoder's stacks and embedding, and an MoE layer's
+    shared expert keep the gathered form; Mamba's leaves are not split over
+    ``model``. The model takes a leaf it finds shorter than the config's
+    width as its block (``shardlib.model_block``)."""
+    if is_expert_leaf(path, spec):
+        return True
+    if cfg.is_encdec or not any("model" in (e if isinstance(e, tuple)
+                                            else (e,)) for e in spec):
+        return False
+    parts = path.split("/")
+    if parts[-1] in ("embedding", "unembed"):
+        return parts[:-1] == ["embed"]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if parent == "mixer" and parts[-1] in ("wq", "bq", "wo"):
+        return cfg.mla is None
+    return (parent == "ffn" and len(spec) == 2
+            and parts[-1] in ("w_gate", "w_up", "w_down"))
+
+
 def train_state_block_specs(cfg: ModelConfig, mesh, state_shapes: Any,
                             compress_axis: Optional[str] = "pod") -> Any:
     """The specs of a rank's blocks of a :class:`TrainState` on a process

@@ -15,16 +15,20 @@ position, which holds the process group along every set of axes and its
 own coordinates. The training path runs its collectives there: the
 differentiable :func:`reduce_from`, :func:`copy_to` and :func:`pmean` (the
 counterparts of ``psum`` and ``pmean`` inside the reference's
-``shard_map``), and :func:`all_reduce_` / :func:`all_gather` for
-gradients, parameters and checkpoints. A mesh without that backing (the
-sharded runtime's logical shards, the production meshes of ``meta``
-devices, :func:`make_debug_mesh` over one device) has none of them.
+``shard_map``), and :func:`all_reduce_` / :func:`all_gather` /
+:func:`reduce_scatter` for gradients, parameters and checkpoints. A mesh
+without that backing (the sharded runtime's logical shards, the
+production meshes of ``meta`` devices, :func:`make_debug_mesh` over one
+device) has none of them. A model leaf the sharded step hands over as
+this rank's block on ``model`` (tensor parallelism) says so by its
+length: :func:`model_block`.
 
 Collectives run on the tensors' own device over the world's backend;
-nothing switches either. gloo runs ``all_reduce``, ``broadcast``,
-``all_gather`` and ``gather`` on CUDA tensors itself (int8, fp32 and
-bf16 checked on the H100 with torch 2.11): it copies through host memory
-inside the collective, so its times measure loopback, not NVLink.
+nothing switches either. gloo runs ``all_reduce`` (sum and max),
+``broadcast``, ``all_gather``, ``gather`` and ``reduce_scatter_tensor``
+on CUDA tensors itself (int8, fp32 and bf16 checked on the H100 with
+torch 2.11, ``tools/gloo_collectives_probe.py``): it copies through host
+memory inside the collective, so its times measure loopback, not NVLink.
 
 Lifecycle contract: the mesh and the rule table live and die together.
 ``set_mesh(None)`` (== ``clear_mesh()``) drops the rules too — rules are
@@ -73,6 +77,9 @@ class Mesh:
         self.rank = rank
         self.backend = backend
         self._groups: Dict[Tuple[str, ...], object] = {}
+        #: Bytes the sharded train step moved through this mesh's
+        #: collectives, summed over its steps, by kind (``train/step.py``).
+        self.traffic: Dict[str, int] = {}
         if rank is not None:
             self._new_groups()
 
@@ -142,6 +149,10 @@ class Mesh:
     def device(self) -> torch.device:
         """This rank's device."""
         return self.devices.flat[self.rank]
+
+    def count(self, kind: str, nbytes: int) -> None:
+        """Add ``nbytes`` to :attr:`traffic` under ``kind``."""
+        self.traffic[kind] = self.traffic.get(kind, 0) + int(nbytes)
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -238,14 +249,17 @@ def _mesh_for(mesh: Optional[Mesh]) -> Mesh:
     return mesh
 
 
-def all_reduce_(t: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
-                ) -> torch.Tensor:
-    """Sum ``t`` over ``axes`` in place (every rank gets the same bytes);
-    the identity along a single position."""
+def all_reduce_(t: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None,
+                op: str = "sum") -> torch.Tensor:
+    """Sum (or with ``op="max"``, the largest of) ``t`` over ``axes`` in
+    place (every rank gets the same bytes); the identity along a single
+    position."""
     mesh = _mesh_for(mesh)
     if mesh.size(axes) > 1:
         import torch.distributed as dist
-        dist.all_reduce(t, group=mesh.group(axes))
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op],
+                        group=mesh.group(axes))
     return t
 
 
@@ -261,6 +275,26 @@ def all_gather(t: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None
     outs = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(outs, src, group=mesh.group(axes))
     return outs
+
+
+def reduce_scatter(t: torch.Tensor, axes: Axes, dim: int,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``t`` summed over ``axes``, of which this rank keeps its block of
+    dim ``dim``: the dim splits into ``mesh.size(axes)`` equal blocks in
+    mesh order (the first axis major), the order of
+    ``sharding.take_block``. The identity along a single position."""
+    mesh = _mesh_for(mesh)
+    n = mesh.size(axes)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} positions of {mesh.axes(axes)}")
+    import torch.distributed as dist
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=mesh.group(axes))
+    return out.movedim(0, dim).contiguous()
 
 
 def gather_to_first(t: torch.Tensor, mesh: Optional[Mesh] = None
@@ -345,6 +379,34 @@ def copy_to(x: torch.Tensor, axes: Axes,
     """A replicated input entering rank-local work along ``axes``:
     identity forward, all-reduce of the gradient backward."""
     return _collective(_CopyTo, x, axes, mesh)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 mesh: Mesh) -> torch.Tensor:
+    """``x @ w`` where ``x``'s last dim and ``w``'s rows are this rank's
+    block of the contraction on ``model`` (Megatron's row split): each
+    rank's part in fp32, summed over ``model`` with :func:`reduce_from`,
+    then rounded to ``x``'s dtype once, as one process's product rounds
+    its fp32 sum once (bf16 parts summed in bf16 would round three
+    times)."""
+    y = x.float() @ w.float()
+    return reduce_from(y, "model", mesh).to(x.dtype)
+
+
+def model_block(local: int, full: int) -> Optional[Tuple[Mesh, int]]:
+    """Whether a leaf dim of ``full`` entries that a model finds ``local``
+    long is this rank's block of it on ``model`` (tensor parallelism: the
+    sharded step gathers such a leaf over the batch axes only): ``(mesh,
+    block index)``, or None for a whole dim. The split is read from the
+    leaf, never decided from the mesh."""
+    if local == full:
+        return None
+    mesh = process_mesh()
+    if mesh is None or "model" not in mesh.shape \
+            or local * mesh.shape["model"] != full:
+        raise ValueError(f"a leaf dim of {local} where the model has "
+                         f"{full} is no block of {mesh!r} along model")
+    return mesh, mesh.coords["model"]
 
 
 def pmean(x: torch.Tensor, axes: Axes,

@@ -24,6 +24,12 @@ of 128, and caches the compressed latent (c_kv | k_rope) per position in
 ``KVCacheView.k`` as (B, S, 1, kv_lora + rope) beside a (B, S, 1, 0) ``v``.
 Its decode attends in the latent space (kv_up absorbed into the query), in
 plain PyTorch as the reference's jnp is, writing latent and tag in place.
+
+Under the sharded train step GQA attention may run tensor-parallel, as the
+reference's rules split ``heads`` over ``model``: ``wq`` (and ``bq``) then
+hold this rank's heads, ``wo`` their rows, and the output's parts sum over
+``model`` (``shardlib.reduce_from``); K and V cover only the KV heads the
+rank's heads read. MLA keeps whole heads.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import shardlib
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import FLASH_SHAPES
 from .layers import apply_rope, dense_init, init_rms_norm, rms_norm
@@ -164,25 +171,72 @@ class KVCacheView(NamedTuple):
     kv_pos: torch.Tensor     # (B, S) int32, -1 = empty
 
 
+def _tensor_parallel(params, cfg: ModelConfig):
+    """Under the sharded step's tensor parallelism (``wq`` this rank's block
+    of heads on ``model``): ``(mesh, first, count, index)``, the KV heads
+    ``[first, first + count)`` the rank's query heads read and, where
+    flash's grouping (local head ``j`` reads local KV head ``j // (H_loc /
+    count)``) would pair them otherwise, each local head's KV head in that
+    range (None when it pairs them right). None for whole heads."""
+    h_loc = params["wq"].shape[1]
+    tp = shardlib.model_block(h_loc, cfg.num_heads)
+    if tp is None:
+        return None
+    mesh, r = tp
+    g = cfg.num_heads // cfg.num_kv_heads
+    kv = [(r * h_loc + j) // g for j in range(h_loc)]
+    first, count = kv[0], kv[-1] - kv[0] + 1
+    local = [k - first for k in kv]
+    if h_loc % count == 0 and local == [j // (h_loc // count)
+                                        for j in range(h_loc)]:
+        return mesh, first, count, None
+    return mesh, first, count, local
+
+
 def _project_qkv(params, x, cfg: ModelConfig, positions):
+    """q, k, v (B, S, heads, D), q and k normed and rotated. Under tensor
+    parallelism, q over the rank's heads and k, v over the KV heads they
+    read (see :func:`_tensor_parallel`); ``x`` and the replicated leaves
+    (``wk``, ``wv``, their biases, the q/k norms) enter through
+    ``copy_to``, so the gradient of each sums the ranks' parts."""
     dt = cfg.cdtype
     b, s, dm = x.shape
+    tp = _tensor_parallel(params, cfg)
+    p = params
+    if tp is not None:
+        mesh, first, count, _ = tp
+        x = shardlib.copy_to(x, "model", mesh)
+        kv_heads = slice(first, first + count)
+
+        def replicated(k):
+            v = shardlib.copy_to(params[k], "model", mesh)
+            return v[:, kv_heads] if k in ("wk", "wv") else v[kv_heads]
+        p = dict(params, **{k: replicated(k) for k in ("wk", "wv", "bk", "bv")
+                            if k in params})
+        for k in ("q_norm", "k_norm"):
+            if k in params:
+                p[k] = {"scale": shardlib.copy_to(params[k]["scale"],
+                                                  "model", mesh)}
 
     def proj(w):             # "bsd,dhe->bshe"
         return (x @ w.to(dt).reshape(dm, -1)).view(b, s, *w.shape[1:])
 
-    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"]["scale"], cfg.norm_eps)
+        q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
+    if tp is not None and tp[3] is not None:
+        # Heads that flash's grouping would pair wrongly: one KV head each.
+        idx = torch.tensor(tp[3], device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     return q, k, v.contiguous()
 
 
@@ -251,7 +305,13 @@ def attention(params, x, positions, cfg: ModelConfig, *,
     else:
         out = _core(q, k, v, positions, cfg, causal=causal, window=window)
     b, s = x.shape[:2]
-    y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, x.shape[-1])
+    wo = params["wo"].to(dt).reshape(-1, x.shape[-1])
+    tp = shardlib.model_block(params["wo"].shape[0], cfg.num_heads)
+    if tp is None:
+        y = out.reshape(b, s, -1) @ wo
+    else:
+        # wo by rows: each rank's heads give a part of the output.
+        y = shardlib.row_parallel(out.reshape(b, s, -1), wo, tp[0])
     if return_cache:
         return y, KVCacheView(k, v, positions.to(torch.int32))
     return y

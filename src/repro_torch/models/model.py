@@ -14,7 +14,9 @@ embeddings and cut from the logits (phi-3-vision's patches), and
 ``batch["frames"]`` (B, S_enc, d), the encoder's input (seamless-m4t's
 audio frames). The frontends are stubs; the backbone is exact.
 ``loss_fn`` is the training loss: the token-mean cross entropy with the
-z-loss over ``forward``'s logits, plus the MoE auxiliary loss.
+z-loss over ``forward``'s logits, plus the MoE auxiliary loss. Under the
+sharded step's tensor parallelism ``forward``'s logits are this rank's
+block of the vocabulary (``layers.unembed``).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def _prefix(batch, cfg: ModelConfig) -> int:
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """Token embeddings (after the multimodal prefix, if any) and their
     positions 0 .. S-1."""
-    x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+    x = embed(params["embed"], batch["tokens"], cfg.cdtype, cfg.padded_vocab)
     if _prefix(batch, cfg):
         x = torch.cat([batch["prefix_embeds"].to(cfg.cdtype), x], dim=1)
     b, s, _ = x.shape
@@ -115,7 +117,7 @@ def forward(params, batch, cfg: ModelConfig, *, return_caches: bool = False):
                                    memory=memory, return_caches=return_caches)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     x = x[:, _prefix(batch, cfg):]
-    logits = unembed(params["embed"], x, cfg.cdtype)
+    logits = unembed(params["embed"], x, cfg.cdtype, cfg.padded_vocab)
     return logits, aux, caches, memory
 
 
@@ -127,7 +129,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, denom=None):
     logits, aux, _, _ = forward(params, batch, cfg)
     loss, metrics = softmax_cross_entropy(logits, batch["labels"],
                                           batch.get("loss_mask"),
-                                          denom=denom)
+                                          denom=denom, vocab=cfg.padded_vocab)
     total = loss + aux
     return total, dict(metrics, aux=aux, loss=total)
 

@@ -111,7 +111,7 @@ def block_forward(p, x, positions, cfg: ModelConfig, mixer: str, ffn: str,
     if ffn == "moe":
         y, aux, _ = moe_ffn(p["ffn"], h2, cfg, cfg.act_fn)
     else:
-        y = mlp(p["ffn"], h2, cfg.act_fn, cfg.cdtype)
+        y = mlp(p["ffn"], h2, cfg.act_fn, cfg.cdtype, d_ff=cfg.d_ff)
     return x + y, aux, cache
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -214,21 +214,51 @@ def _mask_count(batch) -> torch.Tensor:
     return mask.float().sum()
 
 
+def microbatch_rows(rows: int, n: int, ranks: int,
+                    index: int) -> List[Tuple[int, int]]:
+    """The rows ``[start, stop)`` of a batch of ``rows`` that rank
+    ``index`` of the ``ranks`` splitting it computes in each of ``n``
+    microbatches: microbatch ``i`` holds rows ``[i rows/n, (i+1) rows/n)``,
+    as the reference's scan slices the global batch, and the rank its
+    block ``index`` of those, as GSPMD reshards the slice onto the batch
+    spec."""
+    if rows % (n * ranks):
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{n} microbatches over {ranks} ranks")
+    per, size = rows // (n * ranks), rows // n
+    return [(i * size + index * per, i * size + (index + 1) * per)
+            for i in range(n)]
+
+
+def _microbatches(batch, n: int, mesh, axes):
+    """This rank's rows of each of ``n`` microbatches of the batch split
+    over ``axes`` (each rank holding its rows of it, ``batch``): the ranks'
+    rows all-gathered along ``axes`` and cut by :func:`microbatch_rows`."""
+    ranks = mesh.size(axes)
+    rows = next(iter(batch.values())).shape[0] * ranks
+    cuts = microbatch_rows(rows, n, ranks, mesh.index(axes))
+    if n == 1:
+        return [batch]
+    if ranks > 1:
+        batch = {k: torch.cat(shardlib.all_gather(v, axes, mesh))
+                 for k, v in batch.items()}
+    return [{k: v[a:b] for k, v in batch.items()} for a, b in cuts]
+
+
 def _sharded_grads(full, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh,
                    sum_axes):
-    """Gradients of this rank's share of the loss at the whole (gathered)
+    """Gradients of this rank's share of the loss at the gathered
     parameters, and the metrics of the batch across ``sum_axes``.
 
     The token means divide by the mask count summed over ``sum_axes``,
     never a mean of per-rank means: the rank's gradients then sum to the
     batch's. The auxiliary loss is already a mean over them (``pmean`` in
-    ``moe_ffn``)."""
+    ``moe_ffn``). Microbatches are the reference's slices of the batch
+    over ``sum_axes`` (:func:`_microbatches`; over ``compress_pod_axis``
+    each pod's rows are its own batch)."""
     n = tcfg.microbatches
-    mbs = [batch] if n == 1 else [
-        {k: v[i] for k, v in _split_microbatches(batch, n).items()}
-        for i in range(n)]
     acc, metrics = None, None
-    for b in mbs:
+    for b in _microbatches(batch, n, mesh, sum_axes):
         denom = shardlib.all_reduce_(_mask_count(b), sum_axes, mesh) \
             if sum_axes else None
         _, m, grads = _value_and_grad(full, b, cfg, tcfg.cast_params_bf16,
@@ -247,22 +277,54 @@ def _sharded_grads(full, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh,
     return tree_map(lambda g: g / n, acc), {"loss": metrics / n}
 
 
+def _onto_block(g, spec, axes, mesh):
+    """The gradient ``g`` of a leaf gathered whole along ``spec``'s axes,
+    summed over the batch ``axes``: reduce-scattered onto this rank's
+    block of the dim ``spec`` splits over them, or all-reduced whole where
+    no dim does. Returns it and the spec of what is left to cut
+    (``spec`` less ``axes``); axes of that dim's entry outside ``axes``
+    (``pod`` under EF-int8) stay whole, each position's share in turn."""
+    for i, e in enumerate(spec):
+        ax = mesh.axes(e)
+        if not set(ax) & set(axes):
+            continue
+        outer = ax[:len(ax) - len(axes)]
+        if ax[len(outer):] != mesh.axes(axes):
+            raise ValueError(f"{spec} splits dim {i} over {ax}, not over "
+                             f"the batch axes {axes} last")
+        parts = g.unflatten(i, (mesh.size(outer), -1))
+        mesh.count("grads_reduce_scatter", g.numel() * g.element_size())
+        g = shardlib.reduce_scatter(parts, axes, i + 1, mesh).flatten(i,
+                                                                      i + 1)
+        return g, sh.strip(spec, axes)
+    mesh.count("grads_all_reduce", g.numel() * g.element_size())
+    return shardlib.all_reduce_(g, axes, mesh), sh.strip(spec, axes)
+
+
 def _sharded(state: TrainState, batch, cfg: ModelConfig, tcfg: TrainConfig,
              mesh) -> Tuple[TrainState, dict]:
     """One step on this rank's blocks and rows (see the module).
 
-    1. Each parameter leaf is all-gathered over the axes of its spec; an
-       expert stack keeps its ``model`` slice, the rank's experts, which
-       expert-parallel ``moe_ffn`` takes as they are. Dense compute is
-       replicated over ``model``.
-    2. Forward and backward on the rank's rows.
-    3. Gradients are summed over the batch axes (in fp32); over
-       ``compress_pod_axis``, the EF-int8 mean instead: each pod is then a
-       replica whose loss is its own rows' mean, as inside the
-       reference's ``shard_map`` over pods, and each rank compresses the
-       whole of its leaf along that axis with its own residual.
+    1. Each parameter leaf is all-gathered over the axes of its spec. A
+       leaf ``sharding.computed_on_model`` names keeps its ``model`` block
+       and is gathered over the batch axes only: an expert stack (the
+       rank's experts, which expert-parallel ``moe_ffn`` takes as they
+       are) and the tensor-parallel dense leaves (the model splits its
+       products over ``model``). Any other leaf is gathered whole.
+    2. Forward and backward on the rank's rows, in the reference's
+       microbatches.
+    3. Gradients are summed over the batch axes (in fp32): reduce-scattered
+       onto the rank's block of the dim the leaf's spec splits over them,
+       all-reduced whole where none does. Over ``compress_pod_axis``, the
+       EF-int8 mean instead: each pod is then a replica whose loss is its
+       own rows' mean, as inside the reference's ``shard_map`` over pods,
+       and each rank compresses its block of every pod's share along that
+       axis with its own residual.
     4. Each gradient is cut to the rank's block; AdamW runs on the blocks,
        clipped by the global norm of the reduced gradients.
+
+    ``mesh.traffic`` counts the bytes each rank received in the gathers
+    and put into each form of gradient reduction.
     """
     specs = state_block_specs(cfg, mesh, tcfg)
     pspecs = flatten(specs.params)
@@ -274,13 +336,18 @@ def _sharded(state: TrainState, batch, cfg: ModelConfig, tcfg: TrainConfig,
 
     def computed(k):
         """The spec of the part of leaf ``k`` the rank computes with: the
-        leaf's, less ``model`` for an expert stack."""
-        if sh.is_expert_leaf(k, pspecs[k]):
+        leaf's, less ``model`` where the rank computes with its block."""
+        if sh.computed_on_model(cfg, k, pspecs[k]):
             return sh.strip(pspecs[k], ("model",))
         return pspecs[k]
 
-    full = map_with_path(
-        lambda k, b: sh.gather_leaf(b, computed(k), mesh), state.params)
+    def gather(k, b):
+        g = sh.gather_leaf(b, computed(k), mesh)
+        mesh.count("params_gathered",
+                   (g.numel() - b.numel()) * b.element_size())
+        return g
+
+    full = map_with_path(gather, state.params)
     rules = dict(shardlib.current_rules() or sh.activation_rules(mesh),
                  batch=sum_axes or None)
     with shardlib.use_mesh(mesh, rules):
@@ -290,16 +357,21 @@ def _sharded(state: TrainState, batch, cfg: ModelConfig, tcfg: TrainConfig,
 
     flat = flatten(grads)
     del grads
-    if sum_axes and mesh.size(sum_axes) > 1:
-        flat = {k: shardlib.all_reduce_(g.float(), sum_axes, mesh)
-                for k, g in flat.items()}
+    reduce = sum_axes and mesh.size(sum_axes) > 1
+    out, left = {}, {}
+    for k in list(flat):
+        # One leaf at a time, its whole gradient gone before the next.
+        g, left[k] = flat.pop(k), computed(k)
+        if reduce:
+            g, left[k] = _onto_block(g.float(), left[k], sum_axes, mesh)
+        out[k] = g
     residuals = state.residuals
     if pod:
-        # Each rank sends the whole of its leaf along the pod axis (every
-        # pod's share), compressed against its own residual; then keeps
+        # Each rank sends its block of every pod's share of the leaf along
+        # the pod axis, compressed against its own residual; then keeps
         # its pod's share of the mean.
-        cols = {k: sh.take_block(g, sh.P(*computed(k), own=(pod,)), mesh)
-                for k, g in flat.items()}
+        cols = {k: sh.take_block(g, sh.P(*left[k], own=(pod,)), mesh)
+                for k, g in out.items()}
         reduced, residuals = optim.compressed_psum_tree(
             map_with_path(lambda k, _: cols[k], state.params),
             state.residuals, pod)
@@ -309,15 +381,11 @@ def _sharded(state: TrainState, batch, cfg: ModelConfig, tcfg: TrainConfig,
         metrics = {k: shardlib.all_reduce_(v.clone(), pod, mesh)
                    / mesh.size(pod) for k, v in metrics.items()}
     else:
-        out = {}
-        for k in list(flat):
-            # A copy of the block, so the whole gradient goes now (not
-            # after AdamW).
-            g = flat.pop(k)
-            out[k] = sh.take_block(g, computed(k), mesh)
-            if out[k].numel() < g.numel():
-                out[k] = out[k].clone()
-            del g
+        for k, g in out.items():
+            # A copy of a smaller block, so the whole gradient goes now
+            # (not after AdamW).
+            blk = sh.take_block(g, left[k], mesh)
+            out[k] = blk.clone() if blk.numel() < g.numel() else blk
     del flat
 
     # Global norm: every block once, its copies on other ranks not again.

@@ -8,6 +8,10 @@
   error-feedback property of the reference's ``test_substrate``.
 * ``make_process_mesh``: it refuses a world of another size and a backend
   the world does not run; group positions follow mesh order.
+* ``shardlib.reduce_scatter`` in a world of 4, over ``data`` and over
+  ``("pod", "data")`` on three meshes, the FSDP dim on 0, 1 and 2: equal
+  bit for bit to all-reduce then ``take_block``; and the sharded step's
+  reduction in the EF-int8 layout (``train.step._onto_block``).
 * Expert-parallel ``moe_ffn`` (``_moe_ffn_ep``) on the reduced dbrx-132b
   in fp32: on ``data`` 2 x ``model`` 2 with capacity factor 8 (no drops:
   per-shard capacity differs from the whole batch's) against the
@@ -165,6 +169,44 @@ def test_process_mesh_refuses_and_orders(ef_world):
         assert "runs gloo, not nccl" in out["refused"]["backend"]
         assert out["groups"] == {"model_index": 0, "pod_index": rank,
                                  "pod_size": 2}
+
+
+# ---------------------------------------------------------------------------
+# Reduce-scatter onto blocks: one world of 4
+# ---------------------------------------------------------------------------
+
+RS_CASES = [(m, axes, dim)
+            for m, axes in (("pod2_data2", ("data",)),
+                            ("pod2_data2", ("pod", "data")),
+                            ("pod2_model2", ("pod", "data")),
+                            ("data2_model2", ("data",)),
+                            ("ef", ("data",)))
+            for dim in range(3)]
+
+
+@pytest.fixture(scope="module")
+def rs_world(tmp_path_factory):
+    return _world(tmp_path_factory.mktemp("rs"), "world",
+                  "reduce_scatter_blocks", 4, shape=(4, 8, 12))
+
+
+@pytest.mark.parametrize("mesh,axes,dim", RS_CASES)
+def test_reduce_scatter_equals_all_reduce_then_take_block(rs_world, mesh,
+                                                          axes, dim):
+    """``shardlib.reduce_scatter`` over ``data`` and over ``("pod",
+    "data")`` with the FSDP dim on 0, 1 and 2: bit-equal to the all-reduce
+    cut to the rank's block (``take_block``'s order) at two ranks along
+    the axes, and with integer values at four; ``ef``: the sharded step's
+    ``_onto_block`` in the EF-int8 layout (each pod's share kept, over
+    ``data`` on pod 2 x data 2) against the all-reduce cut the same way."""
+    blocks = set()
+    for rank, out in enumerate(rs_world):
+        got, want = out[(mesh, axes, dim)]
+        assert got.shape == want.shape, (rank, got.shape, want.shape)
+        assert torch.equal(got, want), rank
+        blocks.add(got.numpy().tobytes())
+    # Each block differs from the others: no rank got another's.
+    assert len(blocks) > 1
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,16 @@ the CPU), its checkpoints and the elastic restore.
   holding the same tokens (with other labels and masks): its auxiliary
   loss is a mean of per-shard losses, as in the reference's ``shard_map``
   form, which equals the whole batch's only when the shards route alike.
+  Both run tensor-parallel over ``model`` (wq, wo, the dense MLP and the
+  vocabulary leaves as each rank's block, gradients reduce-scattered onto
+  their blocks): each rank computes with exactly its share, and flash
+  gets its rank's heads.
+* Microbatches (C1): on ``data`` 2 at ``microbatches`` 2, the same unequal
+  masks, three steps against the JAX package's unsharded ``train_step`` at
+  ``microbatches`` 2, within the same bounds; 3 microbatches of a batch of
+  4 over 2 ranks raise ``ValueError``. Without a world: each rank's rows
+  of each microbatch are the reference's (block d of slice i) for 2 and 4
+  ranks and 2 and 4 microbatches.
 * The EF-int8 step on ``pod`` 2: loss, gradient norm, parameters and each
   pod's residual against the reference's formula recomputed in one JAX
   process (each pod's gradient of its own rows, ``flat = g + r`` in blocks
@@ -54,6 +64,7 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.distributed.world import run_world  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.models import param_shapes  # noqa: E402
 from repro_torch.models import train_state_from_jax  # noqa: E402
 from repro_torch.train import TrainConfig, state_shapes  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -122,9 +133,10 @@ def _hold_metrics(got, want, label):
                                    err_msg=f"{label} {k}")
 
 
-def _reference_steps(arch, cap, batches, extra=None):
+def _reference_steps(arch, cap, batches, extra=None, microbatches=1):
     jc = _jconfig(arch, cap)
-    jt = JTrainConfig(optimizer=joptim.AdamWConfig(**OCFG))
+    jt = JTrainConfig(optimizer=joptim.AdamWConfig(**OCFG),
+                      microbatches=microbatches)
     jstate = jinit_state(jinit(jax.random.PRNGKey(0), jc), jt)
     start = _np_state(jstate)
     metrics = []
@@ -145,6 +157,8 @@ def worlds(tmp_path_factory):
     q_start, q_metrics, q_after = _reference_steps("qwen2.5-3b", None, qb,
                                                    extra=q_next)
     d_start, d_metrics, d_after = _reference_steps("dbrx-132b", 8.0, db)
+    _, mb_metrics, mb_after = _reference_steps("qwen2.5-3b", None, qb,
+                                               microbatches=2)
     ckpt = tmp / "ckpt"
     four = run_world("torch_dist_workers:sharded_steps", 4, backend="gloo",
                      workdir=tmp / "w4", timeout=WORLD_TIMEOUT,
@@ -161,15 +175,16 @@ def worlds(tmp_path_factory):
         train_state_from_jax(q_start, tc, "cpu"))
     JCheckpointer(str(jax_ckpt)).save(2, port_tree, blocking=True)
     cb, _ = _batches(512, 2, 2)
-    two = run_world("torch_dist_workers:compressed_and_elastic", 2,
+    two = run_world("torch_dist_workers:two_rank_steps", 2,
                     backend="gloo", workdir=tmp / "w2",
                     timeout=WORLD_TIMEOUT, python_path=[HERE],
                     kwargs={"arch": "qwen2.5-3b", "state_np": q_start,
                             "batches": cb, "ckpt_dir": str(ckpt),
                             "jax_ckpt_dir": str(jax_ckpt),
-                            "step_batch": q_next})
+                            "step_batch": q_next, "mb_batches": qb})
     return {"four": four, "two": two, "ckpt": ckpt, "q_start": q_start,
-            "q": (q_metrics, q_after), "d": (d_metrics, d_after), "cb": cb}
+            "q": (q_metrics, q_after), "d": (d_metrics, d_after), "cb": cb,
+            "mb": (mb_metrics, mb_after)}
 
 
 @pytest.mark.parametrize("case", ["qwen2.5-3b", "dbrx-132b"])
@@ -198,6 +213,107 @@ def test_sharded_blocks_have_the_specs_shapes(worlds):
             assert tuple(blk.shape) == want, k
             split += want != tuple(shapes[k].shape)
     assert split > 0
+
+
+@pytest.mark.parametrize("case", ["qwen2.5-3b", "dbrx-132b"])
+def test_model_ranks_compute_with_their_share(worlds, case):
+    """Tensor parallelism on the 2x2 mesh: each ``model`` rank computes
+    with its block on ``model`` of the leaves ``computed_on_model`` names
+    (wq, wo, the dense MLP, the vocabulary leaves; dbrx-132b's experts),
+    every other leaf whole, and flash gets its rank's query heads and the
+    KV head they read."""
+    i, cap = (0, None) if case == "qwen2.5-3b" else (1, 8.0)
+    cfg = config(case, capacity_factor=cap)
+    mesh = make_debug_mesh(2, 2, devices="cpu")
+    shapes = flatten(param_shapes(cfg))
+    specs = flatten(sh.param_specs(cfg, mesh, param_shapes(cfg)))
+    split = set()
+    for r in worlds["four"]:
+        got = r[i]["computed"]["leaves"]
+        assert set(got) == set(shapes)
+        for k, shape in shapes.items():
+            whole = tuple(shape.shape)
+            if sh.computed_on_model(cfg, k, specs[k]):
+                want = sh.shard_shape(whole, sh.strip(specs[k],
+                                                      ("pod", "data")), mesh)
+                assert want != whole, k
+                split.add(k.rsplit("/", 1)[-1])
+            else:
+                want = whole
+            assert got[k] == want, (k, got[k], want)
+        heads = cfg.num_heads // 2
+        assert r[i]["computed"]["flash"] and all(
+            q == heads and kv == cfg.num_kv_heads // 2
+            for q, kv in r[i]["computed"]["flash"])
+    want = {"wq", "wo", "w_gate", "w_up", "w_down", "embedding"}
+    want |= {"unembed"} if not cfg.tie_embeddings else {"bq"}
+    assert want <= split, split
+
+
+def test_microbatches_match_unsharded_reference(worlds):
+    """C1: on ``data`` 2 at ``microbatches`` 2, with the data ranks'
+    unequal masks, three steps against the JAX package's unsharded step at
+    ``microbatches`` 2: the reference's microbatch i is rows [2i, 2i + 2)
+    of the global batch, of which each data rank computes its row."""
+    metrics, after = worlds["mb"]
+    cfg = config("qwen2.5-3b")
+    mesh = make_debug_mesh(2, 1, devices="cpu")
+    ranks = [r["microbatched"] for r in worlds["two"]]
+    for r in ranks:
+        for step, (got, want) in enumerate(zip(r["metrics"], metrics)):
+            _hold_metrics(got, want, f"microbatches 2 step {step}")
+        assert "into 3 microbatches over 2 ranks" in r["refused"]
+    _hold_leaves(_assembled(ranks, cfg, mesh), _whole(after, cfg),
+                 "microbatches 2")
+
+
+class _Gathers:
+    """``shardlib.all_gather`` over ranks whose rows of ``tokens`` are
+    consecutive blocks of ``rows``: every rank's block."""
+
+    def __init__(self, rows, ranks):
+        self.blocks = list(rows.chunk(ranks))
+
+    def __call__(self, t, axes, mesh):
+        return [b.clone() for b in self.blocks]
+
+
+class _Positions:
+    """A mesh of ``ranks`` positions along the batch axes, at ``index``."""
+
+    def __init__(self, ranks, index):
+        self.ranks, self.i = ranks, index
+
+    def size(self, axes):
+        return self.ranks
+
+    def index(self, axes):
+        return self.i
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("n", [2, 4])
+def test_microbatch_rows_are_the_references(monkeypatch, ranks, n):
+    """Each rank's rows of each microbatch: the reference splits the global
+    batch into n contiguous slices (``_split_microbatches``) and GSPMD
+    gives rank d block d of each; the port gathers the ranks' rows and
+    cuts them so (``train.step._microbatches``)."""
+    from repro_torch.distributed import shardlib
+    from repro_torch.train import step as step_mod
+    rows = 2 * n * ranks
+    glob = torch.arange(rows)
+    monkeypatch.setattr(shardlib, "all_gather", _Gathers(glob, ranks))
+    want = [s.chunk(ranks) for s in glob.chunk(n)]
+    for d in range(ranks):
+        local = {"tokens": glob.chunk(ranks)[d]}
+        got = step_mod._microbatches(local, n, _Positions(ranks, d),
+                                     ("data",))
+        assert [g["tokens"].tolist() for g in got] == \
+            [w[d].tolist() for w in want]
+        assert step_mod.microbatch_rows(rows, n, ranks, d) == [
+            (int(w[d][0]), int(w[d][-1]) + 1) for w in want]
+    with pytest.raises(ValueError, match="does not split"):
+        step_mod.microbatch_rows(rows + ranks, n, ranks, 0)
 
 
 def test_loss_is_a_token_mean_across_ranks_with_unequal_masks(worlds):

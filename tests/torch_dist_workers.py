@@ -156,8 +156,86 @@ def _remat_off_mesh(cfg, mesh):
 
 
 # ---------------------------------------------------------------------------
+# Reduce-scatter onto blocks
+# ---------------------------------------------------------------------------
+
+def reduce_scatter_blocks(rank, world, *, shape):
+    """On a world of 4: ``shardlib.reduce_scatter`` against all-reduce then
+    ``take_block``, for each (mesh, batch axes) case and FSDP dim 0, 1, 2
+    (random values where two ranks lie along the axes, integer values,
+    whose sums are exact in any order, where four do); and the sharded
+    step's ``_onto_block`` in the EF-int8 layout (``pod`` owned) against
+    the same on pod 2 x data 2."""
+    from repro_torch.train.step import _onto_block
+    torch.set_num_threads(1)
+    g = torch.Generator().manual_seed(rank)
+    out = {}
+    meshes = {"pod2_data2": (2, 1, 2), "pod2_model2": (1, 2, 2),
+              "data2_model2": (2, 2, 0)}
+    cases = (("pod2_data2", ("data",)), ("pod2_data2", ("pod", "data")),
+             ("pod2_model2", ("pod", "data")), ("data2_model2", ("data",)))
+    built = {name: make_process_mesh(*dims, backend="gloo", device="cpu")
+             for name, dims in meshes.items()}
+    for name, axes in cases:
+        mesh = built[name]
+        ints = mesh.size(axes) > 2
+        for dim in range(3):
+            t = torch.randn(shape, generator=g)
+            if ints:
+                t = torch.randint(-64, 64, shape, generator=g).float()
+            entry = axes if len(axes) > 1 else axes[0]
+            spec = sh.P(*[entry if i == dim else None for i in range(3)])
+            got = shardlib.reduce_scatter(t, axes, dim, mesh)
+            want = sh.take_block(shardlib.all_reduce_(t.clone(), axes, mesh),
+                                 spec, mesh)
+            out[(name, axes, dim)] = (got, want)
+    mesh = built["pod2_data2"]
+    for dim in range(3):
+        t = torch.randn(shape, generator=g)
+        spec = sh.P(*[("pod", "data") if i == dim else None
+                      for i in range(3)])
+        got, left = _onto_block(t.clone(), spec, ("data",), mesh)
+        got = sh.take_block(got, sh.P(*left, own=("pod",)), mesh)
+        want = sh.take_block(shardlib.all_reduce_(t.clone(), "data", mesh),
+                             sh.P(*spec, own=("pod",)), mesh)
+        out[("ef", ("data",), dim)] = (got, want)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The sharded train step, checkpoints, elastic restore
 # ---------------------------------------------------------------------------
+
+class _Recording:
+    """Within its ``with``: the shapes of the leaves the sharded step
+    computes with (each call's, by path) and the (query heads, KV heads)
+    of every flash call."""
+
+    def __enter__(self):
+        import sys
+
+        from repro_torch.kernels import ops
+        self.step = sys.modules["repro_torch.train.step"]
+        self.ops = ops
+        self.leaves, self.flash = [], []
+        self._vg, self._flash = self.step._value_and_grad, \
+            ops.flash_attention_op
+
+        def value_and_grad(params, *args, **kwargs):
+            self.leaves.append({k: tuple(v.shape)
+                                for k, v in flatten(params).items()})
+            return self._vg(params, *args, **kwargs)
+
+        def flash(q, k, v, **kwargs):
+            self.flash.append((q.shape[2], k.shape[2]))
+            return self._flash(q, k, v, **kwargs)
+        self.step._value_and_grad = value_and_grad
+        ops.flash_attention_op = flash
+        return self
+
+    def __exit__(self, *exc):
+        self.step._value_and_grad = self._vg
+        self.ops.flash_attention_op = self._flash
 
 def _step_cfg(grad_clip=1.0):
     from repro_torch.train import TrainConfig
@@ -171,51 +249,77 @@ def _state_from(state_np, cfg):
     return train_state_from_jax(state_np, cfg, "cpu")
 
 
-def sharded_steps(rank, world, *, cases, ckpt_dir):
+def _steps(state, batches, cfg, tcfg, mesh):
+    """The sharded step on the rank's rows of each global batch: the
+    state, each step's metrics, and what the first step computed with
+    (:class:`_Recording`)."""
+    from repro_torch.train import local_batch, make_train_step
+    step = make_train_step(cfg, tcfg)
+    metrics = []
+    with shardlib.use_mesh(mesh, sh.activation_rules(mesh)):
+        for i, b in enumerate(batches):
+            lb = local_batch({k: torch.as_tensor(v) for k, v in b.items()},
+                             mesh)
+            if i == 0:
+                with _Recording() as rec:
+                    state, m = step(state, lb)
+            else:
+                state, m = step(state, lb)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, {"leaves": rec.leaves[0], "flash": rec.flash}
+
+
+def sharded_steps(rank, world, *, cases, ckpt_dir, data=2, model=2):
     """For each case (arch, capacity factor, the reference's state as
-    numpy, the global batches): the sharded step on ``data`` 2 x ``model``
-    2 from the rank's blocks of that state and its rows of each batch.
-    Returns the metrics of each step and the rank's blocks after the last;
-    the first case's state is then saved under ``ckpt_dir`` as step 3."""
+    numpy, the global batches): the sharded step on ``data`` x ``model``
+    from the rank's blocks of that state and its rows of each batch.
+    Returns the metrics of each step, the rank's blocks after the last and
+    what its first step computed with; with ``ckpt_dir``, the first case's
+    state is then saved there as step 3."""
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.train import (local_batch, make_train_step,
-                                   state_block_specs, state_blocks)
-    mesh = _mesh(2, 2)
+    from repro_torch.train import state_block_specs, state_blocks
+    mesh = _mesh(data, model)
     tcfg = _step_cfg()
     out = []
     for i, (arch, cap, state_np, batches) in enumerate(cases):
         cfg = config(arch, capacity_factor=cap)
         specs = state_block_specs(cfg, mesh, tcfg)
         state = state_blocks(_state_from(state_np, cfg), cfg, tcfg, mesh)
-        step = make_train_step(cfg, tcfg)
-        metrics = []
-        with shardlib.use_mesh(mesh, sh.activation_rules(mesh)):
-            for b in batches:
-                lb = local_batch({k: torch.as_tensor(v)
-                                  for k, v in b.items()}, mesh)
-                state, m = step(state, lb)
-                metrics.append({k: float(v) for k, v in m.items()})
-        if i == 0:
+        state, metrics, computed = _steps(state, batches, cfg, tcfg, mesh)
+        if i == 0 and ckpt_dir:
             Checkpointer(ckpt_dir).save(3, state, extra={"case": arch},
                                         mesh=mesh, specs=specs)
         out.append({"metrics": metrics, "blocks": _blocks(state),
-                    "coords": dict(mesh.coords)})
+                    "coords": dict(mesh.coords), "computed": computed})
     return out
 
 
-def compressed_and_elastic(rank, world, *, arch, state_np, batches,
-                           ckpt_dir, jax_ckpt_dir, step_batch):
-    """On ``pod`` 2: the sharded step with ``compress_pod_axis``. Then on
-    ``data`` 1 x ``model`` 2: ``survive_shrink`` of ``ckpt_dir`` (its
-    first mesh refused) and one step on ``step_batch``; and
-    ``reshard_checkpoint`` of a checkpoint the JAX package wrote."""
+def two_rank_steps(rank, world, *, arch, state_np, batches, ckpt_dir,
+                   jax_ckpt_dir, step_batch, mb_batches):
+    """On ``data`` 2: the sharded step at ``microbatches`` 2 from
+    ``state_np`` on ``mb_batches``, and the ``ValueError`` of a batch that
+    does not split into 3 microbatches over 2 ranks. On ``pod`` 2: the
+    sharded step with ``compress_pod_axis``. Then on ``data`` 1 x ``model``
+    2: ``survive_shrink`` of ``ckpt_dir`` (its first mesh refused) and one
+    step on ``step_batch``; and ``reshard_checkpoint`` of a checkpoint the
+    JAX package wrote."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.distributed.fault import (reshard_checkpoint,
                                                survive_shrink)
     from repro_torch.train import (TrainConfig, local_batch, shard_state,
-                                   state_shapes, train_step)
+                                   state_blocks, state_shapes, train_step)
     cfg = config(arch)
     out = {}
+    tcfg = dataclasses.replace(_step_cfg(), microbatches=2)
+    mesh = _mesh(2, 1)
+    state = state_blocks(_state_from(state_np, cfg), cfg, tcfg, mesh)
+    state, metrics, _ = _steps(state, mb_batches, cfg, tcfg, mesh)
+    out["microbatched"] = {"metrics": metrics, "blocks": _blocks(state)}
+    try:
+        _steps(state, mb_batches[:1], cfg,
+               dataclasses.replace(tcfg, microbatches=3), mesh)
+    except ValueError as e:
+        out["microbatched"]["refused"] = str(e)
     # No clipping: the clip scale's global norm sums in another order on
     # the blocks, which would move the parameters by ulps.
     tcfg = dataclasses.replace(_step_cfg(grad_clip=0.0),
