@@ -290,7 +290,15 @@ Phases:
    forms and the residuals' largest entry printed; (s5) (s2)'s checkpoint
    through ``survive_shrink`` onto data 1 x model 2 (its first mesh,
    (s2)'s, refused), bit-equal, then a step whose loss is (s2)'s fourth
-   within 2e-3. (s6) ``torch.distributed.run`` of the training launcher
+   within 2e-3; then three cases tensor-parallel on data 1 x model 2,
+   each held against one process: (s7) deepseek-v2-236b cut to its dense
+   first layer (MLA's q_up, kv_up and wo as the rank's 64 heads, flash at
+   (192, 128); bf16 parameters, 2 steps, held as (s3), no byte
+   gathered), (s8) deepseek-v2-236b's MoE FFN held as (s1), the rank's
+   half of the shared expert's width among the gradients, and (s9)
+   seamless-m4t-medium uncut (fp32 parameters and compute, 512 stub
+   frames, 3 steps held as (s3), no byte gathered); each case's seconds
+   are printed. (s6) ``torch.distributed.run`` of the training launcher
    with ``--distributed-init --mesh-data 1`` on NCCL, a world of one:
    qwen2.5-3b at published widths cut to 1 layer (``--layers``; the
    reduced config's head dim of 16 has no flash kernel), 2 steps of 4 x
@@ -4478,6 +4486,16 @@ S_TIMEOUT = 420
 S_DEVICE, S_RANKS_MODULE = "cuda:0", "chip_smoke"
 S_ARCH, S_LAYERS = "qwen2.5-3b", 4          # (s2), (s4), (s5)
 S_MOE_ARCH, S_MOE_LAYERS = "dbrx-132b", 1   # (s1), (s3)
+#: (s7) deepseek-v2-236b cut to its dense first layer (MLA and the
+#: 12,288-wide MLP, 0 periods); (s8) its MoE FFN with the shared expert.
+S_MLA_ARCH, S_MLA_LAYERS = "deepseek-v2-236b", 1
+#: (s9) seamless-m4t-medium uncut, over S_FRAMES stub frames, in fp32
+#: compute: its cross-attention's query-side gradients are set by where
+#: the encoder rounds, and two bf16 runs that round differently agree on
+#: them at cosine 0.97 (TRAIN_FAMILIES), past the moments' bound.
+S_ENCDEC_ARCH, S_FRAMES = "seamless-m4t-medium", 512
+#: The world of 2 ranks runs (s1), (s3)-(s5) and (s7)-(s9): its limit.
+S_PAIR_TIMEOUT = 900
 S_BATCH, S_SEQ = 4, 512
 S_STEPS, S_MOE_STEPS = 3, 2
 #: (s2)'s last step, in the reference's microbatches (ROADMAP C1).
@@ -4502,11 +4520,16 @@ S_PARAM_STEP_LRS = 2.0
 S_NOISE_LEAVES = ("bk",)
 
 
-def s_cfgs(arch: str, layers: int, param_dtype=None):
+def s_cfgs(arch: str, layers, param_dtype=None, compute_dtype=None):
+    """``arch`` at published widths, cut to ``layers`` (None: uncut)."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
+    if compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     return cfg
 
 
@@ -4715,10 +4738,12 @@ def s2_rank(rank, world, *, seed, ckpt):
             "microbatched_ms": mb_ms[0], "ref_microbatched": ref_mb}
 
 
-def s1_ep(torch, dev, seed: int) -> dict:
-    """(s1) dbrx-132b's MoE FFN at published widths, bf16 weights, on model
-    2 of the rank's world: y, aux and the gradients of x, the router and
-    the rank's experts against the one-process moe_ffn on the same card."""
+def s_ep_ffn(torch, dev, seed: int, arch: str) -> dict:
+    """(s1), (s8) ``arch``'s MoE FFN at published widths, bf16 weights, on
+    model 2 of the rank's world: y, aux and the gradients of x, the
+    router, the rank's experts and the rank's block of the shared expert
+    (over its width, where the arch has one) against the one-process
+    moe_ffn on the same card."""
     import torch.distributed as dist
 
     from repro_torch.distributed import shardlib
@@ -4726,20 +4751,32 @@ def s1_ep(torch, dev, seed: int) -> dict:
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.tree import flatten, map_with_path, tree_map
 
-    cfg = s_cfgs(S_MOE_ARCH, S_MOE_LAYERS, "bfloat16")
+    cfg = s_cfgs(arch, S_MOE_LAYERS, "bfloat16")
     mesh = make_process_mesh(1, 2, backend="gloo", device=S_DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_moe(gen, cfg, dev)
     x = (torch.randn((S_BATCH, S_SEQ, cfg.d_model), device=dev,
                      generator=gen) * 0.5).to(cfg.cdtype)
     w = torch.randn(x.shape, device=dev, generator=gen).to(cfg.cdtype)
+    r = mesh.coords["model"]
     e_loc = cfg.moe.num_experts // 2
-    lo = mesh.coords["model"] * e_loc
-    experts = ("w_gate", "w_up", "w_down")
+
+    def block(k, t):
+        """The rank's part of leaf ``k``: its experts, its columns of the
+        shared expert's w_gate and w_up and its rows of w_down."""
+        name = k.rsplit("/", 1)[-1]
+        if not k.startswith("shared/"):
+            return t[r * e_loc:(r + 1) * e_loc] if name != "router" else t
+        if name == "w_down":
+            f = t.shape[0] // 2
+            return t[r * f:(r + 1) * f]
+        f = t.shape[1] // 2
+        return t[:, r * f:(r + 1) * f]
 
     def run(p, ep: bool):
-        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        leaves = tree_map(lambda v: v.detach().requires_grad_(), p)
         xin = x.detach().requires_grad_()
         ctx = shardlib.use_mesh(mesh, activation_rules(mesh)) if ep \
             else contextlib.nullcontext()
@@ -4749,12 +4786,12 @@ def s1_ep(torch, dev, seed: int) -> dict:
         torch.cuda.synchronize()
         return {"y": y.detach(), "aux": aux.detach(),
                 "dropped": metrics["moe_dropped"].detach(),
-                "grads": {"x": xin.grad, **{k: v.grad
-                                            for k, v in leaves.items()}}}
+                "grads": {"x": xin.grad, **{k: v.grad for k, v in
+                                            flatten(leaves).items()}}}
 
-    # The rank's experts as views: its leaves are E_loc experts.
-    mine = {k: (v[lo:lo + e_loc] if k in experts else v)
-            for k, v in params.items()}
+    # The rank's experts and shared block as views: its leaves are E_loc
+    # experts and half the shared width.
+    mine = map_with_path(block, params)
     build.reset_launches()                  # the EP call starts here
     ep = run(mine, True)
     launches = build.launch_counts()        # ... and ends here
@@ -4767,11 +4804,9 @@ def s1_ep(torch, dev, seed: int) -> dict:
     one_ms = s_each_rank(mesh.rank, 2, lambda: timed(params, False))
     y_err = max_err(torch, ep["y"], one["y"])
     y_bound = S_Y_TOL * float(one["y"].float().abs().max())
-    cos = {}
-    for k, g in ep["grads"].items():
-        want = one["grads"][k][lo:lo + e_loc] if k in experts \
-            else one["grads"][k]
-        cos[k] = cosine(torch, g, want)
+    cos = {k: cosine(torch, g, one["grads"][k] if k == "x"
+                     else block(k, one["grads"][k]))
+           for k, g in ep["grads"].items()}
     out = {"y_err": y_err, "y_bound": y_bound,
            "aux_equal": bool(torch.equal(ep["aux"], one["aux"])),
            "dropped_equal": bool(torch.equal(ep["dropped"],
@@ -4783,10 +4818,12 @@ def s1_ep(torch, dev, seed: int) -> dict:
     return out
 
 
-def s3_moe_steps(torch, dev, seed: int) -> dict:
-    """(s3) dbrx-132b cut to S_MOE_LAYERS, bf16 parameters, data 1 x model
-    2: S_MOE_STEPS sharded steps through _moe_ffn_ep; then each rank in
-    turn (its state on the host) the one-process steps, held as (s2)."""
+def s_model_steps(torch, dev, seed: int, cfg, steps: int,
+                  frames: int = 0) -> dict:
+    """(s3), (s7), (s9) ``cfg`` on data 1 x model 2: ``steps`` sharded
+    steps (the batch with ``frames`` stub encoder frames where given);
+    then each rank in turn (its state on the host) the one-process steps,
+    held as (s2)."""
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models import init_params
@@ -4794,8 +4831,7 @@ def s3_moe_steps(torch, dev, seed: int) -> dict:
                                    state_block_specs)
     from repro_torch.tree import flatten
 
-    cfg = s_cfgs(S_MOE_ARCH, S_MOE_LAYERS, "bfloat16")
-    tcfg = s_tcfg(S_MOE_STEPS)
+    tcfg = s_tcfg(steps)
     mesh = make_process_mesh(1, 2, backend="gloo", device=S_DEVICE)
     gen = torch.Generator(device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -4804,14 +4840,17 @@ def s3_moe_steps(torch, dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     specs = flatten(state_block_specs(cfg, mesh, tcfg))
     batch = s_batch(torch, cfg, seed, dev)
+    if frames:
+        batch["frames"] = torch.randn(
+            (S_BATCH, frames, cfg.d_model), device=dev,
+            generator=gen.manual_seed(seed + 1)) * STUB_SCALE
     rows = local_batch(batch, mesh)
     before = dict(mesh.traffic)
     build.reset_launches()                  # the sharded steps start here
-    state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, S_MOE_STEPS,
-                                 mesh)
+    state, metrics, ms = s_steps(torch, state, rows, cfg, tcfg, steps, mesh)
     launches = build.launch_counts()        # ... and end here
     peak = torch.cuda.max_memory_allocated()
-    traffic = s_traffic(mesh, before, S_MOE_STEPS)
+    traffic = s_traffic(mesh, before, steps)
     blocks = s_host(state)
     del state
     torch.cuda.empty_cache()
@@ -4819,9 +4858,8 @@ def s3_moe_steps(torch, dev, seed: int) -> dict:
     def reference():
         torch.cuda.reset_peak_memory_stats()
         st = init_state(init_params(gen.manual_seed(seed), cfg, dev), tcfg)
-        st, ref_m, ref_ms = s_steps(torch, st, batch, cfg, tcfg,
-                                    S_MOE_STEPS)
-        held = s_hold_leaves(torch, blocks, st, specs, mesh, S_MOE_STEPS)
+        st, ref_m, ref_ms = s_steps(torch, st, batch, cfg, tcfg, steps)
+        held = s_hold_leaves(torch, blocks, st, specs, mesh, steps)
         del st
         ref_peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
@@ -4976,22 +5014,41 @@ def s5_elastic(torch, dev, seed: int, ckpt: str) -> dict:
 
 
 def s_pair_rank(rank, world, *, seed, ckpt):
-    """The world of 2 ranks: (s1), (s3), (s4) and (s5) in turn, each with
-    its own process mesh over the same two processes."""
+    """The world of 2 ranks: (s1), (s3), (s4), (s5), (s7), (s8) and (s9)
+    in turn, each with its own process mesh over the same two processes;
+    each case's seconds (barrier to barrier) beside its results."""
+    import torch.distributed as dist
     torch, dev = s_rank_setup()
-    out = {"s1": s1_ep(torch, dev, seed)}
-    out["s3"] = s3_moe_steps(torch, dev, seed)
-    out["s4"] = s4_ef_int8(torch, dev, seed)
-    out["s5"] = s5_elastic(torch, dev, seed, ckpt)
+    cases = {
+        "s1": lambda: s_ep_ffn(torch, dev, seed, S_MOE_ARCH),
+        "s3": lambda: s_model_steps(
+            torch, dev, seed, s_cfgs(S_MOE_ARCH, S_MOE_LAYERS, "bfloat16"),
+            S_MOE_STEPS),
+        "s4": lambda: s4_ef_int8(torch, dev, seed),
+        "s5": lambda: s5_elastic(torch, dev, seed, ckpt),
+        "s7": lambda: s_model_steps(
+            torch, dev, seed, s_cfgs(S_MLA_ARCH, S_MLA_LAYERS, "bfloat16"),
+            S_MOE_STEPS),
+        "s8": lambda: s_ep_ffn(torch, dev, seed, S_MLA_ARCH),
+        "s9": lambda: s_model_steps(
+            torch, dev, seed, s_cfgs(S_ENCDEC_ARCH, None,
+                                     compute_dtype="float32"),
+            S_STEPS, frames=S_FRAMES),
+    }
+    out = {}
+    for name, fn in cases.items():
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[name] = dict(fn(), seconds=time.perf_counter() - t0)
     return out
 
 
 def s_world(target: str, n: int, workdir: Path, backend: str = "gloo",
-            **kwargs) -> list:
+            timeout: float = S_TIMEOUT, **kwargs) -> list:
     from repro_torch.distributed.world import run_world
     t0 = time.perf_counter()
     out = run_world(f"{S_RANKS_MODULE}:{target}", n, backend=backend,
-                    workdir=workdir, kwargs=kwargs, timeout=S_TIMEOUT,
+                    workdir=workdir, kwargs=kwargs, timeout=timeout,
                     python_path=[str(ROOT)])
     log({"world": target, "ranks": n, "backend": backend,
          "seconds": time.perf_counter() - t0})
@@ -5027,6 +5084,64 @@ def s_hold_launches(label: str, ranks: list, names) -> dict:
 
 
 S_FLASH = ("flash_attention", "flash_attention_bwd")
+
+
+def s_hold_ep(label: str, ranks: list, arch: str, smi: str) -> dict:
+    """(s1), (s8): each rank's expert-parallel FFN against one process
+    (output within S_Y_TOL of its largest, aux and drops equal, every
+    gradient at cosine >= TRAIN_MIN_COS) and its four MoE launches."""
+    for r in ranks:
+        bad = {k: c for k, c in r["grad_cosines"].items()
+               if c < TRAIN_MIN_COS}
+        if r["y_err"] > r["y_bound"] or bad or not r["aux_equal"] \
+                or not r["dropped_equal"]:
+            raise AssertionError(f"phase {label}: {r}")
+    launches = s_hold_launches(label, [r["launches"] for r in ranks],
+                               MOE_TRAIN_KERNELS)
+    log({"check": f"{label}_ep_moe", "arch": arch, "tokens":
+         S_BATCH * S_SEQ, "mesh": {"data": 1, "model": 2},
+         "ranks": [{k: v for k, v in r.items() if k != "launches"}
+                   for r in ranks],
+         "tolerance": {"y_share_of_max": S_Y_TOL,
+                       "min_cosine": TRAIN_MIN_COS},
+         "launches": launches, "card": smi,
+         "collectives": "gloo, host-staged loopback"})
+    return launches
+
+
+def s_hold_model(label: str, check: str, ranks: list, arch: str, layers,
+                 kernels, smi: str, **extra) -> dict:
+    """(s3), (s7), (s9): each rank's sharded steps and blocks against one
+    process (as (s2)), every kernel of ``kernels`` launched, no byte
+    gathered (data 1: every leaf split over model is computed as the
+    rank's block), the ranks' summed peak under 72 GB."""
+    for r in ranks:
+        held = s_hold_steps(label, r["metrics"], r["ref_metrics"])
+        if r["held"]["over"]:
+            raise AssertionError(f"phase {label}: {r['held']['over']}")
+    launches = s_hold_launches(label, [r["launches"] for r in ranks],
+                               kernels)
+    s_log_traffic(label, ranks, smi)
+    gathered = [r["traffic_per_step"].get("params_gathered", 0)
+                for r in ranks]
+    if any(gathered):
+        raise AssertionError(f"phase {label}: the ranks gathered "
+                             f"{gathered} bytes a step over model")
+    world_peak = sum(r["peak_bytes"] for r in ranks)
+    log({"check": check, "arch": arch, "layers": layers,
+         "mesh": {"data": 1, "model": 2}, **extra,
+         **held, "leaves_held": [r["held"] for r in ranks],
+         "step_ms": [r["ms"] for r in ranks],
+         "one_process_step_ms": [r["ref_ms"] for r in ranks],
+         "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+         "world_peak_bytes": world_peak,
+         "one_process_peak_bytes": [r["ref_peak_bytes"] for r in ranks],
+         "launches": launches, "card": smi,
+         "collectives": "gloo, host-staged loopback"})
+    if world_peak > 72e9:
+        raise AssertionError(f"phase {label}: the world's peaks sum to "
+                             f"{world_peak / 1e9:.1f} GB")
+    return launches
 
 
 def s_log_traffic(label: str, ranks: list, smi: str) -> None:
@@ -5099,52 +5214,12 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
              "step_ms": [r["microbatched_ms"] for r in four], "card": smi})
 
         pair = s_world("s_pair_rank", 2, base / "pair", seed=seed,
-                       ckpt=ckpt)
-        s1 = [r["s1"] for r in pair]
-        for r in s1:
-            bad = {k: c for k, c in r["grad_cosines"].items()
-                   if c < TRAIN_MIN_COS}
-            if r["y_err"] > r["y_bound"] or bad or not r["aux_equal"] \
-                    or not r["dropped_equal"]:
-                raise AssertionError(f"phase s1: {r}")
-        launches.append(s_hold_launches("s1", [r["launches"] for r in s1],
-                                        MOE_TRAIN_KERNELS))
-        log({"check": "s1_ep_moe", "arch": S_MOE_ARCH, "tokens":
-             S_BATCH * S_SEQ, "mesh": {"data": 1, "model": 2},
-             "ranks": [{k: v for k, v in r.items() if k != "launches"}
-                       for r in s1],
-             "tolerance": {"y_share_of_max": S_Y_TOL,
-                           "min_cosine": TRAIN_MIN_COS},
-             "launches": launches[-1], "card": smi,
-             "collectives": "gloo, host-staged loopback"})
-        s3 = [r["s3"] for r in pair]
-        for r in s3:
-            held = s_hold_steps("s3", r["metrics"], r["ref_metrics"])
-            if r["held"]["over"]:
-                raise AssertionError(f"phase s3: {r['held']['over']}")
-        launches.append(s_hold_launches(
-            "s3", [r["launches"] for r in s3], MOE_TRAIN_KERNELS + S_FLASH))
-        s_log_traffic("s3", s3, smi)
-        gathered = [r["traffic_per_step"].get("params_gathered", 0)
-                    for r in s3]
-        if any(gathered):
-            # data 1: every leaf split over model is computed as its block.
-            raise AssertionError(f"phase s3: the ranks gathered {gathered} "
-                                 "bytes a step over model")
-        world_peak = sum(r["peak_bytes"] for r in s3)
-        log({"check": "s3_moe_step", "arch": S_MOE_ARCH,
-             "layers": S_MOE_LAYERS, "mesh": {"data": 1, "model": 2},
-             **held, "leaves_held": [r["held"] for r in s3],
-             "step_ms": [r["ms"] for r in s3],
-             "one_process_step_ms": [r["ref_ms"] for r in s3],
-             "peak_bytes_per_rank": [r["peak_bytes"] for r in s3],
-             "world_peak_bytes": world_peak,
-             "one_process_peak_bytes": [r["ref_peak_bytes"] for r in s3],
-             "launches": launches[-1], "card": smi,
-             "collectives": "gloo, host-staged loopback"})
-        if world_peak > 72e9:
-            raise AssertionError(f"phase s3: the world's peaks sum to "
-                                 f"{world_peak / 1e9:.1f} GB")
+                       ckpt=ckpt, timeout=S_PAIR_TIMEOUT)
+        launches.append(s_hold_ep("s1", [r["s1"] for r in pair],
+                                  S_MOE_ARCH, smi))
+        launches.append(s_hold_model(
+            "s3", "s3_moe_step", [r["s3"] for r in pair], S_MOE_ARCH,
+            S_MOE_LAYERS, MOE_TRAIN_KERNELS + S_FLASH, smi))
         s4 = [r["s4"] for r in pair]
         for r in s4:
             if r["leaves_not_bit_equal"]:
@@ -5186,6 +5261,19 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
              "next_loss": s5[0]["next"]["loss"], "s2_world_next_loss": want,
              "loss_rel_err": err, "step_ms": [r["ms"] for r in s5],
              "launches": launches[-1], "card": smi})
+        # MLA's heads, the shared expert and the encoder-decoder split
+        # over model: no byte gathered at data 1.
+        launches.append(s_hold_model(
+            "s7", "s7_mla_step", [r["s7"] for r in pair], S_MLA_ARCH,
+            S_MLA_LAYERS, S_FLASH, smi))
+        launches.append(s_hold_ep("s8", [r["s8"] for r in pair],
+                                  S_MLA_ARCH, smi))
+        launches.append(s_hold_model(
+            "s9", "s9_encdec_step", [r["s9"] for r in pair], S_ENCDEC_ARCH,
+            None, S_FLASH, smi, frames=S_FRAMES, compute="float32"))
+        log({"check": "s_pair_cases",
+             "seconds": {k: [r[k]["seconds"] for r in pair]
+                         for k in pair[0]}, "card": smi})
 
         # (s6) The launcher's flags on NCCL, a world of one on the card.
         t0 = time.perf_counter()

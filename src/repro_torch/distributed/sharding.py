@@ -433,26 +433,31 @@ def computed_on_model(cfg: ModelConfig, path: str, spec: P) -> bool:
     * an expert stack split over ``model`` (expert parallelism);
     * tensor parallelism, Megatron's split, where ``spec`` splits the leaf
       over ``model`` (``_param_spec`` drops the axis where it does not
-      divide): GQA attention's ``wq`` and ``bq`` over heads (column) and
-      ``wo`` (row); the dense MLP's ``w_gate`` and ``w_up`` over ``d_ff``
-      (column) and ``w_down`` (row); the embedding and the unembedding
-      over ``vocab``.
+      divide): attention's ``wq`` and ``bq`` over heads (column) and
+      ``wo`` (row), MLA's ``q_up`` and ``kv_up`` over heads (column) and
+      its ``wo`` (row), an encoder-decoder's cross-attention (``cross``)
+      as attention; the dense MLP's and an MoE layer's shared expert's
+      ``w_gate`` and ``w_up`` over ``d_ff`` (column) and ``w_down`` (row);
+      the embedding and the unembedding over ``vocab``. An
+      encoder-decoder's encoder stack is named as the decoder's.
 
-    MLA, an encoder-decoder's stacks and embedding, and an MoE layer's
-    shared expert keep the gathered form; Mamba's leaves are not split over
-    ``model``. The model takes a leaf it finds shorter than the config's
+    Every other leaf is replicated on ``model`` by its spec (MLA's
+    ``q_down`` and ``kv_down``, ``wk``/``wv``, the router, norms, Mamba's
+    leaves). The model takes a leaf it finds shorter than the config's
     width as its block (``shardlib.model_block``)."""
     if is_expert_leaf(path, spec):
         return True
-    if cfg.is_encdec or not any("model" in (e if isinstance(e, tuple)
-                                            else (e,)) for e in spec):
+    if not any("model" in (e if isinstance(e, tuple) else (e,))
+               for e in spec):
         return False
     parts = path.split("/")
     if parts[-1] in ("embedding", "unembed"):
         return parts[:-1] == ["embed"]
     parent = parts[-2] if len(parts) > 1 else ""
-    if parent == "mixer" and parts[-1] in ("wq", "bq", "wo"):
-        return cfg.mla is None
+    if parent in ("mixer", "cross"):
+        return parts[-1] in ("wq", "bq", "wo", "q_up", "kv_up")
+    if parent == "shared" and len(parts) > 2 and parts[-3] == "ffn":
+        parent = "ffn"
     return (parent == "ffn" and len(spec) == 2
             and parts[-1] in ("w_gate", "w_up", "w_down"))
 

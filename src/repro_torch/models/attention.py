@@ -29,7 +29,10 @@ Under the sharded train step GQA attention may run tensor-parallel, as the
 reference's rules split ``heads`` over ``model``: ``wq`` (and ``bq``) then
 hold this rank's heads, ``wo`` their rows, and the output's parts sum over
 ``model`` (``shardlib.reduce_from``); K and V cover only the KV heads the
-rank's heads read. MLA keeps whole heads.
+rank's heads read. MLA splits the same way: ``q_up`` and ``kv_up`` hold
+the rank's heads and ``wo`` their rows, and the latents every head reads
+enter them through ``copy_to``. Its absorbed decode (serving) keeps whole
+heads.
 """
 from __future__ import annotations
 
@@ -295,7 +298,6 @@ def attention(params, x, positions, cfg: ModelConfig, *,
     if cfg.mla is not None:
         return _mla_attention(params, x, positions, cfg,
                               return_cache=return_cache)
-    dt = cfg.cdtype
     q, k, v = _project_qkv(params, x, cfg, positions)
     window = cfg.sliding_window if kind == "local" else None
     if cfg.attention_impl == "proj_only":
@@ -304,54 +306,77 @@ def attention(params, x, positions, cfg: ModelConfig, *,
         out = v.repeat_interleave(cfg.num_heads // cfg.num_kv_heads, dim=2)
     else:
         out = _core(q, k, v, positions, cfg, causal=causal, window=window)
-    b, s = x.shape[:2]
-    wo = params["wo"].to(dt).reshape(-1, x.shape[-1])
-    tp = shardlib.model_block(params["wo"].shape[0], cfg.num_heads)
-    if tp is None:
-        y = out.reshape(b, s, -1) @ wo
-    else:
-        # wo by rows: each rank's heads give a part of the output.
-        y = shardlib.row_parallel(out.reshape(b, s, -1), wo, tp[0])
+    y = output_projection(out, params["wo"], cfg)
     if return_cache:
         return y, KVCacheView(k, v, positions.to(torch.int32))
     return y
 
 
-def _mla_q(params, x, positions, cfg: ModelConfig):
-    """MLA's query: (q_nope, q_rope), q_rope rotated; x (B, S, d)."""
+def output_projection(out, wo, cfg: ModelConfig):
+    """The heads' output ``out`` (B, S, heads, e) through ``wo`` (heads, e,
+    d); by rows where ``wo`` is this rank's block of heads on ``model``
+    (each rank's heads give a part of the output, summed over it)."""
+    b, s = out.shape[:2]
+    w = wo.to(cfg.cdtype).reshape(-1, wo.shape[-1])
+    tp = shardlib.model_block(wo.shape[0], cfg.num_heads)
+    if tp is None:
+        return out.reshape(b, s, -1) @ w
+    return shardlib.row_parallel(out.reshape(b, s, -1), w, tp[0])
+
+
+def _mla_q(params, x, positions, cfg: ModelConfig, mesh=None):
+    """MLA's query: (q_nope, q_rope), q_rope rotated; x (B, S, d). With
+    ``mesh``, the heads of this rank's block of ``q_up``, the latent
+    entering them through ``copy_to``."""
     m = cfg.mla
     dt = cfg.cdtype
     b, s, _ = x.shape
     cq = rms_norm(x @ params["q_down"].to(dt), params["q_norm"]["scale"],
                   cfg.norm_eps)
+    if mesh is not None:
+        cq = shardlib.copy_to(cq, "model", mesh)
     q = (cq @ params["q_up"].to(dt).reshape(m.q_lora_rank, -1)).view(
-        b, s, cfg.num_heads, -1)
+        b, s, params["q_up"].shape[1], -1)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
 
 
-def _mla_latent(params, x, positions, cfg: ModelConfig):
+def _mla_latent(params, x, positions, cfg: ModelConfig, mesh=None):
     """MLA's compressed K/V: (c_kv normalised (B, S, r), k_rope rotated
-    (B, S, 1, rope))."""
+    (B, S, 1, rope)); with ``mesh``, both through ``copy_to``, as they
+    enter the rank's heads."""
     m = cfg.mla
     ckv = x @ params["kv_down"].to(cfg.cdtype)
     c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = rms_norm(c_kv, params["kv_norm"]["scale"], cfg.norm_eps)
-    return c_kv, apply_rope(k_rope[:, :, None, :], positions,
-                            theta=cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        theta=cfg.rope_theta)
+    if mesh is not None:
+        c_kv = shardlib.copy_to(c_kv, "model", mesh)
+        k_rope = shardlib.copy_to(k_rope, "model", mesh)
+    return c_kv, k_rope
 
 
 def _mla_attention(params, x, positions, cfg: ModelConfig, *,
                    return_cache: bool = False):
     """DeepSeek-V2 multi-head latent attention, the expanded form: K/V of
     every head from the latent, the core at query/key heads of
-    nope + rope over value heads of v_head_dim."""
+    nope + rope over value heads of v_head_dim.
+
+    Tensor-parallel where ``q_up``, ``kv_up`` and ``wo`` are this rank's
+    block of heads on ``model``: the latents every head reads (``c_q``,
+    ``c_kv`` and ``k_rope``, from the replicated ``q_down``, ``kv_down``
+    and their norms) are computed whole on every rank and enter the
+    rank's heads through ``copy_to``, so their gradients sum every rank's
+    heads; ``wo`` goes by rows (:func:`output_projection`)."""
     m = cfg.mla
     dt = cfg.cdtype
-    b, s, dm = x.shape
-    h = cfg.num_heads
-    q_nope, q_rope = _mla_q(params, x, positions, cfg)
-    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    b, s, _ = x.shape
+    h = params["q_up"].shape[1]
+    tp = shardlib.model_block(h, cfg.num_heads)
+    mesh = None if tp is None else tp[0]
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, mesh)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg, mesh)
     kv = (c_kv @ params["kv_up"].to(dt).reshape(m.kv_lora_rank, -1)).view(
         b, s, h, -1)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
@@ -362,7 +387,7 @@ def _mla_attention(params, x, positions, cfg: ModelConfig, *,
     else:
         out = _core(q, k, v.contiguous(), positions, cfg, causal=True,
                     window=None)
-    y = out.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, dm)
+    y = output_projection(out, params["wo"], cfg)
     if return_cache:
         # MLA caches the compressed latents: (c_kv | k_rope) per position.
         lat = torch.cat([c_kv, k_rope[:, :, 0, :]], -1)[:, :, None, :]

@@ -7,7 +7,8 @@ to the compute dtype at use, as the reference does.
 
 Under the sharded train step a leaf may be this rank's block on ``model``
 (``distributed.sharding.computed_on_model``; ``shardlib.model_block``
-reads it from the leaf's length): the dense MLP then runs Megatron's split
+reads it from the leaf's length): the dense MLP (an MoE layer's shared
+expert too) then runs Megatron's split
 (``w_gate``/``w_up`` by columns after ``copy_to``, ``w_down`` by rows
 before ``reduce_from``), the embedding and the unembedding run over the
 rank's vocabulary rows, and the loss is the vocabulary-parallel cross

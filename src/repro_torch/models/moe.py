@@ -28,7 +28,10 @@ tokens to every expert (per-shard capacity), gathers and runs only its
 experts' slots, combines only those, and the partial token outputs are
 summed over ``model`` (:func:`repro_torch.distributed.shardlib.reduce_from`).
 Any other mesh (the dry run's ``meta`` meshes, the logical shards) runs
-the one-device form.
+the one-device form. The shared experts are one dense MLP of their summed
+width, tensor-parallel over it where the sharded step hands over their
+block on ``model`` (``layers.mlp``): an all-reduce of its own beside the
+experts' sum.
 """
 from __future__ import annotations
 
@@ -70,10 +73,13 @@ def init_moe(gen, cfg: ModelConfig, device):
                              cfg.pdtype, device),
     }
     if m.num_shared_experts:
-        p["shared"] = init_mlp(
-            gen, d, (m.shared_d_ff or m.expert_d_ff) * m.num_shared_experts,
-            cfg.pdtype, device)
+        p["shared"] = init_mlp(gen, d, _shared_d_ff(m), cfg.pdtype, device)
     return p
+
+
+def _shared_d_ff(m: MoEConfig) -> int:
+    """The shared experts' width, as one dense MLP."""
+    return (m.shared_d_ff or m.expert_d_ff) * m.num_shared_experts
 
 
 def capacity(num_tokens: int, m: MoEConfig) -> int:
@@ -240,7 +246,7 @@ def _moe_ffn_ep(params, x: torch.Tensor, cfg: ModelConfig, act_fn: str,
     aux = shardlib.pmean(aux, batch, mesh)
     dropped = shardlib.pmean(plan.num_dropped / max(t, 1), batch, mesh)
     if m.num_shared_experts:
-        y = y + mlp(params["shared"], xt, act_fn, dt)
+        y = y + mlp(params["shared"], xt, act_fn, dt, d_ff=_shared_d_ff(m))
     return y.view(b, s, d), aux, {"moe_dropped": dropped}
 
 
@@ -271,7 +277,7 @@ def _moe_ffn_one(params, x: torch.Tensor, cfg: ModelConfig,
                            token_idx=plan.token_idx)
     y = y.to(dt)
     if m.num_shared_experts:
-        y = y + mlp(params["shared"], xt, act_fn, dt)
+        y = y + mlp(params["shared"], xt, act_fn, dt, d_ff=_shared_d_ff(m))
 
     metrics = dict(metrics, moe_dropped=plan.num_dropped / max(t, 1))
     return y.view(b, s, d), aux, metrics

@@ -17,7 +17,9 @@ periods of one non-causal (attention, dense) block. Each decoder block then
 also attends over the encoder's memory (cross-attention, no mask): in the
 full pass through the flash op, non-causal; in decode over the ``CrossCache``
 of K/V that ``init_decode_caches`` projects once from the memory, in plain
-PyTorch as the reference does.
+PyTorch as the reference does. Under the sharded train step the full
+pass's cross-attention splits its heads over ``model`` as self-attention
+does (``attention._tensor_parallel``).
 
 Decode caches keep the reference's layout: one cache per prefix layer, one
 per pattern slot stacked over periods (a ``KVCacheView`` for attention, a
@@ -42,10 +44,12 @@ from repro_torch.distributed import shardlib
 from repro_torch.kernels import ops
 from repro_torch.tree import leaves
 from .attention import (
+    _tensor_parallel,
     attention,
     decode_attention,
     init_attention,
     init_cache,
+    output_projection,
 )
 from .layers import init_mlp, init_rms_norm, mlp, rms_norm
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_layer
@@ -125,16 +129,35 @@ def _cross_attention(p, x, memory, cfg: ModelConfig,
                      kv: Optional[CrossCache] = None):
     """q from the decoder, K/V from the encoder memory (or ``kv``), no mask.
     The full pass runs the flash op, non-causal; decode (``kv`` given)
-    attends in plain PyTorch, as the reference's jnp does."""
+    attends in plain PyTorch, as the reference's jnp does.
+
+    The full pass is tensor-parallel where ``wq`` and ``wo`` are this
+    rank's block of heads on ``model``, as self-attention is: ``x``, the
+    ``memory`` and the replicated ``wk``/``wv`` enter through ``copy_to``
+    (so the encoder's gradient sums every rank's heads), K and V cover the
+    KV heads the rank's heads read, and ``wo`` goes by rows."""
     dt = cfg.cdtype
+    tp = None if kv is not None else _tensor_parallel(p, cfg)
+    if tp is not None:
+        mesh, first, count, local = tp
+        x = shardlib.copy_to(x, "model", mesh)
+        memory = shardlib.copy_to(memory, "model", mesh)
+        heads = slice(first, first + count)
+        wk = shardlib.copy_to(p["wk"], "model", mesh)[:, heads]
+        wv = shardlib.copy_to(p["wv"], "model", mesh)[:, heads]
+    else:
+        wk, wv = p["wk"], p["wv"]
     q = _proj(x, p["wq"].to(dt))
     b, s, h, d = q.shape
-    wo = p["wo"].to(dt).reshape(-1, x.shape[-1])
     if kv is None:
-        k = _proj(memory, p["wk"].to(dt))
-        v = _proj(memory, p["wv"].to(dt))
-        out = ops.flash_attention_op(q, k, v, causal=False)
-        return out.reshape(b, s, -1) @ wo
+        k = _proj(memory, wk.to(dt))
+        v = _proj(memory, wv.to(dt))
+        if tp is not None and local is not None:
+            # Heads that flash's grouping would pair wrongly: one KV each.
+            idx = torch.tensor(local, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        out = ops.flash_attention_op(q, k, v.contiguous(), causal=False)
+        return output_projection(out, p["wo"], cfg)
     kvh = cfg.num_kv_heads
     g = cfg.num_heads // kvh
     scores = torch.einsum("bqkgd,bskd->bkgqs",
@@ -142,7 +165,7 @@ def _cross_attention(p, x, memory, cfg: ModelConfig,
                           kv.k.float()) * d ** -0.5
     pr = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", pr.to(dt), kv.v.to(dt))
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, -1) @ wo
+    return output_projection(out.permute(0, 3, 1, 2, 4), p["wo"], cfg)
 
 
 def cross_kv(p, memory, cfg: ModelConfig) -> CrossCache:

@@ -273,9 +273,10 @@ def sharded_steps(rank, world, *, cases, ckpt_dir, data=2, model=2):
     """For each case (arch, capacity factor, the reference's state as
     numpy, the global batches): the sharded step on ``data`` x ``model``
     from the rank's blocks of that state and its rows of each batch.
-    Returns the metrics of each step, the rank's blocks after the last and
-    what its first step computed with; with ``ckpt_dir``, the first case's
-    state is then saved there as step 3."""
+    Returns the metrics of each step, the rank's blocks after the last,
+    what its first step computed with and the bytes its steps moved by
+    kind (``Mesh.traffic``); with ``ckpt_dir``, the first case's state is
+    then saved there as step 3."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.train import state_block_specs, state_blocks
     mesh = _mesh(data, model)
@@ -285,12 +286,15 @@ def sharded_steps(rank, world, *, cases, ckpt_dir, data=2, model=2):
         cfg = config(arch, capacity_factor=cap)
         specs = state_block_specs(cfg, mesh, tcfg)
         state = state_blocks(_state_from(state_np, cfg), cfg, tcfg, mesh)
+        before = dict(mesh.traffic)
         state, metrics, computed = _steps(state, batches, cfg, tcfg, mesh)
+        traffic = {k: v - before.get(k, 0) for k, v in mesh.traffic.items()}
         if i == 0 and ckpt_dir:
             Checkpointer(ckpt_dir).save(3, state, extra={"case": arch},
                                         mesh=mesh, specs=specs)
         out.append({"metrics": metrics, "blocks": _blocks(state),
-                    "coords": dict(mesh.coords), "computed": computed})
+                    "coords": dict(mesh.coords), "computed": computed,
+                    "traffic": traffic})
     return out
 
 
