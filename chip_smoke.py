@@ -62,15 +62,19 @@ Phases:
    2e-2 (bf16) (causal and not, windows of 64 and 100, H/KV 48/8, 8/8,
    8/2 and 16/4, S 2,048, 1,000, 777, 333 and 200, 64 queries over 300
    keys, D 64 and 128, q scaled by 8 for large logits; and the head dims
-   of phase (o): 96, and 192 over values of 128, at phi-3-vision's and
-   deepseek-v2's prefill shapes and smaller ones); their times with
+   of phase (o): 96, 192 over values of 128 and 256, at phi-3-vision's,
+   deepseek-v2's and gemma3-12b's prefill shapes (gemma3's global and
+   local layers) and smaller ones); their times with
    the yardsticks ``index_select`` (gather), ``index_select`` + ``bmm``
    (combine, several calls) and SDPA with ``is_causal`` and ``enable_gqa``
    in bf16 (flash), flash's achieved TFLOP/s beside SDPA's, its kernels'
-   registers, shared memory and spills (ptxas), the fp32 flash kernel
-   timed at one smaller shape, and flash at 96 and 192/128 (causal, bf16,
-   B 2 x S 1,024 x 32 heads and B 4 x S 512 x 128 heads) beside its bound
-   and SDPA (``is_causal``, whose backends take DV != D).
+   registers, shared memory and spills (ptxas; none allowed in a
+   tensor-core kernel), the fp32 flash kernel timed at one smaller shape,
+   and flash at 96, 192/128 and 256 (causal, bf16, B 2 x S 1,024 x 32
+   heads, B 4 x S 512 x 128 heads, and B 2 x S 2,048 x 16/8 heads, also
+   with gemma3's window of 1,024) beside its bound and SDPA (``is_causal``,
+   whose backends take DV != D; at 256 each backend that takes the call,
+   the window as a mask, the fastest its time).
 4. (k) The ``dma``/``mmu``/``transform``/``serve``/``sharded`` perf sweep
    on the card, after the pools of phase 3 are freed:
    ``repro_torch.perf.sweep.run_sweep`` with the spec of the committed
@@ -168,7 +172,13 @@ Phases:
    and, uncut, mamba2-780m (48 layers), seamless-m4t-medium (12 encoder
    layers over 512 stub frames, 12 decoder layers with cross-attention)
    and phi-3-vision-4.2b (32 layers, head dim 96, 576 stub patch
-   embeddings before the tokens). Each: ``prefill`` of 4 x 512 tokens (B
+   embeddings before the tokens); then the dense family uncut with bf16
+   parameters: gemma3-12b (48 layers, 40 windowed at 1,024 and 8 global,
+   heads of 256; 11.8 B parameters, 23.5 GB), qwen3-14b (40 layers, q/k
+   norm; 14.8 B, 29.5 GB) and starcoder2-15b (40 layers, biases, a
+   non-gated MLP, G 12; 31 GB), each prefilled with 2 x 2,048 tokens, so
+   that gemma3's window and decode ring both wrap, its prefill timed for
+   (r). Each: ``prefill`` of 4 x 512 tokens (B
    2 x 448 after the patches for phi-3-vision, 4 x 128 for seamless) and
    8 greedy decode steps (16 for mamba2-780m, which also serves 8 requests
    through a ``ServeEngine``), its flash and MoE launches counted by path
@@ -189,14 +199,17 @@ Phases:
    within 2e-4 (fp32) and 3e-2 (bf16) of the largest reference entry, at
    qwen2.5-3b's training shape (4 x 512, 16/2 heads of 128, causal), a
    window of 128, a non-causal case and small cases at head dims 64, 96
-   and 192/128 (windowed, not causal, G 4), and deepseek-v2-236b's
-   training shape (4 x 512, 128 heads of 192 over 128), in both dtypes,
-   each through the design ``bwd_design`` names (bf16 on the tensor cores
-   at every head dim, MLA's through ``dkdv_mla_kernel``; fp32 on the CUDA
-   cores); two launches bit-identical; the forward's log-sum-exp against
-   the plain one; its time at both training shapes and at S 2,048 beside
-   its bound, the plain version and SDPA's backward, and ptxas's
-   registers and spills (none allowed in a tensor-core kernel). Then
+   and 192/128 (windowed, not causal, G 4), deepseek-v2-236b's training
+   shape (4 x 512, 128 heads of 192 over 128) and gemma3-12b's (2 x
+   2,048, 16 heads of 256 over 8; a window of 1,024, G 1 and G 3), in both
+   dtypes, each through the design ``bwd_design`` names (bf16 on the
+   tensor cores at every head dim, MLA's through ``dkdv_mla_kernel`` and
+   256 through ``dkdv_256_kernel``; fp32 on the CUDA cores); two
+   launches bit-identical; the forward's log-sum-exp against the plain
+   one; its time at the three training shapes and at S 2,048 beside its
+   bound, the plain version and SDPA's backward (at 256 each backend that
+   takes it), and ptxas's registers and spills (none allowed in a
+   tensor-core kernel). Then
    qwen2.5-3b at its published config (36 layers, fp32 parameters, bf16
    compute, remat "minimal"; weights from ``--seed``): one
    ``grads_and_metrics`` on a 4 x 512 batch of the port's
@@ -222,18 +235,22 @@ Phases:
    small cases (fp32 and bf16, k 1 and 10, widths of 7, 37 and 100); their
    times at dbrx's shape beside their bounds, the plain versions,
    ``index_add_`` (the gather's) and autograd of the plain combine (the
-   combine's). Then six families at their published widths, each drawn
+   combine's). Then nine families at their published widths, each drawn
    from ``--seed``, trained on one ``DataIterator`` batch of 4 x 512
    tokens and freed before the next: dbrx-132b cut to 1 of 40 layers and
    deepseek-v2-236b to 2 of 60 (bf16 parameters), jamba-v0.1-52b to one
    period of 8 (bf16; the kernels' gradients wait on the host while the
    plain ones are computed), mamba2-780m and seamless-m4t-medium (512 stub
    frames) uncut and phi-3-vision-4.2b at 16 of 32 layers (576 stub
-   patches; fp32 parameters). Each: one ``grads_and_metrics`` through the
-   kernels (flash forward and backward and the four MoE kernels counted
-   against what the config implies under remat, the flash backward's
-   launches all of the design its compute dtype takes: the tensor cores in
-   bf16, deepseek-v2-236b's MLA heads included; the recompute's
+   patches; fp32 parameters), gemma3-12b at one period (5 windowed layers
+   and 1 global) on 2 x 2,048 tokens, and qwen3-14b and starcoder2-15b at
+   2 of 40 layers (bf16 parameters). Each: one ``grads_and_metrics``
+   through the kernels (flash forward and backward and the four MoE
+   kernels counted against what the config implies under remat, the flash
+   backward's launches all of the design ``bwd_design`` names for its
+   head dims and compute dtype: the tensor cores in bf16,
+   deepseek-v2-236b's MLA heads and gemma3's 256 included; the
+   recompute's
    dispatch plans equal to the forward's), held against the same on the
    plain ops
    with the first run's expert choices replayed in order (loss within
@@ -243,7 +260,8 @@ Phases:
    ``train_step``s on that batch in bf16 compute (losses finite, the last
    below the first), with the median step ms, tokens/s and peak memory,
    and one profiled step's device time by kernel group.
-12. (r) Every step (j), (l), (p) and (q) timed, read against the dry
+12. (r) Every step (j), (l), (p) and (q) timed, and (o)'s dense family's
+   prefills, read against the dry
    run's FLOP and byte count of the same step (``launch/dryrun.py`` on the
    meta device: the same config, depth and batch, a 1x1 mesh of this
    card; deepseek-v2-236b's and jamba-v0.1-52b's gradient-only first
@@ -364,10 +382,17 @@ FLASH_WIDE_CASES = [
     (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's MLA prefill
     (2, 333, 16, 16, 192, 128, True, None),
     (2, (64, 300), 8, 8, 192, 128, False, None),
+    (2, 2048, 16, 8, 256, 256, True, None),    # gemma3-12b's global layers
+    (2, 2048, 16, 8, 256, 256, True, 1024),    # ... and its local layers
+    (2, 300, 8, 8, 256, 256, False, None),
+    (1, 777, 8, 4, 256, 256, True, 100),
+    (2, (64, 300), 4, 2, 256, 256, False, None),
 ]
-#: The two timed: (label, B, S, H, KV, D, DV), causal, bf16.
-FLASH_WIDE_TIMED = [("phi-3-vision-4.2b", 2, 1024, 32, 32, 96, 96),
-                    ("deepseek-v2-236b", 4, 512, 128, 128, 192, 128)]
+#: The timed: (label, B, S, H, KV, D, DV, window), causal, bf16.
+FLASH_WIDE_TIMED = [("phi-3-vision-4.2b", 2, 1024, 32, 32, 96, 96, None),
+                    ("deepseek-v2-236b", 4, 512, 128, 128, 192, 128, None),
+                    ("gemma3-12b", 2, 2048, 16, 8, 256, 256, None),
+                    ("gemma3-12b local", 2, 2048, 16, 8, 256, 256, 1024)]
 
 
 @contextlib.contextmanager
@@ -961,7 +986,7 @@ def check_moe(torch, np, dev, rng) -> dict:
     return out
 
 
-def flash_work(q, k, causal: bool, v=None) -> tuple:
+def flash_work(q, k, causal: bool, v=None, window=None) -> tuple:
     """(bytes, operations) of the attention: q, k, v read once, the output
     (B, Sq, H, DV) written once; 2 * (D + DV) operations per visible
     (query, key) pair. ``v`` defaults to k's shape."""
@@ -969,6 +994,8 @@ def flash_work(q, k, causal: bool, v=None) -> tuple:
     sk = k.shape[1]
     dv = d if v is None else v.shape[-1]
     pairs = s * (s + 1) // 2 if causal and s == sk else s * sk
+    if window:
+        pairs = visible_pairs(s, sk, causal, window)
     kv_bytes = k.numel() * k.element_size()
     n_bytes = q.numel() * q.element_size() + kv_bytes * (1 + dv / d) \
         + b * s * h * dv * q.element_size()
@@ -1055,6 +1082,7 @@ def check_flash(torch, np, dev, rng) -> dict:
          "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
          "max_abs_diff_to_library": max_err(torch, ours, lib),
          "ptxas": flash_ptxas(build.BUILD_LOG.get("flash_attention"))})
+    check_flash_ptxas(flash_ptxas(build.BUILD_LOG.get("flash_attention")))
     del q, k, v, o, ours, lib
     out["shapes"] = [time_flash_shape(torch, qkv, spec)
                      for spec in FLASH_WIDE_TIMED]
@@ -1078,45 +1106,93 @@ def check_flash(torch, np, dev, rng) -> dict:
     return out
 
 
+def sdpa_backends(torch, call, build: bool = False) -> dict:
+    """``call()`` timed under each SDPA backend that takes it, by name; the
+    others by their refusal. With ``build``, ``call()`` runs under the
+    backend and returns what is timed (a backward over the graph that
+    forward recorded, which keeps its backend)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        name = backend.name.lower()
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # a refusal's reasons
+                fn = call() if build else call
+                out[name] = None if build else time_ms(torch, fn)
+            if build:
+                out[name] = time_ms(torch, fn)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"refused: {str(e)[:160]}"
+        fn = None
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_flash_shape(torch, qkv, spec) -> dict:
-    """``flash_attention`` at one of phase (o)'s head dims, causal, bf16:
-    the wrapper, the bare launch, the plain version and SDPA (which takes a
-    value head dim that differs through its math or memory-efficient
-    backend), beside the bound."""
+    """``flash_attention`` at one of phase (o)'s head dims, causal, bf16
+    (windowed where ``spec`` says): the wrapper, the bare launch, the plain
+    version and SDPA (which takes a value head dim that differs through its
+    math or memory-efficient backend), beside the bound. With a window, or
+    at a head dim of 256, SDPA is timed under each backend that takes the
+    call (a window as a boolean mask) and the fastest is its time."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
 
-    label, b, s, h, kv, d, dv = spec
+    label, b, s, h, kv, d, dv, window = spec
     q, k, v = qkv(b, s, h, kv, d, torch.bfloat16, dv=dv)
     o = q.new_empty((b, s, h, dv))
     stream = torch.cuda.current_stream().cuda_stream
-    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True,
+                                                window=window))
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), None, b, s, s, h, kv, d, dv, 1, 0, 1, stream))
-    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
-                                                            causal=True),
-                       reps=3, warm=1)
+        o.data_ptr(), None, b, s, s, h, kv, d, dv, 1, window or 0, 1,
+        stream))
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(
+        q, k, v, causal=True, window=window), reps=3, warm=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-    diff = max_err(torch, flash_attention(q, k, v, causal=True),
-                   sdpa(qt, kt, vt, is_causal=True).transpose(1, 2))
-    n_bytes, n_ops = flash_work(q, k, True, v)
+    backends = None
+    if window is None and d <= 192:
+        library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+        lib = sdpa(qt, kt, vt, is_causal=True)
+    else:
+        from repro_torch.kernels.flash_attention import _visible
+        mask = None if window is None else _visible(s, s, True, window,
+                                                    q.device)
+        kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+        backends = sdpa_backends(torch, lambda: sdpa(
+            qt, kt, vt, enable_gqa=h != kv, **kw))
+        timed = {n: t for n, t in backends.items()
+                 if isinstance(t, float)}
+        library_ms = min(timed.values()) if timed else None
+        lib = sdpa(qt, kt, vt, enable_gqa=h != kv, **kw)
+    diff = max_err(torch, flash_attention(q, k, v, causal=True,
+                                          window=window), lib.transpose(1, 2))
+    n_bytes, n_ops = flash_work(q, k, True, v, window)
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
     out = {"model": label, "B": b, "S": s, "H": h, "KV": kv, "D": d,
-           "DV": dv, "causal": True, "dtype": "bfloat16", "ms": ms,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "DV": dv, "causal": True, "window": window, "dtype": "bfloat16",
+           "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
            "bytes": n_bytes, "operations": n_ops}
     log({"time": "flash_attention_shape", **out,
          "share_of_bound": b_ms / kernel_ms,
          "kernel_tflops": n_ops / kernel_ms / 1e9,
-         "library_tflops": n_ops / library_ms / 1e9,
-         "library": "scaled_dot_product_attention(is_causal)",
+         "library_tflops": library_ms and n_ops / library_ms / 1e9,
+         "library": "scaled_dot_product_attention(is_causal)"
+                    if backends is None else
+                    "scaled_dot_product_attention(enable_gqa, is_causal or "
+                    "the window as attn_mask), the fastest backend",
+         "library_ms_by_backend": backends,
          "max_abs_diff_to_library": diff})
-    del q, k, v, o
+    del q, k, v, o, lib
     torch.cuda.empty_cache()
     return out
 
@@ -1135,10 +1211,12 @@ def flash_ptxas(build_log) -> dict:
                              ("tc_kernelILi64ELi64E", "bf16_tc_d64"),
                              ("tc_kernelILi96ELi96E", "bf16_tc_d96"),
                              ("tc_kernelILi192ELi128E", "bf16_tc_d192_128"),
+                             ("tc_kernelILi256ELi256E", "bf16_tc_d256"),
                              ("kernelIfLi128ELi128E", "fp32_d128"),
                              ("kernelIfLi64ELi64E", "fp32_d64"),
                              ("kernelIfLi96ELi96E", "fp32_d96"),
-                             ("kernelIfLi192ELi128E", "fp32_d192_128")):
+                             ("kernelIfLi192ELi128E", "fp32_d192_128"),
+                             ("kernelIfLi256ELi256E", "fp32_d256")):
                 if tag in ln:
                     name = key
                     out[name] = {}
@@ -1154,6 +1232,18 @@ def flash_ptxas(build_log) -> dict:
                 out[name]["static_smem_bytes"] = int(
                     words[words.index("smem") - 2])
     return out
+
+
+def check_flash_ptxas(ptxas: dict) -> None:
+    """No tensor-core forward kernel spills; where the library was built
+    in this run, every head-dim pair has both kernels."""
+    spills = {k: p for k, p in ptxas.items()
+              if k.startswith("bf16_tc") and p.get("spill_store_bytes")}
+    want = {f"{kind}{dims}" for kind in ("bf16_tc_d", "fp32_d")
+            for dims in ("64", "96", "128", "192_128", "256")}
+    if spills or (ptxas and "note" not in ptxas and want - set(ptxas)):
+        raise AssertionError(f"flash_attention: ptxas spills {spills}, "
+                             f"names {sorted(ptxas)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2781,16 +2871,29 @@ class Family:
     steps: int              # greedy decode steps
     frames: int = 0         # encoder frames (the encoder-decoder)
     engine: bool = False    # also serve ENGINE_REQUESTS through a ServeEngine
+    param_dtype: str | None = None  # the parameters' dtype, if not fp32
+    read: bool = False      # phase (r) reads the timed prefill
 
 
 #: deepseek-v2-236b keeps its dense layer 0 and one MoE layer of 60;
 #: jamba-v0.1-52b one period of 8 of 32 (7 mamba + 1 attention, 4 MoE).
+#: The dense family runs uncut, its parameters in bf16 (fp32 would take 47,
+#: 59 and 63 GB): gemma3-12b's 48 layers (40 windowed at 1,024 behind a
+#: prompt of 2,048, so that the kernel's window and the decode ring both
+#: wrap; heads of 256), qwen3-14b's 40 (q/k norm) and starcoder2-15b's 40
+#: (biases, a non-gated MLP, G 12).
 FAMILIES = (
     Family("deepseek-v2-236b", 2, 4, 512, 8),
     Family("jamba-v0.1-52b", 8, 4, 512, 8),
     Family("mamba2-780m", None, 4, 512, 16, engine=True),
     Family("seamless-m4t-medium", None, 4, 128, 8, frames=512),
     Family("phi-3-vision-4.2b", None, 2, 448, 8),
+    Family("gemma3-12b", None, 2, 2048, 8, param_dtype="bfloat16",
+           read=True),
+    Family("qwen3-14b", None, 2, 2048, 8, param_dtype="bfloat16",
+           read=True),
+    Family("starcoder2-15b", None, 2, 2048, 8, param_dtype="bfloat16",
+           read=True),
 )
 #: Teacher forcing runs from a shorter prompt, so that prompt and steps
 #: fill one SSD chunk of 256 (a longer pass must divide into chunks).
@@ -2807,6 +2910,15 @@ def family_layers(cfg):
         + list(cfg.block_pattern) * n_periods(cfg)
 
 
+def flash_dims(cfg) -> tuple:
+    """(D, DV) of the config's attention core: MLA's query/key heads over
+    its value heads, else the head dim."""
+    if cfg.mla is not None:
+        return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim)
+    return cfg.head_dim_, cfg.head_dim_
+
+
 def family_launches(cfg, steps: int) -> tuple:
     """The launches two prefills (cold, then steady) and ``steps`` decode
     steps make: by kernel, and flash by shape key. Flash runs once a
@@ -2819,10 +2931,7 @@ def family_launches(cfg, steps: int) -> tuple:
     layers = family_layers(cfg)
     n_attn = sum(m in ("attn", "local") for m, _ in layers)
     n_moe = sum(f == "moe" for _, f in layers)
-    d = dv = cfg.head_dim_
-    if cfg.mla is not None:
-        d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-        dv = cfg.mla.v_head_dim
+    d, dv = flash_dims(cfg)
     shapes = Counter({shape_key(d, dv, True): 2 * n_attn})
     if cfg.is_encdec:
         shapes[shape_key(d, dv, False)] += 2 * (cfg.encoder_layers + n_attn)
@@ -3088,6 +3197,8 @@ def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
     cfg = get_config(spec.arch)
     if spec.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=spec.layers)
+    if spec.param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=spec.param_dtype)
     label = spec.arch.replace("-", "_").replace(".", "_")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3096,6 +3207,7 @@ def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
     torch.cuda.synchronize()
     log({"init": spec.arch, "layers": cfg.num_layers,
          "published_layers": get_config(spec.arch).num_layers,
+         "param_dtype": cfg.param_dtype,
          "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
          "head_dim": cfg.head_dim_, "vocab": cfg.padded_vocab,
@@ -3140,6 +3252,10 @@ def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
                              f"{tuple(last.shape)} or not finite")
     decode_ms = statistics.median(step_ms)
     n_tok = spec.batch * positions
+    if spec.read:
+        READINGS[f"o_{label}"] = StepReading(
+            cfg, "prefill", spec.batch, positions, prefill_ms,
+            f"o_{label} prefill_ms")
     log({"phase": f"o_{label}", "prefill_ms": prefill_ms,
          "prefill_tokens_per_s": n_tok / (prefill_ms / 1e3),
          "cold_prefill_ms": cold_prefill_ms,
@@ -3228,7 +3344,7 @@ def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
 
 
 def family_path(torch, np, dev, rng, seed: int) -> dict:
-    """(o) The five families, each freed before the next. Returns the
+    """(o) The eight families, each freed before the next. Returns the
     launches summed over them, and flash's by shape."""
     from collections import Counter
     total, shapes = Counter(), Counter()
@@ -3246,9 +3362,10 @@ def family_path(torch, np, dev, rng, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 #: The flash backward kernel against its plain version: B, S, H, KV, D,
-#: DV, causal, window. The first is qwen2.5-3b's training batch, the last
-#: but one deepseek-v2-236b's (its 128 MLA heads of 192 over 128) and the
-#: last a long causal sequence, all three timed (FLASH_BWD_TIMED).
+#: DV, causal, window. The first is qwen2.5-3b's training batch, the
+#: eleventh deepseek-v2-236b's (its 128 MLA heads of 192 over 128), the
+#: twelfth a long causal sequence and the thirteenth gemma3-12b's (heads
+#: of 256 over 8), all four timed (FLASH_BWD_TIMED).
 FLASH_BWD_CASES = [
     (4, 512, 16, 2, 128, 128, True, None),
     (2, 512, 16, 2, 128, 128, True, 128),      # a window of 128
@@ -3262,9 +3379,13 @@ FLASH_BWD_CASES = [
     (2, 200, 8, 2, 192, 128, True, None),      # ... summed over G 4
     (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2-236b's batch
     (1, 2048, 16, 2, 128, 128, True, None),
+    (2, 2048, 16, 8, 256, 256, True, None),    # gemma3-12b's batch
+    (1, 2048, 16, 8, 256, 256, True, 1024),    # ... a local layer
+    (2, 300, 8, 8, 256, 256, False, None),     # ... not causal, G 1
+    (1, 333, 6, 2, 256, 256, True, 100),       # ... G 3, windowed
 ]
-FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[-2],
-                   FLASH_BWD_CASES[-1])
+FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[10],
+                   FLASH_BWD_CASES[11], FLASH_BWD_CASES[12])
 #: dQ, dK and dV within this share of the largest reference entry: fp32
 #: sums in another order; in bf16 also the gradients' own rounding.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -3292,7 +3413,7 @@ class StepReading:
     reading: str         # the phase's log line and key the time is from
 
 
-#: Filled by phases (j), (l), (p) and (q) as they run; read by (r).
+#: Filled by phases (j), (l), (o), (p) and (q) as they run; read by (r).
 READINGS: dict = {}
 
 
@@ -3326,17 +3447,19 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
 #: ``dkdv_mla_kernel`` at MLA's (192, 128)) first, then the CUDA-core
 #: design's (fp32 only).
 BWD_TC_KERNELS = ("dkdv_mla_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
-                  "lse_kernel")
+                  "dkdv_256_kernel", "dq_256_kernel", "lse_kernel")
 BWD_KERNELS = BWD_TC_KERNELS + ("dkdv_kernel", "dq_kernel", "delta_kernel")
 
 
 def bwd_kernel(name: str) -> str:
     """A backward kernel's short name from its profiled (demangled) or
-    ptxas (mangled) name; the Delta pass of ``dq_tc_kernel`` (its
-    ``true`` instantiation) apart from the dQ kernel."""
+    ptxas (mangled) name; the Delta passes of ``dq_tc_kernel`` and
+    ``dq_256_kernel`` (their ``true`` instantiations) apart from the dQ
+    kernels."""
     kind = next((k for k in BWD_KERNELS if k in name), name[:60])
-    if kind == "dq_tc_kernel" and ("true>" in name or "Lb1E" in name):
-        return "delta_pass_tc_kernel"
+    if kind in ("dq_tc_kernel", "dq_256_kernel") \
+            and ("true>" in name or "Lb1E" in name):
+        return kind.replace("dq_", "delta_pass_")
     return kind
 
 
@@ -3350,7 +3473,8 @@ def bwd_ptxas(build_log) -> dict:
         if "Compiling entry function" in ln:
             kind = next((k for k in BWD_KERNELS if k in ln), None) \
                 and bwd_kernel(ln)
-            dims = "/".join(re.findall(r"Li(\d+)E", ln))
+            dims = "/".join(re.findall(r"Li(\d+)E", ln)) \
+                or ("256/256" if "_256_kernel" in ln else "")
             bf16 = "bfloat16" in ln or any(k in ln for k in BWD_TC_KERNELS)
             name = kind and f"{kind}_{'bf16' if bf16 else 'fp32'}_{dims}"
             if name:
@@ -3487,6 +3611,18 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
         except RuntimeError as e:              # SDPA refuses the shape
             o_lib = lib = library_ms = lib_diff = None
             lib_error = str(e)[:300]
+        backends = None
+        if d > 192:
+            # The backward of each SDPA backend that takes the call; the
+            # fastest is the yardstick.
+            def lib_bwd():
+                o_b = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                return lambda: torch.autograd.grad(o_b, (qt, kt, vt), dot,
+                                                   retain_graph=True)
+            backends = sdpa_backends(torch, lib_bwd, build=True)
+            timed_b = [t for t in backends.values() if isinstance(t, float)]
+            if timed_b:
+                library_ms = min(timed_b)
         # Device time of each of its kernels, a call (5 calls profiled).
         rows = device_profile(torch, lambda: [flash_attention_backward(
             q, k, v, out, lse, dout, causal=True) for _ in range(5)],
@@ -3517,7 +3653,9 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
              "kernel_over_library": library_ms and kernel_ms / library_ms,
              "device_ms_by_kernel": by_kernel,
              "library": "autograd.grad of scaled_dot_product_attention("
-                        "is_causal, enable_gqa)",
+                        "is_causal, enable_gqa)" if backends is None else
+                        "the same, the fastest backend",
+             "library_ms_by_backend": backends,
              "library_error": lib_error,
              "max_abs_diff_to_library": lib_diff,
              "ptxas": ptxas})
@@ -3535,9 +3673,10 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
 def check_bwd_ptxas(ptxas: dict) -> None:
     """No tensor-core backward kernel spills; where the library was built
     in this run, every bf16 head-dim pair has its tensor-core kernels,
-    MLA's (192, 128) its own dK/dV kernel, and no CUDA-core kernel is
+    MLA's (192, 128) and (256, 256) their own, and no CUDA-core kernel is
     built for bf16."""
-    tensor_core = BWD_TC_KERNELS + ("delta_pass_tc_kernel",)
+    tensor_core = BWD_TC_KERNELS + ("delta_pass_tc_kernel",
+                                    "delta_pass_256_kernel")
     spills = {k_: p for k_, p in ptxas.items()
               if p.get("spill_store_bytes")}
     if any(k_.startswith(tensor_core) for k_ in spills):
@@ -3545,7 +3684,9 @@ def check_bwd_ptxas(ptxas: dict) -> None:
     if not ptxas:
         return
     want = {"dkdv_mla_kernel_bf16_192/128", "dq_tc_kernel_bf16_192/128",
-            "delta_pass_tc_kernel_bf16_192/128"} | {
+            "delta_pass_tc_kernel_bf16_192/128",
+            "dkdv_256_kernel_bf16_256/256", "dq_256_kernel_bf16_256/256",
+            "delta_pass_256_kernel_bf16_256/256"} | {
         f"{k_}_bf16_{d}/{d}" for d in (64, 96, 128)
         for k_ in ("dkdv_tc_kernel", "dq_tc_kernel", "delta_pass_tc_kernel")}
     cuda_core_bf16 = [k_ for k_ in ptxas if k_.rsplit("_", 2)[1] == "bf16"
@@ -3854,6 +3995,8 @@ class TrainFamily:
     frames: int = 0          # encoder stub frames (the encoder-decoder)
     host_grads: bool = False  # the kernels' gradients wait on the host
     grads_compute: str | None = None  # the gradient check's compute dtype
+    batch: int = Q_BATCH     # rows of the DataIterator batch
+    seq: int = Q_SEQ         # tokens a row
 
 
 #: The cuts fit one 80 GB card: dbrx-132b 1 of 40 layers (4.49 B
@@ -3869,7 +4012,10 @@ class TrainFamily:
 #: (cross wq, wk, norm_c, about 1e-7 of the global norm) are set by where
 #: the encoder rounded: two bf16 runs that differ in any bit there agree
 #: on them at cosine 0.97, the plain ops' own bf16 run against fp32
-#: included.
+#: included. gemma3-12b trains one period (5 windowed layers and 1 global,
+#: 2.35 B parameters, 28 GB with AdamW) on 2 x 2,048 tokens, so that the
+#: window of 1,024 bites in the backward; qwen3-14b and starcoder2-15b 2 of
+#: their 40 layers each.
 TRAIN_FAMILIES = (
     TrainFamily("dbrx-132b", 1, "bfloat16", Q_STEPS),
     TrainFamily("deepseek-v2-236b", 2, "bfloat16", 0),
@@ -3878,6 +4024,9 @@ TRAIN_FAMILIES = (
     TrainFamily("seamless-m4t-medium", None, "float32", Q_STEPS, frames=512,
                 grads_compute="float32"),
     TrainFamily("phi-3-vision-4.2b", 16, "float32", Q_STEPS),
+    TrainFamily("gemma3-12b", 6, "bfloat16", Q_STEPS, batch=2, seq=2048),
+    TrainFamily("qwen3-14b", 2, "bfloat16", Q_STEPS),
+    TrainFamily("starcoder2-15b", 2, "bfloat16", Q_STEPS),
 )
 MOE_TRAIN_KERNELS = ("moe_gather", "moe_combine", "moe_gather_bwd",
                      "moe_combine_bwd")
@@ -4090,11 +4239,12 @@ def recompute_rebuilt(torch, cfg, plans: list) -> int:
 
 
 def train_batch(torch, np, dev, rng, cfg, spec, seed: int) -> dict:
-    """One DataIterator batch of Q_BATCH x Q_SEQ tokens, and the stub
-    frontend embeddings (frames, patches) from ``rng``."""
+    """One DataIterator batch of spec.batch x spec.seq tokens, and the
+    stub frontend embeddings (frames, patches) from ``rng``."""
     from repro_torch.data import DataConfig, DataIterator
-    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=Q_SEQ,
-                                   global_batch=Q_BATCH, seed=seed))
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=spec.seq,
+                                   global_batch=spec.batch, seed=seed))
     try:
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()
                  if k in ("tokens", "labels", "loss_mask")}
@@ -4102,11 +4252,11 @@ def train_batch(torch, np, dev, rng, cfg, spec, seed: int) -> dict:
         data.close()
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     if spec.frames:
-        batch["frames"] = torch.randn((Q_BATCH, spec.frames, cfg.d_model),
+        batch["frames"] = torch.randn((spec.batch, spec.frames, cfg.d_model),
                                       device=dev, generator=g) * STUB_SCALE
     if cfg.prefix_len:
         batch["prefix_embeds"] = torch.randn(
-            (Q_BATCH, cfg.prefix_len, cfg.d_model), device=dev,
+            (spec.batch, cfg.prefix_len, cfg.d_model), device=dev,
             generator=g) * STUB_SCALE
     return batch
 
@@ -4123,7 +4273,8 @@ def train_family_run(torch, np, dev, rng, seed: int,
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import LAUNCHES_BY_DESIGN
+    from repro_torch.kernels.flash_attention import (LAUNCHES_BY_DESIGN,
+                                                     bwd_design)
     from repro_torch.models import init_params
     from repro_torch.train import (TrainConfig, grads_and_metrics,
                                    init_state, make_train_step)
@@ -4166,11 +4317,11 @@ def train_family_run(torch, np, dev, rng, seed: int,
     launches = build.launch_counts()          # ... and pauses here
     expect_launches(f"q {spec.arch} grads", launches, want)
     # bf16 compute takes the tensor-core flash backward at every head dim
-    # (MLA's 192/128 included), fp32 the CUDA-core one.
+    # (MLA's 192/128 and 256 included), fp32 the CUDA-core one.
     designs = dict(Counter(LAUNCHES_BY_DESIGN) - by_design)
     bwd = want["flash_attention_bwd"]
-    want_designs = {"tensor_core" if gcfg.cdtype == torch.bfloat16
-                    else "cuda_core": bwd} if bwd else {}
+    want_designs = {bwd_design(*flash_dims(cfg), gcfg.cdtype): bwd} \
+        if bwd else {}
     if designs != want_designs:
         raise AssertionError(f"phase q {spec.arch}: flash backward launches "
                              f"by design {designs}, want {want_designs}")
@@ -4234,10 +4385,10 @@ def train_family_run(torch, np, dev, rng, seed: int,
                              "tolerance")
     out = {"launches": launches, "grads_peak": grads_peak,
            "worst_cosine": cos[0][0], "worst_leaf": cos[0][1]}
-    seq = Q_SEQ + cfg.prefix_len
+    seq = spec.seq + cfg.prefix_len
     if not spec.steps:            # no train step fits: the gradients' call
         READINGS[f"q_{label}"] = StepReading(
-            gcfg, "grads", Q_BATCH, seq, grads_ms,
+            gcfg, "grads", spec.batch, seq, grads_ms,
             f"q_{label}_grads_vs_plain grads_ms_first_call, 1 call")
 
     if spec.steps:
@@ -4262,12 +4413,12 @@ def train_family_run(torch, np, dev, rng, seed: int,
         launches = {k: launches[k] + steps[k] for k in launches}
         median = statistics.median(step_ms)
         READINGS[f"q_{label}"] = StepReading(
-            cfg, "train", Q_BATCH, seq, median,
+            cfg, "train", spec.batch, seq, median,
             f"q_train_{label} step_ms_median, {spec.steps} steps")
         log({"phase": f"q_train_{label}", "steps": spec.steps,
-             "batch": Q_BATCH, "seq_len": Q_SEQ,
+             "batch": spec.batch, "seq_len": spec.seq,
              "step_ms_median": median, "step_ms": step_ms,
-             "tokens_per_s": Q_BATCH * Q_SEQ / (median / 1e3),
+             "tokens_per_s": spec.batch * spec.seq / (median / 1e3),
              "losses": losses, "max_memory_allocated": peak,
              "max_memory_allocated_gb": peak / 1e9,
              "launches_per_step": {k: n / spec.steps
@@ -4309,7 +4460,7 @@ def train_family_run(torch, np, dev, rng, seed: int,
 
 
 def train_family_path(torch, np, dev, rng, seed: int) -> dict:
-    """(q) The six families, each freed before the next; both MoE backward
+    """(q) The nine families, each freed before the next; both MoE backward
     kernels must have run. Returns the launches summed over them."""
     from collections import Counter
     total = Counter()
@@ -4360,8 +4511,9 @@ def grads_count(cfg, shape) -> dict:
 
 
 def roofline_path(torch, dev, smi: str) -> dict:
-    """(r) Each step phases (j), (l), (p) and (q) timed, read against the
-    dry run's count of the same step (same config, depth and batch) on a
+    """(r) Each step phases (j), (l), (p) and (q) timed, and the prefills
+    of (o)'s dense family, read against the dry run's count of the same
+    step (same config, depth and batch) on a
     1x1 mesh of this card and the H100's peaks: model FLOPs, the counted
     FLOPs and bytes, the roofline's terms, step time and bottleneck, the
     measured step, the model-FLOP share of the card's peak over it (mfu)
@@ -4378,8 +4530,10 @@ def roofline_path(torch, dev, smi: str) -> dict:
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.roofline import analysis as ra
 
-    want = {"p", "j", "l"} | {f"q_{f.arch.replace('-', '_').replace('.', '_')}"
-                              for f in TRAIN_FAMILIES}
+    def key(arch):
+        return arch.replace("-", "_").replace(".", "_")
+    want = {"p", "j", "l"} | {f"q_{key(f.arch)}" for f in TRAIN_FAMILIES} \
+        | {f"o_{key(f.arch)}" for f in FAMILIES if f.read}
     if set(READINGS) != want:
         raise AssertionError(f"phase r: readings {sorted(READINGS)}, want "
                              f"{sorted(want)}")

@@ -6,10 +6,11 @@
 // (key j <= query i) and an optional window (i - j < window), positions
 // counted from 0 in both. Online softmax in fp32 over the scores times
 // D**-0.5; the output (B, Sq, H, DV) acc / max(l, 1e-30) is written in q's
-// dtype. (D, DV) is one of (64, 64), (96, 96), (128, 128) and (192, 128):
-// phi-3-vision's heads of 96 and MLA's query/key heads of 192 (128 without
-// position + 64 rotated) over value heads of 128, as the reference's
-// blockwise_attention takes them (repro/models/attention.py). A masked
+// dtype. (D, DV) is one of (64, 64), (96, 96), (128, 128), (192, 128) and
+// (256, 256): phi-3-vision's heads of 96, MLA's query/key heads of 192 (128
+// without position + 64 rotated) over value heads of 128 and gemma3-12b's
+// heads of 256, as the reference's blockwise_attention takes them
+// (repro/models/attention.py). A masked
 // score contributes exactly 0, so a row with no visible key comes out as
 // zeros.
 //
@@ -51,9 +52,15 @@
 //   K and V tiles of 128 keys go through a ring of 2 stages, each with a
 //   full and an empty mbarrier, so the next tile loads while this one is
 //   multiplied. Rows past S are zero-filled by the TMA unit and masked here.
-// * S = Q K^T on wgmma m64n128k16 (bf16 in, fp32 out), both operands read
-//   from shared memory through 128-byte-swizzle descriptors (K-major: a k16
-//   step is 32 bytes into a box; the 8-row groups 1,024 bytes apart).
+//   D 256 (gemma3-12b) is four boxes a row. K and V tiles of 128 keys would
+//   need 64 + 2 (64 + 64) = 320 KB beside one Q tile, so there the K/V
+//   tiles hold 64 keys (boxes of 64 rows): one Q tile of 128 rows and a
+//   ring of 2 stages take 64 + 2 (32 + 32) = 192 KB. S is then 64 x 64 (32
+//   registers a thread) beside O's 64 x 256 fp32 (128 registers).
+// * S = Q K^T on wgmma m64n128k16 (m64n64k16 at D 256; bf16 in, fp32 out),
+//   both operands read from shared memory through 128-byte-swizzle
+//   descriptors (K-major: a k16 step is 32 bytes into a box; the 8-row
+//   groups 1,024 bytes apart).
 // * Online softmax in registers on the accumulator fragment: a thread owns
 //   2 rows, reduced over its quad with shuffles; exp2 on the special-function
 //   unit with D**-0.5 * log2(e) folded in. Only tiles that cross the
@@ -64,10 +71,11 @@
 //   operand (the accumulator fragment is the A fragment: no shared-memory
 //   round trip) and V read as the MN-major B operand (transpose bit, no
 //   transpose pass; the second box of 64 columns is the leading byte
-//   offset). Tile j's S = Q K^T is issued with tile j - 1's P V, so the
-//   softmax of tile j overlaps that product; O is rescaled by
-//   exp2(m_old - m_new) once it is in, divided once by max(l, 1e-30) and
-//   stored as bf16, rows past Sq skipped.
+//   offset; at DV 256 two n128 products, over boxes 0-1 and 2-3). Tile j's
+//   S = Q K^T is issued with tile j - 1's P V, so the softmax of tile j
+//   overlaps that product; O is rescaled by exp2(m_old - m_new) once it is
+//   in, divided once by max(l, 1e-30) and stored as bf16, rows past Sq
+//   skipped.
 // P in bf16 changes each term of P V by at most 2**-9 relative. The TMA,
 // mbarrier and wgmma pieces are in hopper.cuh, shared with the backward.
 //
@@ -302,83 +310,129 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 128;       // query rows per block: 2 warpgroups of 64
-constexpr int kTcKeys = 128;       // keys per K/V tile
 constexpr int kTcStages = 2;       // K/V ring depth
 constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
-constexpr uint32_t kBoxBytes = 128 * 128;  // one box of 128 rows
+constexpr uint32_t kQBoxBytes = kTcRows * 128;  // one box of a Q tile
 constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
 
 // The tensor-core kernel's tiles for query/key head dim D and value head dim
-// DV: boxes of 64 columns (the last one zero-filled past D or DV), P V as
+// DV: boxes of 64 columns (the last one zero-filled past D or DV), K/V tiles
+// of kKeys keys (128; 64 at D 256, where tiles of 128 would not fit), P V as
 // wide as the V boxes, and two query tiles a block where they fit.
 template <int D, int DV>
 struct TcTiles {
+  static constexpr int kKeys = D > 192 ? 64 : 128;  // keys per K/V tile
   static constexpr int kQkBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
   static constexpr int kPv = kVBoxes * kBoxCols;  // n of the P V product
-  static constexpr uint32_t kQk = kQkBoxes * kBoxBytes;  // a Q or K tile
-  static constexpr uint32_t kV = kVBoxes * kBoxBytes;    // a V tile
+  static constexpr uint32_t kKvBox = kKeys * 128;        // one box of K or V
+  static constexpr uint32_t kQ = kQkBoxes * kQBoxBytes;  // a Q tile
+  static constexpr uint32_t kK = kQkBoxes * kKvBox;      // a K tile
+  static constexpr uint32_t kV = kVBoxes * kKvBox;       // a V tile
   // The K and V rings and 1 KB of alignment slack, beside the Q tiles.
   static constexpr size_t kRing =
-      kTcStages * (static_cast<size_t>(kQk) + kV) + 1024;
+      kTcStages * (static_cast<size_t>(kK) + kV) + 1024;
   static constexpr int kQTiles =
-      2 * static_cast<size_t>(kQk) + kRing <= kSmemMax ? 2 : 1;
-  static constexpr size_t kSmem = kQTiles * static_cast<size_t>(kQk) + kRing;
+      2 * static_cast<size_t>(kQ) + kRing <= kSmemMax ? 2 : 1;
+  static constexpr size_t kSmem = kQTiles * static_cast<size_t>(kQ) + kRing;
   static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
-  static_assert(kPv == 64 || kPv == 128, "P V is n64 or n128");
+  static_assert(kPv == 64 || kPv == 128 || kPv == 256,
+                "P V is n64, n128 or two n128 halves");
 };
 
-// S (64 x 128) = Q K^T for one warpgroup: Q rows at `q_s`, K tile at `k_s`,
-// both K-major in boxes of 64 columns; a k16 step is 32 bytes into a box,
-// steps 4..7 are in the second box and 8..11 (D 192) in the third.
-template <int D>
-__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_s,
-                                           uint32_t k_s) {
+// At D 256 (kKeys 64) the consumer holds O's 128 registers a thread, and
+// ptxas kept every step's descriptors of both products live across the
+// loop and spilled (88 bytes a thread); there each product's base
+// descriptor is made opaque (hopper.cuh), so that a step's is one add
+// from it.
+// S (64 x kKeys) = Q K^T for one warpgroup: Q rows at `q_s` in boxes of 128
+// rows, the K tile at `k_s` in boxes of kKeys rows, both K-major in boxes of
+// 64 columns; a k16 step is 32 bytes into a box, steps 4..7 are in the
+// second box, 8..11 (D 192, 256) in the third and 12..15 (D 256) in the
+// fourth.
+template <int D, int kKeys>
+__device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
+                                           uint32_t q_s, uint32_t k_s) {
+  if constexpr (kKeys == 64) {
+    const uint64_t qa = opaque(sw128_desc(q_s, 16, 1024));
+    const uint64_t kb = opaque(sw128_desc(k_s, 16, 1024));
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + 32 * (kk % 4);
-    const uint64_t a = sw128_desc(q_s + off, 16, 1024);
-    const uint64_t b = sw128_desc(k_s + off, 16, 1024);
-    if (kk == 0) {
-      wgmma_m64n128k16_ss_first(s, a, b);
-    } else {
-      wgmma_m64n128k16_ss(s, a, b);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = 32 * (kk % 4);
+      const uint64_t a = qa + (((kk / 4) * kQBoxBytes + col) >> 4);
+      const uint64_t b = kb + (((kk / 4) * (kKeys * 128) + col) >> 4);
+      if (kk == 0) {
+        wgmma_m64n64k16_ss_first(s, a, b);
+      } else {
+        wgmma_m64n64k16_ss(s, a, b);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kQBoxBytes + 32 * (kk % 4);
+      const uint64_t a = sw128_desc(q_s + off, 16, 1024);
+      const uint64_t b = sw128_desc(k_s + off, 16, 1024);
+      if (kk == 0) {
+        wgmma_m64n128k16_ss_first(s, a, b);
+      } else {
+        wgmma_m64n128k16_ss(s, a, b);
+      }
     }
   }
 }
 
 // O (64 x N) += P V: P's k16 step kk is registers p[4kk .. 4kk+3]; V is
-// MN-major, 16 keys (2 swizzle atoms, 2,048 bytes) per step, the second
-// box of 64 columns 16 KB on (the leading byte offset).
-template <int N>
+// MN-major, 16 keys (2 swizzle atoms, 2,048 bytes) per step, the next box
+// of 64 columns one box of kKeys rows on (the leading byte offset). N 256
+// (with kKeys 64) runs as two n128 halves, boxes 0-1 and 2-3: element
+// 64 + i of o is element i of the second half's fragment, as in an n256
+// one.
+template <int N, int kKeys>
 __device__ __forceinline__ void pv_product(float (&o)[N / 2],
-                                           const uint32_t (&p)[32],
+                                           const uint32_t (&p)[kKeys / 4],
                                            uint32_t v_s) {
+  constexpr uint32_t kBox = kKeys * 128;
+  if constexpr (N == 256) {
+    const uint64_t vb = opaque(sw128_desc(v_s, kBox, 1024));
 #pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-    const uint64_t b = sw128_desc(v_s + 2048 * kk, kBoxBytes, 1024);
-    if constexpr (N == 128) {
-      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                          p[4 * kk + 3], b);
-    } else {
-      wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                         p[4 * kk + 3], b);
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(o), p[4 * kk],
+                          p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                          vb + ((2048 * kk) >> 4));
+      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(o + 64), p[4 * kk],
+                          p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                          vb + ((2 * kBox + 2048 * kk) >> 4));
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t b = sw128_desc(v_s + 2048 * kk, kBox, 1024);
+      if constexpr (N == 128) {
+        wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3], b);
+      } else {
+        wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3], b);
+      }
     }
   }
 }
 
-// Whether a tile of keys from k0 needs a per-score mask for the rows of one
-// warpgroup (row_lo .. row_lo + 63): it crosses Sk, the diagonal or the
-// window's edge.
+// Whether a tile of kKeys keys from k0 needs a per-score mask for the rows
+// of one warpgroup (row_lo .. row_lo + 63): it crosses Sk, the diagonal or
+// the window's edge.
+template <int kKeys>
 __device__ __forceinline__ bool tile_needs_mask(int k0, int row_lo, int sk,
                                                 int causal, int window) {
-  return k0 + kTcKeys > sk || (causal && k0 + kTcKeys - 1 > row_lo) ||
+  return k0 + kKeys > sk || (causal && k0 + kKeys - 1 > row_lo) ||
          (window > 0 && row_lo + 63 - k0 >= window);
 }
 
 // Bit 4j + e: whether score s[4j + e] (row r0 + 8 (e / 2), key
 // k0 + 8j + c0 + e % 2) is visible. Each (row, column parity) sees a run of
-// the 16 column groups j, which is then spread to every fourth bit.
+// the kKeys / 8 column groups j, which is then spread to every fourth bit.
+template <int kKeys>
 __device__ __forceinline__ uint64_t visible_bits(int k0, int r0, int c0,
                                                  int sk, int causal,
                                                  int window) {
@@ -389,8 +443,8 @@ __device__ __forceinline__ uint64_t visible_bits(int k0, int r0, int c0,
     const int base = k0 + c0 + e % 2;  // key of column group j = base + 8j
     const int lo = window > 0 ? qi - window + 1 - base : 0;
     const int hi = (causal ? min(qi, sk - 1) : sk - 1) - base;
-    const int j_lo = max(0, (lo + 7) >> 3);  // ceil(lo / 8)
-    const int j_hi = min(15, hi >> 3);       // floor(hi / 8)
+    const int j_lo = max(0, (lo + 7) >> 3);           // ceil(lo / 8)
+    const int j_hi = min(kKeys / 8 - 1, hi >> 3);     // floor(hi / 8)
     uint64_t run = j_hi >= j_lo ? (2u << j_hi) - (1u << j_lo) : 0u;
     run = (run | run << 24) & 0x000000FF000000FFull;
     run = (run | run << 12) & 0x000F000F000F000Full;
@@ -408,10 +462,11 @@ __device__ __forceinline__ uint64_t visible_bits(int k0, int r0, int c0,
 // factor by which O must be rescaled before this tile's P V is added. The
 // scores are only read: a register that a wgmma accumulates into is written
 // by nothing else, so ptxas need not serialise the products.
-template <bool kMasked>
-__device__ __forceinline__ void softmax_tile(const float (&s)[64],
-                                             uint32_t (&p)[32], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
+template <bool kMasked, int kKeys>
+__device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
+                                             uint32_t (&p)[kKeys / 4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2],
                                              uint64_t visible,
                                              float scale_log2) {
   const auto score = [&](int i) {
@@ -421,7 +476,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
   for (int r = 0; r < 2; ++r) {
     float mx = m[r];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kKeys / 8; ++j) {
       mx = fmaxf(mx, fmaxf(score(4 * j + 2 * r), score(4 * j + 2 * r + 1)));
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -433,7 +488,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
     m[r] = mx;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kKeys / 8; ++j) {
       const float a =
           exp2_approx(fmaf(score(4 * j + 2 * r), scale_log2, -ms));
       const float c =
@@ -455,18 +510,20 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           int kv_heads, int causal, int window,
                           float scale_log2) {
   using Tiles = TcTiles<D, DV>;
-  constexpr uint32_t kQk = Tiles::kQk;  // bytes of a Q or K tile
+  constexpr uint32_t kQ = Tiles::kQ;    // bytes of a Q tile
+  constexpr uint32_t kK = Tiles::kK;    // bytes of a K tile
   constexpr uint32_t kV = Tiles::kV;    // bytes of a V tile
   constexpr int kQTiles = Tiles::kQTiles;
   constexpr int kPv = Tiles::kPv;
+  constexpr int kKeys = Tiles::kKeys;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 4 * kTcStages];
   // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const auto q_s = [&](int t) { return base + t * kQk; };
-  const auto k_s = [&](int st) { return base + (kQTiles + st) * kQk; };
+  const auto q_s = [&](int t) { return base + t * kQ; };
+  const auto k_s = [&](int st) { return base + kQTiles * kQ + st * kK; };
   const auto v_s = [&](int st) {
-    return base + (kQTiles + kTcStages) * kQk + st * kV;
+    return base + kQTiles * kQ + kTcStages * kK + st * kV;
   };
   const uint32_t bar0 = smem_u32(bars);
   const auto q_full = [&](int t) { return bar0 + 8 * t; };
@@ -505,7 +562,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int k_hi = causal ? min(sk, q_last + 1) : sk;
     sp.k_lo = window > 0 ? max(0, sp.q0 - window + 1) : 0;
     sp.n_tiles =
-        k_hi > sp.k_lo ? (k_hi - sp.k_lo + kTcKeys - 1) / kTcKeys : 0;
+        k_hi > sp.k_lo ? (k_hi - sp.k_lo + kKeys - 1) / kKeys : 0;
     return sp;
   };
 
@@ -533,9 +590,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 0; t < n_q; ++t) {
       const Span sp = span(t);
       if (sp.n_tiles == 0) continue;
-      mbar_expect_tx(q_full(t), kQk);
+      mbar_expect_tx(q_full(t), kQ);
       for (int c = 0; c < Tiles::kQkBoxes; ++c) {
-        tma_load_4d(q_s(t) + c * kBoxBytes, &tq, q_full(t), c * kBoxCols, h,
+        tma_load_4d(q_s(t) + c * kQBoxBytes, &tq, q_full(t), c * kBoxCols, h,
                     sp.q0, b);
       }
     }
@@ -544,17 +601,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const Span sp = span(t);
       for (int j = 0; j < sp.n_tiles; ++j, ++it) {
         const int st = stage(it);
-        const int k0 = sp.k_lo + j * kTcKeys;
+        const int k0 = sp.k_lo + j * kKeys;
         mbar_wait(k_empty(st), phase(it) ^ 1);  // the first round passes
-        mbar_expect_tx(k_full(st), kQk);
+        mbar_expect_tx(k_full(st), kK);
         for (int c = 0; c < Tiles::kQkBoxes; ++c) {
-          tma_load_4d(k_s(st) + c * kBoxBytes, &tk, k_full(st),
+          tma_load_4d(k_s(st) + c * Tiles::kKvBox, &tk, k_full(st),
                       c * kBoxCols, kh, k0, b);
         }
         mbar_wait(v_empty(st), phase(it) ^ 1);
         mbar_expect_tx(v_full(st), kV);
         for (int c = 0; c < Tiles::kVBoxes; ++c) {
-          tma_load_4d(v_s(st) + c * kBoxBytes, &tv, v_full(st),
+          tma_load_4d(v_s(st) + c * Tiles::kKvBox, &tv, v_full(st),
                       c * kBoxCols, kh, k0, b);
         }
       }
@@ -584,22 +641,23 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     float l[2] = {0.f, 0.f};
 
     if (sp.n_tiles > 0) {
-      float s[64];
-      uint32_t p[32];
+      float s[kKeys / 2];
+      uint32_t p[kKeys / 4];
       float corr[2];
       mbar_wait(q_full(t), 0);
       mbar_wait(k_full(stage(it0)), phase(it0));
       wgmma_fence();
-      qk_product<D>(s, q_wg, k_s(stage(it0)));
+      qk_product<D, kKeys>(s, q_wg, k_s(stage(it0)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(s);
       mbar_arrive(k_empty(stage(it0)));
       // The first tile always takes the masked form (one copy of the
       // softmax fewer); O is 0, so nothing is rescaled.
-      softmax_tile<true>(s, p, m, l, corr,
-                         visible_bits(sp.k_lo, r0, c0, sk, causal, window),
-                         scale_log2);
+      softmax_tile<true, kKeys>(
+          s, p, m, l, corr,
+          visible_bits<kKeys>(sp.k_lo, r0, c0, sk, causal, window),
+          scale_log2);
 
       // Tile j's S = Q K^T runs beside tile j - 1's O += P V; its softmax
       // overlaps that product, and O is rescaled once the product is in.
@@ -614,21 +672,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         hold(o);
         hold(p);
         wgmma_fence();
-        qk_product<D>(s, q_wg, k_s(stage(it)));
+        qk_product<D, kKeys>(s, q_wg, k_s(stage(it)));
         wgmma_commit();
-        pv_product<kPv>(o, p, v_s(stage(it - 1)));
+        pv_product<kPv, kKeys>(o, p, v_s(stage(it - 1)));
         wgmma_commit();
         wgmma_wait<1>();  // S is in
         hold(s);
         mbar_arrive(k_empty(stage(it)));
-        uint32_t p_next[32];
-        const int k0 = sp.k_lo + j * kTcKeys;
-        if (tile_needs_mask(k0, row_lo, sk, causal, window)) {
-          softmax_tile<true>(s, p_next, m, l, corr,
-                             visible_bits(k0, r0, c0, sk, causal, window),
-                             scale_log2);
+        uint32_t p_next[kKeys / 4];
+        const int k0 = sp.k_lo + j * kKeys;
+        if (tile_needs_mask<kKeys>(k0, row_lo, sk, causal, window)) {
+          softmax_tile<true, kKeys>(
+              s, p_next, m, l, corr,
+              visible_bits<kKeys>(k0, r0, c0, sk, causal, window),
+              scale_log2);
         } else {
-          softmax_tile<false>(s, p_next, m, l, corr, 0, scale_log2);
+          softmax_tile<false, kKeys>(s, p_next, m, l, corr, 0, scale_log2);
         }
         wgmma_wait<0>();  // O += P V of tile j - 1 is in
         hold(o);
@@ -642,7 +701,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
           o[4 * i + 3] *= corr[1];
         }
 #pragma unroll
-        for (int i = 0; i < 32; ++i) p[i] = p_next[i];
+        for (int i = 0; i < kKeys / 4; ++i) p[i] = p_next[i];
       }
 
       const int last = it0 + sp.n_tiles - 1;
@@ -650,7 +709,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       hold(o);
       hold(p);
       wgmma_fence();
-      pv_product<kPv>(o, p, v_s(stage(last)));
+      pv_product<kPv, kKeys>(o, p, v_s(stage(last)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(o);
@@ -721,14 +780,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
-  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh,
-                       int d) {
+  // Boxes of 128 rows for Q, of the tiles' keys for K and V.
+  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh, int d,
+                       int rows) {
     return encode_4d(m, p, batch, seq, nh, d, d,
                      static_cast<long long>(d) * nh,
-                     static_cast<long long>(d) * nh * seq, kTcKeys);
+                     static_cast<long long>(d) * nh * seq, rows);
   };
-  if (!map(&tq, q, sq, heads, D) || !map(&tk, k, sk, kv_heads, D) ||
-      !map(&tv, v, sk, kv_heads, DV)) {
+  if (!map(&tq, q, sq, heads, D, kTcRows) ||
+      !map(&tk, k, sk, kv_heads, D, Tiles::kKeys) ||
+      !map(&tv, v, sk, kv_heads, DV, Tiles::kKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = Tiles::kSmem;
@@ -781,7 +842,8 @@ int launch_dtype(const void* q, const void* k, const void* v, void* out,
 // lse: (batch, heads, sq) fp32, or nullptr to write no log-sum-exp;
 // all but lse of one dtype (0: float32, 1: bfloat16), contiguous and 16-byte
 // aligned. heads a multiple of kv_heads; (head_dim, v_head_dim) one of
-// (64, 64), (96, 96), (128, 128) and (192, 128). causal 0/1; window <= 0
+// (64, 64), (96, 96), (128, 128), (192, 128) and (256, 256). causal 0/1;
+// window <= 0
 // for none. float32 runs the CUDA-core kernel, bfloat16 the tensor-core one.
 // Launches on `stream`; returns cudaGetLastError, or cudaErrorInvalidValue
 // for a shape it does not take.
@@ -810,6 +872,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                     kv_heads, causal, window, dtype, s);
     case 192128:
       return launch_dtype<192, 128>(q, k, v, out, lse, batch, sq, sk, heads,
+                                    kv_heads, causal, window, dtype, s);
+    case 256256:
+      return launch_dtype<256, 256>(q, k, v, out, lse, batch, sq, sk, heads,
                                     kv_heads, causal, window, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -39,8 +39,9 @@
 // kernels/flash_attention.py::bwd_design):
 //
 // Tensor cores: bf16 at every (D, DV), (64, 64), (96, 96), (128, 128) (the
-// training path: qwen2.5-3b, qwen3-14b, starcoder2-15b) and MLA's (192, 128)
-// (deepseek-v2-236b). Four launches:
+// training path: qwen2.5-3b, qwen3-14b, starcoder2-15b), MLA's (192, 128)
+// (deepseek-v2-236b) and gemma3-12b's (256, 256) (its kernels apart, below
+// the others'). Four launches:
 // * lse_kernel: lse * log2(e) of every row into scratch rows padded to a
 //   multiple of 128 queries (zeros past Sq), so that a tile's 64 values
 //   are one 256-byte bulk copy, and zeros into Delta's rows.
@@ -124,7 +125,9 @@
 //   2r + 1 and the columns 4c + 32 u of each.
 // * dq_kernel: one block per (64 query rows, query head, batch), looping
 //   over the key tiles of 64 the rows can see, dQ in registers (rows
-//   4r .. 4r + 3, columns 4c + 32 u).
+//   4r .. 4r + 3, columns 4c + 32 u). At (256, 256) Q, dO, K and V tiles
+//   would take 284 KB, so K and V share one buffer in turn (DqSmem): dO V^T
+//   first, then K replaces V for S and dQ.
 // Tiles are fp32 in shared memory, rows padded by 4 floats against bank
 // conflicts; P^T and dS^T (dS in dq_kernel) go through shared memory
 // between the two products of a tile.
@@ -147,7 +150,10 @@
 // one's softmax: the two register sets hold a stage more of the ring). At
 // deepseek-v2-236b's training shape (B 4, S 512, 128 heads of 192 over
 // 128, causal) the backward needs about 112 GFLOP and 672 MB (0.20 ms at
-// 3.35 TB/s); this design runs 224 GFLOP there.
+// 3.35 TB/s); this design runs 224 GFLOP there. At gemma3-12b's (B 2, S
+// 2,048, 16 heads of 256 over 8, causal) it needs 171.9 GFLOP (0.174 ms);
+// the design at 256 runs 12 D + 8 DV operations a visible pair, 2.0 times
+// that (S and dO V^T in each of its three kernels, dQ's product twice).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -400,6 +406,24 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// dq_kernel's shared memory in floats: the Q and dO tiles, the K and V
+// tiles, dS, and the tile's lse and Delta. Where K and V would not fit
+// beside the rest (D = DV = 256: 284 KB), they take one buffer in turn.
+template <int D, int DV>
+struct DqSmem {
+  static constexpr size_t kKv = kBK * static_cast<size_t>(D + kPad) +
+                                kBK * static_cast<size_t>(DV + kPad);
+  static constexpr size_t kRest = kBQ * static_cast<size_t>(D + kPad) +
+                                  kBQ * static_cast<size_t>(DV + kPad) +
+                                  kBQ * static_cast<size_t>(kLdK) + 2 * kBQ;
+  static constexpr bool kOneBuf = sizeof(float) * (kKv + kRest) > 232448;
+  static constexpr size_t kFloats =
+      kRest + (kOneBuf ? kBK * static_cast<size_t>(D + kPad) : kKv);
+  static_assert(!kOneBuf || D == DV, "one K/V buffer needs D == DV");
+  static_assert(sizeof(float) * kFloats <= 232448,
+                "tiles exceed shared memory");
+};
+
 // dQ of kBQ query rows of one query head.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
@@ -411,11 +435,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kLdD = D + kPad;
   constexpr int kLdV = DV + kPad;
   constexpr int kColsD = D / 32;
+  constexpr bool kOneBuf = DqSmem<D, DV>::kOneBuf;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // kBQ x kLdD
   float* dos = qs + kBQ * kLdD;                 // kBQ x kLdV
   float* ks = dos + kBQ * kLdV;                 // kBK x kLdD
-  float* vs = ks + kBK * kLdD;                  // kBK x kLdV
+  float* vs = kOneBuf ? ks : ks + kBK * kLdD;   // kBK x kLdV
   float* dss = vs + kBK * kLdV;                 // kBQ x kLdK: dS
   float* lse_s = dss + kBQ * kLdK;              // kBQ
   float* dl_s = lse_s + kBQ;                    // kBQ
@@ -459,29 +484,33 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k_rows = min(kBK, sk - kt);
     __syncthreads();  // the previous tile is no longer read
     const long long ko = static_cast<long long>(b) * sk + kt;
-    load_rows<D, kBK>(ks, k + ko * k_stride + static_cast<long long>(kh) * D,
-                         k_stride, k_rows);
+    const float* kt_ = k + ko * k_stride + static_cast<long long>(kh) * D;
+    if constexpr (!kOneBuf) load_rows<D, kBK>(ks, kt_, k_stride, k_rows);
     load_rows<DV, kBK>(vs, v + ko * v_stride + static_cast<long long>(kh) * DV,
                           v_stride, k_rows);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for rows 4 tr + i, keys tc + 8 u.
+    // S = Q K^T and dP = dO V^T for rows 4 tr + i, keys tc + 8 u (with one
+    // K/V buffer, dP first, then K loaded over V for S).
     float s[4][8], dp[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int u = 0; u < 8; ++u) s[i][u] = dp[i][u] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
+    const auto scores = [&]() {
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = ld4(qs + (4 * tr + i) * kLdD + d);
+        for (int i = 0; i < 4; ++i) qv[i] = ld4(qs + (4 * tr + i) * kLdD + d);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float4 kv = ld4(ks + (tc + 8 * u) * kLdD + d);
+        for (int u = 0; u < 8; ++u) {
+          const float4 kv = ld4(ks + (tc + 8 * u) * kLdD + d);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][u] = dot4(qv[i], kv, s[i][u]);
+          for (int i = 0; i < 4; ++i) s[i][u] = dot4(qv[i], kv, s[i][u]);
+        }
       }
-    }
+    };
+    if constexpr (!kOneBuf) scores();
     for (int c = 0; c < DV; c += 4) {
       float4 ov[4];
 #pragma unroll
@@ -492,6 +521,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) dp[i][u] = dot4(ov[i], vv, dp[i][u]);
       }
+    }
+    if constexpr (kOneBuf) {
+      __syncthreads();  // every warp is done with V
+      load_rows<D, kBK>(ks, kt_, k_stride, k_rows);
+      __syncthreads();
+      scores();
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -586,14 +621,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr size_t q_smem =
-      sizeof(float) * (kBQ * static_cast<size_t>(D + kPad) +
-                       kBQ * static_cast<size_t>(DV + kPad) +
-                       kBK * static_cast<size_t>(D + kPad) +
-                       kBK * static_cast<size_t>(DV + kPad) +
-                       kBQ * static_cast<size_t>(kLdK) + 2 * kBQ);
-  static_assert(q_smem <= 232448 && kv_smem <= 232448,
-                "tiles exceed shared memory");
+  constexpr size_t q_smem = sizeof(float) * DqSmem<D, DV>::kFloats;
+  static_assert(kv_smem <= 232448, "tiles exceed shared memory");
   err = cudaFuncSetAttribute(dq_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_smem));
@@ -1536,6 +1565,464 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at (256, 256): gemma3-12b's heads on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// dK and dV of 64 keys are 64 x 256 fp32 each, 128 registers a thread of a
+// warpgroup: one warpgroup cannot hold both, as dkdv_tc_kernel's consumers
+// do, and the tiles of dq_tc_kernel's two consumers with its ring of two
+// stages would take 256 KB. So at 256:
+// * dkdv_256_kernel: one block per (64 keys, KV head, batch), heavy (early)
+//   key tiles first; K and V loaded once, every (query head, query tile of
+//   64) pair's Q, dO, lse and Delta through a ring of 2 stages (32 + 32 KB
+//   and 512 bytes a stage). Both consumers take every pair: the value
+//   warpgroup runs S^T = K Q^T, P^T = exp2(S^T scale log2(e) - lse
+//   log2(e)) (masked per score only on tiles that cross the diagonal, the
+//   window's edge, Sq or Sk), hands P^T in fp32 to the key warpgroup
+//   through 16 KB of shared memory and runs dV += P^T dO (P^T as bf16
+//   register A operands, dO MN-major, two n128 halves); the key warpgroup
+//   runs dP^T = V dO^T, dS^T = P^T (dP^T - Delta) and dK += dS^T Q the same
+//   way. Each holds its own sum of the whole key tile and stores it as it
+//   stands: one writer an element, no reduction. 211 KB of shared memory.
+// * dq_256_kernel: one block of 256 threads per (64 query rows, query
+//   head, batch), heavy (late) tiles first: one consumer warpgroup, its Q
+//   and dO resident, K and V tiles of 64 keys through a ring of 2 stages
+//   (193 KB), dQ's 128 registers beside S, dP and dS's two bf16 parts in
+//   the 255 a thread that a block of two warpgroups leaves; the products
+//   and sums of dq_tc_kernel, the Delta pass its <true> instantiation.
+// The descriptors of the 16 k16 steps over D are derived from opaque base
+// descriptors (hopper.cuh), as in the forward at 256.
+constexpr int k256Stages = 2;            // both kernels' ring depth
+constexpr uint32_t k256Tile = 4 * kBox;  // a 64-row tile of 256 columns
+
+struct Tiles256 {
+  // dkdv: K, V, the ring (Q, dO, 64 lse * log2(e), 64 Delta a stage,
+  // padded to keep the next stage 1,024-byte aligned), P^T in fp32, and
+  // 1 KB of alignment slack.
+  static constexpr uint32_t kStage = 2 * k256Tile + 1024;
+  static constexpr uint32_t kPt = 64 * 64 * sizeof(float);
+  static constexpr size_t kKvSmem =
+      2 * static_cast<size_t>(k256Tile) + k256Stages * kStage + kPt + 1024;
+  // dq: Q and dO of 64 rows, then the ring of K and V.
+  static constexpr size_t kQSmem =
+      (2 + 2 * k256Stages) * static_cast<size_t>(k256Tile) + 1024;
+  static_assert(kKvSmem <= kSmemMax && kQSmem <= kSmemMax,
+                "tiles exceed shared memory");
+};
+
+// d (64 x 64) = A B^T over 256 columns, A and B 64-row tiles at `a` and
+// `b`, both K-major.
+__device__ __forceinline__ void product_abt_256(float (&d)[32], uint32_t a,
+                                                uint32_t b) {
+  const uint64_t da = opaque(sw128_desc(a, 16, 1024));
+  const uint64_t db = opaque(sw128_desc(b, 16, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const uint32_t off = ((kk / 4) * kBox + 32 * (kk % 4)) >> 4;
+    if (kk == 0) {
+      wgmma_m64n64k16_ss_first(d, da + off, db + off);
+    } else {
+      wgmma_m64n64k16_ss(d, da + off, db + off);
+    }
+  }
+}
+
+// acc (64 x 256) += A B: A (64 x 64) in bf16 registers, a[4 kk .. 4 kk + 3]
+// its k16 step kk; B the 64-row tile at `b`, MN-major, as two n128 halves
+// (boxes 0-1 and 2-3; element 64 + i of acc is element i of the second
+// half's fragment).
+__device__ __forceinline__ void product_ab_256(float (&acc)[128],
+                                               const uint32_t (&a)[16],
+                                               uint32_t b) {
+  const uint64_t db = opaque(sw128_desc(b, kBox, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(acc), a[4 * kk],
+                        a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                        db + ((2048 * kk) >> 4));
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(acc + 64),
+                        a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                        a[4 * kk + 3], db + ((2 * kBox + 2048 * kk) >> 4));
+  }
+}
+
+// dK (key warpgroup) and dV (value warpgroup) of 64 keys of one KV head at
+// (256, 256), summed over its query heads.
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse2,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                int sq, int sk, int sq_pad, int heads, int kv_heads,
+                int causal, int window, float scale_log2, float scale) {
+  constexpr int D = 256;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3 + 2 * k256Stages];
+  // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + k256Tile;
+  const auto q_s = [&](int st) {
+    return base + 2 * k256Tile + st * Tiles256::kStage;
+  };
+  const auto do_s = [&](int st) { return q_s(st) + k256Tile; };
+  const auto stats_s = [&](int st) { return do_s(st) + k256Tile; };
+  float* pt = reinterpret_cast<float*>(
+      smem_raw + (q_s(k256Stages) - raw));  // P^T: element e of thread t
+                                           // at e * 128 + t
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t kv_full = bar0;
+  const uint32_t p_full = bar0 + 8;
+  const uint32_t p_empty = bar0 + 16;
+  const auto full = [&](int st) { return bar0 + 8 * (3 + st); };
+  const auto empty = [&](int st) {
+    return bar0 + 8 * (3 + k256Stages + st);
+  };
+
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;  // early key tiles (causal: heavy) first
+  const int group = heads / kv_heads;
+  // Queries that may see keys [k0, k_last]: [q_lo, q_hi), in tiles of 64.
+  const int k_last = min(k0 + kTile, sk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int qt_lo = q_lo / kTile;
+  const int n_qt = q_hi > q_lo ? (q_hi + kTile - 1) / kTile - qt_lo : 0;
+  const int n_pairs = group * n_qt;  // pair i: head i / n_qt, tile i % n_qt
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(p_full, 128);
+    mbar_init(p_empty, 128);
+    for (int st = 0; st < k256Stages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);  // both consumers read every stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    // Producer warpgroup: one thread issues every load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(kv_full, 2 * k256Tile);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(k_s + c * kBox, &tk, kv_full, c * kBoxCols, kh, k0, b);
+      tma_load_4d(v_s + c * kBox, &tv, kv_full, c * kBoxCols, kh, k0, b);
+    }
+    for (int i = 0; i < n_pairs; ++i) {
+      const int st = i % k256Stages;
+      const int h = kh * group + i / n_qt;
+      const int q0 = (qt_lo + i % n_qt) * kTile;
+      mbar_wait(empty(st), ((i / k256Stages) & 1) ^ 1);  // round 0 passes
+      mbar_expect_tx(full(st), 2 * k256Tile + 512);
+      for (int c = 0; c < 4; ++c) {
+        tma_load_4d(q_s(st) + c * kBox, &tq, full(st), c * kBoxCols, h, q0,
+                    b);
+        tma_load_4d(do_s(st) + c * kBox, &tdo, full(st), c * kBoxCols, h,
+                    q0, b);
+      }
+      const long long row =
+          (static_cast<long long>(b) * heads + h) * sq_pad + q0;
+      bulk_load(stats_s(st), lse2 + row, 256, full(st));
+      bulk_load(stats_s(st) + 256, delta + row, 256, full(st));
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup 0 the value one (dV), 1 the key one (dK). Of the
+  // 64 x 64 fragments this thread owns rows (keys) kr and kr + 8 and, of
+  // every 8 columns (queries), c0 and c0 + 1: element 4j + e is key
+  // kr + 8 (e / 2), query 8j + c0 + e % 2.
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int kr = 16 * (warp % 4) + lane / 4;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+#pragma unroll 1
+  for (int i = 0; i < n_pairs; ++i) {
+    const int st = i % k256Stages;
+    const int q0 = (qt_lo + i % n_qt) * kTile;
+    mbar_wait(full(st), (i / k256Stages) & 1);
+    const float* stats =
+        reinterpret_cast<const float*>(smem_raw + (stats_s(st) - raw));
+    float x[32];
+    uint32_t xa[16];
+    wgmma_fence();
+    product_abt_256(x, wg == 0 ? k_s : v_s, wg == 0 ? q_s(st) : do_s(st));
+    wgmma_commit();
+    wgmma_wait<0>();  // S^T (value) or dP^T (key) is in
+    hold(x);
+    if (wg == 0) {
+      // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(
+              fmaf(x[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
+          x[4 * j + e] =
+              masked && !visible(q0 + 8 * j + c0 + e % 2,
+                                 k0 + kr + 8 * (e / 2), sq, sk, causal,
+                                 window)
+                  ? 0.f
+                  : p;
+        }
+      }
+      mbar_wait(p_empty, (i & 1) ^ 1);  // round 0 passes
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pt[e * 128 + t] = x[e];
+      mbar_arrive(p_full);
+    } else {
+      // dS^T = P^T (dP^T - Delta).
+      mbar_wait(p_full, i & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[4 * j + e] = pt[(4 * j + e) * 128 + t] *
+                         (x[4 * j + e] - (e % 2 ? dl.y : dl.x));
+        }
+      }
+      mbar_arrive(p_empty);
+    }
+    to_a_operand(x, xa);
+    hold(acc);
+    wgmma_fence();
+    product_ab_256(acc, xa, wg == 0 ? do_s(st) : q_s(st));  // dV or dK
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+    hold(xa);
+    mbar_arrive(empty(st));
+  }
+
+  // Register pair p of the sum is key kr + 8 (p % 2), columns 8 (p / 2) + c0
+  // and + 1. Every element has this one writer.
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const float f = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + 8 * r;
+    if (key >= sk) continue;
+    const long long at =
+        (static_cast<long long>(b) * sk + key) * kv_heads + kh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + at * D + 8 * j + c0) = pack_bf16(
+          acc[4 * j + 2 * r] * f, acc[4 * j + 2 * r + 1] * f);
+    }
+  }
+}
+
+// dQ of 64 query rows of one query head at (256, 256), by one consumer
+// warpgroup. With kDelta, the Delta pass: each row's sum_j P_ij dP_ij /
+// sum_j P_ij into `delta` (rows below Sq), and no dQ.
+template <bool kDelta>
+__global__ void __launch_bounds__(256, 1)
+dq_256_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
+              const float* __restrict__ lse2, float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
+              int heads, int kv_heads, int causal, int window,
+              float scale_log2, float scale) {
+  constexpr int D = 256;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * k256Stages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + k256Tile;
+  const auto k_s = [&](int st) {
+    return base + 2 * k256Tile + st * 2 * k256Tile;
+  };
+  const auto v_s = [&](int st) { return k_s(st) + k256Tile; };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t q_full = bar0;
+  const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  const auto empty = [&](int st) {
+    return bar0 + 8 * (1 + k256Stages + st);
+  };
+
+  // Grid (heads, batch, query tiles of 64): the query heads of one KV head
+  // side by side, so that they find its K and V tiles in L2.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // late (heavy) first
+  const int kh = h / (heads / kv_heads);
+  // Keys any row of the block may see: [k_lo, k_hi), in tiles of 64 from
+  // k_lo.
+  const int q_last = min(q0 + kTile, sq) - 1;
+  const int k_hi = causal ? min(sk, q_last + 1) : sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kTile - 1) / kTile : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < k256Stages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 4) {
+    if (threadIdx.x != 128) return;
+    mbar_expect_tx(q_full, 2 * k256Tile);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(q_s + c * kBox, &tq, q_full, c * kBoxCols, h, q0, b);
+      tma_load_4d(do_s + c * kBox, &tdo, q_full, c * kBoxCols, h, q0, b);
+    }
+    for (int j = 0; j < n_kt; ++j) {
+      const int st = j % k256Stages;
+      const int k0 = k_lo + j * kTile;
+      mbar_wait(empty(st), ((j / k256Stages) & 1) ^ 1);  // round 0 passes
+      mbar_expect_tx(full(st), 2 * k256Tile);
+      for (int c = 0; c < 4; ++c) {
+        tma_load_4d(k_s(st) + c * kBox, &tk, full(st), c * kBoxCols, kh, k0,
+                    b);
+        tma_load_4d(v_s(st) + c * kBox, &tv, full(st), c * kBoxCols, kh, k0,
+                    b);
+      }
+    }
+    return;
+  }
+
+  // The consumer: rows q0 .. q0 + 63; this thread rows r0 and r0 + 8 and,
+  // of every 8 key columns, c0 and c0 + 1.
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int r_hi = min(q0 + kTile, sq) - 1;  // < q0: no rows
+  float l2[2], dl[2], ps[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at =
+        (static_cast<long long>(b) * heads + h) * sq_pad + r0 + 8 * r;
+    l2[r] = lse2[at];
+    dl[r] = kDelta ? 0.f : delta[at];  // the pass sums P dP into dl
+    ps[r] = 0.f;                       // and P into ps
+  }
+  float acc[kDelta ? 1 : 128];
+#pragma unroll
+  for (int i = 0; i < (kDelta ? 1 : 128); ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % k256Stages;
+    const int k0 = k_lo + j * kTile;
+    mbar_wait(full(st), (j / k256Stages) & 1);
+    const int k_end = min(k0 + kTile, sk) - 1;
+    if (r_hi >= q0 && (!causal || k0 <= r_hi) &&
+        (window <= 0 || q0 - k_end < window)) {
+      float s[32], dp[32];
+      wgmma_fence();
+      product_abt_256(s, q_s, k_s(st));
+      wgmma_commit();
+      product_abt_256(dp, do_s, v_s(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(s);
+      hold(dp);
+      // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked; then
+      // dS = P (dP - Delta), or in the Delta pass Delta += P dP.
+      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const float p = exp2_approx(
+              fmaf(s[4 * jj + e], scale_log2, -l2[r]));
+          const bool ok =
+              !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq,
+                                 sk, causal, window);
+          if constexpr (kDelta) {
+            if (ok) {
+              dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
+              ps[r] += p;
+            }
+          } else {
+            s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
+          }
+        }
+      }
+      if constexpr (!kDelta) {
+        // dS's bf16 part and the bf16 of its residual, as in dq_tc_kernel.
+        uint32_t da[16], dr[16];
+        to_a_operand(s, da);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          __nv_bfloat162 hi;
+          *reinterpret_cast<uint32_t*>(&hi) = da[i];
+          const float2 f = __bfloat1622float2(hi);
+          dr[i] = pack_bf16(s[2 * i] - f.x, s[2 * i + 1] - f.y);
+        }
+        hold(acc);
+        wgmma_fence();
+        product_ab_256(acc, da, k_s(st));  // dQ += dS K
+        product_ab_256(acc, dr, k_s(st));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(da);
+        hold(dr);
+      }
+    }
+    mbar_arrive(empty(st));
+  }
+
+  if constexpr (kDelta) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      const int qi = r0 + 8 * r;
+      if (qi < sq && lane % 4 == 0) {
+        delta[(static_cast<long long>(b) * heads + h) * sq_pad + qi] =
+            ps[r] > 0.f ? dl[r] / ps[r] : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + 8 * r;
+      if (qi >= sq) continue;
+      __nv_bfloat16* row =
+          dq + ((static_cast<long long>(b) * sq + qi) * heads + h) * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(
+            acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // A second stream of the current device, created at first use, and two
 // events for forking work onto it from the caller's stream and joining it
 // back.
@@ -1723,6 +2210,90 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(err);
 }
 
+// The tensor-core design at (256, 256): lse_kernel, the Delta pass, then
+// dkdv_256_kernel on `stream` beside dq_256_kernel on the side stream, as
+// launch_tc orders its kernels.
+int launch_tc_256(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, float* scratch,
+                  void* dq, void* dk, void* dv, int batch, int sq, int sk,
+                  int heads, int kv_heads, int causal, int window,
+                  cudaStream_t stream) {
+  constexpr int D = 256;
+  const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
+  const long long rows = static_cast<long long>(batch) * heads * sq_pad;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  const long long delta_blocks = (rows + kThreads - 1) / kThreads;
+  const int q_tiles = (sq + kTile - 1) / kTile;
+  const int k_tiles = (sk + kTile - 1) / kTile;
+  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Contiguous tensors: strides of D a head, then a row, a batch.
+  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh) {
+    return encode_4d(m, p, batch, seq, nh, D, D,
+                     static_cast<long long>(D) * nh,
+                     static_cast<long long>(D) * nh * seq, kTile);
+  };
+  CUtensorMap tq, tk, tv, tdo;
+  if (!map(&tq, q, sq, heads) || !map(&tk, k, sk, kv_heads) ||
+      !map(&tv, v, sk, kv_heads) || !map(&tdo, dout, sq, heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lse_kernel<<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
+      lse, lse2, delta, rows, sq, sq_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // D ** -0.5 as the reference computes it, in double, then rounded.
+  const double scale_d = pow(static_cast<double>(D), -0.5);
+  const float scale = static_cast<float>(scale_d);
+  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                    static_cast<unsigned>(q_tiles));
+  err = cudaFuncSetAttribute(dq_256_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Tiles256::kQSmem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(dq_256_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Tiles256::kQSmem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dkdv_256_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Tiles256::kKvSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_256_kernel<true><<<q_grid, 256, Tiles256::kQSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
+      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SideStream* side = nullptr;
+  err = side_stream(&side);
+  if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
+  if (err == cudaSuccess) {
+    err = cudaStreamWaitEvent(side->stream, side->fork, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid(static_cast<unsigned>(kv_heads),
+                     static_cast<unsigned>(batch),
+                     static_cast<unsigned>(k_tiles));
+  dkdv_256_kernel<<<kv_grid, kTcThreads, Tiles256::kKvSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), sq, sk, sq_pad, heads, kv_heads,
+      causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_256_kernel<false><<<q_grid, 256, Tiles256::kQSmem, side->stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
+      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
+  return static_cast<int>(err);
+}
+
 template <int D, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const float* lse, float* delta, void* dq,
@@ -1737,8 +2308,13 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   // bfloat16: the tensor cores. The design sums Delta itself (the Delta
   // pass): it reads no output.
-  return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq,
-                          sk, heads, kv_heads, causal, window, s);
+  if constexpr (D == 256) {
+    return launch_tc_256(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq,
+                         sk, heads, kv_heads, causal, window, s);
+  } else {
+    return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                            sq, sk, heads, kv_heads, causal, window, s);
+  }
 }
 
 }  // namespace
@@ -1751,9 +2327,9 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
 // of 2 * batch * heads * round_up(sq, 128) floats (the CUDA-core kernels
 // use the first batch * heads * sq); dq, dk, dv of q's, k's and v's shapes
 // and dtype, every element written. (head_dim, v_head_dim) one of (64, 64),
-// (96, 96), (128, 128) and (192, 128); causal 0/1; window <= 0 for none.
-// Launches three kernels (the tensor-core design four), their work
-// ordered on `stream` (the tensor-core design runs its dQ kernel on a
+// (96, 96), (128, 128), (192, 128) and (256, 256); causal 0/1; window <= 0
+// for none. Launches three kernels (the tensor-core design four), their
+// work ordered on `stream` (the tensor-core design runs its dQ kernel on a
 // second stream that `stream` waits for);
 // returns cudaGetLastError, or cudaErrorInvalidValue for a shape it does
 // not take. The design (tensor or CUDA cores) follows dtype and
@@ -1806,6 +2382,10 @@ extern "C" int flash_attention_bwd_launch(
                                     causal, window, dtype, s);
     case 192128:
       return launch_dtype<192, 128>(q, k, v, out, dout, lse, delta, dq, dk,
+                                    dv, batch, sq, sk, heads, kv_heads,
+                                    causal, window, dtype, s);
+    case 256256:
+      return launch_dtype<256, 256>(q, k, v, out, dout, lse, delta, dq, dk,
                                     dv, batch, sq, sk, heads, kv_heads,
                                     causal, window, dtype, s);
     default:

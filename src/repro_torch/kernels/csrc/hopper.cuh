@@ -86,6 +86,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>(1) << 62;
 }
 
+// `desc` through an empty asm: the compiler can neither fold nor hoist it,
+// so descriptors derived from it by adding a step's offset are computed
+// where they are used instead of all held live across a loop (the address
+// field is the low 14 bits of address / 16, which no tile's offset
+// carries out of).
+__device__ __forceinline__ uint64_t opaque(uint64_t desc) {
+  asm volatile("" : "+l"(desc));
+  return desc;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }

@@ -58,7 +58,7 @@ from .flash_attention import (bwd_scratch_floats,
 #: (B, S, H, KV, D, DV, causal): the dbrx-132b prefill's shape first, then
 #: qwen2.5-3b's (phase (l)'s prefill and phase (p)'s training batch), then
 #: deepseek-v2-236b's MLA prefill (phase (o)) and an odd count of query
-#: tiles at its heads.
+#: tiles at its heads, then gemma3-12b's prefill (heads of 256).
 SHAPES = {
     torch.bfloat16: [(4, 2048, 48, 8, 128, 128, 1),
                      (4, 512, 16, 2, 128, 128, 1),
@@ -68,15 +68,17 @@ SHAPES = {
                      (2, 1024, 32, 32, 96, 96, 1),
                      (4, 512, 128, 128, 192, 128, 1),
                      (2, 1152, 64, 64, 192, 128, 1),
-                     (4, 512, 128, 128, 192, 128, 0)],
+                     (4, 512, 128, 128, 192, 128, 0),
+                     (2, 2048, 16, 8, 256, 256, 1)],
     torch.float32: [(1, 2048, 48, 8, 128, 128, 1),
-                    (2, 1000, 48, 8, 64, 64, 1)],
+                    (2, 1000, 48, 8, 64, 64, 1),
+                    (1, 2048, 16, 8, 256, 256, 1)],
 }
 #: (B, S, H, KV, D, DV, causal) of the backward: qwen2.5-3b's training
-#: batch, a long causal sequence, then deepseek-v2-236b's training batch
-#: (its 128 MLA heads of 192 over 128).
+#: batch, a long causal sequence, deepseek-v2-236b's training batch (its
+#: 128 MLA heads of 192 over 128), then gemma3-12b's (heads of 256).
 BWD_SHAPES = [(4, 512, 16, 2, 128, 128, 1), (1, 2048, 16, 2, 128, 128, 1),
-              (4, 512, 128, 128, 192, 128, 1)]
+              (4, 512, 128, 128, 192, 128, 1), (2, 2048, 16, 8, 256, 256, 1)]
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 _BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}

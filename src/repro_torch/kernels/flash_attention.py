@@ -14,7 +14,8 @@ over a sequence.
   Sq == Sk every row sees at least itself), and so are its gradients.
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors, which
-takes (D, DV) of :data:`FLASH_SHAPES` (any other pair raises), and runs
+takes (D, DV) of :data:`FLASH_SHAPES` (64, 96, 128, MLA's 192 over 128 and
+gemma3-12b's 256, in fp32 and bf16; any other pair raises), and runs
 :func:`flash_attention_plain` for CPU tensors (and for meta tensors, whose
 operations the dry run counts). ``LAUNCHES_BY_SHAPE``
 breaks the kernel's launch count down by (D, DV) and causality, beside
@@ -44,8 +45,8 @@ from .descriptor_copy import stream_of
 
 NEG_INF = -1e30
 #: (query/key head dim, value head dim) pairs the CUDA kernel is
-#: instantiated for: 96 is phi-3-vision's, 192/128 MLA's.
-FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128))
+#: instantiated for: 96 is phi-3-vision's, 192/128 MLA's, 256 gemma3-12b's.
+FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128), (256, 256))
 #: Kernel launches by shape key (:func:`shape_key`).
 LAUNCHES_BY_SHAPE: Counter = Counter()
 #: Backward kernel launches by design (:func:`bwd_design`).
@@ -107,9 +108,10 @@ def bwd_design(d: int, dv: int, dtype) -> str:
     head dims (D, DV) of :data:`FLASH_SHAPES` in ``dtype``:
     ``"tensor_core"`` (wgmma, TMA) for bf16 at every pair, MLA's (192, 128)
     through a dK/dV kernel of its own whose two warpgroups split each
-    (key tile, query tile) pair's products; ``"cuda_core"`` for fp32,
-    whose tolerance needs exact fp32 sums that bf16 products cannot
-    hold."""
+    (key tile, query tile) pair's products, gemma3-12b's (256, 256)
+    through kernels of its own whose warpgroups hold dK and dV apart;
+    ``"cuda_core"`` for fp32, whose tolerance needs exact fp32 sums that
+    bf16 products cannot hold."""
     return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 

@@ -4,8 +4,9 @@ Train/prefill attention runs the core through
 :func:`repro_torch.kernels.ops.flash_attention_op`: the hand-written CUDA
 flash kernel on the card, its plain version on the CPU. The kernel takes
 positions that count from 0 (what ``model.forward`` builds), no logit
-softcap, and the head dims of ``FLASH_SHAPES`` (64, 96, 128, and MLA's
-192 over values of 128). Anything else runs :func:`blockwise_attention`
+softcap, and the head dims of ``FLASH_SHAPES`` (64, 96, 128, MLA's 192
+over values of 128, and gemma3-12b's 256), which cover every registered
+config. Anything else runs :func:`blockwise_attention`
 (the flash schedule in plain PyTorch) on the CPU and raises
 ``NotImplementedError`` on the card: nothing on the card gives way quietly
 to a plain version.

@@ -629,6 +629,47 @@ def test_cuda_flash_attention_other_head_dims_match_plain(
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+#: gemma3-12b's heads of 256 (G 2): B, S or (Sq, Sk), H, KV, causal,
+#: window, q scale. The first two are its prefill's global and local
+#: layers.
+FLASH_256_CASES = [
+    (2, 2048, 16, 8, True, None, 1),
+    (2, 2048, 16, 8, True, 1024, 1),
+    (2, 300, 8, 8, False, None, 1),       # G 1, not causal
+    (1, 777, 8, 4, True, 100, 1),         # a window across tile edges
+    (2, (64, 300), 4, 2, False, None, 1),  # Sq != Sk
+    (1, (64, 0), 4, 2, False, None, 1),   # no keys: zeros
+    (2, 333, 4, 2, True, None, 8),        # large logits: online rescale
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,causal,window,q_scale", FLASH_256_CASES)
+def test_cuda_flash_attention_head256_matches_plain(
+        cuda, dtype, tol, b, s, h, kv, causal, window, q_scale):
+    """Head dim 256 (K/V tiles of 64 keys on the tensor cores) against
+    the plain version, the launch counted under its shape."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES_BY_SHAPE, flash_attention, flash_attention_plain, shape_key)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device="cpu").manual_seed(sq + sk + h)
+    q = (torch.randn((b, sq, h, 256), generator=g) * q_scale).to(dtype) \
+        .to(cuda)
+    k = torch.randn((b, sk, kv, 256), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, sk, kv, 256), generator=g).to(dtype).to(cuda)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    key = shape_key(256, 256, causal)
+    before = (build.launch_counts()["flash_attention"],
+              LAUNCHES_BY_SHAPE[key])
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (build.launch_counts()["flash_attention"],
+            LAUNCHES_BY_SHAPE[key]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_other_head_dims(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
@@ -821,20 +862,23 @@ def _to(tree, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-12b", "dbrx-132b"])
-def test_cuda_decode_matches_the_cpu(cuda, arch):
-    """Reduced configs at head dim 64 (a width the flash kernel takes), in
-    fp32: prefill (through flash, and for dbrx-132b the MoE kernels) and 20
-    greedy decode steps on the card against the same on the CPU, logits
-    within rtol = atol = 1e-4, position tags exactly. gemma3-12b's local
-    layers keep 16 slots, which the steps wrap."""
+@pytest.mark.parametrize("arch,head_dim", [
+    ("qwen2.5-3b", 64), ("gemma3-12b", 64), ("dbrx-132b", 64),
+    ("gemma3-12b", 256)])
+def test_cuda_decode_matches_the_cpu(cuda, arch, head_dim):
+    """Reduced configs at head dim 64 (a width the flash kernel takes),
+    and gemma3-12b at its published 256, in fp32: prefill (through flash,
+    and for dbrx-132b the MoE kernels) and 20 greedy decode steps on the
+    card against the same on the CPU, logits within rtol = atol = 1e-4,
+    position tags exactly. gemma3-12b's local layers keep 16 slots, which
+    the steps wrap."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = dataclasses.replace(get_config(arch, reduced=True), head_dim=64,
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              head_dim=head_dim, compute_dtype="float32")
     params = init_params(0, cfg, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size, (3, 24)).astype(np.int32))
@@ -951,7 +995,8 @@ def test_cuda_flash_attention_backward_matches_plain(
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("h,kv,d,dv", [(16, 16, 64, 64), (16, 2, 128, 128),
-                                       (8, 8, 96, 96), (8, 8, 192, 128)])
+                                       (8, 8, 96, 96), (8, 8, 192, 128),
+                                       (8, 4, 256, 256)])
 def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
         cuda, h, kv, d, dv, causal):
     """bf16 keys and values whose rows share 99.9 % of their norm (a
@@ -959,7 +1004,8 @@ def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
     difference there, which Delta from the rounded output, or dS as one
     bf16 operand, would swamp. The tensor-core backward (its Delta pass,
     dQ on dS's two bf16 parts) holds dQ, dK and dV at cosine 0.9999 to
-    fp64 autograd on the same inputs, MLA's (192, 128) included."""
+    fp64 autograd on the same inputs, MLA's (192, 128) and gemma3-12b's
+    (256, 256) included."""
     from repro_torch.kernels.flash_attention import (
         _forward, flash_attention_backward)
     g = torch.Generator(device="cpu").manual_seed(h + d)
@@ -986,6 +1032,52 @@ def test_cuda_flash_backward_is_exact_over_keys_with_a_common_mean(
         a, w = a.double().flatten(), w.flatten()
         cos = float(a @ w / (a.norm() * w.norm()))
         assert cos >= 0.9999, (name, cos)
+
+
+#: gemma3-12b's heads of 256: B, S or (Sq, Sk), H, KV, causal, window.
+FLASH_BWD_256_CASES = [
+    (2, 512, 16, 8, True, None),         # its heads, G 2
+    (1, 1024, 16, 8, True, 512),         # a local layer's window
+    (2, 300, 8, 8, True, 100),           # G 1, a window across tiles
+    (1, 200, 4, 2, False, None),         # not causal
+    (2, (64, 200), 4, 2, False, 16),     # Sq != Sk, windowed
+    (1, 333, 6, 2, True, None),          # G 3, S 333
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,s,h,kv,causal,window", FLASH_BWD_256_CASES)
+def test_cuda_flash_attention_backward_head256_matches_plain(
+        cuda, dtype, tol, b, s, h, kv, causal, window):
+    """The backward at (256, 256) (bf16 on the tensor cores through
+    ``dkdv_256_kernel`` and ``dq_256_kernel``, fp32 on the CUDA cores)
+    against ``flash_attention_backward_plain`` within ``tol`` of each
+    reference's largest entry, two launches bit-identical."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES_BY_DESIGN, _forward, bwd_design, flash_attention_backward,
+        flash_attention_backward_plain)
+    q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, h, kv, 256, 256, h + b)
+    out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    design = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert bwd_design(256, 256, dtype) == design
+    before = (build.launch_counts()["flash_attention_bwd"],
+              LAUNCHES_BY_DESIGN[design])
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert (build.launch_counts()["flash_attention_bwd"],
+            LAUNCHES_BY_DESIGN[design]) == (before[0] + 2, before[1] + 2)
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert x.dtype == dtype and x.shape == y.shape
+        assert torch.equal(x, z), f"d{name} differs between launches"
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max()), (name, err)
 
 
 @pytest.mark.cuda
