@@ -318,15 +318,44 @@ Phases:
    frames, 3 steps held as (s3), no byte gathered); each case's seconds
    are printed. (s6) ``torch.distributed.run`` of the training launcher
    with ``--distributed-init --mesh-data 1`` on NCCL, a world of one:
-   qwen2.5-3b at published widths cut to 1 layer (``--layers``; the
-   reduced config's head dim of 16 has no flash kernel), 2 steps of 4 x
-   512 tokens and the trainer's final checkpoint (about 4.7 GB).
-14. The most active descriptors one copy call received on each path
+   qwen2.5-3b at published widths cut to 1 layer (``--layers``: a
+   published width with a short run; the reduced config runs on the card
+   too since phase (t)), 2 steps of 4 x 512 tokens and the trainer's final
+   checkpoint (about 4.7 GB).
+14. (t) Flash over the rest of the reference's attention domain, after
+   (s). (t1) The forward and backward kernels against their plain
+   versions at the reduced configs' head dims (16, 24, 24 over 16 and 32:
+   causal and not, gemma3-12b's reduced window of 16 across tile edges, G
+   1 and G > 1), each without a cap and under logit softcaps of 50 and 5,
+   and under both caps at 64, 96, 128 and 256, in fp32 and bf16 (forward
+   within rtol = atol = 2e-5 and 2e-2, the log-sum-exp within 1e-3, the
+   backward within FLASH_BWD_TOL, two launches bit-identical); MLA's
+   (192, 128) must refuse a cap. (t2) gemma3-12b under Gemma 2's
+   published softcap of 50: prefilled uncut on 2 x 2,048 as in (o) and one
+   period trained on 2 x 2,048 as in (q), held against the plain ops as
+   those are. (t3) Every registered arch's reduced config on the card:
+   ``launch.serve.main([..., "--reduced"])`` (8 requests delivered),
+   ``launch.train.main([..., "--reduced", "--steps", "3"])`` (the
+   encoder-decoder, which the launcher's data cannot feed in either
+   package, through (q)'s gradient check and 3 steps on stub frames), and
+   the config's forward and loss on one batch through the kernels held
+   against the plain ops, in fp32 compute (logits within 1e-3, loss within
+   1e-5) and in bf16 (logits within the larger of 6e-2 and twice the plain
+   bf16 forward's own distance from the plain fp32 one, loss within
+   2e-3), each
+   arch's seconds printed; then ``python -m repro_torch.launch.train
+   --arch qwen2.5-3b --reduced --steps 3`` in a process of its own. Then
+   rows 7f–7i timed: the narrow pairs forward and backward at the
+   launcher's batch and at S 2,048, and gemma3-12b's prefill and training
+   shapes with the cap beside without, each beside its bound, the plain
+   version and SDPA.
+15. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
    launches; a ``kernels`` JSON line (each of the ten kernels' launches
-   summed over the main path, (k), (j), (l), (m), (n), (o), (p), (q) and
-   every rank of (s), and per path; flash's phase (o) launches by shape
-   and its times at the new head dims), then the ``ok`` JSON line last.
+   summed over the main path, (k), (j), (l), (m), (n), (o), (p), (q),
+   every rank of (s) and (t), and per path; flash's phase (o) and (t)
+   launches by shape, the latter with and without a cap, and its times at
+   the new head dims), then the ``ok`` JSON line last.
 
 Any failure raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA GPU is present or when the
@@ -388,6 +417,9 @@ FLASH_WIDE_CASES = [
     (1, 777, 8, 4, 256, 256, True, 100),
     (2, (64, 300), 4, 2, 256, 256, False, None),
 ]
+#: Every (D, DV) pair the flash kernels are built for (``FLASH_SHAPES``).
+FLASH_DIMS = ((16, 16), (24, 24), (24, 16), (32, 32), (64, 64), (96, 96),
+              (128, 128), (192, 128), (256, 256))
 #: The timed: (label, B, S, H, KV, D, DV, window), causal, bf16.
 FLASH_WIDE_TIMED = [("phi-3-vision-4.2b", 2, 1024, 32, 32, 96, 96, None),
                     ("deepseek-v2-236b", 4, 512, 128, 128, 192, 128, None),
@@ -1058,7 +1090,7 @@ def check_flash(torch, np, dev, rng) -> dict:
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), None, PROMPTS, PROMPT_LEN, PROMPT_LEN, h, kv, d, d, 1, 0,
-        1, stream))
+        1, 0.0, stream))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v,
                                                             causal=True),
                        reps=3, warm=1)
@@ -1094,7 +1126,7 @@ def check_flash(torch, np, dev, rng) -> dict:
     o = torch.empty_like(q)
     f32_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), None, b, s, s, h, kv, d, d, 1, 0, 0, stream))
+        o.data_ptr(), None, b, s, s, h, kv, d, d, 1, 0, 0, 0.0, stream))
     n_bytes, n_ops = flash_work(q, k, True)
     log({"time": "flash_attention_fp32", "B": b, "S": s, "H": h, "KV": kv,
          "D": d, "dtype": "float32", "causal": True, "kernel_ms": f32_ms,
@@ -1153,7 +1185,7 @@ def time_flash_shape(torch, qkv, spec) -> dict:
     kernel_ms = time_ms(torch, lambda: build.launch(
         "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), None, b, s, s, h, kv, d, dv, 1, window or 0, 1,
-        stream))
+        0.0, stream))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(
         q, k, v, causal=True, window=window), reps=3, warm=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1207,18 +1239,15 @@ def flash_ptxas(build_log) -> dict:
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
             name = None
-            for tag, key in (("tc_kernelILi128ELi128E", "bf16_tc_d128"),
-                             ("tc_kernelILi64ELi64E", "bf16_tc_d64"),
-                             ("tc_kernelILi96ELi96E", "bf16_tc_d96"),
-                             ("tc_kernelILi192ELi128E", "bf16_tc_d192_128"),
-                             ("tc_kernelILi256ELi256E", "bf16_tc_d256"),
-                             ("kernelIfLi128ELi128E", "fp32_d128"),
-                             ("kernelIfLi64ELi64E", "fp32_d64"),
-                             ("kernelIfLi96ELi96E", "fp32_d96"),
-                             ("kernelIfLi192ELi128E", "fp32_d192_128"),
-                             ("kernelIfLi256ELi256E", "fp32_d256")):
-                if tag in ln:
-                    name = key
+            for d, dv in FLASH_DIMS:
+                dims = str(d) if d == dv else f"{d}_{dv}"
+                if f"tc_kernelILi{d}ELi{dv}E" in ln:
+                    # The capped instantiation's flag is true (Lb1E).
+                    name = f"bf16_tc_d{dims}" + (
+                        "_softcap" if f"Li{dv}ELb1E" in ln else "")
+                elif f"kernelIfLi{d}ELi{dv}E" in ln:
+                    name = f"fp32_d{dims}"
+                if name:
                     out[name] = {}
                     break
         elif name and "spill stores" in ln:
@@ -1236,11 +1265,14 @@ def flash_ptxas(build_log) -> dict:
 
 def check_flash_ptxas(ptxas: dict) -> None:
     """No tensor-core forward kernel spills; where the library was built
-    in this run, every head-dim pair has both kernels."""
+    in this run, every head-dim pair has both kernels, and every pair but
+    MLA's its capped tensor-core kernel."""
     spills = {k: p for k, p in ptxas.items()
               if k.startswith("bf16_tc") and p.get("spill_store_bytes")}
+    names = [str(d) if d == dv else f"{d}_{dv}" for d, dv in FLASH_DIMS]
     want = {f"{kind}{dims}" for kind in ("bf16_tc_d", "fp32_d")
-            for dims in ("64", "96", "128", "192_128", "256")}
+            for dims in names} | {f"bf16_tc_d{dims}_softcap"
+                                  for dims in names if dims != "192_128"}
     if spills or (ptxas and "note" not in ptxas and want - set(ptxas)):
         raise AssertionError(f"flash_attention: ptxas spills {spills}, "
                              f"names {sorted(ptxas)}")
@@ -2873,6 +2905,7 @@ class Family:
     engine: bool = False    # also serve ENGINE_REQUESTS through a ServeEngine
     param_dtype: str | None = None  # the parameters' dtype, if not fp32
     read: bool = False      # phase (r) reads the timed prefill
+    softcap: float | None = None  # a logit softcap the config lacks
 
 
 #: deepseek-v2-236b keeps its dense layer 0 and one MoE layer of 60;
@@ -2932,7 +2965,8 @@ def family_launches(cfg, steps: int) -> tuple:
     n_attn = sum(m in ("attn", "local") for m, _ in layers)
     n_moe = sum(f == "moe" for _, f in layers)
     d, dv = flash_dims(cfg)
-    shapes = Counter({shape_key(d, dv, True): 2 * n_attn})
+    cap = None if cfg.mla is not None else cfg.attn_logit_softcap
+    shapes = Counter({shape_key(d, dv, True, cap): 2 * n_attn})
     if cfg.is_encdec:
         shapes[shape_key(d, dv, False)] += 2 * (cfg.encoder_layers + n_attn)
     shapes = +shapes
@@ -3199,7 +3233,10 @@ def family_run(torch, np, dev, rng, seed: int, spec: Family) -> dict:
         cfg = dataclasses.replace(cfg, num_layers=spec.layers)
     if spec.param_dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=spec.param_dtype)
-    label = spec.arch.replace("-", "_").replace(".", "_")
+    if spec.softcap is not None:
+        cfg = dataclasses.replace(cfg, attn_logit_softcap=spec.softcap)
+    label = spec.arch.replace("-", "_").replace(".", "_") \
+        + ("_softcap" if spec.softcap is not None else "")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
@@ -3594,7 +3631,7 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
             "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-            b, s, s, h, kv, d, dv, 1, 0, 1, stream))
+            b, s, s, h, kv, d, dv, 1, 0, 1, 0.0, stream))
         plain_ms = time_ms(torch, lambda: flash_attention_backward_plain(
             q, k, v, out, lse, dout, causal=True), reps=3, warm=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -3687,7 +3724,8 @@ def check_bwd_ptxas(ptxas: dict) -> None:
             "delta_pass_tc_kernel_bf16_192/128",
             "dkdv_256_kernel_bf16_256/256", "dq_256_kernel_bf16_256/256",
             "delta_pass_256_kernel_bf16_256/256"} | {
-        f"{k_}_bf16_{d}/{d}" for d in (64, 96, 128)
+        f"{k_}_bf16_{d}" for d in ("16/16", "24/24", "24/16", "32/32",
+                                   "64/64", "96/96", "128/128")
         for k_ in ("dkdv_tc_kernel", "dq_tc_kernel", "delta_pass_tc_kernel")}
     cuda_core_bf16 = [k_ for k_ in ptxas if k_.rsplit("_", 2)[1] == "bf16"
                       and not k_.startswith(tensor_core)]
@@ -3997,6 +4035,8 @@ class TrainFamily:
     grads_compute: str | None = None  # the gradient check's compute dtype
     batch: int = Q_BATCH     # rows of the DataIterator batch
     seq: int = Q_SEQ         # tokens a row
+    softcap: float | None = None  # a logit softcap the config lacks
+    reduced: bool = False    # the reduced config, not the published one
 
 
 #: The cuts fit one 80 GB card: dbrx-132b 1 of 40 layers (4.49 B
@@ -4280,11 +4320,15 @@ def train_family_run(torch, np, dev, rng, seed: int,
                                    init_state, make_train_step)
     from repro_torch.tree import flatten
 
-    cfg = dataclasses.replace(get_config(spec.arch),
+    cfg = dataclasses.replace(get_config(spec.arch, reduced=spec.reduced),
                               param_dtype=spec.param_dtype)
     if spec.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=spec.layers)
-    label = spec.arch.replace("-", "_").replace(".", "_")
+    if spec.softcap is not None:
+        cfg = dataclasses.replace(cfg, attn_logit_softcap=spec.softcap)
+    label = spec.arch.replace("-", "_").replace(".", "_") \
+        + ("_reduced" if spec.reduced else "") \
+        + ("_softcap" if spec.softcap is not None else "")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
@@ -5458,6 +5502,439 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase (t): flash over the rest of the reference's attention domain
+# ---------------------------------------------------------------------------
+
+#: (t1) The reduced configs' head dims against the plain versions, each
+#: without a cap and under T_CAPS: B, S or (Sq, Sk), H, KV, D, DV, causal,
+#: window. gemma3-12b's reduced window of 16 crosses tile edges; G 1 and
+#: G > 1; deepseek-v2-236b's reduced MLA heads of 24 over 16.
+T_NARROW_CASES = [
+    (2, 200, 8, 2, 16, 16, True, None),       # qwen2.5-3b's reduced heads
+    (1, (64, 300), 4, 4, 16, 16, False, None),
+    (2, 300, 4, 2, 24, 24, True, 16),         # gemma3-12b's reduced window
+    (1, 333, 4, 4, 24, 24, False, None),
+    (2, 200, 4, 4, 24, 16, True, None),       # deepseek-v2's reduced MLA
+    (1, (100, 150), 4, 4, 24, 16, False, 32),
+    (2, 257, 8, 4, 32, 32, True, None),       # qwen3-14b's reduced heads
+    (1, 300, 4, 4, 32, 32, True, 100),
+]
+#: The cap at the published head dims (MLA's 192/128 takes none).
+T_CAP_CASES = [
+    (2, 300, 8, 2, 64, 64, True, None),
+    (1, 333, 8, 8, 96, 96, True, 100),
+    (2, 512, 16, 2, 128, 128, True, None),
+    (1, 777, 8, 4, 256, 256, True, 100),
+    (2, (64, 300), 4, 2, 256, 256, False, None),
+]
+#: A cap that barely bites at these scores and one that makes the cap's
+#: derivative matter (Gemma 2's published attn_logit_softcapping is 50).
+T_CAPS = (50.0, 5.0)
+#: q is scaled so that the scores reach about +-10.
+T_Q_SCALE = 4.0
+#: (t2) gemma3-12b's geometry under Gemma 2's published logit softcap: its
+#: prefill of 2 x 2,048 uncut as in (o), one period trained on 2 x 2,048 as
+#: in (q).
+T_SOFTCAP = 50.0
+T_FAMILY = Family("gemma3-12b", None, 2, 2048, 8, param_dtype="bfloat16",
+                  softcap=T_SOFTCAP)
+T_TRAIN_FAMILY = TrainFamily("gemma3-12b", 6, "bfloat16", Q_STEPS, batch=2,
+                             seq=2048, softcap=T_SOFTCAP)
+#: Rows 7f and 7g with the cap beside without: gemma3-12b's prefill and
+#: training shapes (label, B, S, H, KV, D, DV, window), bf16, causal.
+T_CAP_TIMED = [("gemma3-12b", 2, 2048, 16, 8, 256, 256, None),
+               ("gemma3-12b local", 2, 2048, 16, 8, 256, 256, 1024)]
+#: Rows 7h and 7i: the narrow pairs at the training launcher's batch (8 x
+#: 64 tokens, the reduced configs' heads), where launches dominate, and at
+#: S 2,048 (B 4, 16 heads), where the kernels' own work shows.
+T_TIMED = [("qwen2.5-3b reduced", 8, 64, 4, 2, 16, 16, None),
+           ("gemma3-12b reduced local", 8, 64, 4, 2, 24, 24, 16),
+           ("deepseek-v2-236b reduced", 8, 64, 4, 4, 24, 16, None),
+           ("qwen3-14b reduced", 8, 64, 4, 2, 32, 32, None),
+           ("16 at S 2,048", 4, 2048, 16, 4, 16, 16, None),
+           ("24 at S 2,048", 4, 2048, 16, 4, 24, 24, None),
+           ("24/16 at S 2,048", 4, 2048, 16, 16, 24, 16, None),
+           ("32 at S 2,048", 4, 2048, 16, 4, 32, 32, None)]
+#: (t3) Every registered arch's reduced config through the launchers.
+T_ARCHS = ("qwen2.5-3b", "qwen3-14b", "gemma3-12b", "starcoder2-15b",
+           "dbrx-132b", "deepseek-v2-236b", "jamba-v0.1-52b", "mamba2-780m",
+           "seamless-m4t-medium", "phi-3-vision-4.2b")
+T_TRAIN_STEPS = 3
+T_BATCH, T_SEQ = 8, 64     # the training launcher's global batch and length
+#: The training launcher's data pipeline makes no encoder frames, in the
+#: port as in the reference (``python -m repro.launch.train --arch
+#: seamless-m4t-medium --reduced`` raises KeyError 'frames' too): the
+#: encoder-decoder's reduced config trains through ``train_family_run`` on
+#: stub frames instead, held against the plain ops.
+T_FRAMES_ARCH = "seamless-m4t-medium"
+T_FRAMES = 32
+T_LAUNCHER_TIMEOUT = 600
+#: (t3) The reduced forward in fp32 compute against the plain ops: the fp32
+#: kernels agree within 2e-5, a few layers widen that.
+T_FP32_TOL = 1e-3
+
+
+def check_flash_domain(torch, np, dev, rng) -> dict:
+    """(t1) Flash forward and backward at the reduced configs' head dims,
+    without a cap and under T_CAPS, and under T_CAPS at 64, 96, 128 and
+    256, in fp32 and bf16, against the plain versions: the forward within
+    rtol = atol = 2e-5 (fp32) and 2e-2 (bf16), the log-sum-exp within
+    1e-3, the backward within FLASH_BWD_TOL of each reference's largest
+    entry and bit-identical across two launches. MLA's (192, 128) must
+    refuse a cap. Returns the largest bf16 errors."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    cases = [(c, cap) for c in T_NARROW_CASES for cap in (None,) + T_CAPS]
+    cases += [(c, cap) for c in T_CAP_CASES for cap in T_CAPS]
+    worst = {"forward": 0.0, "backward": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        btol = FLASH_BWD_TOL[str(dtype).split(".")[-1]]
+        for (b, s, h, kv, d, dv, causal, window), cap in cases:
+            sq, sk = s if isinstance(s, tuple) else (s, s)
+            q = torch.randn((b, sq, h, d), device=dev, generator=g) \
+                * T_Q_SCALE
+            k = torch.randn((b, sk, kv, d), device=dev, generator=g)
+            v = torch.randn((b, sk, kv, dv), device=dev, generator=g)
+            do = torch.randn((b, sq, h, dv), device=dev, generator=g)
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            want = flash_attention_plain(q, k, v, **kw)
+            got = flash_attention(q, k, v, **kw)
+            out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                                softcap=cap)
+            _, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+            seen = lse_p > -1e29
+            bwant = flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                   **kw)
+            bgot = flash_attention_backward(q, k, v, out, lse, do, **kw)
+            again = flash_attention_backward(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            within = bool((diff <= tol + tol * want.float().abs()).all())
+            lse_err = max_err(torch, lse[seen], lse_p[seen])
+            rel = [max_err(torch, x, y) / max(float(y.float().abs().max()),
+                                              1e-30)
+                   for x, y in zip(bgot, bwant)]
+            identical = all(torch.equal(x, z) for x, z in zip(bgot, again))
+            spec = {"dtype": str(dtype), "B": b, "S": s, "H": h, "KV": kv,
+                    "D": d, "DV": dv, "causal": causal, "window": window,
+                    "softcap": cap}
+            log({"check": "t_flash", **spec,
+                 "forward_max_abs_err": float(diff.max()), "rtol": tol,
+                 "atol": tol, "lse_max_abs_err": lse_err,
+                 "backward_rel_err_dq_dk_dv": rel, "backward_tol": btol,
+                 "bit_identical_across_launches": identical})
+            if not within or lse_err > 1e-3 or max(rel) > btol \
+                    or not identical:
+                raise AssertionError(f"phase t: flash disagrees at {spec}: "
+                                     f"forward {float(diff.max())}, lse "
+                                     f"{lse_err}, backward {rel}, "
+                                     f"identical {identical}")
+            if dtype == torch.bfloat16:
+                worst["forward"] = max(worst["forward"], float(diff.max()))
+                worst["backward"] = max(worst["backward"], max(
+                    max_err(torch, x, y) for x, y in zip(bgot, bwant)))
+            del q, k, v, do, want, got, out, lse, lse_p, bwant, bgot, again
+    q = torch.zeros((1, 16, 2, 192), device=dev, dtype=torch.bfloat16)
+    try:
+        flash_attention(q, q, q[..., :128].contiguous(), softcap=5.0)
+    except ValueError as e:
+        log({"check": "t_flash_mla_refuses_a_cap", "error": str(e)})
+    else:
+        raise AssertionError("phase t: flash took a cap at (192, 128)")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash_domain(torch, dev, smi: str) -> list:
+    """Flash forward and backward at T_TIMED (rows 7h, 7i) and, with the
+    cap beside without, at T_CAP_TIMED (rows 7f, 7g), bf16, causal: the
+    wrappers, the bare launches, the plain versions and SDPA at the same
+    shape (uncapped: SDPA takes no cap), beside the bound (the cap's tanh
+    on the special-function unit is not counted)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        _forward, _visible, bwd_scratch_floats, flash_attention,
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stream = torch.cuda.current_stream().cuda_stream
+    specs = [(spec, None) for spec in T_TIMED]
+    specs += [(spec, cap) for spec in T_CAP_TIMED
+              for cap in (None, T_SOFTCAP)]
+    rows = []
+    for (label, b, s, h, kv, d, dv, window), cap in specs:
+        q, k, do = (torch.randn(shape, device=dev, generator=g)
+                    .to(torch.bfloat16)
+                    for shape in ((b, s, h, d), (b, s, kv, d), (b, s, h, dv)))
+        v = torch.randn((b, s, kv, dv), device=dev, generator=g) \
+            .to(torch.bfloat16)
+        kw = dict(causal=True, window=window, softcap=cap)
+        args = (b, s, s, h, kv, d, dv, 1, window or 0, 1, cap or 0.0, stream)
+        o = q.new_empty((b, s, h, dv))
+        out, lse = _forward(q, k, v, True, window, with_lse=True,
+                            softcap=cap)
+        dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+        scratch = torch.empty(bwd_scratch_floats(b, s, h),
+                              dtype=torch.float32, device=dev)
+        fwd = {"ms": time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+               "kernel_ms": time_ms(torch, lambda: build.launch(
+                   "flash_attention", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), None, *args)),
+               "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+                   q, k, v, **kw), reps=3, warm=1)}
+        bwd = {"ms": time_ms(torch, lambda: flash_attention_backward(
+                   q, k, v, out, lse, do, **kw)),
+               "kernel_ms": time_ms(torch, lambda: build.launch(
+                   "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dvv.data_ptr(), *args)),
+               "plain_ms": time_ms(torch, lambda: flash_attention_backward_plain(
+                   q, k, v, out, lse, do, **kw), reps=3, warm=1)}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_kw = dict(is_causal=True) if window is None else dict(
+            attn_mask=_visible(s, s, True, window, dev))
+        try:
+            o_lib = sdpa(qt, kt, vt, enable_gqa=h != kv, **lib_kw)
+            fwd["library_ms"] = time_ms(torch, lambda: sdpa(
+                qt, kt, vt, enable_gqa=h != kv, **lib_kw))
+            bwd["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+            lib_error = None
+        except RuntimeError as e:              # SDPA refuses the shape
+            fwd["library_ms"] = bwd["library_ms"] = o_lib = None
+            lib_error = str(e)[:200]
+        for part, t, work in (
+                ("forward", fwd, flash_work(q, k, True, v, window)),
+                ("backward", bwd, flash_bwd_work(q, k, v, True, window))):
+            b_ms, b_by = bound_ms(*work, BF16_TC_OPS_PER_S)
+            t.update(bound_ms=b_ms, bound_by=b_by, bytes=work[0],
+                     operations=work[1])
+            row = {"model": label, "part": part, "B": b, "S": s, "H": h,
+                   "KV": kv, "D": d, "DV": dv, "causal": True,
+                   "window": window, "softcap": cap, "dtype": "bfloat16",
+                   **t, "kernel_share_of_bound": b_ms / t["kernel_ms"],
+                   "library": "scaled_dot_product_attention (no cap)",
+                   "library_error": lib_error, "card": smi}
+            log({"time": "t_flash", **row})
+            rows.append(row)
+        del q, k, v, do, o, out, lse, dq, dk, dvv, scratch, qt, kt, vt, o_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def reduced_model_run(torch, np, dev, rng, seed: int, arch: str) -> dict:
+    """(t3) One arch's reduced config on the card: the serving launcher (8
+    requests, every one delivered), the training launcher (T_TRAIN_STEPS
+    steps, finite losses; the encoder-decoder through train_family_run, see
+    T_FRAMES_ARCH), then its forward and loss on one batch of T_BATCH x
+    T_SEQ tokens through the kernels (launches as the config implies) held
+    against the same on the plain ops, the dispatch plans replayed, in fp32
+    compute (logits within T_FP32_TOL, loss within 1e-5 relative) and in
+    the config's bf16 (logits within the larger of LOGIT_TOL and twice the
+    plain bf16 forward's distance from the plain fp32 one, loss within
+    2e-3). Returns the launches of all three and the seconds of each."""
+    import io
+    import shutil
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import forward, init_params, loss_fn
+
+    total = Counter()
+    build.reset_launches()                    # the arch's path starts here
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_launch.main(["--arch", arch, "--reduced", "--seed", str(seed)])
+    total.update(build.launch_counts())
+    said = out.getvalue().splitlines()[0]
+    if not said.startswith("8/8 requests"):
+        raise AssertionError(f"phase t {arch}: the serving launcher said "
+                             f"{said!r}")
+    serve_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if arch == T_FRAMES_ARCH:
+        run = train_family_run(torch, np, dev, rng, seed, TrainFamily(
+            arch, None, "float32", T_TRAIN_STEPS, frames=T_FRAMES,
+            grads_compute="float32", batch=T_BATCH, seq=T_SEQ, reduced=True))
+        total.update(run["launches"])
+        losses = run["losses"]
+    else:
+        ckpt = ROOT / "build" / "t_ckpt"
+        build.reset_launches()
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                result = train_launch.main([
+                    "--arch", arch, "--reduced", "--steps",
+                    str(T_TRAIN_STEPS), "--global-batch", str(T_BATCH),
+                    "--seq-len", str(T_SEQ), "--ckpt-dir", str(ckpt)])
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        total.update(build.launch_counts())
+        losses = result["losses"]
+        if result["final_step"] != T_TRAIN_STEPS \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase t {arch}: the training launcher "
+                                 f"ended at {result['final_step']}, losses "
+                                 f"{losses}")
+    train_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch, reduced=True)
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         device=dev)
+    batch = train_batch(torch, np, dev, rng, cfg, TrainFamily(
+        arch, None, cfg.param_dtype, 0,
+        frames=T_FRAMES if cfg.is_encdec else 0, batch=T_BATCH, seq=T_SEQ),
+        seed)
+    def run(compute, plans=None):
+        """(logits, loss, launches) in ``compute``: through the kernels,
+        recording the dispatch plans into ``plans``; or, given an iterator
+        ``plans``, on the plain ops with those plans replayed."""
+        ccfg = dataclasses.replace(cfg, compute_dtype=compute)
+        before = build.launch_counts()
+        ctx = recording_plans(record) if plans is None else plain_kernels(
+            torch, plans, [])
+        with torch.no_grad(), ctx:
+            logits = forward(params, batch, ccfg)[0].float()
+            loss = float(loss_fn(params, batch, ccfg)[0])
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        return logits, loss, {k: after[k] - before[k] for k in after}
+
+    for compute in ("float32", cfg.compute_dtype):
+        record = []
+        logits, loss, launches = run(compute)
+        total.update(launches)
+        expect_launches(f"t {arch} forward and loss", launches,
+                        family_launches(cfg, 0)[0])
+        logits_p, loss_p, none = run(compute, iter(record))
+        if any(none.values()):
+            raise AssertionError(f"phase t {arch}: the plain forward "
+                                 f"launched {none}")
+        # fp32 compute: the kernels within T_FP32_TOL of the plain ops.
+        # bf16: within the larger of LOGIT_TOL and twice the distance of the
+        # plain bf16 forward from the plain fp32 one on the same routing (a
+        # reduced net's narrow layers widen one bf16 rounding into several
+        # ulps of a logit).
+        own = None
+        tol = T_FP32_TOL
+        if compute != "float32":
+            own = max_err(torch, logits_p, run("float32", iter(record))[0])
+            tol = max(LOGIT_TOL, 2 * own)
+        close = hold_close(torch, f"phase t {arch}: reduced logits in "
+                           f"{compute} against the plain forward", logits,
+                           logits_p, tol)
+        loss_rel = abs(loss - loss_p) / max(abs(loss_p), 1e-30)
+        if not np.isfinite(loss) \
+                or loss_rel > (2e-3 if own is not None else 1e-5):
+            raise AssertionError(f"phase t {arch}: loss {loss} in {compute} "
+                                 f"against the plain ops' {loss_p}")
+        log({"check": f"t3_{arch}_forward_vs_plain", "compute": compute,
+             **close, "plain_bf16_vs_plain_fp32": own, "loss": loss,
+             "plain_loss": loss_p, "loss_rel_err": loss_rel,
+             "launches": {k: n for k, n in launches.items() if n}})
+    del logits, logits_p
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"launches": dict(total), "serve_seconds": serve_s,
+            "train_seconds": train_s,
+            "forward_seconds": time.perf_counter() - t0, "losses": losses}
+
+
+def launcher_subprocess() -> dict:
+    """(t3) ``python -m repro_torch.launch.train --arch qwen2.5-3b --reduced
+    --steps 3``, the reference's documented start, in a process of its own
+    on the card (its checkpoint under a TMPDIR in build/, removed after)."""
+    import shutil
+    tmp = ROOT / "build" / "t_tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=str(tmp))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2.5-3b", "--reduced", "--steps", "3"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=T_LAUNCHER_TIMEOUT)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"command": " ".join(cmd[1:]), "returncode": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           "stdout_tail": proc.stdout[-200:]}
+    if proc.returncode or "finished at step 3" not in proc.stdout:
+        raise AssertionError(f"phase t: {out}, stderr "
+                             f"{proc.stderr[-1500:]}")
+    return out
+
+
+def domain_path(torch, np, dev, rng, seed: int, smi: str) -> tuple:
+    """(t) Flash over the rest of the reference's attention domain: (t1)
+    the reduced configs' head dims and the cap against the plain versions;
+    (t2) gemma3-12b at full width under a cap of T_SOFTCAP, prefilled as in
+    (o) and trained as in (q); (t3) every registered arch's reduced config
+    through the launchers on the card, and the training launcher in a
+    process of its own; then rows 7f-7i timed. Returns the launches of
+    (t2) and (t3), flash's by shape, and the timing."""
+    from collections import Counter
+
+    from repro_torch.kernels.flash_attention import LAUNCHES_BY_SHAPE, \
+        shape_key
+    t0 = time.perf_counter()
+    worst = check_flash_domain(torch, np, dev, rng)
+    log({"phase": "t1", "seconds": time.perf_counter() - t0})
+    total, shapes = Counter(), Counter()
+    t0 = time.perf_counter()
+    run = family_run(torch, np, dev, rng, seed, T_FAMILY)
+    total.update(run["launches"])
+    shapes.update(run["flash_by_shape"])
+    torch.cuda.empty_cache()
+    LAUNCHES_BY_SHAPE.clear()
+    run = train_family_run(torch, np, dev, rng, seed, T_TRAIN_FAMILY)
+    total.update(run["launches"])
+    shapes.update(LAUNCHES_BY_SHAPE)          # its profiled step included
+    torch.cuda.empty_cache()
+    log({"phase": "t2", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for arch in T_ARCHS:
+        t_a = time.perf_counter()
+        LAUNCHES_BY_SHAPE.clear()
+        run = reduced_model_run(torch, np, dev, rng, seed, arch)
+        total.update(run["launches"])
+        shapes.update(LAUNCHES_BY_SHAPE)
+        log({"phase": f"t3_{arch}", "seconds": time.perf_counter() - t_a,
+             **{k: v for k, v in run.items() if k != "launches"},
+             "launches": {k: n for k, n in run["launches"].items() if n}})
+    log({"check": "t3_launcher_subprocess", **launcher_subprocess()})
+    log({"phase": "t3", "seconds": time.perf_counter() - t0})
+    from repro_torch.configs import get_config
+    want = [shape_key(d, dv, True) for d, dv in FLASH_DIMS[:4]] + [
+        shape_key(*flash_dims(get_config(T_FAMILY.arch)), True, T_SOFTCAP)]
+    missing = [k for k in want if not shapes.get(k)]
+    if missing or not total["flash_attention_bwd"]:
+        raise AssertionError(f"phase t: flash never launched at {missing} "
+                             f"(by shape {dict(shapes)}) or its backward "
+                             f"{total['flash_attention_bwd']} times")
+    t0 = time.perf_counter()
+    rows = time_flash_domain(torch, dev, smi)
+    log({"phase": "t_timing", "seconds": time.perf_counter() - t0})
+    return dict(total), dict(shapes), {"max_abs_err": worst, "timed": rows}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5563,6 +6040,10 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["s_collective"] = collective_path(torch, np, smi, args.seed)
     log({"phase": "s", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path["t_flash_domain"], t_shapes, t_flash = domain_path(
+        torch, np, dev, rng, args.seed, smi)
+    log({"phase": "t", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(
@@ -5600,12 +6081,19 @@ def main() -> int:
         extra = {}
         if name == "flash_attention":
             extra = {"launches_by_shape_o_families": flash_shapes,
-                     "shapes": t["shapes"]}
+                     "launches_by_shape_t": t_shapes,
+                     "t_max_abs_err": t_flash["max_abs_err"]["forward"],
+                     "shapes": t["shapes"],
+                     "shapes_t": [r for r in t_flash["timed"]
+                                  if r["part"] == "forward"]}
         elif name == "flash_attention_bwd":
             extra = {"derivative_of": "the forward's attention, which the "
                      "reference differentiates through "
                      "src/repro/models/attention.py:78 blockwise_attention",
-                     "shapes": t["shapes"]}
+                     "t_max_abs_err": t_flash["max_abs_err"]["backward"],
+                     "shapes": t["shapes"],
+                     "shapes_t": [r for r in t_flash["timed"]
+                                  if r["part"] == "backward"]}
         elif name == "moe_gather_bwd":
             extra = {"derivative_of": "moe_gather, which the reference's "
                      "training path differentiates as jnp indexing "

@@ -50,11 +50,11 @@ _SYMBOLS = {
                         + [ctypes.c_void_p]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                        + [ctypes.c_void_p]),
+                        + [ctypes.c_float, ctypes.c_void_p]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "flash_attention_bwd_launch",
                             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                            + [ctypes.c_void_p]),
+                            + [ctypes.c_float, ctypes.c_void_p]),
     "moe_gather": ("moe_dispatch", "moe_gather_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                    + [ctypes.c_void_p]),

@@ -4,18 +4,22 @@
 // (body _flash_kernel): q (B, Sq, H, D) attends over k (B, Sk, KV, D) and
 // v (B, Sk, KV, DV) with GQA (query head h reads KV head h / (H / KV)), an optional causal mask
 // (key j <= query i) and an optional window (i - j < window), positions
-// counted from 0 in both. Online softmax in fp32 over the scores times
-// D**-0.5; the output (B, Sq, H, DV) acc / max(l, 1e-30) is written in q's
-// dtype. (D, DV) is one of (64, 64), (96, 96), (128, 128), (192, 128) and
-// (256, 256): phi-3-vision's heads of 96, MLA's query/key heads of 192 (128
-// without position + 64 rotated) over value heads of 128 and gemma3-12b's
-// heads of 256, as the reference's blockwise_attention takes them
-// (repro/models/attention.py). A masked
+// counted from 0 in both. Online softmax in fp32 over the scores
+// s = q.k * D**-0.5, or with a logit softcap c > 0 over c * tanh(s / c)
+// (the reference's blockwise_attention caps them so, before the mask); the
+// output (B, Sq, H, DV) acc / max(l, 1e-30) is written in q's dtype. (D, DV)
+// is one of (16, 16), (24, 24), (24, 16), (32, 32), (64, 64), (96, 96),
+// (128, 128), (192, 128) and (256, 256): the reduced configs' heads of 16,
+// 24 and 32 (MLA's reduced 24 over 16), phi-3-vision's heads of 96, MLA's
+// query/key heads of 192 (128 without position + 64 rotated) over value
+// heads of 128 and gemma3-12b's heads of 256, as the reference's
+// blockwise_attention takes them (repro/models/attention.py). A masked
 // score contributes exactly 0, so a row with no visible key comes out as
 // zeros.
 //
 // Training: with a non-null `lse` (B, H, Sq) fp32 both kernels also write
-// each row's log-sum-exp of the scaled scores, m + log(l) in natural-log
+// each row's log-sum-exp of the scaled (and capped) scores, m + log(l) in
+// natural-log
 // units, from the epilogue's m and l (one store a row); the backward
 // (flash_attention_bwd.cu) rebuilds P from it. A row with no visible key
 // writes m (-inf or -1e30): its gradients are zeros whatever the value.
@@ -61,9 +65,20 @@
 //   both operands read from shared memory through 128-byte-swizzle
 //   descriptors (K-major: a k16 step is 32 bytes into a box; the 8-row
 //   groups 1,024 bytes apart).
+// * Heads narrower than a box (16, 24, 32) take one box that the TMA unit
+//   zero-fills past D: the tensor map's rows are D long, so a head never
+//   reads its neighbour's columns. Q K^T runs ceil(D / 16) k16 steps, P V
+//   n64, and the epilogue stores DV columns: the layout of D 64, with up to
+//   4 times the products a narrow head needs.
 // * Online softmax in registers on the accumulator fragment: a thread owns
 //   2 rows, reduced over its quad with shuffles; exp2 on the special-function
-//   unit with D**-0.5 * log2(e) folded in. Only tiles that cross the
+//   unit with D**-0.5 * log2(e) folded in. With a softcap each score is
+//   scaled, capped with tanhf and multiplied by log2(e); tanh is
+//   increasing, so a row's maximum is capped once, not found again. The
+//   cap is a template flag of the kernel (kCap): as a runtime branch a tile
+//   it made ptxas serialise the wgmmas (C7513) at every head dim, the
+//   uncapped included; the flag doubles the kernel's instantiations but
+//   leaves the uncapped kernel as it was. Only tiles that cross the
 //   diagonal, the window's edge or Sk are masked per score (to -inf); a row
 //   whose maximum is still -inf subtracts 0, so every masked score gives
 //   p = 0 and a row without keys ends with l = 0 and zeros.
@@ -83,7 +98,10 @@
 // within 2e-5 of the plain version, which TF32 or bf16 products could not
 // hold. One block per (64 q rows, query head, batch), 4 warps; Q, K and V
 // tiles in fp32 shared memory (rows padded by 4 floats against bank
-// conflicts), K and V sharing one buffer in turn (rows of max(D, DV)); thread (r, c) of a 16 x 8
+// conflicts), K and V sharing one buffer in turn (rows of max(D, DV'), DV'
+// DV rounded up to 32 and zero-filled past DV, so that a thread's output
+// columns 4c + 32u cover heads of 16 and 24 too, stored below DV only);
+// thread (r, c) of a 16 x 8
 // grid owns rows 4r .. 4r+3 and the score columns c, c + 8, ...; a validity
 // bit per score keeps masked keys at p = 0; the probabilities go through
 // shared memory to the product with V. Tiles wholly above the diagonal or
@@ -118,17 +136,18 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 }
 
 // Rows [0, rows) of a tile of kRows x D values of T (row stride `stride`
-// elements) into fp32 shared memory with row stride D + 4; zeros past rows.
-template <typename T, int D, int kRows>
+// elements) into fp32 shared memory with row stride kW + 4 (kW >= D);
+// zeros past rows and in columns D .. kW - 1.
+template <typename T, int D, int kRows, int kW = D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long stride, int rows) {
-  constexpr int kChunks = D / 4;
-  constexpr int kLd = D + 4;
+  constexpr int kChunks = kW / 4;
+  constexpr int kLd = kW + 4;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = load4(src + r * stride + 4 * c);
+    if (r < rows && 4 * c < D) v = load4(src + r * stride + 4 * c);
     store4(dst + r * kLd + 4 * c, v);
   }
 }
@@ -138,11 +157,13 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int sq, int sk, int heads,
-                       int kv_heads, int causal, int window, float scale) {
+                       int kv_heads, int causal, int window, float scale,
+                       float softcap) {
   constexpr int kLd = D + 4;
-  constexpr int kLdV = DV + 4;
+  constexpr int kDVp = pad32(DV);  // V's columns in shared memory
+  constexpr int kLdV = kDVp + 4;
   constexpr int kLdKV = kLd > kLdV ? kLd : kLdV;
-  constexpr int kCols = DV / 32;  // float4 output columns per thread
+  constexpr int kCols = kDVp / 32;  // float4 output columns per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // kBM x kLd
   float* kvs = qs + kBM * kLd;                  // kBN x kLdKV: K, then V
@@ -226,7 +247,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kj = k0 + tc + 8 * j;
         const bool valid = kj < sk && (!causal || kj <= qi) &&
                            (window <= 0 || qi - kj < window);
-        s[i][j] = valid ? s[i][j] * scale : kNegInf;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        s[i][j] = valid ? x : kNegInf;
         ok |= valid ? (1u << j) : 0u;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -257,7 +280,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // every warp is done with K
-    load_tile<T, DV, kBN>(kvs, vb + k0 * v_stride, v_stride, k_rows);
+    load_tile<T, DV, kBN, kDVp>(kvs, vb + k0 * v_stride, v_stride, k_rows);
     __syncthreads();  // V (and this warp's probabilities) visible
 
     // acc += P V over this tile's keys.
@@ -298,6 +321,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
               static_cast<long long>(h) * DV + 4 * tc;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
+      if (4 * tc + 32 * c >= DV) continue;  // V's zero padding
       const float4 a = acc[i][c];
       store4(orow + 32 * c,
              make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
@@ -316,7 +340,8 @@ constexpr uint32_t kQBoxBytes = kTcRows * 128;  // one box of a Q tile
 constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
 
 // The tensor-core kernel's tiles for query/key head dim D and value head dim
-// DV: boxes of 64 columns (the last one zero-filled past D or DV), K/V tiles
+// DV: boxes of 64 columns (the last, or at D < 64 the only, one zero-filled
+// past D or DV), K/V tiles
 // of kKeys keys (128; 64 at D 256, where tiles of 128 would not fit), P V as
 // wide as the V boxes, and two query tiles a block where they fit.
 template <int D, int DV>
@@ -353,11 +378,12 @@ struct TcTiles {
 template <int D, int kKeys>
 __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
                                            uint32_t q_s, uint32_t k_s) {
+  constexpr int kSteps = (D + 15) / 16;  // zeros past D add nothing
   if constexpr (kKeys == 64) {
     const uint64_t qa = opaque(sw128_desc(q_s, 16, 1024));
     const uint64_t kb = opaque(sw128_desc(k_s, 16, 1024));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t col = 32 * (kk % 4);
       const uint64_t a = qa + (((kk / 4) * kQBoxBytes + col) >> 4);
       const uint64_t b = kb + (((kk / 4) * (kKeys * 128) + col) >> 4);
@@ -369,7 +395,7 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
     }
   } else {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t off = (kk / 4) * kQBoxBytes + 32 * (kk % 4);
       const uint64_t a = sw128_desc(q_s + off, 16, 1024);
       const uint64_t b = sw128_desc(k_s + off, 16, 1024);
@@ -459,22 +485,35 @@ __device__ __forceinline__ uint64_t visible_bits(int k0, int r0, int c0,
 // in the A-operand order (p[2j + r]: row r, columns 8j + c0, + 1), a score
 // whose bit in `visible` is clear (kMasked) counting as -inf. Updates the
 // running maxima m and this thread's parts l of the row sums; corr is the
-// factor by which O must be rescaled before this tile's P V is added. The
+// factor by which O must be rescaled before this tile's P V is added. m is
+// in score units, or with the cap (kCap) in the capped exp2 units: tanh is
+// increasing, so the capped maximum is the cap of the raw one. The
 // scores are only read: a register that a wgmma accumulates into is written
 // by nothing else, so ptxas need not serialise the products.
-template <bool kMasked, int kKeys>
+template <bool kMasked, bool kCap, int kKeys>
 __device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
                                              uint32_t (&p)[kKeys / 4],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2],
                                              uint64_t visible,
-                                             float scale_log2) {
+                                             Scaling sc) {
   const auto score = [&](int i) {
     return kMasked && !((visible >> i) & 1) ? -INFINITY : s[i];
   };
+  // The exp2 argument of score i, less ms; -inf where masked.
+  const auto arg = [&](int i, float ms) {
+    float t;
+    if constexpr (kCap) {
+      return kMasked && !((visible >> i) & 1)
+                 ? -INFINITY
+                 : score_arg<true>(s[i], ms, sc, t);
+    } else {
+      return score_arg<false>(score(i), ms, sc, t);
+    }
+  };
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float mx = m[r];
+    float mx = kCap ? -INFINITY : m[r];
 #pragma unroll
     for (int j = 0; j < kKeys / 8; ++j) {
       mx = fmaxf(mx, fmaxf(score(4 * j + 2 * r), score(4 * j + 2 * r + 1)));
@@ -483,16 +522,22 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     // A row with no visible key yet keeps max -inf: subtract 0, so its -inf
     // scores give exp2(-inf) = 0, never exp2(0) = 1.
-    const float ms = mx == -INFINITY ? 0.f : mx * scale_log2;
-    corr[r] = exp2_approx(m[r] * scale_log2 - ms);
+    float ms;
+    if constexpr (kCap) {
+      if (mx != -INFINITY) mx = sc.cap_log2 * tanhf(mx * sc.cap_scale);
+      mx = fmaxf(mx, m[r]);
+      ms = mx == -INFINITY ? 0.f : mx;
+      corr[r] = exp2_approx(m[r] - ms);
+    } else {
+      ms = mx == -INFINITY ? 0.f : mx * sc.scale_log2;
+      corr[r] = exp2_approx(m[r] * sc.scale_log2 - ms);
+    }
     m[r] = mx;
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < kKeys / 8; ++j) {
-      const float a =
-          exp2_approx(fmaf(score(4 * j + 2 * r), scale_log2, -ms));
-      const float c =
-          exp2_approx(fmaf(score(4 * j + 2 * r + 1), scale_log2, -ms));
+      const float a = exp2_approx(arg(4 * j + 2 * r, ms));
+      const float c = exp2_approx(arg(4 * j + 2 * r + 1, ms));
       sum += a + c;
       p[2 * j + r] = pack_bf16(a, c);
     }
@@ -500,7 +545,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -508,7 +553,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int sq, int sk, int heads,
                           int kv_heads, int causal, int window,
-                          float scale_log2) {
+                          const Scaling sc) {
   using Tiles = TcTiles<D, DV>;
   constexpr uint32_t kQ = Tiles::kQ;    // bytes of a Q tile
   constexpr uint32_t kK = Tiles::kK;    // bytes of a K tile
@@ -654,10 +699,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(k_empty(stage(it0)));
       // The first tile always takes the masked form (one copy of the
       // softmax fewer); O is 0, so nothing is rescaled.
-      softmax_tile<true, kKeys>(
+      softmax_tile<true, kCap, kKeys>(
           s, p, m, l, corr,
-          visible_bits<kKeys>(sp.k_lo, r0, c0, sk, causal, window),
-          scale_log2);
+          visible_bits<kKeys>(sp.k_lo, r0, c0, sk, causal, window), sc);
 
       // Tile j's S = Q K^T runs beside tile j - 1's O += P V; its softmax
       // overlaps that product, and O is rescaled once the product is in.
@@ -682,12 +726,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         uint32_t p_next[kKeys / 4];
         const int k0 = sp.k_lo + j * kKeys;
         if (tile_needs_mask<kKeys>(k0, row_lo, sk, causal, window)) {
-          softmax_tile<true, kKeys>(
+          softmax_tile<true, kCap, kKeys>(
               s, p_next, m, l, corr,
-              visible_bits<kKeys>(k0, r0, c0, sk, causal, window),
-              scale_log2);
+              visible_bits<kKeys>(k0, r0, c0, sk, causal, window), sc);
         } else {
-          softmax_tile<false, kKeys>(s, p_next, m, l, corr, 0, scale_log2);
+          softmax_tile<false, kCap, kKeys>(s, p_next, m, l, corr, 0, sc);
         }
         wgmma_wait<0>();  // O += P V of tile j - 1 is in
         hold(o);
@@ -726,11 +769,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (qi >= sq) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       if (lse != nullptr && c0 == 0) {
-        // m is in score units, l in exp2 units of scale_log2.
+        // l is in exp2 units; m in score units of scale_log2, or capped
+        // exp2 units.
+        const float m2 = kCap ? m[r] : m[r] * sc.scale_log2;
         lse[(static_cast<long long>(b) * heads + h) * sq + qi] =
             m[r] == -INFINITY
                 ? -INFINITY
-                : (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f;
+                : (m2 + log2f(l[r])) * 0.6931471805599453f;
       }
       __nv_bfloat16* orow =
           out + ((static_cast<long long>(b) * sq + qi) * heads + h) * DV + c0;
@@ -746,10 +791,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 template <typename T, int D, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int sq, int sk, int heads, int kv_heads,
-             int causal, int window, cudaStream_t stream) {
+             int causal, int window, float softcap, cudaStream_t stream) {
+  constexpr int kDVp = pad32(DV);
   const size_t smem =
       sizeof(float) * (kBM * static_cast<size_t>(D + 4) +
-                       kBN * static_cast<size_t>((D > DV ? D : DV) + 4) +
+                       kBN * static_cast<size_t>((D > kDVp ? D : kDVp) + 4) +
                        kBM * kPadP);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, D, DV>,
@@ -762,14 +808,14 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, heads,
-      kv_heads, causal, window, scale);
+      kv_heads, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               float* lse, int batch, int sq, int sk, int heads, int kv_heads,
-              int causal, int window, cudaStream_t stream) {
+              int causal, int window, float softcap, cudaStream_t stream) {
   using Tiles = TcTiles<D, DV>;
   if (sk == 0) {  // no keys: every row is zeros (the wrapper sets lse)
     return static_cast<int>(cudaMemsetAsync(
@@ -779,8 +825,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const int blocks_z = (q_tiles + Tiles::kQTiles - 1) / Tiles::kQTiles;
   if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
-  // Boxes of 128 rows for Q, of the tiles' keys for K and V.
+  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch
+  // (32 bytes and more: multiples of 16, as TMA wants). Boxes of 128 rows
+  // for Q, of the tiles' keys for K and V; of 64 columns, past a narrow
+  // head's D as past the tensor's edge.
   const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh, int d,
                        int rows) {
     return encode_4d(m, p, batch, seq, nh, d, d,
@@ -792,13 +840,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
       !map(&tv, v, sk, kv_heads, DV, Tiles::kKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = Tiles::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 = static_cast<float>(
-      pow(static_cast<double>(D), -0.5) * 1.4426950408889634);
+  const Scaling sc = make_scaling(D, softcap);
   // Blocks ordered head fastest, so that the G query heads of one KV head
   // run side by side and share its K/V tiles through L2. At MLA's (192,
   // 128) with one query head a KV head (deepseek-v2) nothing is shared
@@ -812,10 +854,23 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
                  static_cast<unsigned>(heads), static_cast<unsigned>(batch))
           : dim3(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                  static_cast<unsigned>(blocks_z));
-  flash_attention_tc_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,
-      kv_heads, causal, window, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const auto run = [&](auto cap) {
+    const auto kernel = flash_attention_tc_kernel<D, DV, decltype(cap)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tiles::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kTcThreads, Tiles::kSmem, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,
+        kv_heads, causal, window, sc);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (sc.cap_log2 <= 0.f) return run(Flag<false>{});
+  if constexpr (D == 192) {  // MLA passes no cap: no capped instantiation
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return run(Flag<true>{});
+  }
 }
 
 // The launch for one (D, DV) pair in one dtype (0: float32, 1: bfloat16).
@@ -823,14 +878,14 @@ template <int D, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, void* out,
                  float* lse, int batch, int sq, int sk, int heads,
                  int kv_heads, int causal, int window, int dtype,
-                 cudaStream_t s) {
+                 float softcap, cudaStream_t s) {
   if (dtype == 0) {
     return launch_d<float, D, DV>(q, k, v, out, lse, batch, sq, sk, heads,
-                                  kv_heads, causal, window, s);
+                                  kv_heads, causal, window, softcap, s);
   }
   if (dtype == 1) {
     return launch_tc<D, DV>(q, k, v, out, lse, batch, sq, sk, heads,
-                            kv_heads, causal, window, s);
+                            kv_heads, causal, window, softcap, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -842,41 +897,41 @@ int launch_dtype(const void* q, const void* k, const void* v, void* out,
 // lse: (batch, heads, sq) fp32, or nullptr to write no log-sum-exp;
 // all but lse of one dtype (0: float32, 1: bfloat16), contiguous and 16-byte
 // aligned. heads a multiple of kv_heads; (head_dim, v_head_dim) one of
-// (64, 64), (96, 96), (128, 128), (192, 128) and (256, 256). causal 0/1;
-// window <= 0
-// for none. float32 runs the CUDA-core kernel, bfloat16 the tensor-core one.
-// Launches on `stream`; returns cudaGetLastError, or cudaErrorInvalidValue
-// for a shape it does not take.
+// (16, 16), (24, 24), (24, 16), (32, 32), (64, 64), (96, 96), (128, 128),
+// (192, 128) and (256, 256). causal 0/1; window <= 0 for none; softcap <= 0
+// for none (MLA's (192, 128) takes none). float32 runs the CUDA-core kernel,
+// bfloat16 the tensor-core one. Launches on `stream`; returns
+// cudaGetLastError, or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int batch,
                                       int sq, int sk, int heads, int kv_heads,
                                       int head_dim, int v_head_dim, int causal,
-                                      int window, int dtype, void* stream) {
+                                      int window, int dtype, float softcap,
+                                      void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || sk < 0 || batch > 65535 ||
-      heads > 65535) {
+      heads > 65535 || (softcap > 0.f && head_dim == 192)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int shape = head_dim * 1000 + v_head_dim;
+#define FLASH_CASE(D, DV)                                                   \
+  case D * 1000 + DV:                                                       \
+    return launch_dtype<D, DV>(q, k, v, out, lse, batch, sq, sk, heads,     \
+                               kv_heads, causal, window, dtype, softcap, s);
   switch (shape) {
-    case 64064:
-      return launch_dtype<64, 64>(q, k, v, out, lse, batch, sq, sk, heads,
-                                  kv_heads, causal, window, dtype, s);
-    case 96096:
-      return launch_dtype<96, 96>(q, k, v, out, lse, batch, sq, sk, heads,
-                                  kv_heads, causal, window, dtype, s);
-    case 128128:
-      return launch_dtype<128, 128>(q, k, v, out, lse, batch, sq, sk, heads,
-                                    kv_heads, causal, window, dtype, s);
-    case 192128:
-      return launch_dtype<192, 128>(q, k, v, out, lse, batch, sq, sk, heads,
-                                    kv_heads, causal, window, dtype, s);
-    case 256256:
-      return launch_dtype<256, 256>(q, k, v, out, lse, batch, sq, sk, heads,
-                                    kv_heads, causal, window, dtype, s);
+    FLASH_CASE(16, 16)
+    FLASH_CASE(24, 24)
+    FLASH_CASE(24, 16)
+    FLASH_CASE(32, 32)
+    FLASH_CASE(64, 64)
+    FLASH_CASE(96, 96)
+    FLASH_CASE(128, 128)
+    FLASH_CASE(192, 128)
+    FLASH_CASE(256, 256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_CASE
 }

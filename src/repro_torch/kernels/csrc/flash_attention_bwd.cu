@@ -12,11 +12,13 @@
 // fp32 or bf16 (all but lse of one dtype); GQA (query head h reads KV head
 // h / (H / KV)); the forward's mask (key j visible to query i when j < Sk,
 // j <= i if causal and i - j < window if window > 0; positions from 0 in
-// both). With s = q.k * D**-0.5:
+// both). With s = q.k * D**-0.5, or under a logit softcap c > 0 (a runtime
+// argument; <= 0 for none) s = c tanh(q.k * D**-0.5 / c), whose derivative
+// f = 1 - tanh^2 multiplies dS:
 //   P = exp(s - lse) on visible pairs, 0 elsewhere,
 //   Delta_i = sum_j P_ij dP_ij (= sum_c dO_ic o_ic, which the CUDA-core
 //             design sums from o),
-//   dV = P^T dO,  dS = P * (dO V^T - Delta),
+//   dV = P^T dO,  dS = P * (dO V^T - Delta) (* f under the cap),
 //   dQ = dS K * D**-0.5,  dK = dS^T Q * D**-0.5,
 // dK and dV summed over the H / KV query heads of each KV head. Every sum is
 // fp32; dQ, dK and dV are stored in the inputs' dtype. A row with no visible
@@ -38,10 +40,21 @@
 // chosen by dtype in flash_attention_bwd_launch (and mirrored by
 // kernels/flash_attention.py::bwd_design):
 //
-// Tensor cores: bf16 at every (D, DV), (64, 64), (96, 96), (128, 128) (the
+// Tensor cores: bf16 at every (D, DV), the reduced configs' (16, 16),
+// (24, 24), (24, 16) and (32, 32) (one box each, zero-filled past D by the
+// TMA unit: S and dP run ceil(D / 16) k16 steps, dK and dQ n64, and the
+// epilogues store D columns; the layout of D 64, with up to 4 times the
+// products a narrow head needs), (64, 64), (96, 96), (128, 128) (the
 // training path: qwen2.5-3b, qwen3-14b, starcoder2-15b), MLA's (192, 128)
-// (deepseek-v2-236b) and gemma3-12b's (256, 256) (its kernels apart, below
-// the others'). Four launches:
+// (deepseek-v2-236b; no cap: MLA passes none, and dkdv_mla_kernel takes
+// none) and gemma3-12b's (256, 256) (its kernels apart, below the
+// others'). Under a cap every pass recomputes P from the capped scores
+// (tanhf a score) and dS takes f, one uniform branch a tile: the Delta
+// pass sums P dP of the capped P, the dQ kernels multiply dS by f from
+// the score they hold, dkdv_256_kernel hands P^T f to its key warpgroup,
+// and dkdv_tc_kernel reads t back from P^T (t = (log2 P^T + lse log2(e))
+// / (c log2(e))) rather than keep it beside dK and dV, which spilled.
+// Four launches:
 // * lse_kernel: lse * log2(e) of every row into scratch rows padded to a
 //   multiple of 128 queries (zeros past Sq), so that a tile's 64 values
 //   are one 256-byte bulk copy, and zeros into Delta's rows.
@@ -115,7 +128,11 @@
 // change each term of dV, dK and dQ by at most 2**-9 relative.
 //
 // CUDA cores: fp32 at every (D, DV), whose 2e-4 tolerance needs exact fp32
-// sums that bf16 or TF32 products cannot hold.
+// sums that bf16 or TF32 products cannot hold. Shared-memory rows of D and
+// DV are padded with zeros to a multiple of 32 columns, so that a thread's
+// columns 4c + 32u cover heads of 16 and 24; the stores stop at D and DV.
+// Under a cap P and dS take tanhf a score; Delta stays rowsum(dO o), exact
+// for the capped softmax too.
 // * delta_kernel: one warp a row of dO and o, a fixed shuffle tree.
 // * dkdv_kernel: one block per (32 keys, KV head, batch). K and V stay in
 //   shared memory; the block loops over the group's query heads and over
@@ -197,18 +214,35 @@ __device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
 }
 
 // Rows [0, rows) of kRows x W floats (row stride `stride` elements) into
-// shared memory with row stride W + kPad; zeros past rows.
-template <int W, int kRows>
+// shared memory with row stride kW + kPad (kW >= W); zeros past rows and in
+// columns W .. kW - 1.
+template <int W, int kRows, int kW = W>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int rows) {
-  constexpr int kChunks = W / 4;
+  constexpr int kChunks = kW / 4;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = ld4(src + r * stride + 4 * c);
-    st4(dst + r * (W + kPad) + 4 * c, v);
+    if (r < rows && 4 * c < W) v = ld4(src + r * stride + 4 * c);
+    st4(dst + r * (kW + kPad) + 4 * c, v);
   }
+}
+
+// P of one score s (q.k) of a visible pair (`ok`; 0 otherwise) under a
+// logit softcap (<= 0 for none): exp(s' - lse), s' = s * scale, or with the
+// cap c tanh(s * scale / c); `f` receives the cap's derivative (1 - t)(1 +
+// t), t = tanh(s * scale / c), which dS takes (1 without a cap).
+__device__ __forceinline__ float prob(float s, float lse, float scale,
+                                      float softcap, bool ok, float& f) {
+  float x = s * scale;
+  f = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(x / softcap);
+    x = softcap * t;
+    f = cap_grad(t);
+  }
+  return ok ? expf(x - lse) : 0.f;
 }
 
 __device__ __forceinline__ bool visible(int i, int j, int sq, int sk,
@@ -249,11 +283,16 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-            int heads, int kv_heads, int causal, int window, float scale) {
-  constexpr int kLdD = D + kPad;
-  constexpr int kLdV = DV + kPad;
-  constexpr int kColsD = D / 32;   // float4 columns of dK per thread
-  constexpr int kColsV = DV / 32;  // float4 columns of dV per thread
+            int heads, int kv_heads, int causal, int window, float scale,
+            float softcap) {
+  // Rows of D and DV padded to 32 columns (zeros), so that a thread's
+  // columns 4c + 32u cover heads of 16 and 24 too; stored below D, DV.
+  constexpr int kDp = pad32(D);
+  constexpr int kDVp = pad32(DV);
+  constexpr int kLdD = kDp + kPad;
+  constexpr int kLdV = kDVp + kPad;
+  constexpr int kColsD = kDp / 32;   // float4 columns of dK per thread
+  constexpr int kColsV = kDVp / 32;  // float4 columns of dV per thread
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // kBKV x kLdD
   float* vs = ks + kBKV * kLdD;                 // kBKV x kLdV
@@ -282,8 +321,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long v_off =
       (static_cast<long long>(b) * sk + k0) * v_stride +
       static_cast<long long>(kh) * DV;
-  load_rows<D, kBKV>(ks, k + k_off, k_stride, k_rows);
-  load_rows<DV, kBKV>(vs, v + v_off, v_stride, k_rows);
+  load_rows<D, kBKV, kDp>(ks, k + k_off, k_stride, k_rows);
+  load_rows<DV, kBKV, kDVp>(vs, v + v_off, v_stride, k_rows);
 
   // Queries that may see keys [k0, k0 + k_rows): [q_lo, q_hi).
   const int q_lo = causal ? k0 : 0;
@@ -306,11 +345,12 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int q_rows = min(kBQ, sq - q0);
       __syncthreads();  // the previous tile is no longer read
       const long long qo = (static_cast<long long>(b) * sq + q0);
-      load_rows<D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
-                           q_stride, q_rows);
-      load_rows<DV, kBQ>(dos,
-                            dout + qo * o_stride + static_cast<long long>(h) * DV,
-                            o_stride, q_rows);
+      load_rows<D, kBQ, kDp>(qs,
+                             q + qo * q_stride + static_cast<long long>(h) * D,
+                             q_stride, q_rows);
+      load_rows<DV, kBQ, kDVp>(
+          dos, dout + qo * o_stride + static_cast<long long>(h) * DV,
+          o_stride, q_rows);
       if (threadIdx.x < kBQ) {
         const bool in = threadIdx.x < q_rows;
         lse_s[threadIdx.x] = in ? lse_h[q0 + threadIdx.x] : 0.f;
@@ -351,9 +391,10 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int u = 0; u < 8; ++u) {
           const int qi = tc + 8 * u;
           const bool ok = visible(q0 + qi, k0 + key, sq, sk, causal, window);
-          const float p = ok ? expf(s[a][u] * scale - lse_s[qi]) : 0.f;
+          float f;
+          const float p = prob(s[a][u], lse_s[qi], scale, softcap, ok, f);
           pt[key * kLdQ + qi] = p;
-          dst[key * kLdQ + qi] = p * (dp[a][u] - dl_s[qi]);
+          dst[key * kLdQ + qi] = p * (dp[a][u] - dl_s[qi]) * f;
         }
       }
       __syncthreads();
@@ -397,12 +438,15 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* vrow = dv + v_off + key * v_stride + 4 * tc;
 #pragma unroll
     for (int c = 0; c < kColsD; ++c) {
+      if (4 * tc + 32 * c >= D) continue;  // the rows' zero padding
       const float4 x = acc_k[a][c];
       st4(krow + 32 * c,
               make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
     }
 #pragma unroll
-    for (int c = 0; c < kColsV; ++c) st4(vrow + 32 * c, acc_v[a][c]);
+    for (int c = 0; c < kColsV; ++c) {
+      if (4 * tc + 32 * c < DV) st4(vrow + 32 * c, acc_v[a][c]);
+    }
   }
 }
 
@@ -411,14 +455,13 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // beside the rest (D = DV = 256: 284 KB), they take one buffer in turn.
 template <int D, int DV>
 struct DqSmem {
-  static constexpr size_t kKv = kBK * static_cast<size_t>(D + kPad) +
-                                kBK * static_cast<size_t>(DV + kPad);
-  static constexpr size_t kRest = kBQ * static_cast<size_t>(D + kPad) +
-                                  kBQ * static_cast<size_t>(DV + kPad) +
-                                  kBQ * static_cast<size_t>(kLdK) + 2 * kBQ;
+  static constexpr size_t kLdD = pad32(D) + kPad;   // rows padded as in
+  static constexpr size_t kLdV = pad32(DV) + kPad;  // dkdv_kernel
+  static constexpr size_t kKv = kBK * kLdD + kBK * kLdV;
+  static constexpr size_t kRest =
+      kBQ * kLdD + kBQ * kLdV + kBQ * static_cast<size_t>(kLdK) + 2 * kBQ;
   static constexpr bool kOneBuf = sizeof(float) * (kKv + kRest) > 232448;
-  static constexpr size_t kFloats =
-      kRest + (kOneBuf ? kBK * static_cast<size_t>(D + kPad) : kKv);
+  static constexpr size_t kFloats = kRest + (kOneBuf ? kBK * kLdD : kKv);
   static_assert(!kOneBuf || D == DV, "one K/V buffer needs D == DV");
   static_assert(sizeof(float) * kFloats <= 232448,
                 "tiles exceed shared memory");
@@ -431,10 +474,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, int sq, int sk, int heads, int kv_heads,
-          int causal, int window, float scale) {
-  constexpr int kLdD = D + kPad;
-  constexpr int kLdV = DV + kPad;
-  constexpr int kColsD = D / 32;
+          int causal, int window, float scale, float softcap) {
+  constexpr int kDp = pad32(D);
+  constexpr int kDVp = pad32(DV);
+  constexpr int kLdD = kDp + kPad;
+  constexpr int kLdV = kDVp + kPad;
+  constexpr int kColsD = kDp / 32;
   constexpr bool kOneBuf = DqSmem<D, DV>::kOneBuf;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // kBQ x kLdD
@@ -459,10 +504,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long k_stride = static_cast<long long>(kv_heads) * D;
   const long long v_stride = static_cast<long long>(kv_heads) * DV;
   const long long qo = static_cast<long long>(b) * sq + q0;
-  load_rows<D, kBQ>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
-                       q_stride, q_rows);
-  load_rows<DV, kBQ>(dos, dout + qo * o_stride + static_cast<long long>(h) * DV,
-                        o_stride, q_rows);
+  load_rows<D, kBQ, kDp>(qs, q + qo * q_stride + static_cast<long long>(h) * D,
+                         q_stride, q_rows);
+  load_rows<DV, kBQ, kDVp>(
+      dos, dout + qo * o_stride + static_cast<long long>(h) * DV, o_stride,
+      q_rows);
   if (threadIdx.x < kBQ) {
     const long long at = (static_cast<long long>(b) * heads + h) * sq + q0;
     const bool in = threadIdx.x < q_rows;
@@ -485,9 +531,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile is no longer read
     const long long ko = static_cast<long long>(b) * sk + kt;
     const float* kt_ = k + ko * k_stride + static_cast<long long>(kh) * D;
-    if constexpr (!kOneBuf) load_rows<D, kBK>(ks, kt_, k_stride, k_rows);
-    load_rows<DV, kBK>(vs, v + ko * v_stride + static_cast<long long>(kh) * DV,
-                          v_stride, k_rows);
+    if constexpr (!kOneBuf) {
+      load_rows<D, kBK, kDp>(ks, kt_, k_stride, k_rows);
+    }
+    load_rows<DV, kBK, kDVp>(
+        vs, v + ko * v_stride + static_cast<long long>(kh) * DV, v_stride,
+        k_rows);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for rows 4 tr + i, keys tc + 8 u (with one
@@ -524,7 +573,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if constexpr (kOneBuf) {
       __syncthreads();  // every warp is done with V
-      load_rows<D, kBK>(ks, kt_, k_stride, k_rows);
+      load_rows<D, kBK, kDp>(ks, kt_, k_stride, k_rows);
       __syncthreads();
       scores();
     }
@@ -535,8 +584,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int u = 0; u < 8; ++u) {
         const int key = tc + 8 * u;
         const bool ok = visible(q0 + row, kt + key, sq, sk, causal, window);
-        const float p = ok ? expf(s[i][u] * scale - lse_s[row]) : 0.f;
-        dss[row * kLdK + key] = p * (dp[i][u] - dl_s[row]);
+        float f;
+        const float p = prob(s[i][u], lse_s[row], scale, softcap, ok, f);
+        dss[row * kLdK + key] = p * (dp[i][u] - dl_s[row]) * f;
       }
     }
     __syncthreads();
@@ -571,6 +621,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               4 * tc;
 #pragma unroll
     for (int c = 0; c < kColsD; ++c) {
+      if (4 * tc + 32 * c >= D) continue;  // the rows' zero padding
       const float4 x = acc[i][c];
       st4(drow + 32 * c,
               make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
@@ -582,7 +633,8 @@ template <int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int batch, int sq, int sk, int heads,
-               int kv_heads, int causal, int window, cudaStream_t stream) {
+               int kv_heads, int causal, int window, float softcap,
+               cudaStream_t stream) {
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);
   const float* v_ = static_cast<const float*>(v);
@@ -601,11 +653,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr size_t kv_smem =
-      sizeof(float) * (kBKV * static_cast<size_t>(D + kPad) +
-                       kBKV * static_cast<size_t>(DV + kPad) +
-                       kBQ * static_cast<size_t>(D + kPad) +
-                       kBQ * static_cast<size_t>(DV + kPad) +
+  constexpr size_t kv_smem =  // rows padded as in dkdv_kernel
+      sizeof(float) * ((kBKV + kBQ) * (DqSmem<D, DV>::kLdD +
+                                       DqSmem<D, DV>::kLdV) +
                        2 * kBKV * static_cast<size_t>(kLdQ) + 2 * kBQ);
   err = cudaFuncSetAttribute(dkdv_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -617,7 +667,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   dkdv_kernel<D, DV><<<kv_grid, kThreads, kv_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv),
-      sq, sk, heads, kv_heads, causal, window, scale);
+      sq, sk, heads, kv_heads, causal, window, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -632,7 +682,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                     static_cast<unsigned>(batch));
   dq_kernel<D, DV><<<q_grid, kThreads, q_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, static_cast<float*>(dq), sq, sk, heads,
-      kv_heads, causal, window, scale);
+      kv_heads, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -696,12 +746,14 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t t, int kk) {
 
 // d (64 x 64) = A B^T over K columns, A and B 64-row tiles at `a` and `b`,
 // both K-major (S = Q K^T, dP = dO V^T and their transposes).
+// K of 16, 24 or 32 (a narrow head, one box zero-filled past K) runs
+// ceil(K / 16) steps: the zeros add nothing.
 template <int K>
 __device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a,
                                             uint32_t b) {
   wgmma_m64n64k16_ss_first(d, kmajor(a, 0), kmajor(b, 0));
 #pragma unroll
-  for (int kk = 1; kk < K / 16; ++kk) {
+  for (int kk = 1; kk < (K + 15) / 16; ++kk) {
     wgmma_m64n64k16_ss(d, kmajor(a, kk), kmajor(b, kk));
   }
 }
@@ -766,6 +818,51 @@ lse_kernel(const float* __restrict__ lse, float* __restrict__ lse2,
   delta[row] = 0.f;
 }
 
+// The dQ kernels' pass over one 64 x 64 tile of S and dP (rows r0 and
+// r0 + 8, keys k0 + 8 jj + c0 and + 1 of a thread's fragment): P =
+// exp2(S scale log2(e) - lse log2(e)) (of the capped scores under a cap),
+// 0 where masked (`masked`: the tile needs a per-score mask); then
+// s = dS = P (dP - Delta), times the cap's derivative under a cap; or, in
+// the Delta pass (kDelta), dl += P dP and ps += P over the visible pairs.
+// The cap is one uniform branch a tile.
+template <bool kDelta>
+__device__ __forceinline__ void scores_to_ds(
+    float (&s)[32], const float (&dp)[32], const float (&l2)[2],
+    float (&dl)[2], float (&ps)[2], Scaling sc, bool masked, int r0, int k0,
+    int c0, int sq, int sk, int causal, int window) {
+  const auto tile = [&](auto cap) {
+    constexpr bool kCap = decltype(cap)::value;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float t;
+        const float p =
+            exp2_approx(score_arg<kCap>(s[4 * jj + e], l2[r], sc, t));
+        const bool ok =
+            !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq, sk,
+                               causal, window);
+        if constexpr (kDelta) {
+          if (ok) {
+            dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
+            ps[r] += p;
+          }
+        } else {
+          float ds = p * (dp[4 * jj + e] - dl[r]);
+          if constexpr (kCap) ds *= cap_grad(t);
+          s[4 * jj + e] = ok ? ds : 0.f;
+        }
+      }
+    }
+  };
+  if (sc.cap_log2 > 0.f) {
+    tile(Flag<true>{});
+  } else {
+    tile(Flag<false>{});
+  }
+}
+
 // dK and dV of 64 keys of one KV head, summed over its query heads, by a
 // cluster of blocks that split the (query head, query tile) pairs.
 template <int D, int DV>
@@ -777,7 +874,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const float* __restrict__ lse2, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int sq, int sk, int sq_pad, int heads, int kv_heads,
-               int causal, int window, float scale_log2, float scale) {
+               int causal, int window, Scaling sc, float scale) {
   using Tiles = BwdTiles<D, DV>;
   constexpr int kN = Tiles::kN;
   constexpr int kNV = Tiles::kNV;
@@ -900,21 +997,32 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();  // S^T is in
     hold(s);
 
-    // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked (under
+    // the cap, of the capped scores).
     const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+    const bool capped = sc.cap_log2 > 0.f;
+    const auto probs = [&](auto cap) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(stats + 8 * j + c0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = exp2_approx(
-            fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
-        s[4 * j + e] =
-            masked && !visible(q0 + 8 * j + c0 + e % 2, k0 + kr + 8 * (e / 2),
-                               sq, sk, causal, window)
-                ? 0.f
-                : x;
+        for (int e = 0; e < 4; ++e) {
+          float t;
+          const float x = exp2_approx(score_arg<decltype(cap)::value>(
+              s[4 * j + e], e % 2 ? l2.y : l2.x, sc, t));
+          s[4 * j + e] = masked && !visible(q0 + 8 * j + c0 + e % 2,
+                                            k0 + kr + 8 * (e / 2), sq, sk,
+                                            causal, window)
+                             ? 0.f
+                             : x;
+        }
       }
+    };
+    if (capped) {
+      probs(Flag<true>{});
+    } else {
+      probs(Flag<false>{});
     }
     uint32_t pa[16];
     to_a_operand(s, pa);
@@ -927,14 +1035,36 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     hold(dv_acc);
     hold(pa);
 
-    // dS^T = P^T (dP^T - Delta).
+    // dS^T = P^T (dP^T - Delta). Under the cap also times its derivative
+    // 1 - t^2, t = (log2(P^T) + lse log2(e)) / (c log2(e)) read back from
+    // P^T (a P^T of 0 adds nothing): keeping t beside S^T, dP^T and dK
+    // and dV would spill.
+    if (capped) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl =
-          *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(stats + 8 * j + c0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * j + e] *= dp[4 * j + e] - (e % 2 ? dl.y : dl.x);
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[4 * j + e];
+          const float t =
+              p > 0.f ? (log2f(p) + (e % 2 ? l2.y : l2.x)) / sc.cap_log2
+                      : 0.f;
+          s[4 * j + e] =
+              p * (dp[4 * j + e] - (e % 2 ? dl.y : dl.x)) * cap_grad(t);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(stats + 64 + 8 * j + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] *= dp[4 * j + e] - (e % 2 ? dl.y : dl.x);
+        }
       }
     }
     uint32_t da[16];
@@ -1085,7 +1215,7 @@ dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ lse2, const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                 int sq, int sk, int sq_pad, int heads, int kv_heads,
-                int causal, int window, float scale_log2, float scale) {
+                int causal, int window, Scaling sc, float scale) {
   using Tiles = BwdTiles<D, DV>;
   constexpr int kN = Tiles::kN;
   constexpr int kNV = Tiles::kNV;
@@ -1259,7 +1389,7 @@ dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float x = exp2_approx(
-                fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
+                fmaf(s[4 * j + e], sc.scale_log2, -(e % 2 ? l2.y : l2.x)));
             s[4 * j + e] = masked && !visible(q0 + 8 * j + c0 + e % 2,
                                               ks.k0 + kr + 8 * (e / 2), sq,
                                               sk, causal, window)
@@ -1365,7 +1495,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const float* __restrict__ lse2, float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
              int heads, int kv_heads, int causal, int window,
-             float scale_log2, float scale) {
+             Scaling sc, float scale) {
   using Tiles = BwdTiles<D, DV>;
   constexpr int kN = Tiles::kN;
   constexpr uint32_t kKV = Tiles::kQk + Tiles::kV;  // a K and a V tile
@@ -1484,29 +1614,12 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       hold(s);
       hold(dp);
-      // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked; then
-      // dS = P (dP - Delta), or in the Delta pass Delta += P dP.
+      // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (under the
+      // cap, of the capped scores); then dS = P (dP - Delta) (under the
+      // cap, times its derivative), or in the Delta pass Delta += P dP.
       const bool masked = pair_tile_masked(r_lo, k0, sq, sk, causal, window);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e / 2;
-          const float p = exp2_approx(
-              fmaf(s[4 * jj + e], scale_log2, -l2[r]));
-          const bool ok =
-              !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq,
-                                 sk, causal, window);
-          if constexpr (kDelta) {
-            if (ok) {
-              dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
-              ps[r] += p;
-            }
-          } else {
-            s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
-          }
-        }
-      }
+      scores_to_ds<kDelta>(s, dp, l2, dl, ps, sc, masked, r0, k0, c0, sq,
+                           sk, causal, window);
       if constexpr (!kDelta) {
         // dS's bf16 part and the bf16 of its residual (see the header).
         uint32_t da[16], dr[16];
@@ -1658,7 +1771,7 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                 int sq, int sk, int sq_pad, int heads, int kv_heads,
-                int causal, int window, float scale_log2, float scale) {
+                int causal, int window, Scaling sc, float scale) {
   constexpr int D = 256;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3 + 2 * k256Stages];
@@ -1767,7 +1880,30 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
     wgmma_wait<0>();  // S^T (value) or dP^T (key) is in
     hold(x);
-    if (wg == 0) {
+    if (wg == 0 && sc.cap_log2 > 0.f) {
+      // Under the cap: P^T of the capped scores for dV, and P^T times the
+      // cap's derivative handed to the key warpgroup for dS^T.
+      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+      mbar_wait(p_empty, (i & 1) ^ 1);  // round 0 passes
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float th;
+          float p = exp2_approx(
+              score_arg<true>(x[4 * j + e], e % 2 ? l2.y : l2.x, sc, th));
+          if (masked && !visible(q0 + 8 * j + c0 + e % 2,
+                                 k0 + kr + 8 * (e / 2), sq, sk, causal,
+                                 window)) {
+            p = 0.f;
+          }
+          x[4 * j + e] = p;
+          pt[(4 * j + e) * 128 + t] = p * cap_grad(th);
+        }
+      }
+      mbar_arrive(p_full);
+    } else if (wg == 0) {
       // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
       const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
 #pragma unroll
@@ -1776,7 +1912,7 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = exp2_approx(
-              fmaf(x[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x)));
+              fmaf(x[4 * j + e], sc.scale_log2, -(e % 2 ? l2.y : l2.x)));
           x[4 * j + e] =
               masked && !visible(q0 + 8 * j + c0 + e % 2,
                                  k0 + kr + 8 * (e / 2), sq, sk, causal,
@@ -1790,7 +1926,8 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 32; ++e) pt[e * 128 + t] = x[e];
       mbar_arrive(p_full);
     } else {
-      // dS^T = P^T (dP^T - Delta).
+      // dS^T = P^T (dP^T - Delta) (P^T times the cap's derivative under a
+      // cap).
       mbar_wait(p_full, i & 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1845,7 +1982,7 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
               const float* __restrict__ lse2, float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
               int heads, int kv_heads, int causal, int window,
-              float scale_log2, float scale) {
+              Scaling sc, float scale) {
   constexpr int D = 256;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * k256Stages];
@@ -1946,29 +2083,10 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       hold(s);
       hold(dp);
-      // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked; then
-      // dS = P (dP - Delta), or in the Delta pass Delta += P dP.
+      // As in dq_tc_kernel.
       const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e / 2;
-          const float p = exp2_approx(
-              fmaf(s[4 * jj + e], scale_log2, -l2[r]));
-          const bool ok =
-              !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq,
-                                 sk, causal, window);
-          if constexpr (kDelta) {
-            if (ok) {
-              dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
-              ps[r] += p;
-            }
-          } else {
-            s[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dl[r]) : 0.f;
-          }
-        }
-      }
+      scores_to_ds<kDelta>(s, dp, l2, dl, ps, sc, masked, r0, k0, c0, sq,
+                           sk, causal, window);
       if constexpr (!kDelta) {
         // dS's bf16 part and the bf16 of its residual, as in dq_tc_kernel.
         uint32_t da[16], dr[16];
@@ -2063,7 +2181,7 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
                         const float* lse2, const float* delta, void* dk,
                         void* dv, int batch, int sq, int sk, int sq_pad,
                         int heads, int kv_heads, int causal, int window,
-                        float scale_log2, float scale, cudaStream_t stream) {
+                        Scaling sc, float scale, cudaStream_t stream) {
   const int k_tiles = (sk + kTile - 1) / kTile;
   __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
@@ -2078,7 +2196,7 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
                     static_cast<unsigned>(batch));
     dkdv_mla_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
         tq, tk, tv, tdo, lse2, delta, dk_, dv_, sq, sk, sq_pad, heads,
-        kv_heads, causal, window, scale_log2, scale);
+        kv_heads, causal, window, sc, scale);
     return cudaGetLastError();
   } else {
     using Tiles = BwdTiles<D, DV>;
@@ -2116,7 +2234,7 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, dkdv_tc_kernel<D, DV>, tq, tk, tv, tdo,
                              lse2, delta, dk_, dv_, sq, sk, sq_pad, heads,
-                             kv_heads, causal, window, scale_log2, scale);
+                             kv_heads, causal, window, sc, scale);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
@@ -2126,7 +2244,7 @@ template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, float* scratch, void* dq, void* dk, void* dv,
               int batch, int sq, int sk, int heads, int kv_heads, int causal,
-              int window, cudaStream_t stream) {
+              int window, float softcap, cudaStream_t stream) {
   using Tiles = BwdTiles<D, DV>;
   const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
   const long long rows = static_cast<long long>(batch) * heads * sq_pad;
@@ -2157,9 +2275,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // D ** -0.5 as the reference computes it, in double, then rounded.
-  const double scale_d = pow(static_cast<double>(D), -0.5);
-  const float scale = static_cast<float>(scale_d);
-  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
+  const Scaling sc = make_scaling(D, softcap);
   // The query heads of one KV head side by side, so that they find its K
   // and V tiles in L2. At MLA's (192, 128) with one query head a KV head
   // (deepseek-v2) nothing is shared across heads, and the K and V of the
@@ -2178,7 +2295,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<D, DV, true><<<q_grid, kTcThreads, Tiles::kQSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+      sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // The dQ kernel runs on a side stream beside the dK/dV kernel (both read
@@ -2193,7 +2310,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_dkdv<D, DV>(tq, tk, tv, tdo, lse2, delta, dk, dv, batch, sq,
                            sk, sq_pad, heads, kv_heads, causal, window,
-                           scale_log2, scale, stream);
+                           sc, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, false>,
@@ -2203,7 +2320,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   dq_tc_kernel<D, DV, false><<<q_grid, kTcThreads, Tiles::kQSmem,
                                side->stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+      sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
@@ -2217,7 +2334,7 @@ int launch_tc_256(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, float* scratch,
                   void* dq, void* dk, void* dv, int batch, int sq, int sk,
                   int heads, int kv_heads, int causal, int window,
-                  cudaStream_t stream) {
+                  float softcap, cudaStream_t stream) {
   constexpr int D = 256;
   const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
   const long long rows = static_cast<long long>(batch) * heads * sq_pad;
@@ -2246,9 +2363,8 @@ int launch_tc_256(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // D ** -0.5 as the reference computes it, in double, then rounded.
-  const double scale_d = pow(static_cast<double>(D), -0.5);
-  const float scale = static_cast<float>(scale_d);
-  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
+  const Scaling sc = make_scaling(D, softcap);
   const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                     static_cast<unsigned>(q_tiles));
   err = cudaFuncSetAttribute(dq_256_kernel<true>,
@@ -2266,7 +2382,7 @@ int launch_tc_256(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_256_kernel<true><<<q_grid, 256, Tiles256::kQSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+      sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   SideStream* side = nullptr;
@@ -2282,12 +2398,12 @@ int launch_tc_256(const void* q, const void* k, const void* v,
   dkdv_256_kernel<<<kv_grid, kTcThreads, Tiles256::kKvSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), sq, sk, sq_pad, heads, kv_heads,
-      causal, window, scale_log2, scale);
+      causal, window, sc, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_256_kernel<false><<<q_grid, 256, Tiles256::kQSmem, side->stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, scale_log2, scale);
+      sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
@@ -2299,21 +2415,22 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int batch, int sq, int sk, int heads,
                  int kv_heads, int causal, int window, int dtype,
-                 cudaStream_t s) {
+                 float softcap, cudaStream_t s) {
   if (dtype == 0) {
     return launch_bwd<D, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv,
                              batch, sq, sk, heads, kv_heads, causal, window,
-                             s);
+                             softcap, s);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   // bfloat16: the tensor cores. The design sums Delta itself (the Delta
   // pass): it reads no output.
   if constexpr (D == 256) {
     return launch_tc_256(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq,
-                         sk, heads, kv_heads, causal, window, s);
+                         sk, heads, kv_heads, causal, window, softcap, s);
   } else {
     return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
-                            sq, sk, heads, kv_heads, causal, window, s);
+                            sq, sk, heads, kv_heads, causal, window, softcap,
+                            s);
   }
 }
 
@@ -2326,9 +2443,11 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
 // P dP); lse (batch, heads, sq) fp32 from the forward; delta a scratch
 // of 2 * batch * heads * round_up(sq, 128) floats (the CUDA-core kernels
 // use the first batch * heads * sq); dq, dk, dv of q's, k's and v's shapes
-// and dtype, every element written. (head_dim, v_head_dim) one of (64, 64),
-// (96, 96), (128, 128), (192, 128) and (256, 256); causal 0/1; window <= 0
-// for none. Launches three kernels (the tensor-core design four), their
+// and dtype, every element written. (head_dim, v_head_dim) one of (16, 16),
+// (24, 24), (24, 16), (32, 32), (64, 64), (96, 96), (128, 128), (192, 128)
+// and (256, 256); causal 0/1; window <= 0 for none; softcap <= 0 for none
+// (MLA's (192, 128), whose dK/dV kernel takes none, refuses one). Launches
+// three kernels (the tensor-core design four), their
 // work ordered on `stream` (the tensor-core design runs its dQ kernel on a
 // second stream that `stream` waits for);
 // returns cudaGetLastError, or cudaErrorInvalidValue for a shape it does
@@ -2339,10 +2458,10 @@ extern "C" int flash_attention_bwd_launch(
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int batch, int sq, int sk, int heads, int kv_heads,
     int head_dim, int v_head_dim, int causal, int window, int dtype,
-    void* stream) {
+    float softcap, void* stream) {
   if (batch <= 0 || heads <= 0 || (sq <= 0 && sk <= 0)) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || sq < 0 || sk < 0 ||
-      batch > 65535 || heads > 65535) {
+      batch > 65535 || heads > 65535 || (softcap > 0.f && head_dim == 192)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2367,28 +2486,23 @@ extern "C" int flash_attention_bwd_launch(
     return static_cast<int>(err);
   }
   const int shape = head_dim * 1000 + v_head_dim;
+#define FLASH_CASE(D, DV)                                                  \
+  case D * 1000 + DV:                                                      \
+    return launch_dtype<D, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv, \
+                               batch, sq, sk, heads, kv_heads, causal,     \
+                               window, dtype, softcap, s);
   switch (shape) {
-    case 64064:
-      return launch_dtype<64, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                  batch, sq, sk, heads, kv_heads, causal,
-                                  window, dtype, s);
-    case 96096:
-      return launch_dtype<96, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                  batch, sq, sk, heads, kv_heads, causal,
-                                  window, dtype, s);
-    case 128128:
-      return launch_dtype<128, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                    dv, batch, sq, sk, heads, kv_heads,
-                                    causal, window, dtype, s);
-    case 192128:
-      return launch_dtype<192, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                    dv, batch, sq, sk, heads, kv_heads,
-                                    causal, window, dtype, s);
-    case 256256:
-      return launch_dtype<256, 256>(q, k, v, out, dout, lse, delta, dq, dk,
-                                    dv, batch, sq, sk, heads, kv_heads,
-                                    causal, window, dtype, s);
+    FLASH_CASE(16, 16)
+    FLASH_CASE(24, 24)
+    FLASH_CASE(24, 16)
+    FLASH_CASE(32, 32)
+    FLASH_CASE(64, 64)
+    FLASH_CASE(96, 96)
+    FLASH_CASE(128, 128)
+    FLASH_CASE(192, 128)
+    FLASH_CASE(256, 256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_CASE
 }

@@ -20,6 +20,7 @@
                    // run time through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -267,6 +268,56 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A width rounded up to a multiple of 32: the fp32 flash kernels' thread
+// columns 4c + 32u cover it (heads of 16 and 24 padded with zeros).
+__host__ __device__ constexpr int pad32(int w) { return (w + 31) / 32 * 32; }
+
+// How the flash kernels turn a score s = q.k into exp2 units: s D**-0.5
+// log2(e) (`scale_log2`), or under a logit softcap c (`cap_log2` = c log2(e)
+// > 0; 0 for none) c tanh(s D**-0.5 / c) log2(e) (`cap_scale` = D**-0.5 /
+// c), as the reference caps its scores before the mask.
+struct Scaling {
+  float scale_log2, cap_log2, cap_scale;
+};
+
+// The Scaling of head dim d under `softcap` (<= 0 for none), from D**-0.5
+// in double as the reference computes it.
+inline Scaling make_scaling(int d, float softcap) {
+  const double scale = pow(static_cast<double>(d), -0.5);
+  const double log2e = 1.4426950408889634;
+  if (softcap <= 0.f) return {static_cast<float>(scale * log2e), 0.f, 0.f};
+  return {static_cast<float>(scale * log2e),
+          static_cast<float>(softcap * log2e),
+          static_cast<float>(scale / softcap)};
+}
+
+// A compile-time flag that a generic lambda can branch on (if constexpr):
+// the kernels run a tile's softmax with or without the cap behind one
+// uniform branch.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// The exp2 argument of score s less l2 under sc, capped (kCap) or not; with
+// the cap `t` receives tanh(s D**-0.5 / c).
+template <bool kCap>
+__device__ __forceinline__ float score_arg(float s, float l2, Scaling sc,
+                                           float& t) {
+  if constexpr (kCap) {
+    t = tanhf(s * sc.cap_scale);
+    return fmaf(sc.cap_log2, t, -l2);
+  } else {
+    return fmaf(s, sc.scale_log2, -l2);
+  }
+}
+
+// The cap's derivative d(c tanh(x / c)) / dx = (1 - t)(1 + t), t = tanh(x /
+// c), as autodiff of the reference's tanh gives it.
+__device__ __forceinline__ float cap_grad(float t) {
+  return (1.f - t) * (1.f + t);
 }
 
 // `bytes` (a multiple of 16) from global `src` (16-byte aligned) into

@@ -9,7 +9,9 @@ this one's) is built with :data:`build.NVCC_FLAGS` into its own library
 in a temporary directory and called through its ``flash_attention_launch``
 on the same inputs (the launch function that takes the value head dim
 beside the head dim; a source from before it took one cannot be loaded
-here). A source whose launch takes the log-sum-exp pointer writes it. At each shape every build is first held against
+here). A source whose launch takes the log-sum-exp pointer writes it; one
+whose launch takes a logit softcap is passed none (0). At each shape every
+build is first held against
 :func:`flash_attention_plain` (rtol = atol = 2e-2 in bf16, 2e-5 in fp32),
 then timed in turns (A, B, ..., B, A: the median of ``--reps`` CUDA-event
 timings each, after a warm-up) and its output and log-sum-exp compared
@@ -22,7 +24,8 @@ comparable. ``--dims`` keeps the shapes of those head dims only (``D``
 or ``D/DV``, comma-separated).
 
 ``--backward`` does the same for builds of the backward through their
-``flash_attention_bwd_launch`` (one signature since it was first written;
+``flash_attention_bwd_launch`` (one signature since it was first written
+but for the softcap, passed as none where the source takes one;
 the scratch is sized for the largest need, :func:`bwd_scratch_floats`) at
 :data:`BWD_SHAPES`: each build's dQ, dK and dV are first held against
 :func:`flash_attention_backward_plain` (within 3e-2 in bf16, 2e-4 in fp32,
@@ -109,17 +112,24 @@ def _libraries(sources):
     return libs
 
 
+def _cap(src) -> list:
+    """The softcap argument (none) where the source's launch takes one."""
+    return [0.0] if "float softcap" in Path(src).read_text() else []
+
+
 def _launchers(sources):
-    """One ``flash_attention_launch`` per source, and whether it takes the
-    log-sum-exp pointer."""
+    """One ``flash_attention_launch`` per source, whether it takes the
+    log-sum-exp pointer, and its softcap argument (:func:`_cap`)."""
     fns = []
     for src, lib in zip(sources, _libraries(sources)):
         takes_lse = "float* lse" in Path(src).read_text()
+        cap = _cap(src)
         fn = lib.flash_attention_launch
         fn.argtypes = [ctypes.c_void_p] * (5 if takes_lse else 4) \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_float] * len(cap) \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns.append((fn, takes_lse))
+        fns.append((fn, takes_lse, cap))
     return fns
 
 
@@ -179,12 +189,13 @@ def _pairs(s: int, causal) -> int:
 def backward(args, dtype) -> None:
     """The ``--backward`` comparison (see the module)."""
     fns = []
-    for lib in _libraries(args.sources):
+    for src, lib in zip(args.sources, _libraries(args.sources)):
+        cap = _cap(src)
         fn = lib.flash_attention_bwd_launch
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_float] * len(cap) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns.append(fn)
+        fns.append((fn, cap))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -203,13 +214,13 @@ def backward(args, dtype) -> None:
                               dtype=torch.float32, device="cuda")
         ops = 2 * b * h * (3 * d + 2 * dv) * _pairs(s, causal)
         calls, checks, outs = [], [], []
-        for fn in fns:
+        for fn, cap in fns:
             got = [torch.empty_like(x) for x in (q, k, v)]
-            calls.append(lambda fn=fn, got=got: fn(
+            calls.append(lambda fn=fn, got=got, cap=cap: fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                 *(x.data_ptr() for x in got), b, s, s, h, kv, d, dv, causal,
-                0, _CODE[dtype], stream))
+                0, _CODE[dtype], *cap, stream))
             err = calls[-1]()
             torch.cuda.synchronize()
             rel = [float((x.float() - y.float()).abs().max())
@@ -262,13 +273,13 @@ def forward(args, dtype) -> None:
         want = flash_attention_plain(q, k, v, causal=bool(causal)).float()
         ops = 2 * b * h * (d + dv) * _pairs(s, causal)
         calls, checks, outs = [], [], []
-        for fn, takes_lse in fns:
+        for fn, takes_lse, cap in fns:
             o = q.new_empty((b, s, h, dv))
             lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()) \
                 + ((lse.data_ptr(),) if takes_lse else ())
-            calls.append(lambda fn=fn, ptrs=ptrs: fn(
-                *ptrs, b, s, s, h, kv, d, dv, causal, 0, _CODE[dtype],
+            calls.append(lambda fn=fn, ptrs=ptrs, cap=cap: fn(
+                *ptrs, b, s, s, h, kv, d, dv, causal, 0, _CODE[dtype], *cap,
                 stream))
             err = calls[-1]()
             torch.cuda.synchronize()

@@ -1,25 +1,31 @@
 """Flash attention, forward and backward: causal or windowed GQA attention
 over a sequence.
 
-``flash_attention(q, k, v, causal=True, window=None)``:
+``flash_attention(q, k, v, causal=True, window=None, softcap=None)``:
 
 * q: (B, Sq, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, DV) (DV may differ
   from D, as MLA's value heads do); float32 or bfloat16, all of one dtype;
   H a multiple of KV (query head h reads KV head h // (H // KV)).
 * Positions count from 0 in q and in k: key j is visible to query i when
   ``j <= i`` (``causal``) and ``i - j < window`` (``window`` not None).
-* Returns (B, Sq, H, DV) in q's dtype: the softmax of the fp32 scores times
-  ``D ** -0.5`` over the visible keys, applied to V in fp32. A row with no
-  visible key is zeros (the reference's softmax would average V there; with
-  Sq == Sk every row sees at least itself), and so are its gradients.
+* Returns (B, Sq, H, DV) in q's dtype: the softmax of the fp32 scores
+  ``s = q.k * D ** -0.5`` over the visible keys, applied to V in fp32.
+  With a logit ``softcap`` c > 0 the scores are ``c * tanh(s / c)``
+  before the mask and the softmax, as the reference's
+  ``blockwise_attention`` caps them (D the true head dim). A row with no
+  visible key is zeros (the reference's softmax would average V there;
+  with Sq == Sk every row sees at least itself), and so are its
+  gradients.
 
 The wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors, which
-takes (D, DV) of :data:`FLASH_SHAPES` (64, 96, 128, MLA's 192 over 128 and
-gemma3-12b's 256, in fp32 and bf16; any other pair raises), and runs
+takes (D, DV) of :data:`FLASH_SHAPES` (the reduced configs' 16, 24, 24
+over 16 and 32, the published 64, 96, 128, MLA's 192 over 128 and
+gemma3-12b's 256, in fp32 and bf16, with or without a cap; MLA's pair
+takes none, as MLA passes none; any other pair raises), and runs
 :func:`flash_attention_plain` for CPU tensors (and for meta tensors, whose
 operations the dry run counts). ``LAUNCHES_BY_SHAPE``
-breaks the kernel's launch count down by (D, DV) and causality, beside
-``build.LAUNCHES["flash_attention"]``. ``q_block`` and ``kv_block``
+breaks the kernel's launch count down by (D, DV), causality and the cap,
+beside ``build.LAUNCHES["flash_attention"]``. ``q_block`` and ``kv_block``
 are the TPU kernel's tile sizes; they are accepted for its signature and
 not needed: S need not divide by them.
 
@@ -45,8 +51,12 @@ from .descriptor_copy import stream_of
 
 NEG_INF = -1e30
 #: (query/key head dim, value head dim) pairs the CUDA kernel is
-#: instantiated for: 96 is phi-3-vision's, 192/128 MLA's, 256 gemma3-12b's.
-FLASH_SHAPES = ((64, 64), (96, 96), (128, 128), (192, 128), (256, 256))
+#: instantiated for: 16, 24, 24/16 (MLA's reduced) and 32 are the reduced
+#: configs', 96 phi-3-vision's, 192/128 MLA's, 256 gemma3-12b's.
+FLASH_SHAPES = ((16, 16), (24, 24), (24, 16), (32, 32), (64, 64), (96, 96),
+                (128, 128), (192, 128), (256, 256))
+#: The pair whose kernels take no logit softcap: MLA's, which passes none.
+NO_SOFTCAP_SHAPES = ((192, 128),)
 #: Kernel launches by shape key (:func:`shape_key`).
 LAUNCHES_BY_SHAPE: Counter = Counter()
 #: Backward kernel launches by design (:func:`bwd_design`).
@@ -54,7 +64,7 @@ LAUNCHES_BY_DESIGN: Counter = Counter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(q, k, v, window, api: str):
+def _check(q, k, v, window, api: str, softcap: Optional[float] = None):
     """Shapes, dtypes and devices the kernel takes; returns the geometry."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -81,6 +91,8 @@ def _check(q, k, v, window, api: str):
                          f"{tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"{api}: window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{api}: softcap must be > 0, got {softcap}")
     return b, sq, h, d, sk, kvh
 
 
@@ -97,10 +109,21 @@ def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
     return ok
 
 
-def shape_key(d: int, dv: int, causal: bool) -> str:
+def shape_key(d: int, dv: int, causal: bool,
+              softcap: Optional[float] = None) -> str:
     """The key of one launch shape in :data:`LAUNCHES_BY_SHAPE`."""
     dims = str(d) if d == dv else f"{d}/{dv}"
-    return f"{dims} {'causal' if causal else 'non-causal'}"
+    key = f"{dims} {'causal' if causal else 'non-causal'}"
+    return key if softcap is None else f"{key} softcap"
+
+
+def _capped(s: torch.Tensor, softcap: Optional[float]):
+    """``(capped scores, tanh(s / c))`` of fp32 scores ``s``, the second
+    None without a cap."""
+    if softcap is None:
+        return s, None
+    t = torch.tanh(s / softcap)
+    return t * softcap, t
 
 
 def bwd_design(d: int, dv: int, dtype) -> str:
@@ -123,12 +146,15 @@ def bwd_scratch_floats(b: int, sq: int, h: int) -> int:
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None,
+                          softcap: Optional[float] = None,
                           return_lse: bool = False):
     """Plain-PyTorch :func:`flash_attention` (same rules, any D and DV,
     any device): the full fp32 score matrix, one batch element at a time.
-    With ``return_lse`` also each row's log-sum-exp of the scaled scores,
-    (B, H, Sq) fp32 (about -1e30 for a row with no visible key)."""
-    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention_plain")
+    With ``return_lse`` also each row's log-sum-exp of the scaled (and
+    capped) scores, (B, H, Sq) fp32 (about -1e30 for a row with no visible
+    key)."""
+    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention_plain",
+                                  softcap)
     g, dv = h // kvh, v.shape[-1]
     out = q.new_empty((b, sq, h, dv))
     lse = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
@@ -140,7 +166,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     for bi in range(b):
         qf = q[bi].float().view(sq, kvh, g, d)
         kf, vf = k[bi].float(), v[bi].float()
-        s = torch.einsum("qkgd,skd->kgqs", qf, kf) * d ** -0.5
+        s, _ = _capped(torch.einsum("qkgd,skd->kgqs", qf, kf) * d ** -0.5,
+                       softcap)
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m) * mask
@@ -155,7 +182,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
                                    causal: bool = True,
-                                   window: Optional[int] = None):
+                                   window: Optional[int] = None,
+                                   softcap: Optional[float] = None):
     """Plain-PyTorch gradient of :func:`flash_attention`: ``(dq, dk, dv)``
     in the inputs' dtypes from the forward's ``out`` and ``lse`` and the
     upstream ``dout``. The explicit math, in fp32, one batch element at a
@@ -163,11 +191,14 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
     D = rowsum(P * dP) / rowsum(P) (rowsum(dO * O) with O unrounded, as
     rowsum(P) is 1: from the bf16 output it would be off by 2**-9 of
     |dO||O|, and a row of dS must sum to 0), dV = P^T dO, dS = P * (dP - D), dQ = dS K * scale, dK = dS^T Q
-    * scale, dK and dV summed over the query heads of each KV head. A row
-    with no visible key has P = 0: zero gradients. ``out`` is checked for
-    its shape only."""
+    * scale, dK and dV summed over the query heads of each KV head. With a
+    ``softcap`` c, S is the capped c tanh(S / c) in P, and dS is further
+    multiplied by the cap's derivative (1 - t)(1 + t), t = tanh(S / c),
+    as autodiff of the reference's tanh gives it. A row with no visible
+    key has P = 0: zero gradients. ``out`` is checked for its shape
+    only."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window,
-                                  "flash_attention_backward_plain")
+                                  "flash_attention_backward_plain", softcap)
     g, dv_dim = h // kvh, v.shape[-1]
     if out.shape != (b, sq, h, dv_dim) or dout.shape != out.shape \
             or lse.shape != (b, h, sq):
@@ -185,13 +216,16 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
             qf = q[bi].float().view(sq, kvh, g, d)
             kf, vf = k[bi].float(), v[bi].float()
             gf = dout[bi].float().view(sq, kvh, g, dv_dim)
-            s = torch.einsum("qkgd,skd->kgqs", qf, kf) * scale
+            s, t = _capped(torch.einsum("qkgd,skd->kgqs", qf, kf) * scale,
+                           softcap)
             row_lse = lse[bi].float().view(kvh, g, sq)[..., None]
             p = torch.where(mask, torch.exp(s - row_lse), 0.0)
             dp = torch.einsum("qkgd,skd->kgqs", gf, vf)
             delta = (p * dp).sum(-1, keepdim=True) \
                 / p.sum(-1, keepdim=True).clamp_min(1e-30)
             ds = p * (dp - delta)
+            if t is not None:
+                ds = ds * ((1 - t) * (1 + t))
             dv[bi] = torch.einsum("kgqs,qkgd->skd", p, gf)
             dk[bi] = torch.einsum("kgqs,qkgd->skd", ds, qf) * scale
             dq[bi] = (torch.einsum("kgqs,skd->qkgd", ds, kf)
@@ -199,30 +233,40 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel_inputs(api: str, d: int, dv: int, *tensors) -> None:
+def _kernel_inputs(api: str, d: int, dv: int, softcap: Optional[float],
+                   *tensors) -> None:
     """What the CUDA kernels take beyond :func:`_check`."""
     if (d, dv) not in FLASH_SHAPES:
         raise ValueError(f"{api}: the CUDA kernel takes head dims "
                          f"(D, DV) of {FLASH_SHAPES}, got ({d}, {dv})")
+    if softcap is not None and (d, dv) in NO_SOFTCAP_SHAPES:
+        raise ValueError(f"{api}: the CUDA kernel takes no softcap at head "
+                         f"dims ({d}, {dv})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{api}: every input must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{api}: every input must be 16-byte aligned")
 
 
+def _cap_arg(softcap: Optional[float]) -> float:
+    """The launch functions' softcap: 0 for none."""
+    return 0.0 if softcap is None else float(softcap)
+
 def _forward(q, k, v, causal: bool, window: Optional[int],
-             with_lse: bool):
+             with_lse: bool, softcap: Optional[float] = None):
     """``(out, lse)`` of the forward, ``lse`` None unless ``with_lse``:
     the kernel on the card, the plain version on the CPU (or meta)."""
-    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention")
+    b, sq, h, d, sk, kvh = _check(q, k, v, window, "flash_attention",
+                                  softcap)
     dv = v.shape[-1]
     if plain_device(q):
         if with_lse:
             return flash_attention_plain(q, k, v, causal=causal,
-                                         window=window, return_lse=True)
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     window=window), None
-    _kernel_inputs("flash_attention", d, dv, q, k, v)
+                                         window=window, softcap=softcap,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap), None
+    _kernel_inputs("flash_attention", d, dv, softcap, q, k, v)
     out = q.new_empty((b, sq, h, dv))
     lse = None
     if with_lse:   # every row is written by the kernel when there are keys
@@ -236,22 +280,25 @@ def _forward(q, k, v, causal: bool, window: Optional[int],
                out.data_ptr(), None if lse is None else lse.data_ptr(),
                b, sq, sk, h, kvh, d, dv, int(causal),
                0 if window is None else int(window), _DTYPE_CODE[q.dtype],
-               stream_of(q.device))
-    LAUNCHES_BY_SHAPE[shape_key(d, dv, causal)] += 1
+               _cap_arg(softcap), stream_of(q.device))
+    LAUNCHES_BY_SHAPE[shape_key(d, dv, causal, softcap)] += 1
     return out, lse
 
 
+
 def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
-                             window: Optional[int] = None):
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None):
     """``(dq, dk, dv)`` of :func:`flash_attention`: the backward kernel for
     CUDA tensors, :func:`flash_attention_backward_plain` for CPU tensors.
     Deterministic on the card: two calls on the same inputs agree bit for
     bit."""
     b, sq, h, d, sk, kvh = _check(q, k, v, window,
-                                  "flash_attention_backward")
+                                  "flash_attention_backward", softcap)
     if plain_device(q):
         return flash_attention_backward_plain(q, k, v, out, lse, dout,
-                                              causal=causal, window=window)
+                                              causal=causal, window=window,
+                                              softcap=softcap)
     dv_dim = v.shape[-1]
     if out.shape != (b, sq, h, dv_dim) or dout.shape != out.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -260,8 +307,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_backward: lse must be "
                          f"{(b, h, sq)} float32")
-    _kernel_inputs("flash_attention_backward", d, dv_dim, q, k, v, out,
-                   dout, lse)
+    _kernel_inputs("flash_attention_backward", d, dv_dim, softcap, q, k, v,
+                   out, dout, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if dq.numel() + dk.numel() + dv.numel() == 0:
@@ -274,7 +321,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
                scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                dv.data_ptr(), b, sq, sk, h, kvh, d, dv_dim, int(causal),
                0 if window is None else int(window), _DTYPE_CODE[q.dtype],
-               stream_of(q.device))
+               _cap_arg(softcap), stream_of(q.device))
     LAUNCHES_BY_DESIGN[bwd_design(d, dv_dim, q.dtype)] += 1
     return dq, dk, dv
 
@@ -286,10 +333,12 @@ class FlashAttentionFn(torch.autograd.Function):
     (the kernel on the card, the plain math on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                softcap: Optional[float] = None):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                            softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -300,17 +349,19 @@ class FlashAttentionFn(torch.autograd.Function):
         # copies nothing there; another caller's strided dout is copied.
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, q_block: int = 128,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_block: int = 128,
                     kv_block: int = 128) -> torch.Tensor:
     """Attention of q over k, v (see the module). ``q_block`` and
     ``kv_block`` are accepted for the TPU kernel's signature only."""
-    _check(q, k, v, window, "flash_attention")
+    _check(q, k, v, window, "flash_attention", softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, with_lse=False,
+                    softcap=softcap)[0]

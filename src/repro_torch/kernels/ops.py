@@ -33,10 +33,11 @@ def quantize_copy_op(src_idx, dst_idx, src, dst):
     return quantize_copy(src_idx, dst_idx, src, dst)
 
 
-def flash_attention_op(q, k, v, *, causal=True, window=None,
+def flash_attention_op(q, k, v, *, causal=True, window=None, softcap=None,
                        q_block=128, kv_block=128):
     return flash_attention(q, k, v, causal=causal, window=window,
-                           q_block=q_block, kv_block=kv_block)
+                           softcap=softcap, q_block=q_block,
+                           kv_block=kv_block)
 
 
 def paged_attention_op(q, k_pages, v_pages, block_tables, lengths):

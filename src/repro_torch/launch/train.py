@@ -2,7 +2,7 @@
 process mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
-        --reduced --device cpu [--steps 100] [--ckpt-dir DIR]
+        --reduced [--device cpu] [--steps 100] [--ckpt-dir DIR]
     # a world of ranks (one process a mesh position), e.g. 2 on the CPU:
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
@@ -11,9 +11,11 @@ process mesh.
 
 Without ``--reduced`` it trains the published config at full width, with
 random weights drawn by ``init_params`` on ``--device`` (``cuda`` unless
-given); ``--layers N`` cuts its depth (the reduced configs' head dim of
-16 has no flash kernel on the card, so a short run there keeps the
-published widths and cuts the depth). The reference's multi-host flags
+given); ``--layers N`` cuts its depth. ``--reduced`` runs on the card as
+on the CPU: the flash kernels take the reduced configs' head dims. The
+data pipeline makes no encoder frames, so the encoder-decoder
+(seamless-m4t-medium) does not train here, as in the reference's
+launcher. The reference's multi-host flags
 (ROADMAP Queue A item 15(d)): ``--distributed-init`` joins the world
 ``torch.distributed.run`` describes in the environment (NCCL on
 ``cuda``, one card a process by ``LOCAL_RANK``; gloo on ``cpu``);

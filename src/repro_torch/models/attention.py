@@ -3,13 +3,14 @@
 Train/prefill attention runs the core through
 :func:`repro_torch.kernels.ops.flash_attention_op`: the hand-written CUDA
 flash kernel on the card, its plain version on the CPU. The kernel takes
-positions that count from 0 (what ``model.forward`` builds), no logit
-softcap, and the head dims of ``FLASH_SHAPES`` (64, 96, 128, MLA's 192
-over values of 128, and gemma3-12b's 256), which cover every registered
-config. Anything else runs :func:`blockwise_attention`
-(the flash schedule in plain PyTorch) on the CPU and raises
-``NotImplementedError`` on the card: nothing on the card gives way quietly
-to a plain version.
+positions that count from 0 (what ``model.forward`` builds), the config's
+logit softcap, and the head dims of ``FLASH_SHAPES`` (the reduced
+configs' 16, 24, MLA's 24 over 16 and 32; the published 64, 96, 128,
+MLA's 192 over values of 128, and gemma3-12b's 256), which cover every
+registered config, published and reduced. Anything else runs
+:func:`blockwise_attention` (the flash schedule in plain PyTorch) on the
+CPU and raises ``NotImplementedError`` on the card: nothing on the card
+gives way quietly to a plain version.
 
 Decode attends one new token per row against a dense-view cache with
 per-slot position tags (:class:`KVCacheView`): slot = pos % cache_len, so
@@ -261,8 +262,6 @@ def _kernel_gap(cfg: ModelConfig, positions, head_dim: int,
     """What keeps the flash kernel from this call on the card, or None.
     ``v_head_dim`` defaults to ``head_dim``."""
     dv = head_dim if v_head_dim is None else v_head_dim
-    if _softcap(cfg) is not None:
-        return "a logit softcap in the flash kernel"
     if not _counts_from_zero(positions):
         return "positions that do not count from 0 in the flash kernel"
     if (head_dim, dv) not in FLASH_SHAPES:
@@ -280,7 +279,8 @@ def _core(q, k, v, positions, cfg: ModelConfig, *, causal: bool,
     gap = _kernel_gap(cfg, positions, q.shape[-1], v.shape[-1])
     cpu = q.device.type == "cpu"
     if gap is None or (cpu and gap.startswith("head dim")):
-        return ops.flash_attention_op(q, k, v, causal=causal, window=window)
+        return ops.flash_attention_op(q, k, v, causal=causal, window=window,
+                                      softcap=_softcap(cfg))
     if cpu:
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    q_positions=positions,

@@ -670,6 +670,112 @@ def test_cuda_flash_attention_head256_matches_plain(
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+#: The reduced configs' head dims (D, DV) with the rest of a case: B, S or
+#: (Sq, Sk), H, KV, causal, window. gemma3-12b's reduced window of 16
+#: crosses tile edges; G 1 and G > 1; MLA's reduced 24 over 16.
+FLASH_NARROW_CASES = [
+    (16, 16, 2, 200, 8, 2, True, None),     # qwen2.5-3b's reduced heads
+    (16, 16, 1, (64, 300), 4, 4, False, None),
+    (24, 24, 2, 300, 4, 2, True, 16),       # gemma3-12b's reduced window
+    (24, 24, 1, 333, 4, 4, False, None),
+    (24, 16, 2, 200, 4, 4, True, None),     # deepseek-v2's reduced MLA
+    (24, 16, 1, (64, 150), 4, 4, False, None),
+    (32, 32, 2, 257, 8, 4, True, None),     # qwen3-14b's reduced heads
+    (32, 32, 1, 300, 4, 4, True, 100),
+]
+#: Logit softcaps: none, one that barely bites at a random init's scores,
+#: one that makes the cap's derivative matter.
+SOFTCAPS = [None, 50.0, 5.0]
+
+
+def _flash_inputs(cuda, dtype, b, s, h, kv, d, dv, seed, q_scale=1):
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn((b, sq, h, d), generator=g) * q_scale).to(dtype) \
+        .to(cuda)
+    k = torch.randn((b, sk, kv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, sk, kv, dv), generator=g).to(dtype).to(cuda)
+    return q, k, v
+
+
+def _hold_flash_forward(cuda, dtype, tol, case, softcap, q_scale=1):
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES_BY_SHAPE, flash_attention, flash_attention_plain, shape_key)
+    d, dv, b, s, h, kv, causal, window = case
+    q, k, v = _flash_inputs(cuda, dtype, b, s, h, kv, d, dv, d + h + b,
+                            q_scale)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    key = shape_key(d, dv, causal, softcap)
+    before = (build.launch_counts()["flash_attention"],
+              LAUNCHES_BY_SHAPE[key])
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+    torch.cuda.synchronize()
+    assert (build.launch_counts()["flash_attention"],
+            LAUNCHES_BY_SHAPE[key]) == (before[0] + 1, before[1] + 1)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("softcap", SOFTCAPS)
+@pytest.mark.parametrize("case", FLASH_NARROW_CASES)
+def test_cuda_flash_attention_narrow_heads_match_plain(cuda, dtype, tol,
+                                                       case, softcap):
+    """The reduced configs' heads of 16, 24, 24 over 16 and 32 (one box
+    that TMA zero-fills past D on the tensor cores; V's columns padded to
+    32 on the CUDA cores), with and without a logit softcap, against the
+    plain version, the launch counted under its shape."""
+    _hold_flash_forward(cuda, dtype, tol, case, softcap)
+
+
+#: The published head dims under a cap: (D, DV), B, S, H, KV, causal,
+#: window, q scale (large logits: the cap bounds them).
+FLASH_CAP_CASES = [
+    ((64, 64, 2, 300, 8, 2, True, None), 1),
+    ((96, 96, 1, 333, 8, 8, True, 100), 1),
+    ((128, 128, 2, 512, 16, 2, True, None), 8),
+    ((128, 128, 1, (64, 300), 8, 2, False, None), 1),
+    ((256, 256, 1, 777, 8, 4, True, 100), 1),
+    ((256, 256, 2, 300, 4, 2, False, None), 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("softcap", [50.0, 5.0])
+@pytest.mark.parametrize("case,q_scale", FLASH_CAP_CASES)
+def test_cuda_flash_attention_softcap_matches_plain(cuda, dtype, tol, case,
+                                                    q_scale, softcap):
+    """The logit softcap at the published head dims against the plain
+    version: c tanh(s / c) before the mask, the log-sum-exp of the capped
+    scores."""
+    _hold_flash_forward(cuda, dtype, tol, case, softcap, q_scale)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_a_cap_at_mla_heads(cuda):
+    """MLA's (192, 128) takes no softcap (MLA passes none): the wrappers
+    raise rather than launch."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention, flash_attention_backward)
+    q = torch.zeros((1, 16, 2, 192), device=cuda)
+    v = torch.zeros((1, 16, 2, 128), device=cuda)
+    before = dict(build.launch_counts())
+    with pytest.raises(ValueError, match="softcap"):
+        flash_attention(q, q, v, softcap=5.0)
+    out, lse = _forward(q, q, v, True, None, with_lse=True)
+    with pytest.raises(ValueError, match="softcap"):
+        flash_attention_backward(q, q, v, out, lse, out, softcap=5.0)
+    after = build.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_other_head_dims(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
@@ -682,17 +788,15 @@ def test_cuda_flash_attention_rejects_other_head_dims(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["softcap", "positions", "head dim"])
+@pytest.mark.parametrize("what", ["positions", "head dim"])
 def test_cuda_attention_raises_rather_than_falling_back(cuda, what):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.attention import attention, init_attention
     cfg = dataclasses.replace(get_config("dbrx-132b", reduced=True),
                               head_dim=64)
-    if what == "softcap":
-        cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
-    elif what == "head dim":
-        cfg = dataclasses.replace(cfg, head_dim=16)
+    if what == "head dim":
+        cfg = dataclasses.replace(cfg, head_dim=80)
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = init_attention(gen, cfg, cuda)
     x = torch.randn((1, 32, cfg.d_model), device=cuda).to(cfg.cdtype)
@@ -703,6 +807,45 @@ def test_cuda_attention_raises_rather_than_falling_back(cuda, what):
     with pytest.raises(NotImplementedError, match=what):
         attention(params, x, pos, cfg)
     assert build.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 64])
+def test_cuda_capped_attention_matches_plain(cuda, head_dim):
+    """A config with a logit softcap runs its attention through the flash
+    kernel on the card (the reduced head dim of 16 and 64), forward and
+    backward, and matches the same layer with the plain flash."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import attention, init_attention
+    cfg = dataclasses.replace(get_config("dbrx-132b", reduced=True),
+                              head_dim=head_dim, attn_logit_softcap=5.0,
+                              compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_attention(gen, cfg, cuda)
+    x = torch.randn((2, 96, cfg.d_model), device=cuda, requires_grad=True)
+    pos = torch.arange(96, device=cuda, dtype=torch.int32)[None] \
+        .expand(2, 96)
+    before = dict(build.launch_counts())
+    got = attention(params, x, pos, cfg)
+    (dx,) = torch.autograd.grad(got.square().sum(), x)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    real = ops.flash_attention_op
+    ops.flash_attention_op = lambda q, k, v, **kw: \
+        flash_attention_plain(q, k, v, causal=kw["causal"],
+                              window=kw["window"], softcap=kw["softcap"])
+    try:
+        want = attention(params, x, pos, cfg)
+        (dx_want,) = torch.autograd.grad(want.square().sum(), x)
+    finally:
+        ops.flash_attention_op = real
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx, dx_want, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -935,6 +1078,27 @@ FLASH_BWD_CASES = [
     (1, 256, 8, 8, 192, 128, False, None),     # MLA, not causal
     (2, (128, 333), 8, 8, 192, 128, False, None),  # MLA, Sk 333
     (1, 200, 8, 2, 192, 128, True, None),      # MLA, summed over G 4
+    (2, 200, 8, 2, 16, 16, True, None),        # the reduced configs' heads
+    (1, (64, 150), 4, 4, 16, 16, False, None),
+    (2, 300, 4, 2, 24, 24, True, 16),          # gemma3-12b's reduced window
+    (1, 129, 4, 4, 24, 24, False, None),
+    (2, 200, 4, 4, 24, 16, True, None),        # deepseek-v2's reduced MLA
+    (1, (100, 150), 4, 4, 24, 16, False, 32),
+    (2, 257, 8, 4, 32, 32, True, None),        # qwen3-14b's reduced heads
+    (1, 300, 4, 4, 32, 32, True, 100),
+]
+#: Capped backward cases (every pair but MLA's 192/128, which takes no
+#: cap): B, S or (Sq, Sk), H, KV, D, DV, causal, window.
+FLASH_BWD_CAP_CASES = [
+    (2, 200, 8, 2, 16, 16, True, None),
+    (2, 300, 4, 2, 24, 24, True, 16),
+    (2, 200, 4, 4, 24, 16, True, None),
+    (1, (64, 150), 4, 4, 32, 32, False, None),
+    (2, 128, 16, 2, 128, 128, True, None),
+    (1, 130, 4, 4, 96, 96, True, 100),
+    (2, 100, 4, 2, 64, 64, False, 16),
+    (1, 256, 4, 2, 256, 256, True, None),
+    (2, 200, 4, 4, 256, 256, True, 64),
 ]
 
 
@@ -985,6 +1149,48 @@ def test_cuda_flash_attention_backward_matches_plain(
     assert sum(LAUNCHES_BY_DESIGN.values()) == sum(by_design.values()) + 2
     if dtype == torch.bfloat16:
         assert design == "tensor_core"
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert x.dtype == dtype and x.shape == y.shape
+        assert torch.equal(x, z), f"d{name} differs between launches"
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("softcap", [50.0, 5.0])
+@pytest.mark.parametrize("b,s,h,kv,d,dv,causal,window", FLASH_BWD_CAP_CASES)
+def test_cuda_flash_attention_backward_softcap_matches_plain(
+        cuda, dtype, tol, b, s, h, kv, d, dv, causal, window, softcap):
+    """The backward under a logit softcap (P from the capped scores, dS
+    times the cap's derivative) against ``flash_attention_backward_plain``
+    within ``tol`` of each reference's largest entry, the forward's
+    log-sum-exp (of the capped scores) against the plain one, two launches
+    bit-identical."""
+    from repro_torch.kernels.flash_attention import (
+        _forward, flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_plain)
+    q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, h, kv, d, dv, h + d + 1)
+    q = q * 4          # scores of order 10: the cap bites
+    out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                        softcap=softcap)
+    _, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        return_lse=True)
+    seen = want_lse > -1e29
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-4,
+                               atol=1e-4)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal, window=window,
+                                          softcap=softcap)
+    before = build.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window, softcap=softcap)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flash_attention_bwd"] == before + 2
     for name, x, y, z in zip("qkv", got, want, again):
         assert x.dtype == dtype and x.shape == y.shape
         assert torch.equal(x, z), f"d{name} differs between launches"

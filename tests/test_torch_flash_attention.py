@@ -205,8 +205,8 @@ def test_attention_layer_matches_jax(arch, kind, replace):
 
 
 def test_attention_routes_the_core():
-    """The flash op takes positions from 0 without a softcap; the rest runs
-    the blockwise schedule on the CPU (and raises on the card)."""
+    """The flash op takes positions from 0, with or without a softcap; the
+    rest runs the blockwise schedule on the CPU (and raises on the card)."""
     _, tcfg, _, tparams = _layer("dbrx-132b", "float32")
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (1, 16, tcfg.d_model)).astype(np.float32))
@@ -223,12 +223,13 @@ def test_attention_routes_the_core():
         tattn.attention(tparams, x, pos, tcfg)
         assert len(calls) == 1
         tattn.attention(tparams, x, pos + 3, tcfg)
+        assert len(calls) == 1
         capped = dataclasses.replace(tcfg, attn_logit_softcap=10.0)
         tattn.attention(tparams, x, pos, capped)
-        assert len(calls) == 1
+        assert len(calls) == 2
     finally:
         ops.flash_attention_op = real
-    assert tattn._kernel_gap(capped, pos, 128).startswith("a logit softcap")
+    assert tattn._kernel_gap(capped, pos, 128) is None
     assert tattn._kernel_gap(tcfg, pos + 3, 128).startswith("positions")
     assert tattn._kernel_gap(tcfg, pos, 80).startswith("head dim 80")
     assert tattn._kernel_gap(tcfg, pos, 192).startswith("head dim 192")

@@ -164,10 +164,13 @@ def test_no_grad_forward_keeps_nothing():
 
 
 #: The backward kernel's design by (D, DV) and dtype, as PERF.md states it:
-#: bf16 on the tensor cores at every pair (MLA's (192, 128) and gemma3-12b's
+#: bf16 on the tensor cores at every pair (the reduced configs' narrow
+#: heads in one zero-filled box, MLA's (192, 128) and gemma3-12b's
 #: (256, 256) through dK/dV kernels of their own), fp32 (exact sums) on the
 #: CUDA cores.
-DESIGNS = {(64, 64): "tensor_core", (96, 96): "tensor_core",
+DESIGNS = {(16, 16): "tensor_core", (24, 24): "tensor_core",
+           (24, 16): "tensor_core", (32, 32): "tensor_core",
+           (64, 64): "tensor_core", (96, 96): "tensor_core",
            (128, 128): "tensor_core", (192, 128): "tensor_core",
            (256, 256): "tensor_core"}
 
