@@ -3481,20 +3481,24 @@ def flash_bwd_work(q, k, v, causal: bool, window) -> tuple:
 
 
 #: The backward's kernels by name: the tensor-core design's (bf16 only;
-#: ``dkdv_mla_kernel`` at MLA's (192, 128)) first, then the CUDA-core
-#: design's (fp32 only).
+#: ``dkdv_mla_kernel`` at MLA's (192, 128), the ``_narrow`` kernels at the
+#: reduced configs' 16 to 32) first, then the CUDA-core design's (fp32
+#: only).
 BWD_TC_KERNELS = ("dkdv_mla_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
-                  "dkdv_256_kernel", "dq_256_kernel", "lse_kernel")
+                  "dkdv_256_kernel", "dq_256_kernel", "dkdv_narrow_kernel",
+                  "dq_narrow_kernel", "lse_kernel")
+#: The head-dim pairs of the narrow kernels.
+NARROW_DIMS = ("16/16", "24/24", "24/16", "32/32")
 BWD_KERNELS = BWD_TC_KERNELS + ("dkdv_kernel", "dq_kernel", "delta_kernel")
 
 
 def bwd_kernel(name: str) -> str:
     """A backward kernel's short name from its profiled (demangled) or
-    ptxas (mangled) name; the Delta passes of ``dq_tc_kernel`` and
-    ``dq_256_kernel`` (their ``true`` instantiations) apart from the dQ
-    kernels."""
+    ptxas (mangled) name; the Delta passes of ``dq_tc_kernel``,
+    ``dq_256_kernel`` and ``dq_narrow_kernel`` (their ``true``
+    instantiations) apart from the dQ kernels."""
     kind = next((k for k in BWD_KERNELS if k in name), name[:60])
-    if kind in ("dq_tc_kernel", "dq_256_kernel") \
+    if kind in ("dq_tc_kernel", "dq_256_kernel", "dq_narrow_kernel") \
             and ("true>" in name or "Lb1E" in name):
         return kind.replace("dq_", "delta_pass_")
     return kind
@@ -3710,10 +3714,11 @@ def check_flash_backward(torch, np, dev, rng) -> dict:
 def check_bwd_ptxas(ptxas: dict) -> None:
     """No tensor-core backward kernel spills; where the library was built
     in this run, every bf16 head-dim pair has its tensor-core kernels,
-    MLA's (192, 128) and (256, 256) their own, and no CUDA-core kernel is
-    built for bf16."""
+    MLA's (192, 128), (256, 256) and the narrow pairs (NARROW_DIMS) their
+    own, and no CUDA-core kernel is built for bf16."""
     tensor_core = BWD_TC_KERNELS + ("delta_pass_tc_kernel",
-                                    "delta_pass_256_kernel")
+                                    "delta_pass_256_kernel",
+                                    "delta_pass_narrow_kernel")
     spills = {k_: p for k_, p in ptxas.items()
               if p.get("spill_store_bytes")}
     if any(k_.startswith(tensor_core) for k_ in spills):
@@ -3724,9 +3729,11 @@ def check_bwd_ptxas(ptxas: dict) -> None:
             "delta_pass_tc_kernel_bf16_192/128",
             "dkdv_256_kernel_bf16_256/256", "dq_256_kernel_bf16_256/256",
             "delta_pass_256_kernel_bf16_256/256"} | {
-        f"{k_}_bf16_{d}" for d in ("16/16", "24/24", "24/16", "32/32",
-                                   "64/64", "96/96", "128/128")
-        for k_ in ("dkdv_tc_kernel", "dq_tc_kernel", "delta_pass_tc_kernel")}
+        f"{k_}_bf16_{d}" for d in ("64/64", "96/96", "128/128")
+        for k_ in ("dkdv_tc_kernel", "dq_tc_kernel", "delta_pass_tc_kernel")
+    } | {f"{k_}_bf16_{d}" for d in NARROW_DIMS
+         for k_ in ("dkdv_narrow_kernel", "dq_narrow_kernel",
+                    "delta_pass_narrow_kernel")}
     cuda_core_bf16 = [k_ for k_ in ptxas if k_.rsplit("_", 2)[1] == "bf16"
                       and not k_.startswith(tensor_core)]
     if want - set(ptxas) or cuda_core_bf16:
@@ -5509,7 +5516,11 @@ def collective_path(torch, np, smi: str, seed: int) -> dict:
 #: (t1) The reduced configs' head dims against the plain versions, each
 #: without a cap and under T_CAPS: B, S or (Sq, Sk), H, KV, D, DV, causal,
 #: window. gemma3-12b's reduced window of 16 crosses tile edges; G 1 and
-#: G > 1; deepseek-v2-236b's reduced MLA heads of 24 over 16.
+#: G > 1; deepseek-v2-236b's reduced MLA heads of 24 over 16. The last
+#: eight cross the narrow kernels' tiles (128 keys a dK/dV block, 128
+#: queries a pair and a dQ block, 128 keys a dQ stage): S and Sk not
+#: multiples of 128 (2,085, 129, 255), Sq != Sk, G 1, 4 and 8, windows of
+#: 16 and 100.
 T_NARROW_CASES = [
     (2, 200, 8, 2, 16, 16, True, None),       # qwen2.5-3b's reduced heads
     (1, (64, 300), 4, 4, 16, 16, False, None),
@@ -5519,6 +5530,14 @@ T_NARROW_CASES = [
     (1, (100, 150), 4, 4, 24, 16, False, 32),
     (2, 257, 8, 4, 32, 32, True, None),       # qwen3-14b's reduced heads
     (1, 300, 4, 4, 32, 32, True, 100),
+    (1, 2085, 8, 1, 16, 16, True, None),      # G 8 over 17 tiles
+    (2, (129, 255), 4, 4, 16, 16, True, 16),
+    (1, (255, 129), 8, 2, 24, 24, False, None),
+    (1, 2085, 4, 1, 24, 24, True, 100),       # G 4
+    (2, 255, 4, 4, 24, 16, True, 16),         # G 1
+    (1, (129, 2085), 4, 4, 24, 16, False, 100),
+    (1, (255, 129), 8, 1, 32, 32, True, None),
+    (2, 129, 4, 2, 32, 32, True, 100),
 ]
 #: The cap at the published head dims (MLA's 192/128 takes none).
 T_CAP_CASES = [
@@ -5732,6 +5751,65 @@ def time_flash_domain(torch, dev, smi: str) -> list:
     return rows
 
 
+def bwd_launch_lines(torch, dev, smi: str) -> None:
+    """Each kernel of one bf16 backward launch at T_TIMED's narrow S 2,048
+    shapes (the Delta pass, dK/dV, dQ), with its device time and its start
+    and end from the first kernel's, in microseconds: a
+    ``t_flash_bwd_launches`` line each."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_ab import kernel_timeline
+    from repro_torch.kernels.flash_attention import _forward, \
+        bwd_scratch_floats
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, b, s, h, kv, d, dv, window in T_TIMED:
+        if s < 2048 or d > 32:
+            continue
+        q, k, v, do = (torch.randn(shape, device=dev, generator=g)
+                       .to(torch.bfloat16)
+                       for shape in ((b, s, h, d), (b, s, kv, d),
+                                     (b, s, kv, dv), (b, s, h, dv)))
+        out, lse = _forward(q, k, v, True, window, with_lse=True)
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        scratch = torch.empty(bwd_scratch_floats(b, s, h),
+                              dtype=torch.float32, device=dev)
+        timeline = kernel_timeline(lambda: build.launch(
+            "flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            *(x.data_ptr() for x in grads), b, s, s, h, kv, d, dv, 1,
+            window or 0, 1, 0.0, stream))
+        log({"time": "t_flash_bwd_launches", "model": label, "B": b, "S": s,
+             "H": h, "KV": kv, "D": d, "DV": dv,
+             "device_us_start_end": [(bwd_kernel(name), us, start, end)
+                                     for name, us, start, end in timeline],
+             "card": smi})
+        del q, k, v, do, out, lse, grads, scratch
+
+
+def time_bwd_launches(smi: str) -> None:
+    """bwd_launch_lines in a process of its own on the card (the libraries
+    already built), its lines logged here: late in the smoke's process the
+    profiler comes back without the port's kernels, which a fresh process
+    returns. A measurement, not a check: where the profiler sees no kernel
+    (CUPTI refused), a line says so and the smoke goes on."""
+    code = ("import torch, chip_smoke as cs; "
+            f"cs.bwd_launch_lines(torch, torch.device('cuda', 0), {smi!r})")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=T_LAUNCHER_TIMEOUT)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith('{"time": "t_flash_bwd_launches"')]
+    for line in lines:
+        log(line)
+    if proc.returncode or not lines or not all(
+            ln["device_us_start_end"] for ln in lines):
+        log({"time": "t_flash_bwd_launches", "error": "no kernels seen",
+             "returncode": proc.returncode, "lines": len(lines),
+             "stderr_tail": proc.stderr[-1500:]})
+
+
 def reduced_model_run(torch, np, dev, rng, seed: int, arch: str) -> dict:
     """(t3) One arch's reduced config on the card: the serving launcher (8
     requests, every one delivered), the training launcher (T_TRAIN_STEPS
@@ -5888,12 +5966,14 @@ def domain_path(torch, np, dev, rng, seed: int, smi: str) -> tuple:
     (t2) gemma3-12b at full width under a cap of T_SOFTCAP, prefilled as in
     (o) and trained as in (q); (t3) every registered arch's reduced config
     through the launchers on the card, and the training launcher in a
-    process of its own; then rows 7f-7i timed. Returns the launches of
+    process of its own; then rows 7f-7i timed (the backward's launches at
+    rows 7i's S 2,048 shapes first). Returns the launches of
     (t2) and (t3), flash's by shape, and the timing."""
     from collections import Counter
 
     from repro_torch.kernels.flash_attention import LAUNCHES_BY_SHAPE, \
         shape_key
+    time_bwd_launches(smi)
     t0 = time.perf_counter()
     worst = check_flash_domain(torch, np, dev, rng)
     log({"phase": "t1", "seconds": time.perf_counter() - t0})

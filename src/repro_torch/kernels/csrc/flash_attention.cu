@@ -65,11 +65,14 @@
 //   both operands read from shared memory through 128-byte-swizzle
 //   descriptors (K-major: a k16 step is 32 bytes into a box; the 8-row
 //   groups 1,024 bytes apart).
-// * Heads narrower than a box (16, 24, 32) take one box that the TMA unit
-//   zero-fills past D: the tensor map's rows are D long, so a head never
-//   reads its neighbour's columns. Q K^T runs ceil(D / 16) k16 steps, P V
-//   n64, and the epilogue stores DV columns: the layout of D 64, with up to
-//   4 times the products a narrow head needs.
+// * Heads narrower than a box (16, 24, 32) take one box as wide as the
+//   head: 16 columns (32-byte rows, 32-byte swizzle) or 32 (64-byte rows,
+//   64-byte swizzle), zero-filled by the TMA unit past 24 (the tensor map's
+//   rows are D long, so a head never reads its neighbour's columns). Q K^T
+//   runs ceil(D / 16) k16 steps, P V n16 or n32 (8 or 16 registers of O a
+//   thread), and the epilogue stores DV columns. A Q tile is 4 or 8 KB, a
+//   K or V tile as much: a quarter or half of D 64's, and so are the bytes
+//   P V reads of V.
 // * Online softmax in registers on the accumulator fragment: a thread owns
 //   2 rows, reduced over its quad with shuffles; exp2 on the special-function
 //   unit with D**-0.5 * log2(e) folded in. With a softcap each score is
@@ -336,24 +339,28 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kTcRows = 128;       // query rows per block: 2 warpgroups of 64
 constexpr int kTcStages = 2;       // K/V ring depth
 constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
-constexpr uint32_t kQBoxBytes = kTcRows * 128;  // one box of a Q tile
 constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
 
 // The tensor-core kernel's tiles for query/key head dim D and value head dim
-// DV: boxes of 64 columns (the last, or at D < 64 the only, one zero-filled
-// past D or DV), K/V tiles
-// of kKeys keys (128; 64 at D 256, where tiles of 128 would not fit), P V as
-// wide as the V boxes, and two query tiles a block where they fit.
+// DV: boxes of box_cols columns, K/V tiles of kKeys keys (128; 64 at D 256,
+// where tiles of 128 would not fit), P V as wide as the V boxes (n16 or n32
+// at a narrow DV), and two query tiles a block where they fit.
 template <int D, int DV>
 struct TcTiles {
   static constexpr int kKeys = D > 192 ? 64 : 128;  // keys per K/V tile
-  static constexpr int kQkBoxes = (D + kBoxCols - 1) / kBoxCols;
-  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
-  static constexpr int kPv = kVBoxes * kBoxCols;  // n of the P V product
-  static constexpr uint32_t kKvBox = kKeys * 128;        // one box of K or V
-  static constexpr uint32_t kQ = kQkBoxes * kQBoxBytes;  // a Q tile
-  static constexpr uint32_t kK = kQkBoxes * kKvBox;      // a K tile
-  static constexpr uint32_t kV = kVBoxes * kKvBox;       // a V tile
+  static constexpr int kCols = box_cols(D);         // columns of a Q/K box
+  static constexpr int kVCols = box_cols(DV);       // of a V box
+  static constexpr int kQkBoxes = (D + kCols - 1) / kCols;
+  static constexpr int kVBoxes = (DV + kVCols - 1) / kVCols;
+  static constexpr int kPv = kVBoxes * kVCols;  // n of the P V product
+  static constexpr uint32_t kRow = 2 * kCols;   // bytes of a box row
+  static constexpr uint32_t kVRow = 2 * kVCols;
+  static constexpr uint32_t kQBox = kTcRows * kRow;  // one box of a Q tile
+  static constexpr uint32_t kKBox = kKeys * kRow;    // one box of K
+  static constexpr uint32_t kVBox = kKeys * kVRow;   // one box of V
+  static constexpr uint32_t kQ = kQkBoxes * kQBox;   // a Q tile
+  static constexpr uint32_t kK = kQkBoxes * kKBox;   // a K tile
+  static constexpr uint32_t kV = kVBoxes * kVBox;    // a V tile
   // The K and V rings and 1 KB of alignment slack, beside the Q tiles.
   static constexpr size_t kRing =
       kTcStages * (static_cast<size_t>(kK) + kV) + 1024;
@@ -361,8 +368,9 @@ struct TcTiles {
       2 * static_cast<size_t>(kQ) + kRing <= kSmemMax ? 2 : 1;
   static constexpr size_t kSmem = kQTiles * static_cast<size_t>(kQ) + kRing;
   static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
-  static_assert(kPv == 64 || kPv == 128 || kPv == 256,
-                "P V is n64, n128 or two n128 halves");
+  static_assert(kPv == 16 || kPv == 32 || kPv == 64 || kPv == 128 ||
+                    kPv == 256,
+                "P V is n16, n32, n64, n128 or two n128 halves");
 };
 
 // At D 256 (kKeys 64) the consumer holds O's 128 registers a thread, and
@@ -374,12 +382,26 @@ struct TcTiles {
 // rows, the K tile at `k_s` in boxes of kKeys rows, both K-major in boxes of
 // 64 columns; a k16 step is 32 bytes into a box, steps 4..7 are in the
 // second box, 8..11 (D 192, 256) in the third and 12..15 (D 256) in the
-// fourth.
-template <int D, int kKeys>
+// fourth. A narrow head's one box of kCols columns: a step is 32 bytes into
+// its row.
+template <int D, int kKeys, int kCols = kBoxCols>
 __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
                                            uint32_t q_s, uint32_t k_s) {
   constexpr int kSteps = (D + 15) / 16;  // zeros past D add nothing
-  if constexpr (kKeys == 64) {
+  constexpr uint32_t kQBoxBytes = kTcRows * 128;
+  if constexpr (kCols < kBoxCols) {
+    static_assert(kKeys == 128, "a narrow head's K/V tiles are 128 keys");
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint64_t a = narrow_kmajor<2 * kCols>(q_s, kk);
+      const uint64_t b = narrow_kmajor<2 * kCols>(k_s, kk);
+      if (kk == 0) {
+        wgmma_m64n128k16_ss_first(s, a, b);
+      } else {
+        wgmma_m64n128k16_ss(s, a, b);
+      }
+    }
+  } else if constexpr (kKeys == 64) {
     const uint64_t qa = opaque(sw128_desc(q_s, 16, 1024));
     const uint64_t kb = opaque(sw128_desc(k_s, 16, 1024));
 #pragma unroll
@@ -413,13 +435,20 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
 // of 64 columns one box of kKeys rows on (the leading byte offset). N 256
 // (with kKeys 64) runs as two n128 halves, boxes 0-1 and 2-3: element
 // 64 + i of o is element i of the second half's fragment, as in an n256
-// one.
+// one. A narrow DV's one box of N (16 or 32) columns: n16 or n32, 16 rows
+// of 2 N bytes a step.
 template <int N, int kKeys>
 __device__ __forceinline__ void pv_product(float (&o)[N / 2],
                                            const uint32_t (&p)[kKeys / 4],
                                            uint32_t v_s) {
   constexpr uint32_t kBox = kKeys * 128;
-  if constexpr (N == 256) {
+  if constexpr (N < 64) {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_rs<N>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  narrow_mnmajor<2 * N>(v_s, kk));
+    }
+  } else if constexpr (N == 256) {
     const uint64_t vb = opaque(sw128_desc(v_s, kBox, 1024));
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
@@ -637,8 +666,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (sp.n_tiles == 0) continue;
       mbar_expect_tx(q_full(t), kQ);
       for (int c = 0; c < Tiles::kQkBoxes; ++c) {
-        tma_load_4d(q_s(t) + c * kQBoxBytes, &tq, q_full(t), c * kBoxCols, h,
-                    sp.q0, b);
+        tma_load_4d(q_s(t) + c * Tiles::kQBox, &tq, q_full(t),
+                    c * Tiles::kCols, h, sp.q0, b);
       }
     }
     int it = 0;
@@ -650,14 +679,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(k_empty(st), phase(it) ^ 1);  // the first round passes
         mbar_expect_tx(k_full(st), kK);
         for (int c = 0; c < Tiles::kQkBoxes; ++c) {
-          tma_load_4d(k_s(st) + c * Tiles::kKvBox, &tk, k_full(st),
-                      c * kBoxCols, kh, k0, b);
+          tma_load_4d(k_s(st) + c * Tiles::kKBox, &tk, k_full(st),
+                      c * Tiles::kCols, kh, k0, b);
         }
         mbar_wait(v_empty(st), phase(it) ^ 1);
         mbar_expect_tx(v_full(st), kV);
         for (int c = 0; c < Tiles::kVBoxes; ++c) {
-          tma_load_4d(v_s(st) + c * Tiles::kKvBox, &tv, v_full(st),
-                      c * kBoxCols, kh, k0, b);
+          tma_load_4d(v_s(st) + c * Tiles::kVBox, &tv, v_full(st),
+                      c * Tiles::kVCols, kh, k0, b);
         }
       }
     }
@@ -677,7 +706,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const Span sp = span(t);
     const int row_lo = sp.q0 + 64 * wg;
     const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
-    const uint32_t q_wg = q_s(t) + wg * 64 * 128;
+    const uint32_t q_wg = q_s(t) + wg * 64 * Tiles::kRow;
 
     float o[kPv / 2];
 #pragma unroll
@@ -692,7 +721,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(q_full(t), 0);
       mbar_wait(k_full(stage(it0)), phase(it0));
       wgmma_fence();
-      qk_product<D, kKeys>(s, q_wg, k_s(stage(it0)));
+      qk_product<D, kKeys, Tiles::kCols>(s, q_wg, k_s(stage(it0)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(s);
@@ -716,7 +745,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         hold(o);
         hold(p);
         wgmma_fence();
-        qk_product<D, kKeys>(s, q_wg, k_s(stage(it)));
+        qk_product<D, kKeys, Tiles::kCols>(s, q_wg, k_s(stage(it)));
         wgmma_commit();
         pv_product<kPv, kKeys>(o, p, v_s(stage(it - 1)));
         wgmma_commit();
@@ -797,9 +826,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
       sizeof(float) * (kBM * static_cast<size_t>(D + 4) +
                        kBN * static_cast<size_t>((D > kDVp ? D : kDVp) + 4) +
                        kBM * kPadP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err = smem_limit(
+      reinterpret_cast<const void*>(flash_attention_kernel<T, D, DV>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // D ** -0.5 as the reference computes it, in double, then rounded.
   const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
@@ -827,17 +855,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   CUtensorMap tq, tk, tv;
   // Contiguous tensors: strides of D (or DV) a head, then a row, a batch
   // (32 bytes and more: multiples of 16, as TMA wants). Boxes of 128 rows
-  // for Q, of the tiles' keys for K and V; of 64 columns, past a narrow
-  // head's D as past the tensor's edge.
+  // for Q, of the tiles' keys for K and V; of box_cols columns, zero-filled
+  // past the head's D as past the tensor's edge.
   const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh, int d,
-                       int rows) {
+                       int rows, int cols) {
     return encode_4d(m, p, batch, seq, nh, d, d,
                      static_cast<long long>(d) * nh,
-                     static_cast<long long>(d) * nh * seq, rows);
+                     static_cast<long long>(d) * nh * seq, rows, cols,
+                     swizzle_of(cols));
   };
-  if (!map(&tq, q, sq, heads, D, kTcRows) ||
-      !map(&tk, k, sk, kv_heads, D, Tiles::kKeys) ||
-      !map(&tv, v, sk, kv_heads, DV, Tiles::kKeys)) {
+  if (!map(&tq, q, sq, heads, D, kTcRows, Tiles::kCols) ||
+      !map(&tk, k, sk, kv_heads, D, Tiles::kKeys, Tiles::kCols) ||
+      !map(&tv, v, sk, kv_heads, DV, Tiles::kKeys, Tiles::kVCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scaling sc = make_scaling(D, softcap);
@@ -856,9 +885,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
                  static_cast<unsigned>(blocks_z));
   const auto run = [&](auto cap) {
     const auto kernel = flash_attention_tc_kernel<D, DV, decltype(cap)::value>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tiles::kSmem));
+    const cudaError_t err =
+        smem_limit(reinterpret_cast<const void*>(kernel), Tiles::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, kTcThreads, Tiles::kSmem, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,

@@ -41,10 +41,9 @@
 // kernels/flash_attention.py::bwd_design):
 //
 // Tensor cores: bf16 at every (D, DV), the reduced configs' (16, 16),
-// (24, 24), (24, 16) and (32, 32) (one box each, zero-filled past D by the
-// TMA unit: S and dP run ceil(D / 16) k16 steps, dK and dQ n64, and the
-// epilogues store D columns; the layout of D 64, with up to 4 times the
-// products a narrow head needs), (64, 64), (96, 96), (128, 128) (the
+// (24, 24), (24, 16) and (32, 32) (kernels of their own with boxes as wide
+// as the head and tiles of 128 along the sequence: dkdv_narrow_kernel and
+// dq_narrow_kernel, below the others'), (64, 64), (96, 96), (128, 128) (the
 // training path: qwen2.5-3b, qwen3-14b, starcoder2-15b), MLA's (192, 128)
 // (deepseek-v2-236b; no cap: MLA passes none, and dkdv_mla_kernel takes
 // none) and gemma3-12b's (256, 256) (its kernels apart, below the
@@ -52,9 +51,11 @@
 // (tanhf a score) and dS takes f, one uniform branch a tile: the Delta
 // pass sums P dP of the capped P, the dQ kernels multiply dS by f from
 // the score they hold, dkdv_256_kernel hands P^T f to its key warpgroup,
-// and dkdv_tc_kernel reads t back from P^T (t = (log2 P^T + lse log2(e))
-// / (c log2(e))) rather than keep it beside dK and dV, which spilled.
-// Four launches:
+// and dkdv_tc_kernel (and dkdv_narrow_kernel) reads t back from P^T (t =
+// (log2 P^T + lse log2(e)) / (c log2(e))) rather than keep it beside dK
+// and dV, which spilled.
+// Four launches at 64 to 192 (the narrow pairs and 256 launch kernels of
+// their own in the same order, the narrow pairs without lse_kernel):
 // * lse_kernel: lse * log2(e) of every row into scratch rows padded to a
 //   multiple of 128 queries (zeros past Sq), so that a tile's 64 values
 //   are one 256-byte bulk copy, and zeros into Delta's rows.
@@ -657,9 +658,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
       sizeof(float) * ((kBKV + kBQ) * (DqSmem<D, DV>::kLdD +
                                        DqSmem<D, DV>::kLdV) +
                        2 * kBKV * static_cast<size_t>(kLdQ) + 2 * kBQ);
-  err = cudaFuncSetAttribute(dkdv_kernel<D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kv_smem));
+  err = smem_limit(reinterpret_cast<const void*>(dkdv_kernel<D, DV>),
+                   kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(static_cast<unsigned>((sk + kBKV - 1) / kBKV),
                      static_cast<unsigned>(kv_heads),
@@ -673,9 +673,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
   constexpr size_t q_smem = sizeof(float) * DqSmem<D, DV>::kFloats;
   static_assert(kv_smem <= 232448, "tiles exceed shared memory");
-  err = cudaFuncSetAttribute(dq_kernel<D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(q_smem));
+  err = smem_limit(reinterpret_cast<const void*>(dq_kernel<D, DV>), q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ),
                     static_cast<unsigned>(heads),
@@ -745,9 +743,9 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t t, int kk) {
 }
 
 // d (64 x 64) = A B^T over K columns, A and B 64-row tiles at `a` and `b`,
-// both K-major (S = Q K^T, dP = dO V^T and their transposes).
-// K of 16, 24 or 32 (a narrow head, one box zero-filled past K) runs
-// ceil(K / 16) steps: the zeros add nothing.
+// both K-major (S = Q K^T, dP = dO V^T and their transposes). K of 96 (two
+// boxes, the second zero-filled past 96) runs ceil(K / 16) steps: the zeros
+// add nothing.
 template <int K>
 __device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a,
                                             uint32_t b) {
@@ -786,21 +784,32 @@ __device__ __forceinline__ void product_ab(float (&acc)[N / 2],
   }
 }
 
-// The A fragment of a 64 x 64 accumulator fragment: bf16 pairs in order.
-__device__ __forceinline__ void to_a_operand(const float (&x)[32],
-                                             uint32_t (&a)[16]) {
+// The A fragment of a 64 x 2N accumulator fragment: bf16 pairs in order
+// (k16 step kk is a[4 kk .. 4 kk + 3]).
+template <int N>
+__device__ __forceinline__ void to_a_operand(const float (&x)[N],
+                                             uint32_t (&a)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
 }
 
-// Whether the tile of 64 queries from q0 and 64 keys from k0 needs a
-// per-score mask: it crosses Sq, Sk, the diagonal or the window's edge.
-__device__ __forceinline__ bool pair_tile_masked(int q0, int k0, int sq,
-                                                 int sk, int causal,
-                                                 int window) {
-  return q0 + kTile > sq || k0 + kTile > sk ||
-         (causal && k0 + kTile - 1 > q0) ||
-         (window > 0 && q0 + kTile - 1 - k0 >= window);
+// Whether the tile of kQ queries from q0 and kK keys from k0 needs a
+// per-score mask (it crosses Sq, Sk, the diagonal or the window's edge),
+// and whether any of its pairs is visible at all.
+template <int kQ, int kK>
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int sq, int sk,
+                                            int causal, int window) {
+  return q0 + kQ > sq || k0 + kK > sk || (causal && k0 + kK - 1 > q0) ||
+         (window > 0 && q0 + kQ - 1 - k0 >= window);
+}
+
+template <int kQ, int kK>
+__device__ __forceinline__ bool tile_sees(int q0, int k0, int sq, int sk,
+                                          int causal, int window) {
+  const int q_last = min(q0 + kQ, sq) - 1;
+  const int k_last = min(k0 + kK, sk) - 1;
+  return q_last >= q0 && k_last >= k0 && (!causal || k0 <= q_last) &&
+         (window <= 0 || q0 - k_last < window);
 }
 
 // lse * log2(e) of each row (b, h, i), i < sq_pad, into scratch rows of
@@ -818,22 +827,24 @@ lse_kernel(const float* __restrict__ lse, float* __restrict__ lse2,
   delta[row] = 0.f;
 }
 
-// The dQ kernels' pass over one 64 x 64 tile of S and dP (rows r0 and
+// The dQ kernels' pass over one 64 x kKeys tile of S and dP (rows r0 and
 // r0 + 8, keys k0 + 8 jj + c0 and + 1 of a thread's fragment): P =
 // exp2(S scale log2(e) - lse log2(e)) (of the capped scores under a cap),
 // 0 where masked (`masked`: the tile needs a per-score mask); then
 // s = dS = P (dP - Delta), times the cap's derivative under a cap; or, in
 // the Delta pass (kDelta), dl += P dP and ps += P over the visible pairs.
-// The cap is one uniform branch a tile.
-template <bool kDelta>
+// The cap is one uniform branch a tile. kMask 0 or 1 fixes `masked` at
+// compile time (the narrow kernels branch once a tile, so that a tile
+// without a mask tests no score); -1 reads it.
+template <bool kDelta, int kKeys = 64, int kMask = -1>
 __device__ __forceinline__ void scores_to_ds(
-    float (&s)[32], const float (&dp)[32], const float (&l2)[2],
+    float (&s)[kKeys / 2], const float (&dp)[kKeys / 2], const float (&l2)[2],
     float (&dl)[2], float (&ps)[2], Scaling sc, bool masked, int r0, int k0,
     int c0, int sq, int sk, int causal, int window) {
   const auto tile = [&](auto cap) {
     constexpr bool kCap = decltype(cap)::value;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < kKeys / 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e / 2;
@@ -841,8 +852,9 @@ __device__ __forceinline__ void scores_to_ds(
         const float p =
             exp2_approx(score_arg<kCap>(s[4 * jj + e], l2[r], sc, t));
         const bool ok =
-            !masked || visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq, sk,
-                               causal, window);
+            kMask == 0 || (kMask == -1 && !masked) ||
+            visible(r0 + 8 * r, k0 + 8 * jj + c0 + e % 2, sq, sk, causal,
+                    window);
         if constexpr (kDelta) {
           if (ok) {
             dl[r] = fmaf(p, dp[4 * jj + e], dl[r]);
@@ -999,7 +1011,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked (under
     // the cap, of the capped scores).
-    const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+    const bool masked =
+        tile_masked<kTile, kTile>(q0, k0, sq, sk, causal, window);
     const bool capped = sc.cap_log2 > 0.f;
     const auto probs = [&](auto cap) {
 #pragma unroll
@@ -1381,7 +1394,7 @@ dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
         // load.
         if (t + 1 < n_t && i == n_pairs - 1) mbar_arrive(kv_empty);
         const bool masked =
-            pair_tile_masked(q0, ks.k0, sq, sk, causal, window);
+            tile_masked<kTile, kTile>(q0, ks.k0, sq, sk, causal, window);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float2 l2 =
@@ -1579,7 +1592,6 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int c0 = 2 * (lane % 4);
   const int r_lo = q0 + kTile * wg;
   const int r0 = r_lo + 16 * (warp % 4) + lane / 4;
-  const int r_hi = min(r_lo + kTile, sq) - 1;  // < r_lo: no rows
   float l2[2], dl[2], ps[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1599,12 +1611,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = j % kQStages;
     const int k0 = k_lo + j * kTile;
     mbar_wait(full(st), (j / kQStages) & 1);
-    // Some (row, key) of this warpgroup's rows and the tile is visible: the
-    // largest row - key is not negative (causal) and the least is under
-    // the window.
-    const int k_end = min(k0 + kTile, sk) - 1;
-    if (r_hi >= r_lo && (!causal || k0 <= r_hi) &&
-        (window <= 0 || r_lo - k_end < window)) {
+    if (tile_sees<kTile, kTile>(r_lo, k0, sq, sk, causal, window)) {
       float s[32], dp[32];
       wgmma_fence();
       product_abt<D>(s, q_s(wg), k_s(st));
@@ -1617,7 +1624,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (under the
       // cap, of the capped scores); then dS = P (dP - Delta) (under the
       // cap, times its derivative), or in the Delta pass Delta += P dP.
-      const bool masked = pair_tile_masked(r_lo, k0, sq, sk, causal, window);
+      const bool masked =
+          tile_masked<kTile, kTile>(r_lo, k0, sq, sk, causal, window);
       scores_to_ds<kDelta>(s, dp, l2, dl, ps, sc, masked, r0, k0, c0, sq,
                            sk, causal, window);
       if constexpr (!kDelta) {
@@ -1883,7 +1891,8 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
     if (wg == 0 && sc.cap_log2 > 0.f) {
       // Under the cap: P^T of the capped scores for dV, and P^T times the
       // cap's derivative handed to the key warpgroup for dS^T.
-      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+      const bool masked =
+        tile_masked<kTile, kTile>(q0, k0, sq, sk, causal, window);
       mbar_wait(p_empty, (i & 1) ^ 1);  // round 0 passes
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1905,7 +1914,8 @@ dkdv_256_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(p_full);
     } else if (wg == 0) {
       // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
-      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+      const bool masked =
+        tile_masked<kTile, kTile>(q0, k0, sq, sk, causal, window);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + c0);
@@ -2051,7 +2061,6 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32;
   const int c0 = 2 * (lane % 4);
   const int r0 = q0 + 16 * warp + lane / 4;
-  const int r_hi = min(q0 + kTile, sq) - 1;  // < q0: no rows
   float l2[2], dl[2], ps[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -2071,9 +2080,7 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = j % k256Stages;
     const int k0 = k_lo + j * kTile;
     mbar_wait(full(st), (j / k256Stages) & 1);
-    const int k_end = min(k0 + kTile, sk) - 1;
-    if (r_hi >= q0 && (!causal || k0 <= r_hi) &&
-        (window <= 0 || q0 - k_end < window)) {
+    if (tile_sees<kTile, kTile>(q0, k0, sq, sk, causal, window)) {
       float s[32], dp[32];
       wgmma_fence();
       product_abt_256(s, q_s, k_s(st));
@@ -2084,7 +2091,8 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
       hold(s);
       hold(dp);
       // As in dq_tc_kernel.
-      const bool masked = pair_tile_masked(q0, k0, sq, sk, causal, window);
+      const bool masked =
+        tile_masked<kTile, kTile>(q0, k0, sq, sk, causal, window);
       scores_to_ds<kDelta>(s, dp, l2, dl, ps, sc, masked, r0, k0, c0, sq,
                            sk, causal, window);
       if constexpr (!kDelta) {
@@ -2141,6 +2149,577 @@ dq_256_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at the narrow pairs: the reduced configs' (16, 16), (24, 24),
+// (24, 16) and (32, 32)
+// ---------------------------------------------------------------------------
+//
+// At a head of 16 to 32 a 64 x 64 pair of dkdv_tc_kernel does a quarter of
+// D 64's tensor work yet pays what any pair pays, and each of the three
+// sweeps (Delta, dK/dV, dQ) takes an exp2 a score. The narrow pairs have
+// kernels of their own, with operands as wide as the head, tiles longer
+// along the sequence, and the mask tested only where it cuts:
+// * Boxes of 16 columns (32-byte rows, 32-byte swizzle) at a head of 16, of
+//   32 columns (64-byte swizzle) at 24 and 32 (zero-filled past 24 by the
+//   TMA unit), 64 rows each (a tile of 128 rows is two, one after the
+//   other). The products whose N is a head dim run at the box's width
+//   (n16 or n32), those whose depth is one take ceil(D / 16) k16 steps, and
+//   dK's and dV's accumulators are 8 or 16 registers a thread.
+// * Each tile branches once on whether it crosses Sq, Sk, the diagonal or
+//   the window's edge (and once on the cap), so that a tile inside the
+//   visible region tests no score: a runtime test a score cost more than
+//   the products (PERF.md, row 7i).
+// * dkdv_narrow_kernel: one block of 384 threads per (128 keys, KV head,
+//   batch), early (causal: heavy) key tiles first. Its producer loads K
+//   and V once and streams every (query head, query tile of 128) pair's Q,
+//   dO, 128 lse and 128 Delta through a ring of 4 stages; both consumer
+//   warpgroups read every stage, each for its own 64 keys, so each holds
+//   the whole dK and dV of its keys and stores them as they stand: no
+//   partial sums to add, no cluster. Per pair: S^T and dP^T on m64n128,
+//   P^T, dV += P^T dO (n16/n32) issued while dS^T is computed from dP^T,
+//   then dK += dS^T Q.
+// * dq_narrow_kernel: one block per (128 query rows, query head, batch),
+//   late (heavy) query tiles first, K and V through a ring of 4 stages.
+//   Its <true> instantiation is the Delta pass (stages of 128 keys, S and
+//   dP on m64n128), which also writes lse * log2(e) into the scratch rows
+//   (lse_kernel's work at the other pairs: one launch fewer). The dQ
+//   kernel (stages of 64 keys, S and dP on m64n64) issues a stage's dQ +=
+//   dS K (its bf16 part and its residual's, n16/n32) and goes on to the
+//   next stage's S and dP while it runs.
+// The numerics are those of the other pairs: the same P, Delta =
+// rowsum(P dP) / rowsum(P), dS's split for dQ, the cap read back from P^T
+// in the dK/dV kernel, and no atomics.
+constexpr int kNarrowRows = 128;    // keys a dK/dV block and queries a pair;
+                                    // query rows a dQ block, keys a stage
+constexpr int kNarrowKvStages = 4;  // dkdv_narrow_kernel's (Q, dO) ring
+constexpr int kNarrowQStages = 4;   // dq_narrow_kernel's (K, V) ring
+constexpr int kNarrowDqKeys = 64;   // keys a stage of the dQ kernel
+constexpr int kNarrowBox = 64;      // rows of a TMA box
+
+template <int D, int DV>
+struct NarrowTiles {
+  static constexpr int kN = box_cols(D);    // dK's and dQ's n
+  static constexpr int kNV = box_cols(DV);  // dV's n
+  static constexpr uint32_t kRow = 2 * kN;     // bytes of a Q or K row
+  static constexpr uint32_t kVRow = 2 * kNV;   // of a V or dO row
+  static constexpr uint32_t kQk = kNarrowRows * kRow;  // 128 rows of Q or K
+  static constexpr uint32_t kV = kNarrowRows * kVRow;  // of V or dO
+  // dkdv: K and V, then the ring; a stage is Q, dO, 128 lse * log2(e) and
+  // 128 Delta.
+  static constexpr uint32_t kStage = kQk + kV + 1024;
+  static constexpr size_t kKvSmem =
+      kQk + kV + kNarrowKvStages * static_cast<size_t>(kStage) + 1024;
+  // dq: the block's Q and dO, then the ring of K and V in stages of kKeys
+  // keys.
+  template <int kKeys>
+  static constexpr size_t q_smem() {
+    return kQk + kV +
+           kNarrowQStages * static_cast<size_t>(kKeys) * (kRow + kVRow) +
+           1024;
+  }
+  static_assert(kKvSmem <= kSmemMax, "tiles exceed shared memory");
+};
+
+// d (64 x kM) = A B^T over K columns, A a 64-row and B a kM-row tile (kM
+// 128 or 64) of a narrow head's box (rows of 2 box_cols(K) bytes), both
+// K-major: ceil(K / 16) k16 steps, the zeros past K adding nothing.
+template <int K, int kM = 128>
+__device__ __forceinline__ void narrow_abt(float (&d)[kM / 2], uint32_t a,
+                                           uint32_t b) {
+  constexpr int kRow = 2 * box_cols(K);
+#pragma unroll
+  for (int kk = 0; kk < (K + 15) / 16; ++kk) {
+    const uint64_t da = narrow_kmajor<kRow>(a, kk);
+    const uint64_t db = narrow_kmajor<kRow>(b, kk);
+    if constexpr (kM == 128) {
+      if (kk == 0) {
+        wgmma_m64n128k16_ss_first(d, da, db);
+      } else {
+        wgmma_m64n128k16_ss(d, da, db);
+      }
+    } else {
+      if (kk == 0) {
+        wgmma_m64n64k16_ss_first(d, da, db);
+      } else {
+        wgmma_m64n64k16_ss(d, da, db);
+      }
+    }
+  }
+}
+
+// acc (64 x N) += A B: A (64 x kK) in bf16 registers, a[4 kk .. 4 kk + 3]
+// its k16 step kk; B the kK-row tile at `b` (N columns, 2 N bytes a row),
+// MN-major (dV += P^T dO, dK += dS^T Q, dQ += dS K).
+template <int N, int kK = 128>
+__device__ __forceinline__ void narrow_ab(float (&acc)[N / 2],
+                                          const uint32_t (&a)[kK / 4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk) {
+    wgmma_rs<N>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                narrow_mnmajor<2 * N>(b, kk));
+  }
+}
+
+// dK and dV of 128 keys of one KV head at a narrow pair, summed over its
+// query heads: consumer wg holds keys k0 + 64 wg .. + 63.
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse2,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                   int sq_pad, int heads, int kv_heads, int causal,
+                   int window, Scaling sc, float scale) {
+  using Tiles = NarrowTiles<D, DV>;
+  constexpr int kN = Tiles::kN;
+  constexpr int kNV = Tiles::kNV;
+  constexpr int kRows = kNarrowRows;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kNarrowKvStages];
+  // Swizzle atoms must be aligned: the launch adds 1 KB of slack.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + Tiles::kQk;
+  const auto q_s = [&](int st) {
+    return base + Tiles::kQk + Tiles::kV + st * Tiles::kStage;
+  };
+  const auto do_s = [&](int st) { return q_s(st) + Tiles::kQk; };
+  const auto stats_s = [&](int st) { return do_s(st) + Tiles::kV; };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t kv_full = bar0;
+  const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  const auto empty = [&](int st) {
+    return bar0 + 8 * (1 + kNarrowKvStages + st);
+  };
+
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kRows;  // early key tiles (causal: heavy) first
+  const int group = heads / kv_heads;
+  // Queries that may see keys [k0, k_last]: [q_lo, q_hi), in tiles of 128.
+  const int k_last = min(k0 + kRows, sk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int qt_lo = q_lo / kRows;
+  const int n_qt = q_hi > q_lo ? (q_hi + kRows - 1) / kRows - qt_lo : 0;
+  const int n_pairs = group * n_qt;  // pair i: head i / n_qt, tile i % n_qt
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kNarrowKvStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);  // both consumers read every stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    // Producer warpgroup: one thread issues every load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x != 256) return;
+    // 128 rows are two boxes of 64, one after the other: the same bytes as
+    // one box of 128 rows.
+    mbar_expect_tx(kv_full, Tiles::kQk + Tiles::kV);
+    for (int c = 0; c < kRows / kNarrowBox; ++c) {
+      tma_load_4d(k_s + c * kNarrowBox * Tiles::kRow, &tk, kv_full, 0, kh,
+                  k0 + c * kNarrowBox, b);
+      tma_load_4d(v_s + c * kNarrowBox * Tiles::kVRow, &tv, kv_full, 0, kh,
+                  k0 + c * kNarrowBox, b);
+    }
+    for (int i = 0; i < n_pairs; ++i) {
+      const int st = i % kNarrowKvStages;
+      const int h = kh * group + i / n_qt;
+      const int q0 = (qt_lo + i % n_qt) * kRows;
+      mbar_wait(empty(st), ((i / kNarrowKvStages) & 1) ^ 1);  // round 0
+      mbar_expect_tx(full(st), Tiles::kQk + Tiles::kV + 1024);
+      for (int c = 0; c < kRows / kNarrowBox; ++c) {
+        tma_load_4d(q_s(st) + c * kNarrowBox * Tiles::kRow, &tq, full(st), 0,
+                    h, q0 + c * kNarrowBox, b);
+        tma_load_4d(do_s(st) + c * kNarrowBox * Tiles::kVRow, &tdo, full(st),
+                    0, h, q0 + c * kNarrowBox, b);
+      }
+      const long long row =
+          (static_cast<long long>(b) * heads + h) * sq_pad + q0;
+      bulk_load(stats_s(st), lse2 + row, 512, full(st));
+      bulk_load(stats_s(st) + 512, delta + row, 512, full(st));
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup wg owns keys kw .. kw + 63; of the 64 x 128
+  // fragments this thread owns rows (keys) kr and kr + 8 and, of every 8
+  // columns (queries), c0 and c0 + 1: element 4j + e is key kr + 8 (e / 2),
+  // query 8j + c0 + e % 2.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int kr = 16 * (warp % 4) + lane / 4;
+  const int kw = k0 + 64 * wg;
+  const uint32_t k_wg = k_s + 64 * wg * Tiles::kRow;
+  const uint32_t v_wg = v_s + 64 * wg * Tiles::kVRow;
+  float dk_acc[kN / 2], dv_acc[kNV / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNV / 2; ++i) dv_acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+#pragma unroll 1
+  for (int i = 0; i < n_pairs; ++i) {
+    const int st = i % kNarrowKvStages;
+    const int q0 = (qt_lo + i % n_qt) * kRows;
+    mbar_wait(full(st), (i / kNarrowKvStages) & 1);
+    if (tile_sees<kRows, 64>(q0, kw, sq, sk, causal, window)) {
+      const float* stats =
+          reinterpret_cast<const float*>(smem_raw + (stats_s(st) - raw));
+      float s[64], dp[64];
+      wgmma_fence();
+      narrow_abt<D>(s, k_wg, q_s(st));  // S^T = K Q^T
+      wgmma_commit();
+      narrow_abt<DV>(dp, v_wg, do_s(st));  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in
+      hold(s);
+
+      // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked (under
+      // the cap, of the capped scores). The cap and the mask are uniform
+      // branches a pair: a pair inside the visible region tests no score.
+      const auto probs = [&](auto cap, auto mask) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float t;
+            const float x = exp2_approx(score_arg<decltype(cap)::value>(
+                s[4 * j + e], e % 2 ? l2.y : l2.x, sc, t));
+            s[4 * j + e] = decltype(mask)::value &&
+                                   !visible(q0 + 8 * j + c0 + e % 2,
+                                            kw + kr + 8 * (e / 2), sq, sk,
+                                            causal, window)
+                               ? 0.f
+                               : x;
+          }
+        }
+      };
+      const bool capped = sc.cap_log2 > 0.f;
+      const bool masked =
+          tile_masked<kRows, 64>(q0, kw, sq, sk, causal, window);
+      if (capped && masked) {
+        probs(Flag<true>{}, Flag<true>{});
+      } else if (capped) {
+        probs(Flag<true>{}, Flag<false>{});
+      } else if (masked) {
+        probs(Flag<false>{}, Flag<true>{});
+      } else {
+        probs(Flag<false>{}, Flag<false>{});
+      }
+      uint32_t pa[32];
+      to_a_operand(s, pa);
+      hold(dv_acc);
+      wgmma_fence();
+      narrow_ab<kNV>(dv_acc, pa, do_s(st));  // dV += P^T dO
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is in; dV runs on beside dS^T
+      hold(dp);
+
+      // dS^T = P^T (dP^T - Delta); under the cap also times its derivative
+      // 1 - t^2, t read back from P^T as dkdv_tc_kernel does.
+      if (capped) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(stats + 128 + 8 * j + c0);
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(stats + 8 * j + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = s[4 * j + e];
+            const float t =
+                p > 0.f ? (log2f(p) + (e % 2 ? l2.y : l2.x)) / sc.cap_log2
+                        : 0.f;
+            s[4 * j + e] =
+                p * (dp[4 * j + e] - (e % 2 ? dl.y : dl.x)) * cap_grad(t);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(stats + 128 + 8 * j + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * j + e] *= dp[4 * j + e] - (e % 2 ? dl.y : dl.x);
+          }
+        }
+      }
+      uint32_t da[32];
+      to_a_operand(s, da);
+      hold(dk_acc);
+      wgmma_fence();
+      narrow_ab<kN>(dk_acc, da, q_s(st));  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dk_acc);
+      hold(dv_acc);
+      hold(pa);
+      hold(da);
+    }
+    mbar_arrive(empty(st));
+  }
+
+  // Register pair p of dK is key kr + 8 (p % 2), columns 8 (p / 2) + c0
+  // and + 1; dV's likewise. Every element has this one writer.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + kr + 8 * r;
+    if (key >= sk) continue;
+    const long long at =
+        (static_cast<long long>(b) * sk + key) * kv_heads + kh;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      if (8 * j + c0 >= D) continue;  // the box's zeros past D
+      *reinterpret_cast<uint32_t*>(dk + at * D + 8 * j + c0) = pack_bf16(
+          dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+    }
+#pragma unroll
+    for (int j = 0; j < kNV / 8; ++j) {
+      if (8 * j + c0 >= DV) continue;
+      *reinterpret_cast<uint32_t*>(dv + at * DV + 8 * j + c0) =
+          pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ of 128 query rows of one query head at a narrow pair: two consumers of
+// 64 rows each, K and V through a ring of stages of keys. With
+// kDelta, the Delta pass (stages of 128 keys): each row's sum_j P_ij dP_ij /
+// sum_j P_ij into `delta` and its lse * log2(e) into `lse2` (zeros past
+// Sq), and no dQ. The dQ kernel (stages of kNarrowDqKeys) issues a stage's
+// dQ products and goes on to the next stage's S and dP while they run: one
+// wait covers both, and the stage is released once its products are in.
+template <int D, int DV, bool kDelta>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, float* __restrict__ lse2,
+                 float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
+                 int heads, int kv_heads, int causal, int window,
+                 Scaling sc, float scale) {
+  using Tiles = NarrowTiles<D, DV>;
+  constexpr int kN = Tiles::kN;
+  constexpr int kRows = kNarrowRows;
+  // Keys a stage: 128 in the Delta pass, kNarrowDqKeys in the dQ kernel,
+  // whose in-flight products' operands must fit beside the next S and dP.
+  constexpr int kKeys = kDelta ? kNarrowRows : kNarrowDqKeys;
+  constexpr uint32_t kKt = kKeys * Tiles::kRow;   // a stage's K
+  constexpr uint32_t kVt = kKeys * Tiles::kVRow;  // and V
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kNarrowQStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + Tiles::kQk;
+  const auto k_s = [&](int st) {
+    return base + Tiles::kQk + Tiles::kV + st * (kKt + kVt);
+  };
+  const auto v_s = [&](int st) { return k_s(st) + kKt; };
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t q_full = bar0;
+  const auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  const auto empty = [&](int st) {
+    return bar0 + 8 * (1 + kNarrowQStages + st);
+  };
+
+  // Grid (heads, batch, query tiles): the query heads of one KV head side
+  // by side, so that they find its K and V tiles in L2.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // late (heavy) first
+  const int kh = h / (heads / kv_heads);
+  // Keys any row of the block may see: [k_lo, k_hi), in stages of kKeys
+  // from k_lo.
+  const int q_last = min(q0 + kRows, sq) - 1;
+  const int k_hi = causal ? min(sk, q_last + 1) : sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kNarrowQStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(q_full, Tiles::kQk + Tiles::kV);
+    for (int c = 0; c < kRows / kNarrowBox; ++c) {
+      tma_load_4d(q_s + c * kNarrowBox * Tiles::kRow, &tq, q_full, 0, h,
+                  q0 + c * kNarrowBox, b);
+      tma_load_4d(do_s + c * kNarrowBox * Tiles::kVRow, &tdo, q_full, 0, h,
+                  q0 + c * kNarrowBox, b);
+    }
+    for (int j = 0; j < n_kt; ++j) {
+      const int st = j % kNarrowQStages;
+      const int k0 = k_lo + j * kKeys;
+      mbar_wait(empty(st), ((j / kNarrowQStages) & 1) ^ 1);  // round 0
+      mbar_expect_tx(full(st), kKt + kVt);
+      for (int c = 0; c < kKeys / kNarrowBox; ++c) {
+        tma_load_4d(k_s(st) + c * kNarrowBox * Tiles::kRow, &tk, full(st), 0,
+                    kh, k0 + c * kNarrowBox, b);
+        tma_load_4d(v_s(st) + c * kNarrowBox * Tiles::kVRow, &tv, full(st),
+                    0, kh, k0 + c * kNarrowBox, b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+
+  // Consumers: warpgroup wg owns rows r_lo .. r_lo + 63; this thread rows
+  // r0 and r0 + 8 and, of every 8 key columns, c0 and c0 + 1.
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+  const int r_lo = q0 + 64 * wg;
+  const int r0 = r_lo + 16 * (warp % 4) + lane / 4;
+  const uint32_t q_wg = q_s + 64 * wg * Tiles::kRow;
+  const uint32_t do_wg = do_s + 64 * wg * Tiles::kVRow;
+  // The Delta pass reads lse and scales it by log2(e) itself (it writes the
+  // scratch rows the other two kernels read, as lse_kernel does at the
+  // other pairs: one launch fewer); the dQ kernel reads those rows.
+  float l2[2], dl[2], ps[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    const long long bh = static_cast<long long>(b) * heads + h;
+    if constexpr (kDelta) {
+      l2[r] = qi < sq ? lse[bh * sq + qi] * 1.4426950408889634f : 0.f;
+    } else {
+      l2[r] = lse2[bh * sq_pad + qi];
+    }
+    dl[r] = kDelta ? 0.f : delta[bh * sq_pad + qi];  // the pass sums P dP
+    ps[r] = 0.f;                                     // and P
+  }
+  float acc[kDelta ? 1 : kN / 2];
+#pragma unroll
+  for (int i = 0; i < (kDelta ? 1 : kN / 2); ++i) acc[i] = 0.f;
+  // dS's bf16 part and the bf16 of its residual: the A operands of the
+  // stage whose dQ products are in flight (`pending`, -1 for none).
+  uint32_t da[kDelta ? 1 : kKeys / 4], dr[kDelta ? 1 : kKeys / 4];
+  int pending = -1;
+  mbar_wait(q_full, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kNarrowQStages;
+    const int k0 = k_lo + j * kKeys;
+    mbar_wait(full(st), (j / kNarrowQStages) & 1);
+    const bool sees = tile_sees<64, kKeys>(r_lo, k0, sq, sk, causal, window);
+    float s[kKeys / 2], dp[kKeys / 2];
+    if (sees) {
+      wgmma_fence();
+      narrow_abt<D, kKeys>(s, q_wg, k_s(st));  // S = Q K^T
+      wgmma_commit();
+      narrow_abt<DV, kKeys>(dp, do_wg, v_s(st));  // dP = dO V^T
+      wgmma_commit();
+    }
+    wgmma_wait<0>();  // S, dP and the previous stage's dQ products are in
+    if constexpr (!kDelta) {
+      hold(acc);
+      hold(da);
+      hold(dr);
+      if (pending >= 0) mbar_arrive(empty(pending));
+      pending = -1;
+    }
+    if (sees) {
+      hold(s);
+      hold(dp);
+      // As in dq_tc_kernel; only a tile that crosses Sq, Sk, the diagonal
+      // or the window's edge tests each score.
+      if (tile_masked<64, kKeys>(r_lo, k0, sq, sk, causal, window)) {
+        scores_to_ds<kDelta, kKeys, 1>(s, dp, l2, dl, ps, sc, true, r0, k0,
+                                       c0, sq, sk, causal, window);
+      } else {
+        scores_to_ds<kDelta, kKeys, 0>(s, dp, l2, dl, ps, sc, false, r0, k0,
+                                       c0, sq, sk, causal, window);
+      }
+      if constexpr (!kDelta) {
+        // dS's bf16 part and the bf16 of its residual (see the header).
+        to_a_operand(s, da);
+#pragma unroll
+        for (int i = 0; i < kKeys / 4; ++i) {
+          __nv_bfloat162 hi;
+          *reinterpret_cast<uint32_t*>(&hi) = da[i];
+          const float2 f = __bfloat1622float2(hi);
+          dr[i] = pack_bf16(s[2 * i] - f.x, s[2 * i + 1] - f.y);
+        }
+        wgmma_fence();
+        narrow_ab<kN, kKeys>(acc, da, k_s(st));  // dQ += dS K
+        narrow_ab<kN, kKeys>(acc, dr, k_s(st));
+        wgmma_commit();
+        pending = st;
+      }
+    }
+    if (kDelta || pending != st) mbar_arrive(empty(st));
+  }
+
+  if constexpr (kDelta) {
+    // A row's columns of a stage lie with the 4 lanes of a quad. Every
+    // scratch row of the block is written: zeros past Sq.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      const int qi = r0 + 8 * r;
+      if (lane % 4 == 0) {
+        const long long at =
+            (static_cast<long long>(b) * heads + h) * sq_pad + qi;
+        lse2[at] = l2[r];
+        delta[at] = qi < sq && ps[r] > 0.f ? dl[r] / ps[r] : 0.f;
+      }
+    }
+    return;
+  }
+
+  wgmma_wait<0>();  // the last stage's dQ products
+  hold(acc);
+  hold(da);
+  hold(dr);
+  if (pending >= 0) mbar_arrive(empty(pending));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= sq) continue;
+    __nv_bfloat16* row =
+        dq + ((static_cast<long long>(b) * sq + qi) * heads + h) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(
+          acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
 // A second stream of the current device, created at first use, and two
 // events for forking work onto it from the caller's stream and joining it
 // back.
@@ -2172,6 +2751,24 @@ cudaError_t side_stream(SideStream** out) {
   return cudaSuccess;
 }
 
+// Makes the side stream wait for `stream`'s work so far (`side` receives
+// it), and later `stream` for the side stream's: a kernel put between the
+// two on the side stream runs beside `stream`'s.
+cudaError_t fork_side(cudaStream_t stream, SideStream** side) {
+  cudaError_t err = side_stream(side);
+  if (err == cudaSuccess) err = cudaEventRecord((*side)->fork, stream);
+  if (err == cudaSuccess) {
+    err = cudaStreamWaitEvent((*side)->stream, (*side)->fork, 0);
+  }
+  return err;
+}
+
+cudaError_t join_side(cudaStream_t stream, SideStream* side) {
+  cudaError_t err = cudaEventRecord(side->join, side->stream);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
+  return err;
+}
+
 // The dK/dV kernel on `stream`: dkdv_mla_kernel at MLA's (192, 128), one
 // block a key tile; else dkdv_tc_kernel in clusters of 2 blocks a key tile
 // where one would give fewer than two blocks an SM.
@@ -2187,9 +2784,8 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
   if constexpr (D > 128) {
     constexpr size_t smem = MlaTiles<D, DV>::kSmem;
-    cudaError_t err = cudaFuncSetAttribute(
-        dkdv_mla_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err =
+        smem_limit(reinterpret_cast<const void*>(dkdv_mla_kernel<D, DV>), smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>((k_tiles + 1) / 2),
                     static_cast<unsigned>(kv_heads),
@@ -2200,9 +2796,8 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
     return cudaGetLastError();
   } else {
     using Tiles = BwdTiles<D, DV>;
-    cudaError_t err = cudaFuncSetAttribute(
-        dkdv_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tiles::kKvSmem));
+    cudaError_t err = smem_limit(
+        reinterpret_cast<const void*>(dkdv_tc_kernel<D, DV>), Tiles::kKvSmem);
     if (err != cudaSuccess) return err;
     static int sms = 0;
     if (sms == 0) {
@@ -2289,9 +2884,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
                  static_cast<unsigned>(batch))
           : dim3(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                  static_cast<unsigned>(q_tiles));
-  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles::kQSmem));
+  err = smem_limit(reinterpret_cast<const void*>(dq_tc_kernel<D, DV, true>),
+                   Tiles::kQSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<D, DV, true><<<q_grid, kTcThreads, Tiles::kQSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
@@ -2302,28 +2896,22 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   // the Delta pass's rows, and they write disjoint outputs), so that its
   // blocks fill the SMs the dK/dV blocks leave; `stream` waits for it.
   SideStream* side = nullptr;
-  err = side_stream(&side);
-  if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
-  if (err == cudaSuccess) {
-    err = cudaStreamWaitEvent(side->stream, side->fork, 0);
-  }
+  err = fork_side(stream, &side);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_dkdv<D, DV>(tq, tk, tv, tdo, lse2, delta, dk, dv, batch, sq,
                            sk, sq_pad, heads, kv_heads, causal, window,
                            sc, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(dq_tc_kernel<D, DV, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles::kQSmem));
+  err = smem_limit(reinterpret_cast<const void*>(dq_tc_kernel<D, DV, false>),
+                   Tiles::kQSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<D, DV, false><<<q_grid, kTcThreads, Tiles::kQSmem,
                                side->stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
       sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
-  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
+  if (err == cudaSuccess) err = join_side(stream, side);
   return static_cast<int>(err);
 }
 
@@ -2367,18 +2955,15 @@ int launch_tc_256(const void* q, const void* k, const void* v,
   const Scaling sc = make_scaling(D, softcap);
   const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                     static_cast<unsigned>(q_tiles));
-  err = cudaFuncSetAttribute(dq_256_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles256::kQSmem));
+  err = smem_limit(reinterpret_cast<const void*>(dq_256_kernel<true>),
+                   Tiles256::kQSmem);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(dq_256_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Tiles256::kQSmem));
+    err = smem_limit(reinterpret_cast<const void*>(dq_256_kernel<false>),
+                     Tiles256::kQSmem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dkdv_256_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles256::kKvSmem));
+  err = smem_limit(reinterpret_cast<const void*>(dkdv_256_kernel),
+                   Tiles256::kKvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_256_kernel<true><<<q_grid, 256, Tiles256::kQSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
@@ -2386,11 +2971,7 @@ int launch_tc_256(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   SideStream* side = nullptr;
-  err = side_stream(&side);
-  if (err == cudaSuccess) err = cudaEventRecord(side->fork, stream);
-  if (err == cudaSuccess) {
-    err = cudaStreamWaitEvent(side->stream, side->fork, 0);
-  }
+  err = fork_side(stream, &side);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(static_cast<unsigned>(kv_heads),
                      static_cast<unsigned>(batch),
@@ -2405,8 +2986,89 @@ int launch_tc_256(const void* q, const void* k, const void* v,
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
       sq_pad, heads, kv_heads, causal, window, sc, scale);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
-  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->join, 0);
+  if (err == cudaSuccess) err = join_side(stream, side);
+  return static_cast<int>(err);
+}
+
+// The tensor-core design at a narrow pair: the Delta pass (which also
+// writes lse * log2(e), lse_kernel's work at the other pairs), then
+// dkdv_narrow_kernel on `stream` beside dq_narrow_kernel on the side
+// stream, as launch_tc orders its kernels.
+template <int D, int DV>
+int launch_narrow(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, float* scratch,
+                  void* dq, void* dk, void* dv, int batch, int sq, int sk,
+                  int heads, int kv_heads, int causal, int window,
+                  float softcap, cudaStream_t stream) {
+  using Tiles = NarrowTiles<D, DV>;
+  const int sq_pad = (sq + kQRows - 1) / kQRows * kQRows;
+  const long long rows = static_cast<long long>(batch) * heads * sq_pad;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  const int q_tiles = sq_pad / kNarrowRows;
+  const int k_tiles = (sk + kNarrowRows - 1) / kNarrowRows;
+  if (q_tiles > 65535 || k_tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
+  // Boxes of 64 rows and of the head's box_cols columns, zero-filled
+  // past the head.
+  const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh,
+                       int d) {
+    return encode_4d(m, p, batch, seq, nh, d, d,
+                     static_cast<long long>(d) * nh,
+                     static_cast<long long>(d) * nh * seq, kNarrowBox,
+                     box_cols(d), swizzle_of(box_cols(d)));
+  };
+  CUtensorMap tq, tk, tv, tdo;
+  if (!map(&tq, q, sq, heads, D) || !map(&tk, k, sk, kv_heads, D) ||
+      !map(&tv, v, sk, kv_heads, DV) || !map(&tdo, dout, sq, heads, DV)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto delta_pass = dq_narrow_kernel<D, DV, true>;
+  const auto dq_pass = dq_narrow_kernel<D, DV, false>;
+  constexpr size_t delta_smem = Tiles::template q_smem<kNarrowRows>();
+  constexpr size_t dq_smem = Tiles::template q_smem<kNarrowDqKeys>();
+  static_assert(delta_smem <= kSmemMax && dq_smem <= kSmemMax,
+                "tiles exceed shared memory");
+  cudaError_t err =
+      smem_limit(reinterpret_cast<const void*>(delta_pass), delta_smem);
+  if (err == cudaSuccess) {
+    err = smem_limit(reinterpret_cast<const void*>(dq_pass), dq_smem);
+  }
+  if (err == cudaSuccess) {
+    err = smem_limit(reinterpret_cast<const void*>(dkdv_narrow_kernel<D, DV>),
+                     Tiles::kKvSmem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // D ** -0.5 as the reference computes it, in double, then rounded.
+  const float scale = static_cast<float>(pow(static_cast<double>(D), -0.5));
+  const Scaling sc = make_scaling(D, softcap);
+  const dim3 q_grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
+                    static_cast<unsigned>(q_tiles));
+  delta_pass<<<q_grid, kTcThreads, delta_smem, stream>>>(
+      tq, tk, tv, tdo, lse, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq,
+      sk, sq_pad, heads, kv_heads, causal, window, sc, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SideStream* side = nullptr;
+  err = fork_side(stream, &side);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid(static_cast<unsigned>(kv_heads),
+                     static_cast<unsigned>(batch),
+                     static_cast<unsigned>(k_tiles));
+  dkdv_narrow_kernel<D, DV><<<kv_grid, kTcThreads, Tiles::kKvSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), sq, sk, sq_pad, heads, kv_heads,
+      causal, window, sc, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_pass<<<q_grid, kTcThreads, dq_smem, side->stream>>>(
+      tq, tk, tv, tdo, lse, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq,
+      sk, sq_pad, heads, kv_heads, causal, window, sc, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = join_side(stream, side);
   return static_cast<int>(err);
 }
 
@@ -2427,6 +3089,10 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out,
   if constexpr (D == 256) {
     return launch_tc_256(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq,
                          sk, heads, kv_heads, causal, window, softcap, s);
+  } else if constexpr (D <= 32) {
+    return launch_narrow<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                                sq, sk, heads, kv_heads, causal, window,
+                                softcap, s);
   } else {
     return launch_tc<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
                             sq, sk, heads, kv_heads, causal, window, softcap,

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash
 // attention kernels (flash_attention.cu's forward, flash_attention_bwd.cu's
 // backward): mbarriers, TMA loads through 4-D tensor maps and 1-D bulk
-// copies, wgmma shared-memory descriptors for 128-byte-swizzled operands,
-// the wgmma products (bf16 in, fp32 accumulators) with A from shared memory
-// or from registers and B K-major or MN-major, the proxy fence before a
-// product reads what threads stored, and the host-side tensor-map encoder.
+// copies, wgmma shared-memory descriptors for 128-, 64- and 32-byte-swizzled
+// operands, the wgmma products (bf16 in, fp32 accumulators) with A from
+// shared memory or from registers and B K-major or MN-major, the proxy
+// fence before a product reads what threads stored, and on the host the
+// tensor-map encoder and a kernel's shared-memory limit, set once.
 //
 // Operand layouts. A tile of R rows by 64 bf16 columns (one TMA box, 128
 // bytes a row) is 128-byte swizzled in atoms of 8 rows (1,024 bytes), so a
@@ -14,6 +15,14 @@
 // MN-major operand (the reduction runs down the rows, the transpose bit set):
 // a k16 step is 16 rows (2,048 bytes) down, the next 64 columns are the next
 // box (the leading byte offset, R * 128); stride byte offset 1,024.
+//
+// Narrow heads (the flash kernels' D and DV of 16 to 32) take boxes as wide
+// as the head instead: 16 columns (32-byte rows, 32-byte swizzle, atoms of
+// 8 rows = 256 bytes) or 32 columns (64-byte rows, 64-byte swizzle, atoms of
+// 512 bytes). K-major: a k16 step is 32 bytes into the row (at 16 columns
+// the whole row), stride byte offset 8 rows. MN-major: a k16 step is 16
+// rows down, stride byte offset 8 rows; the product's N is the box's width,
+// so there is no next box.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached at
@@ -22,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace hopper {
 
@@ -79,12 +90,43 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
 // (its swizzle atoms, 8 rows of 128 bytes, 1024-byte aligned): `lbo` and
 // `sbo` are the leading and stride byte offsets.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// The same for an operand swizzled in rows of kSwizzle bytes (32, 64 or
+// 128; atoms of 8 rows aligned to 8 kSwizzle bytes): wgmma's layout type is
+// 1 for 128 bytes, 2 for 64 and 3 for 32.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+  static_assert(kSwizzle == 32 || kSwizzle == 64 || kSwizzle == 128,
+                "swizzles of 32, 64 or 128 bytes");
+  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | kLayout << 62;
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return swizzled_desc<128>(addr, lbo, sbo);
+}
+
+// The bf16 columns of a box of a head of d: 64 (128-byte rows; the last
+// box zero-filled past d), or at a narrow head one box as wide as the head,
+// 32 columns at 17 to 32 (zero-filled past 24) and 16 at 16.
+__host__ __device__ constexpr int box_cols(int d) {
+  return d > 32 ? kBoxCols : d > 16 ? 32 : 16;
+}
+
+// Descriptors of k16 step kk of a tile at `t` whose rows are kRow bytes
+// (32 or 64: a narrow head's box, swizzled as wide as its rows): K-major,
+// 32 bytes a step along the row; MN-major, 16 rows a step.
+template <int kRow>
+__device__ __forceinline__ uint64_t narrow_kmajor(uint32_t t, int kk) {
+  return swizzled_desc<kRow>(t + 32 * kk, 16, 8 * kRow);
+}
+
+template <int kRow>
+__device__ __forceinline__ uint64_t narrow_mnmajor(uint32_t t, int kk) {
+  return swizzled_desc<kRow>(t + 16 * kRow * kk, 16 * kRow, 8 * kRow);
 }
 
 // `desc` through an empty asm: the compiler can neither fold nor hoist it,
@@ -255,6 +297,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
         "r"(1));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 16,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
+        "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 registers a0..a3) * B (16 x 32,
+// shared, MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),
+        "r"(1));
+}
+
+
+// d (64 x N) += A (64 x 16, bf16 registers) * B (16 x N, shared, MN-major)
+// for a narrow head's N of 16 or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  static_assert(N == 16 || N == 32, "n16 or n32");
+  if constexpr (N == 16) {
+    wgmma_m64n16k16_rs(d, a0, a1, a2, a3, b);
+  } else {
+    wgmma_m64n32k16_rs(d, a0, a1, a2, a3, b);
+  }
 }
 
 // 2**x on the special-function unit (flushes subnormal results to 0;
@@ -515,11 +607,14 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map over a bf16 (batch, seq, heads, D) tensor as 4-D (D, heads,
 // seq, batch), with the tensor's strides in elements (the innermost 1, the
-// others multiples of 8), boxes of 64 columns x 1 head x `box_rows` rows,
-// 128-byte swizzle, zeros outside.
+// others multiples of 8), boxes of `box_cols` columns x 1 head x `box_rows`
+// rows, swizzled as `swizzle` says (64 columns take 128 bytes, a narrow
+// head's 32 or 16 columns 64 or 32), zeros outside.
 inline bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
                       int heads, int d, long long s_head, long long s_seq,
-                      long long s_batch, int box_rows) {
+                      long long s_batch, int box_rows,
+                      int box_cols = kBoxCols,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -529,13 +624,48 @@ inline bool encode_4d(CUtensorMap* map, const void* ptr, int batch, int seq,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
                                  static_cast<cuuint64_t>(s_seq) * 2,
                                  static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(box_rows),
-                             1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The swizzle of a box of `cols` bf16 columns (16, 32 or 64: rows of 32, 64
+// or 128 bytes).
+inline CUtensorMapSwizzle swizzle_of(int cols) {
+  return cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+         : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
+// Sets `kernel`'s dynamic shared-memory limit to `bytes` the first time a
+// launch asks for it on the current device, so that later launches make no
+// runtime call for it (each kernel always asks for the same bytes).
+inline cudaError_t smem_limit(const void* kernel, size_t bytes) {
+  constexpr int kMaxEntries = 512;
+  static std::mutex mu;
+  static const void* kernels[kMaxEntries];
+  static int devices[kMaxEntries];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n; ++i) {
+    if (kernels[i] == kernel && devices[i] == dev) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && n < kMaxEntries) {
+    kernels[n] = kernel;
+    devices[n] = dev;
+    ++n;
+  }
+  return err;
 }
 
 }  // namespace hopper

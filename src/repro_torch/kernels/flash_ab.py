@@ -14,7 +14,8 @@ whose launch takes a logit softcap is passed none (0). At each shape every
 build is first held against
 :func:`flash_attention_plain` (rtol = atol = 2e-2 in bf16, 2e-5 in fp32),
 then timed in turns (A, B, ..., B, A: the median of ``--reps`` CUDA-event
-timings each, after a warm-up) and its output and log-sum-exp compared
+timings each, after a warm-up; beside them ``host_us``, the median host
+time of one call from an idle card) and its output and log-sum-exp compared
 bit for bit with the first build's, with ``scaled_dot_product_attention``
 (``enable_gqa``) timed beside them as the library's yardstick. Prints one
 JSON line per build and shape: milliseconds of both turns, achieved
@@ -49,6 +50,7 @@ import json
 import statistics
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -58,10 +60,16 @@ from .flash_attention import (bwd_scratch_floats,
                               flash_attention_backward_plain,
                               flash_attention_plain)
 
+#: The reduced configs' narrow pairs at S 2,048 (B 4, 16 heads; MLA's 24
+#: over 16 at one query head a KV head), bf16, causal: chip_smoke.py's
+#: rows 7h and 7i.
+NARROW = [(4, 2048, 16, 4, 16, 16, 1), (4, 2048, 16, 4, 24, 24, 1),
+          (4, 2048, 16, 16, 24, 16, 1), (4, 2048, 16, 4, 32, 32, 1)]
 #: (B, S, H, KV, D, DV, causal): the dbrx-132b prefill's shape first, then
 #: qwen2.5-3b's (phase (l)'s prefill and phase (p)'s training batch), then
 #: deepseek-v2-236b's MLA prefill (phase (o)) and an odd count of query
-#: tiles at its heads, then gemma3-12b's prefill (heads of 256).
+#: tiles at its heads, then gemma3-12b's prefill (heads of 256), then
+#: :data:`NARROW`.
 SHAPES = {
     torch.bfloat16: [(4, 2048, 48, 8, 128, 128, 1),
                      (4, 512, 16, 2, 128, 128, 1),
@@ -72,16 +80,18 @@ SHAPES = {
                      (4, 512, 128, 128, 192, 128, 1),
                      (2, 1152, 64, 64, 192, 128, 1),
                      (4, 512, 128, 128, 192, 128, 0),
-                     (2, 2048, 16, 8, 256, 256, 1)],
+                     (2, 2048, 16, 8, 256, 256, 1)] + NARROW,
     torch.float32: [(1, 2048, 48, 8, 128, 128, 1),
                     (2, 1000, 48, 8, 64, 64, 1),
                     (1, 2048, 16, 8, 256, 256, 1)],
 }
 #: (B, S, H, KV, D, DV, causal) of the backward: qwen2.5-3b's training
 #: batch, a long causal sequence, deepseek-v2-236b's training batch (its
-#: 128 MLA heads of 192 over 128), then gemma3-12b's (heads of 256).
+#: 128 MLA heads of 192 over 128), then gemma3-12b's (heads of 256), then
+#: :data:`NARROW`.
 BWD_SHAPES = [(4, 512, 16, 2, 128, 128, 1), (1, 2048, 16, 2, 128, 128, 1),
-              (4, 512, 128, 128, 192, 128, 1), (2, 2048, 16, 8, 256, 256, 1)]
+              (4, 512, 128, 128, 192, 128, 1),
+              (2, 2048, 16, 8, 256, 256, 1)] + NARROW
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 _BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
@@ -149,6 +159,19 @@ def _time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _host_us(fn, reps: int) -> float:
+    """Median host time of one call of ``fn`` in microseconds, from an
+    idle card (what a launch-bound caller pays before the card works)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _wanted(shapes, dims):
     """The shapes whose head dims ``dims`` names (all when empty)."""
     if not dims:
@@ -163,7 +186,7 @@ def _turns(n: int):
     return list(range(n)) + list(range(n))[::-1]
 
 
-def _profile(call) -> list:
+def kernel_timeline(call) -> list:
     """[(name, device us, start us, end us)] of the kernels of one
     ``call()``, starts from the first kernel's."""
     from torch.profiler import ProfilerActivity, profile
@@ -252,10 +275,12 @@ def backward(args, dtype) -> None:
             print(json.dumps({**shape, "sdpa_bwd_error": str(e)[:300]}))
         for src, check, t, call in zip(args.sources, checks, ms, calls):
             print(json.dumps({**shape, "source": str(src), "ms": t,
-                              "tflops": ops / min(t) / 1e9, **check}))
+                              "tflops": ops / min(t) / 1e9,
+                              "host_us": _host_us(call, args.reps),
+                              **check}))
             if args.profile:
                 print(json.dumps({**shape, "source": str(src),
-                                  "profile": _profile(call)}))
+                                  "profile": kernel_timeline(call)}))
         del q, k, v, do, out, lse, want, scratch, outs, calls
 
 
@@ -306,10 +331,12 @@ def forward(args, dtype) -> None:
                           "sdpa_tflops": ops / lib_ms / 1e9}))
         for src, check, t, call in zip(args.sources, checks, ms, calls):
             print(json.dumps({**shape, "source": str(src), "ms": t,
-                              "tflops": ops / min(t) / 1e9, **check}))
+                              "tflops": ops / min(t) / 1e9,
+                              "host_us": _host_us(call, args.reps),
+                              **check}))
             if args.profile:
                 print(json.dumps({**shape, "source": str(src),
-                                  "profile": _profile(call)}))
+                                  "profile": kernel_timeline(call)}))
         del q, k, v, want, outs, calls
 
 

@@ -132,7 +132,9 @@ def bwd_design(d: int, dv: int, dtype) -> str:
     ``"tensor_core"`` (wgmma, TMA) for bf16 at every pair, MLA's (192, 128)
     through a dK/dV kernel of its own whose two warpgroups split each
     (key tile, query tile) pair's products, gemma3-12b's (256, 256)
-    through kernels of its own whose warpgroups hold dK and dV apart;
+    through kernels of its own whose warpgroups hold dK and dV apart, the
+    reduced configs' 16 to 32 through kernels of their own with boxes as
+    wide as the head and tiles of 128 queries and keys;
     ``"cuda_core"`` for fp32, whose tolerance needs exact fp32 sums that
     bf16 products cannot hold."""
     return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"

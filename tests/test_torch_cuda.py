@@ -672,7 +672,10 @@ def test_cuda_flash_attention_head256_matches_plain(
 
 #: The reduced configs' head dims (D, DV) with the rest of a case: B, S or
 #: (Sq, Sk), H, KV, causal, window. gemma3-12b's reduced window of 16
-#: crosses tile edges; G 1 and G > 1; MLA's reduced 24 over 16.
+#: crosses tile edges; G 1 and G > 1; MLA's reduced 24 over 16. The last
+#: cases cross the narrow kernels' tiles of 128 queries and keys: S and Sk
+#: not multiples of 128 (2,085, 129, 255), Sq != Sk, G 1, 4 and 8,
+#: windows of 16 and 100.
 FLASH_NARROW_CASES = [
     (16, 16, 2, 200, 8, 2, True, None),     # qwen2.5-3b's reduced heads
     (16, 16, 1, (64, 300), 4, 4, False, None),
@@ -682,7 +685,16 @@ FLASH_NARROW_CASES = [
     (24, 16, 1, (64, 150), 4, 4, False, None),
     (32, 32, 2, 257, 8, 4, True, None),     # qwen3-14b's reduced heads
     (32, 32, 1, 300, 4, 4, True, 100),
-]
+] + [(d, dv) + rest for (d, dv), rest in (
+    ((16, 16), (1, 2085, 8, 1, True, None)),    # G 8 over 17 tiles
+    ((16, 16), (2, (129, 255), 4, 4, True, 16)),
+    ((24, 24), (1, (255, 129), 8, 2, False, None)),
+    ((24, 24), (1, 2085, 4, 1, True, 100)),     # G 4, a window of 100
+    ((24, 16), (2, 255, 4, 4, True, 16)),       # G 1, a window of 16
+    ((24, 16), (1, (129, 2085), 4, 4, False, 100)),
+    ((32, 32), (1, (255, 129), 8, 1, True, None)),
+    ((32, 32), (2, 129, 4, 2, True, 100)),
+)]
 #: Logit softcaps: none, one that barely bites at a random init's scores,
 #: one that makes the cap's derivative matter.
 SOFTCAPS = [None, 50.0, 5.0]
@@ -711,9 +723,12 @@ def _hold_flash_forward(cuda, dtype, tol, case, softcap, q_scale=1):
               LAUNCHES_BY_SHAPE[key])
     got = flash_attention(q, k, v, causal=causal, window=window,
                           softcap=softcap)
+    again = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
     torch.cuda.synchronize()
     assert (build.launch_counts()["flash_attention"],
-            LAUNCHES_BY_SHAPE[key]) == (before[0] + 1, before[1] + 1)
+            LAUNCHES_BY_SHAPE[key]) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again), "two launches differ"
     assert got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -728,7 +743,8 @@ def test_cuda_flash_attention_narrow_heads_match_plain(cuda, dtype, tol,
     """The reduced configs' heads of 16, 24, 24 over 16 and 32 (one box
     that TMA zero-fills past D on the tensor cores; V's columns padded to
     32 on the CUDA cores), with and without a logit softcap, against the
-    plain version, the launch counted under its shape."""
+    plain version, two launches bit-identical and counted under its
+    shape."""
     _hold_flash_forward(cuda, dtype, tol, case, softcap)
 
 
@@ -1086,6 +1102,16 @@ FLASH_BWD_CASES = [
     (1, (100, 150), 4, 4, 24, 16, False, 32),
     (2, 257, 8, 4, 32, 32, True, None),        # qwen3-14b's reduced heads
     (1, 300, 4, 4, 32, 32, True, 100),
+    # The narrow kernels' tiles of 128 keys a dK/dV block and 128 queries
+    # a pair or dQ block: edges not on them, Sq != Sk, G 1, 4 and 8.
+    (1, 2085, 8, 1, 16, 16, True, None),
+    (2, (129, 255), 4, 4, 16, 16, True, 16),
+    (1, (255, 129), 8, 2, 24, 24, False, None),
+    (1, 2085, 4, 1, 24, 24, True, 100),
+    (2, 255, 4, 4, 24, 16, True, 16),
+    (1, (129, 2085), 4, 4, 24, 16, False, 100),
+    (1, (255, 129), 8, 1, 32, 32, True, None),
+    (2, 129, 4, 2, 32, 32, True, 100),
 ]
 #: Capped backward cases (every pair but MLA's 192/128, which takes no
 #: cap): B, S or (Sq, Sk), H, KV, D, DV, causal, window.
@@ -1094,6 +1120,10 @@ FLASH_BWD_CAP_CASES = [
     (2, 300, 4, 2, 24, 24, True, 16),
     (2, 200, 4, 4, 24, 16, True, None),
     (1, (64, 150), 4, 4, 32, 32, False, None),
+    (1, 2085, 8, 1, 16, 16, True, 100),        # the narrow tiles' edges
+    (2, (255, 129), 4, 4, 24, 24, False, None),
+    (1, (129, 255), 4, 4, 24, 16, True, 16),
+    (2, 255, 8, 2, 32, 32, True, None),
     (2, 128, 16, 2, 128, 128, True, None),
     (1, 130, 4, 4, 96, 96, True, 100),
     (2, 100, 4, 2, 64, 64, False, 16),
