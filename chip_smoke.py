@@ -3401,8 +3401,10 @@ def family_path(torch, np, dev, rng, seed: int) -> dict:
 #: The flash backward kernel against its plain version: B, S, H, KV, D,
 #: DV, causal, window. The first is qwen2.5-3b's training batch, the
 #: eleventh deepseek-v2-236b's (its 128 MLA heads of 192 over 128), the
-#: twelfth a long causal sequence and the thirteenth gemma3-12b's (heads
-#: of 256 over 8), all four timed (FLASH_BWD_TIMED).
+#: twelfth a long causal sequence, the thirteenth gemma3-12b's (heads of
+#: 256 over 8) and the seventeenth phi-3-vision-4.2b's (phase (q): 576
+#: patches and 512 tokens a row, 32 heads of 96), all five timed
+#: (FLASH_BWD_TIMED).
 FLASH_BWD_CASES = [
     (4, 512, 16, 2, 128, 128, True, None),
     (2, 512, 16, 2, 128, 128, True, 128),      # a window of 128
@@ -3420,9 +3422,11 @@ FLASH_BWD_CASES = [
     (1, 2048, 16, 8, 256, 256, True, 1024),    # ... a local layer
     (2, 300, 8, 8, 256, 256, False, None),     # ... not causal, G 1
     (1, 333, 6, 2, 256, 256, True, 100),       # ... G 3, windowed
+    (4, 1088, 32, 32, 96, 96, True, None),     # phi-3-vision-4.2b's batch
 ]
 FLASH_BWD_TIMED = (FLASH_BWD_CASES[0], FLASH_BWD_CASES[10],
-                   FLASH_BWD_CASES[11], FLASH_BWD_CASES[12])
+                   FLASH_BWD_CASES[11], FLASH_BWD_CASES[12],
+                   FLASH_BWD_CASES[16])
 #: dQ, dK and dV within this share of the largest reference entry: fp32
 #: sums in another order; in bf16 also the gradients' own rounding.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}

@@ -44,10 +44,12 @@
 // * Loads by TMA. 4-D tensor maps over (D, heads, S, B) with the tensors'
 //   own strides (nothing is repacked, K/V are not repeated per query head);
 //   boxes of 64 columns (128 bytes, the widest 128-byte-swizzled box) by 128
-//   rows, so a D 128 tile is two boxes. D 96 is two boxes too: the tensor
-//   map's rows are 96 long, so the TMA unit fills columns 96-127 of the
-//   second box with zeros; Q K^T reads 6 k16 steps of it, and P V (n 128)
-//   adds 0 to the 32 output columns that the epilogue never stores. D 192
+//   rows, so a D 128 tile is two boxes. D 96 (phi-3-vision) is a box of 64
+//   columns and a tail box of the last 32 (64-byte rows and swizzle), each
+//   through a tensor map of its own width, so that no column is zero-filled:
+//   a Q, K or V tile is 24 KB, not 32; Q K^T runs 4 k16 steps in the first
+//   box and 2 in the tail, and P V runs n64 + n32 (O 48 registers a
+//   thread, not 64). D 192
 //   is three boxes, and its blocks take one query tile instead of two:
 //   two tiles of Q, the K ring and the V ring would need 257 KB of shared
 //   memory, one Q tile 209 KB. (The two layouts that fit two Q tiles, K/V
@@ -89,7 +91,8 @@
 //   operand (the accumulator fragment is the A fragment: no shared-memory
 //   round trip) and V read as the MN-major B operand (transpose bit, no
 //   transpose pass; the second box of 64 columns is the leading byte
-//   offset; at DV 256 two n128 products, over boxes 0-1 and 2-3). Tile j's
+//   offset; at DV 256 two n128 products, over boxes 0-1 and 2-3; at DV 96
+//   n64 over the first box and n32 over the tail). Tile j's
 //   S = Q K^T is issued with tile j - 1's P V, so the softmax of tile j
 //   overlaps that product; O is rescaled by exp2(m_old - m_new) once it is
 //   in, divided once by max(l, 1e-30) and stored as bf16, rows past Sq
@@ -342,25 +345,29 @@ constexpr int kTcThreads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr size_t kSmemMax = 232448;        // a block's dynamic shared memory
 
 // The tensor-core kernel's tiles for query/key head dim D and value head dim
-// DV: boxes of box_cols columns, K/V tiles of kKeys keys (128; 64 at D 256,
-// where tiles of 128 would not fit), P V as wide as the V boxes (n16 or n32
-// at a narrow DV), and two query tiles a block where they fit.
+// DV: boxes of box_cols columns and, at D 96, a last box of the remaining
+// 32 (tail_cols); K/V tiles of kKeys keys (128; 64 at D 256, where tiles of
+// 128 would not fit), P V as wide as the V boxes (n16 or n32 at a narrow
+// DV, n64 + n32 at 96), and two query tiles a block where they fit.
 template <int D, int DV>
 struct TcTiles {
   static constexpr int kKeys = D > 192 ? 64 : 128;  // keys per K/V tile
   static constexpr int kCols = box_cols(D);         // columns of a Q/K box
   static constexpr int kVCols = box_cols(DV);       // of a V box
-  static constexpr int kQkBoxes = (D + kCols - 1) / kCols;
-  static constexpr int kVBoxes = (DV + kVCols - 1) / kVCols;
-  static constexpr int kPv = kVBoxes * kVCols;  // n of the P V product
+  static constexpr int kTail = tail_cols(D);        // of Q/K's last box
+  static constexpr int kVTail = tail_cols(DV);      // of V's (0: none)
+  static constexpr int kQkBoxes = (D - kTail + kCols - 1) / kCols;
+  static constexpr int kVBoxes = (DV - kVTail + kVCols - 1) / kVCols;
+  static constexpr int kPv = kVBoxes * kVCols + kVTail;  // n of P V
   static constexpr uint32_t kRow = 2 * kCols;   // bytes of a box row
   static constexpr uint32_t kVRow = 2 * kVCols;
   static constexpr uint32_t kQBox = kTcRows * kRow;  // one box of a Q tile
   static constexpr uint32_t kKBox = kKeys * kRow;    // one box of K
   static constexpr uint32_t kVBox = kKeys * kVRow;   // one box of V
-  static constexpr uint32_t kQ = kQkBoxes * kQBox;   // a Q tile
-  static constexpr uint32_t kK = kQkBoxes * kKBox;   // a K tile
-  static constexpr uint32_t kV = kVBoxes * kVBox;    // a V tile
+  // A tile: its full boxes, then its tail box (rows of 2 kTail bytes).
+  static constexpr uint32_t kQ = kQkBoxes * kQBox + kTcRows * 2 * kTail;
+  static constexpr uint32_t kK = kQkBoxes * kKBox + kKeys * 2 * kTail;
+  static constexpr uint32_t kV = kVBoxes * kVBox + kKeys * 2 * kVTail;
   // The K and V rings and 1 KB of alignment slack, beside the Q tiles.
   static constexpr size_t kRing =
       kTcStages * (static_cast<size_t>(kK) + kV) + 1024;
@@ -368,9 +375,16 @@ struct TcTiles {
       2 * static_cast<size_t>(kQ) + kRing <= kSmemMax ? 2 : 1;
   static constexpr size_t kSmem = kQTiles * static_cast<size_t>(kQ) + kRing;
   static_assert(kSmem <= kSmemMax, "tiles exceed shared memory");
-  static_assert(kPv == 16 || kPv == 32 || kPv == 64 || kPv == 128 ||
-                    kPv == 256,
-                "P V is n16, n32, n64, n128 or two n128 halves");
+  static_assert(kTail == kVTail && (kTail == 0 || kTail == 32),
+                "a tail box of 32 columns, at D = DV = 96 only");
+  // Above the narrow heads no box is zero-filled past the head, and no
+  // product is wider than it: at 96 the tiles are 64 + 32 columns.
+  static_assert(D <= 32 || kQkBoxes * kCols + kTail == D,
+                "Q and K boxes cover the head exactly");
+  static_assert(DV <= 32 || kPv == DV, "P V is as wide as the head");
+  static_assert(kPv == 16 || kPv == 32 || kPv == 64 || kPv == 96 ||
+                    kPv == 128 || kPv == 256,
+                "P V is n16, n32, n64, n64 + n32, n128 or two n128 halves");
 };
 
 // At D 256 (kKeys 64) the consumer holds O's 128 registers a thread, and
@@ -383,10 +397,13 @@ struct TcTiles {
 // 64 columns; a k16 step is 32 bytes into a box, steps 4..7 are in the
 // second box, 8..11 (D 192, 256) in the third and 12..15 (D 256) in the
 // fourth. A narrow head's one box of kCols columns: a step is 32 bytes into
-// its row.
-template <int D, int kKeys, int kCols = kBoxCols>
+// its row. At D 96 (kTail 32) steps 4 and 5 are in the tail boxes at `q_t`
+// and `k_t` (64-byte rows, 64-byte swizzle).
+template <int D, int kKeys, int kCols = kBoxCols, int kTail = 0>
 __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
-                                           uint32_t q_s, uint32_t k_s) {
+                                           uint32_t q_s, uint32_t k_s,
+                                           uint32_t q_t = 0,
+                                           uint32_t k_t = 0) {
   constexpr int kSteps = (D + 15) / 16;  // zeros past D add nothing
   constexpr uint32_t kQBoxBytes = kTcRows * 128;
   if constexpr (kCols < kBoxCols) {
@@ -400,6 +417,23 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
       } else {
         wgmma_m64n128k16_ss(s, a, b);
       }
+    }
+  } else if constexpr (kTail > 0) {
+    static_assert(kKeys == 128 && D == kBoxCols + kTail, "D 96: 64 + 32");
+#pragma unroll
+    for (int kk = 0; kk < kBoxCols / 16; ++kk) {
+      const uint64_t a = sw128_desc(q_s + 32 * kk, 16, 1024);
+      const uint64_t b = sw128_desc(k_s + 32 * kk, 16, 1024);
+      if (kk == 0) {
+        wgmma_m64n128k16_ss_first(s, a, b);
+      } else {
+        wgmma_m64n128k16_ss(s, a, b);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTail / 16; ++kk) {
+      wgmma_m64n128k16_ss(s, narrow_kmajor<2 * kTail>(q_t, kk),
+                          narrow_kmajor<2 * kTail>(k_t, kk));
     }
   } else if constexpr (kKeys == 64) {
     const uint64_t qa = opaque(sw128_desc(q_s, 16, 1024));
@@ -436,13 +470,25 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2],
 // (with kKeys 64) runs as two n128 halves, boxes 0-1 and 2-3: element
 // 64 + i of o is element i of the second half's fragment, as in an n256
 // one. A narrow DV's one box of N (16 or 32) columns: n16 or n32, 16 rows
-// of 2 N bytes a step.
+// of 2 N bytes a step. N 96: n64 over the 64-column box, then n32 over the
+// tail box at `v_t` (64-byte rows): element 32 + i of o is element i of
+// the n32 fragment, as in an n96 one.
 template <int N, int kKeys>
 __device__ __forceinline__ void pv_product(float (&o)[N / 2],
                                            const uint32_t (&p)[kKeys / 4],
-                                           uint32_t v_s) {
+                                           uint32_t v_s, uint32_t v_t = 0) {
   constexpr uint32_t kBox = kKeys * 128;
-  if constexpr (N < 64) {
+  if constexpr (N == 96) {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(o), p[4 * kk],
+                         p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                         sw128_desc(v_s + 2048 * kk, kBox, 1024));
+      wgmma_m64n32k16_rs(*reinterpret_cast<float(*)[16]>(o + 32), p[4 * kk],
+                         p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                         narrow_mnmajor<64>(v_t, kk));
+    }
+  } else if constexpr (N < 64) {
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       wgmma_rs<N>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
@@ -574,11 +620,15 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
   }
 }
 
+// tq_t, tk_t and tv_t map the tail boxes at D 96 (unread elsewhere).
 template <int D, int DV, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tq_t,
+                          const __grid_constant__ CUtensorMap tk_t,
+                          const __grid_constant__ CUtensorMap tv_t,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int sq, int sk, int heads,
                           int kv_heads, int causal, int window,
@@ -590,6 +640,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kQTiles = Tiles::kQTiles;
   constexpr int kPv = Tiles::kPv;
   constexpr int kKeys = Tiles::kKeys;
+  constexpr int kTail = Tiles::kTail;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 4 * kTcStages];
   // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
@@ -613,6 +664,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   };
   const auto stage = [](int it) { return it % kTcStages; };
   const auto phase = [](int it) { return (it / kTcStages) & 1u; };
+  // The tail boxes (D 96): after a tile's full boxes.
+  const auto k_t = [&](int st) {
+    return k_s(st) + Tiles::kQkBoxes * Tiles::kKBox;
+  };
+  const auto v_t = [&](int st) {
+    return v_s(st) + Tiles::kVBoxes * Tiles::kVBox;
+  };
 
   // Grid (heads, batch, query tiles), or at MLA's (192, 128) with one
   // query head a KV head (query tiles, heads, batch): see launch_tc.
@@ -669,6 +727,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(q_s(t) + c * Tiles::kQBox, &tq, q_full(t),
                     c * Tiles::kCols, h, sp.q0, b);
       }
+      if constexpr (kTail > 0) {
+        tma_load_4d(q_s(t) + Tiles::kQkBoxes * Tiles::kQBox, &tq_t, q_full(t),
+                    Tiles::kQkBoxes * Tiles::kCols, h, sp.q0, b);
+      }
     }
     int it = 0;
     for (int t = 0; t < n_q; ++t) {
@@ -682,11 +744,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
           tma_load_4d(k_s(st) + c * Tiles::kKBox, &tk, k_full(st),
                       c * Tiles::kCols, kh, k0, b);
         }
+        if constexpr (kTail > 0) {
+          tma_load_4d(k_t(st), &tk_t, k_full(st),
+                      Tiles::kQkBoxes * Tiles::kCols, kh, k0, b);
+        }
         mbar_wait(v_empty(st), phase(it) ^ 1);
         mbar_expect_tx(v_full(st), kV);
         for (int c = 0; c < Tiles::kVBoxes; ++c) {
           tma_load_4d(v_s(st) + c * Tiles::kVBox, &tv, v_full(st),
                       c * Tiles::kVCols, kh, k0, b);
+        }
+        if constexpr (kTail > 0) {
+          tma_load_4d(v_t(st), &tv_t, v_full(st),
+                      Tiles::kVBoxes * Tiles::kVCols, kh, k0, b);
         }
       }
     }
@@ -707,6 +777,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_lo = sp.q0 + 64 * wg;
     const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
     const uint32_t q_wg = q_s(t) + wg * 64 * Tiles::kRow;
+    const uint32_t q_wg_t =  // this warpgroup's rows of the tail box
+        q_s(t) + Tiles::kQkBoxes * Tiles::kQBox + wg * 64 * 2 * kTail;
 
     float o[kPv / 2];
 #pragma unroll
@@ -721,7 +793,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(q_full(t), 0);
       mbar_wait(k_full(stage(it0)), phase(it0));
       wgmma_fence();
-      qk_product<D, kKeys, Tiles::kCols>(s, q_wg, k_s(stage(it0)));
+      qk_product<D, kKeys, Tiles::kCols, kTail>(s, q_wg, k_s(stage(it0)),
+                                                q_wg_t, k_t(stage(it0)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(s);
@@ -745,9 +818,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         hold(o);
         hold(p);
         wgmma_fence();
-        qk_product<D, kKeys, Tiles::kCols>(s, q_wg, k_s(stage(it)));
+        qk_product<D, kKeys, Tiles::kCols, kTail>(s, q_wg, k_s(stage(it)),
+                                                  q_wg_t, k_t(stage(it)));
         wgmma_commit();
-        pv_product<kPv, kKeys>(o, p, v_s(stage(it - 1)));
+        pv_product<kPv, kKeys>(o, p, v_s(stage(it - 1)),
+                               v_t(stage(it - 1)));
         wgmma_commit();
         wgmma_wait<1>();  // S is in
         hold(s);
@@ -781,7 +856,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       hold(o);
       hold(p);
       wgmma_fence();
-      pv_product<kPv, kKeys>(o, p, v_s(stage(last)));
+      pv_product<kPv, kKeys>(o, p, v_s(stage(last)), v_t(stage(last)));
       wgmma_commit();
       wgmma_wait<0>();
       hold(o);
@@ -852,11 +927,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const int q_tiles = (sq + kTcRows - 1) / kTcRows;
   const int blocks_z = (q_tiles + Tiles::kQTiles - 1) / Tiles::kQTiles;
   if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, tq_t, tk_t, tv_t;
   // Contiguous tensors: strides of D (or DV) a head, then a row, a batch
   // (32 bytes and more: multiples of 16, as TMA wants). Boxes of 128 rows
   // for Q, of the tiles' keys for K and V; of box_cols columns, zero-filled
-  // past the head's D as past the tensor's edge.
+  // past a narrow head's D as past the tensor's edge; at D 96 the tail maps
+  // (tq_t, ...) take boxes of the last 32 columns.
   const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh, int d,
                        int rows, int cols) {
     return encode_4d(m, p, batch, seq, nh, d, d,
@@ -868,6 +944,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
       !map(&tk, k, sk, kv_heads, D, Tiles::kKeys, Tiles::kCols) ||
       !map(&tv, v, sk, kv_heads, DV, Tiles::kKeys, Tiles::kVCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (Tiles::kTail > 0) {
+    if (!map(&tq_t, q, sq, heads, D, kTcRows, Tiles::kTail) ||
+        !map(&tk_t, k, sk, kv_heads, D, Tiles::kKeys, Tiles::kTail) ||
+        !map(&tv_t, v, sk, kv_heads, DV, Tiles::kKeys, Tiles::kVTail)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    tq_t = tq;
+    tk_t = tk;
+    tv_t = tv;
   }
   const Scaling sc = make_scaling(D, softcap);
   // Blocks ordered head fastest, so that the G query heads of one KV head
@@ -889,8 +976,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
         smem_limit(reinterpret_cast<const void*>(kernel), Tiles::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, kTcThreads, Tiles::kSmem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, sq, sk, heads,
-        kv_heads, causal, window, sc);
+        tq, tk, tv, tq_t, tk_t, tv_t, static_cast<__nv_bfloat16*>(out), lse,
+        sq, sk, heads, kv_heads, causal, window, sc);
     return static_cast<int>(cudaGetLastError());
   };
   if (sc.cap_log2 <= 0.f) return run(Flag<false>{});

@@ -43,8 +43,9 @@
 // Tensor cores: bf16 at every (D, DV), the reduced configs' (16, 16),
 // (24, 24), (24, 16) and (32, 32) (kernels of their own with boxes as wide
 // as the head and tiles of 128 along the sequence: dkdv_narrow_kernel and
-// dq_narrow_kernel, below the others'), (64, 64), (96, 96), (128, 128) (the
-// training path: qwen2.5-3b, qwen3-14b, starcoder2-15b), MLA's (192, 128)
+// dq_narrow_kernel, below the others'), (64, 64), (96, 96) (phi-3-vision:
+// tiles of 64 + 32 columns, below), (128, 128) (the training path:
+// qwen2.5-3b, qwen3-14b, starcoder2-15b), MLA's (192, 128)
 // (deepseek-v2-236b; no cap: MLA passes none, and dkdv_mla_kernel takes
 // none) and gemma3-12b's (256, 256) (its kernels apart, below the
 // others'). Under a cap every pass recomputes P from the capped scores
@@ -64,8 +65,9 @@
 //   a fixed order (a thread's columns, then a quad's shuffle), into
 //   Delta's rows below Sq.
 // * dkdv_tc_kernel: a cluster of 1 or 2 blocks of 384 threads per (64
-//   keys, KV head, batch), heavy (early, under causality) key tiles first;
-//   the launch takes 2 where one block a key tile would give fewer than two
+//   keys, KV head, batch) (at D 96 one block per 128 keys: below), heavy
+//   (early, under causality) key tiles first; the launch takes 2 where one
+//   block a key tile would give fewer than two
 //   blocks an SM (at qwen2.5-3b's training shape: 128 blocks, the heaviest
 //   with 32 pairs, where one block a key tile would give 64 blocks, the
 //   heaviest with 64; clusters of 4 measured slower, their exchange costing
@@ -121,12 +123,19 @@
 //   atomics and of exact row sums of dS.
 // Operands arrive by TMA (4-D tensor maps over (D, heads, S, B) with the
 // tensors' own strides, boxes of 64 columns by 64 rows, 128-byte swizzle;
-// hopper.cuh holds these pieces, shared with the forward). D 96 is two boxes
-// whose columns 96-127 the TMA unit fills with zeros: the dK and dQ products
-// run n 128 and the epilogues never store those columns. D 192 is three
-// boxes; its dK and dQ products run as n128 over columns 0-127 and n64 over
-// 128-191. Rows past Sq or Sk are zero-filled and masked. P and dS in bf16
-// change each term of dV, dK and dQ by at most 2**-9 relative.
+// hopper.cuh holds these pieces, shared with the forward). D 96 is a box of
+// 64 columns and a tail box of the last 32 (64-byte rows, 64-byte swizzle,
+// through tail tensor maps of their own), so that no column is zero-filled:
+// a tile is 12 KB, not 16; S^T and dP^T take 4 k16 steps in the first box
+// and 2 in the tail, dV, dK and dQ run n64 + n32, and a consumer's dK and
+// dV are 48 + 48 registers a thread, not 64 + 64. There a dK/dV block
+// takes 128 keys, 64 a consumer, both consumers reading every pair, so it
+// needs no cluster and no reduction (kSplitKeys: 233 against 310 us of
+// the layout alone at phi-3-vision's training batch on an H100 80GB HBM3
+// at 700 W, PERF.md). D 192 is three boxes; its dK and dQ products run as
+// n128 over columns 0-127 and n64 over 128-191. Rows past Sq or Sk are
+// zero-filled and masked. P and dS in bf16 change each term of dV, dK and
+// dQ by at most 2**-9 relative.
 //
 // CUDA cores: fp32 at every (D, DV), whose 2e-4 tolerance needs exact fp32
 // sums that bf16 or TF32 products cannot hold. Shared-memory rows of D and
@@ -698,28 +707,41 @@ constexpr int kMaxCluster = 2;          // dkdv_tc_kernel blocks per cluster
 constexpr size_t kSmemMax = 232448;     // a block's dynamic shared memory
 
 // Shared-memory plans of the two kernels for head dims D and DV: a 64-row
-// tile of D columns is kDBoxes boxes; the dK and dQ products are n kN, dV's
-// n kNV (the last box zero-filled past D or DV).
+// tile of D columns is kDBoxes boxes of 64 and, at 96, a tail box of the
+// last 32 (tail_cols: 64-byte rows, 64-byte swizzle), so that no column is
+// zero-filled; the dK and dQ products are n kN = D, dV's n kNV = DV.
 template <int D, int DV>
 struct BwdTiles {
-  static constexpr int kDBoxes = (D + kBoxCols - 1) / kBoxCols;
-  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
-  static constexpr int kN = kDBoxes * kBoxCols;
-  static constexpr int kNV = kVBoxes * kBoxCols;
-  static constexpr uint32_t kQk = kDBoxes * kBox;  // a Q or K tile
-  static constexpr uint32_t kV = kVBoxes * kBox;   // a dO or V tile
-  // dkdv: K and V, then the ring; a stage is Q, dO, 64 lse * log2(e) and 64
-  // Delta, padded to keep the next stage 1,024-byte aligned.
+  static constexpr int kTail = tail_cols(D);    // columns of the tail box
+  static constexpr int kVTail = tail_cols(DV);  // (0: none)
+  static constexpr int kDBoxes = (D - kTail) / kBoxCols;
+  static constexpr int kVBoxes = (DV - kVTail) / kBoxCols;
+  static constexpr int kN = kDBoxes * kBoxCols + kTail;
+  static constexpr int kNV = kVBoxes * kBoxCols + kVTail;
+  static constexpr uint32_t kQk = kDBoxes * kBox + kTile * 2 * kTail;
+  static constexpr uint32_t kV = kVBoxes * kBox + kTile * 2 * kVTail;
+  // dkdv: 64-key tiles of K and V a block (two at D 96, where the
+  // consumers split the block's keys: dkdv_tc_kernel), then the ring; a
+  // stage is Q, dO, 64 lse * log2(e) and 64 Delta, padded to keep the next
+  // stage 1,024-byte aligned.
+  static constexpr bool kSplitKeys = kTail > 0;
+  static constexpr int kKvTiles = kSplitKeys ? 2 : 1;
   static constexpr uint32_t kStage = kQk + kV + 1024;
-  static constexpr size_t kKvSmem =
-      kQk + kV + kKvStages * static_cast<size_t>(kStage) + 1024;
+  static constexpr size_t kKvSmem = kKvTiles * static_cast<size_t>(kQk + kV) +
+                                    kKvStages * static_cast<size_t>(kStage) +
+                                    1024;
   // dq: two consumers' Q and dO, then the ring of K and V.
   static constexpr size_t kQSmem =
       (2 + kQStages) * static_cast<size_t>(kQk + kV) + 1024;
   static_assert(kKvSmem <= kSmemMax && kQSmem <= kSmemMax,
                 "tiles exceed shared memory");
+  static_assert(kTail == kVTail && (kTail == 0 || kTail == 32),
+                "a tail box of 32 columns, at D = DV = 96 only");
+  // No box is zero-filled past the head and no product is wider than it:
+  // at 96 the tiles are 64 + 32 columns and the products n64 + n32.
+  static_assert(kN == D && kNV == DV, "boxes cover the heads exactly");
   static_assert(kN <= 192 && kNV <= 128,
-                "products are n64 or n128 (n192 as both, product_ab)");
+                "products are n64, n96 or n128 (n192 as n128 + n64)");
   // dkdv: a consumer's partial dK and dV, kPairs pairs of fp32 accumulator
   // registers a thread; both consumers' go over the ring at the end.
   static constexpr int kPairs = (kN + kNV) / 4;
@@ -743,16 +765,26 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t t, int kk) {
 }
 
 // d (64 x 64) = A B^T over K columns, A and B 64-row tiles at `a` and `b`,
-// both K-major (S = Q K^T, dP = dO V^T and their transposes). K of 96 (two
-// boxes, the second zero-filled past 96) runs ceil(K / 16) steps: the zeros
-// add nothing.
+// both K-major (S = Q K^T, dP = dO V^T and their transposes). K of 96: 4
+// steps in the box of 64 columns, then 2 in the tail box after it (64-byte
+// rows).
 template <int K>
 __device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a,
                                             uint32_t b) {
+  constexpr int kTail = tail_cols(K);
+  constexpr int kFull = (K - kTail) / 16;  // steps in the boxes of 64
   wgmma_m64n64k16_ss_first(d, kmajor(a, 0), kmajor(b, 0));
 #pragma unroll
-  for (int kk = 1; kk < (K + 15) / 16; ++kk) {
+  for (int kk = 1; kk < kFull; ++kk) {
     wgmma_m64n64k16_ss(d, kmajor(a, kk), kmajor(b, kk));
+  }
+  if constexpr (kTail > 0) {
+    constexpr uint32_t kAt = (K - kTail) / kBoxCols * kBox;  // the tail box
+#pragma unroll
+    for (int kk = 0; kk < kTail / 16; ++kk) {
+      wgmma_m64n64k16_ss(d, narrow_kmajor<2 * kTail>(a + kAt, kk),
+                         narrow_kmajor<2 * kTail>(b + kAt, kk));
+    }
   }
 }
 
@@ -765,7 +797,17 @@ __device__ __forceinline__ void product_ab(float (&acc)[N / 2],
                                            uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (N == 192) {
+    if constexpr (N == 96) {
+      // Columns 0-63 (the box of 64), then 64-95 (the tail box, 64-byte
+      // rows): element 32 + i of acc is element i of the n32 fragment, as
+      // in an n96 one.
+      wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(acc), a[4 * kk],
+                         a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                         mnmajor(b, kk));
+      wgmma_m64n32k16_rs(*reinterpret_cast<float(*)[16]>(acc + 32),
+                         a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                         a[4 * kk + 3], narrow_mnmajor<64>(b + kBox, kk));
+    } else if constexpr (N == 192) {
       // Columns 0-127 (boxes 0 and 1), then 128-191 (box 2): element
       // 64 + i of acc is element i of the n64 fragment, as in an n192 one.
       wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(acc), a[4 * kk],
@@ -875,14 +917,42 @@ __device__ __forceinline__ void scores_to_ds(
   }
 }
 
+// One 64-row tile of a head of d columns into shared memory at `dst` (rows
+// from `row` of head `h`, batch `b`; bytes complete on `bar`): its boxes of
+// 64 columns through `map`, then at d 96 the tail box of the last 32
+// through `tail`.
+template <int d>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail,
+                                          uint32_t bar, int h, int row,
+                                          int b) {
+  constexpr int kBoxes = (d - tail_cols(d)) / kBoxCols;
+  for (int c = 0; c < kBoxes; ++c) {
+    tma_load_4d(dst + c * kBox, map, bar, c * kBoxCols, h, row, b);
+  }
+  if constexpr (tail_cols(d) > 0) {
+    tma_load_4d(dst + kBoxes * kBox, tail, bar, kBoxes * kBoxCols, h, row,
+                b);
+  }
+}
+
 // dK and dV of 64 keys of one KV head, summed over its query heads, by a
-// cluster of blocks that split the (query head, query tile) pairs.
+// cluster of blocks that split the (query head, query tile) pairs. The maps
+// tq_t .. tdo_t take the tail boxes at D 96 (unread elsewhere). At D 96
+// (kSplitKeys) a block takes 128 keys instead and no cluster: consumer wg
+// holds keys k0 + 64 wg .. + 63 and reads every pair (skipping those its
+// keys cannot see), so each holds its keys' whole dK and dV and stores them
+// as they stand, with nothing to add across consumers or blocks.
 template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tq_t,
+               const __grid_constant__ CUtensorMap tk_t,
+               const __grid_constant__ CUtensorMap tv_t,
+               const __grid_constant__ CUtensorMap tdo_t,
                const float* __restrict__ lse2, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int sq, int sk, int sq_pad, int heads, int kv_heads,
@@ -890,15 +960,18 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   using Tiles = BwdTiles<D, DV>;
   constexpr int kN = Tiles::kN;
   constexpr int kNV = Tiles::kNV;
+  constexpr bool kSplitKeys = Tiles::kSplitKeys;
+  constexpr int kKeys = kSplitKeys ? 2 * kTile : kTile;  // keys a block
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kKvStages];
   // Swizzle atoms must be 1024-byte aligned: the launch adds 1 KB of slack.
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t k_s = base;
-  const uint32_t v_s = base + Tiles::kQk;
+  const uint32_t k_s = base;  // kKvTiles tiles of K, then as many of V
+  const uint32_t v_s = base + Tiles::kKvTiles * Tiles::kQk;
   const auto q_s = [&](int st) {
-    return base + Tiles::kQk + Tiles::kV + st * Tiles::kStage;
+    return base + Tiles::kKvTiles * (Tiles::kQk + Tiles::kV) +
+           st * Tiles::kStage;
   };
   const auto do_s = [&](int st) { return q_s(st) + Tiles::kQk; };
   const auto stats_s = [&](int st) { return do_s(st) + Tiles::kV; };
@@ -914,10 +987,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int rank = static_cast<int>(cluster_rank());
   const int kh = blockIdx.x / ranks;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kTile;  // early key tiles (causal: heavy) first
+  const int k0 = blockIdx.z * kKeys;  // early key tiles (causal: heavy) first
   const int group = heads / kv_heads;
   // Queries that may see keys [k0, k_last]: [q_lo, q_hi), in tiles of 64.
-  const int k_last = min(k0 + kTile, sk) - 1;
+  const int k_last = min(k0 + kKeys, sk) - 1;
   const int q_lo = causal ? k0 : 0;
   const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
   const int qt_lo = q_lo / kTile;
@@ -925,14 +998,14 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_pairs = group * n_qt;  // pair i: head i / n_qt, tile i % n_qt
   // This block's pair of local index li (its ring index).
   const auto pair_of = [&](int li) {
-    return 2 * ranks * (li / 2) + 2 * rank + li % 2;
+    return kSplitKeys ? li : 2 * ranks * (li / 2) + 2 * rank + li % 2;
   };
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int st = 0; st < kKvStages; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), 128);
+      mbar_init(empty(st), kSplitKeys ? 256 : 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -943,12 +1016,12 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // Producer warpgroup: one thread issues every load.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(kv_full, Tiles::kQk + Tiles::kV);
-      for (int c = 0; c < Tiles::kDBoxes; ++c) {
-        tma_load_4d(k_s + c * kBox, &tk, kv_full, c * kBoxCols, kh, k0, b);
-      }
-      for (int c = 0; c < Tiles::kVBoxes; ++c) {
-        tma_load_4d(v_s + c * kBox, &tv, kv_full, c * kBoxCols, kh, k0, b);
+      mbar_expect_tx(kv_full, Tiles::kKvTiles * (Tiles::kQk + Tiles::kV));
+      for (int c = 0; c < Tiles::kKvTiles; ++c) {
+        load_tile<D>(k_s + c * Tiles::kQk, &tk, &tk_t, kv_full, kh,
+                     k0 + c * kTile, b);
+        load_tile<DV>(v_s + c * Tiles::kV, &tv, &tv_t, kv_full, kh,
+                      k0 + c * kTile, b);
       }
       for (int li = 0; pair_of(li) < n_pairs; ++li) {
         const int i = pair_of(li);
@@ -957,14 +1030,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const int q0 = (qt_lo + i % n_qt) * kTile;
         mbar_wait(empty(st), ((li / kKvStages) & 1) ^ 1);  // round 0 passes
         mbar_expect_tx(full(st), Tiles::kQk + Tiles::kV + 512);
-        for (int c = 0; c < Tiles::kDBoxes; ++c) {
-          tma_load_4d(q_s(st) + c * kBox, &tq, full(st), c * kBoxCols, h, q0,
-                      b);
-        }
-        for (int c = 0; c < Tiles::kVBoxes; ++c) {
-          tma_load_4d(do_s(st) + c * kBox, &tdo, full(st), c * kBoxCols, h,
-                      q0, b);
-        }
+        load_tile<D>(q_s(st), &tq, &tq_t, full(st), h, q0, b);
+        load_tile<DV>(do_s(st), &tdo, &tdo_t, full(st), h, q0, b);
         const long long row =
             (static_cast<long long>(b) * heads + h) * sq_pad + q0;
         bulk_load(stats_s(st), lse2 + row, 256, full(st));
@@ -972,13 +1039,16 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
     // Every block's threads stay for the cluster's two barriers below.
-    cluster_sync();
-    cluster_sync();
+    if constexpr (!kSplitKeys) {
+      cluster_sync();
+      cluster_sync();
+    }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
 
-  // Consumers: warpgroup wg takes local pairs wg, wg + 2, ...; of the 64 x 64
+  // Consumers: warpgroup wg takes local pairs wg, wg + 2, ... (kSplitKeys:
+  // every pair, for its keys kw .. kw + 63); of the 64 x 64
   // fragments this thread owns rows (keys) kr and kr + 8 and, of every 8
   // columns (queries), c0 and c0 + 1: element 4j + e is key kr + 8 (e / 2),
   // query 8j + c0 + e % 2.
@@ -986,6 +1056,9 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32;
   const int c0 = 2 * (lane % 4);
   const int kr = 16 * (warp % 4) + lane / 4;
+  const int kw = kSplitKeys ? k0 + kTile * wg : k0;  // the consumer's keys
+  const uint32_t k_wg = kSplitKeys ? k_s + wg * Tiles::kQk : k_s;
+  const uint32_t v_wg = kSplitKeys ? v_s + wg * Tiles::kV : v_s;
   float dk_acc[kN / 2], dv_acc[kNV / 2];
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) dk_acc[i] = 0.f;
@@ -994,17 +1067,23 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   mbar_wait(kv_full, 0);
 
 #pragma unroll 1
-  for (int li = wg; pair_of(li) < n_pairs; li += 2) {
+  for (int li = kSplitKeys ? 0 : wg; pair_of(li) < n_pairs;
+       li += kSplitKeys ? 1 : 2) {
     const int st = li % kKvStages;
     const int q0 = (qt_lo + pair_of(li) % n_qt) * kTile;
     mbar_wait(full(st), (li / kKvStages) & 1);
+    if (kSplitKeys &&
+        !tile_sees<kTile, kTile>(q0, kw, sq, sk, causal, window)) {
+      mbar_arrive(empty(st));  // nothing of this pair reaches its keys
+      continue;
+    }
     const float* stats =
         reinterpret_cast<const float*>(smem_raw + (stats_s(st) - raw));
     float s[32], dp[32];
     wgmma_fence();
-    product_abt<D>(s, k_s, q_s(st));
+    product_abt<D>(s, k_wg, q_s(st));
     wgmma_commit();
-    product_abt<DV>(dp, v_s, do_s(st));
+    product_abt<DV>(dp, v_wg, do_s(st));
     wgmma_commit();
     wgmma_wait<1>();  // S^T is in
     hold(s);
@@ -1012,7 +1091,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked (under
     // the cap, of the capped scores).
     const bool masked =
-        tile_masked<kTile, kTile>(q0, k0, sq, sk, causal, window);
+        tile_masked<kTile, kTile>(q0, kw, sq, sk, causal, window);
     const bool capped = sc.cap_log2 > 0.f;
     const auto probs = [&](auto cap) {
 #pragma unroll
@@ -1025,7 +1104,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
           const float x = exp2_approx(score_arg<decltype(cap)::value>(
               s[4 * j + e], e % 2 ? l2.y : l2.x, sc, t));
           s[4 * j + e] = masked && !visible(q0 + 8 * j + c0 + e % 2,
-                                            k0 + kr + 8 * (e / 2), sq, sk,
+                                            kw + kr + 8 * (e / 2), sq, sk,
                                             causal, window)
                              ? 0.f
                              : x;
@@ -1090,6 +1169,30 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     hold(dk_acc);
     hold(da);
     mbar_arrive(empty(st));
+  }
+
+  if constexpr (kSplitKeys) {
+    // Register pair p of dK is key kw + kr + 8 (p % 2), columns 8 (p / 2)
+    // + c0 and + 1; dV's likewise.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + kr + 8 * r;
+      if (key >= sk) continue;
+      const long long at =
+          (static_cast<long long>(b) * sk + key) * kv_heads + kh;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at * D + 8 * j + c0) =
+            pack_bf16(dk_acc[4 * j + 2 * r] * scale,
+                      dk_acc[4 * j + 2 * r + 1] * scale);
+      }
+#pragma unroll
+      for (int j = 0; j < kNV / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dv + at * DV + 8 * j + c0) =
+            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+    return;
   }
 
   // The cluster's blocks own equal runs of the kPairs register pairs (dK's
@@ -1498,13 +1601,17 @@ dkdv_mla_kernel(const __grid_constant__ CUtensorMap tq,
 
 // dQ of 128 query rows of one query head: two consumers of 64 rows each.
 // With kDelta, the Delta pass: each row's sum_j P_ij dP_ij into `delta`
-// (rows below Sq), and no dQ.
+// (rows below Sq), and no dQ. The maps tq_t .. tdo_t as dkdv_tc_kernel's.
 template <int D, int DV, bool kDelta>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tq_t,
+             const __grid_constant__ CUtensorMap tk_t,
+             const __grid_constant__ CUtensorMap tv_t,
+             const __grid_constant__ CUtensorMap tdo_t,
              const float* __restrict__ lse2, float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int sq, int sk, int sq_pad,
              int heads, int kv_heads, int causal, int window,
@@ -1558,28 +1665,16 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x != 256) return;
     mbar_expect_tx(q_full, 2 * kKV);
     for (int w = 0; w < 2; ++w) {
-      for (int c = 0; c < Tiles::kDBoxes; ++c) {
-        tma_load_4d(q_s(w) + c * kBox, &tq, q_full, c * kBoxCols, h,
-                    q0 + kTile * w, b);
-      }
-      for (int c = 0; c < Tiles::kVBoxes; ++c) {
-        tma_load_4d(do_s(w) + c * kBox, &tdo, q_full, c * kBoxCols, h,
-                    q0 + kTile * w, b);
-      }
+      load_tile<D>(q_s(w), &tq, &tq_t, q_full, h, q0 + kTile * w, b);
+      load_tile<DV>(do_s(w), &tdo, &tdo_t, q_full, h, q0 + kTile * w, b);
     }
     for (int j = 0; j < n_kt; ++j) {
       const int st = j % kQStages;
       const int k0 = k_lo + j * kTile;
       mbar_wait(empty(st), ((j / kQStages) & 1) ^ 1);  // round 0 passes
       mbar_expect_tx(full(st), kKV);
-      for (int c = 0; c < Tiles::kDBoxes; ++c) {
-        tma_load_4d(k_s(st) + c * kBox, &tk, full(st), c * kBoxCols, kh, k0,
-                    b);
-      }
-      for (int c = 0; c < Tiles::kVBoxes; ++c) {
-        tma_load_4d(v_s(st) + c * kBox, &tv, full(st), c * kBoxCols, kh, k0,
-                    b);
-      }
+      load_tile<D>(k_s(st), &tk, &tk_t, full(st), kh, k0, b);
+      load_tile<DV>(v_s(st), &tv, &tv_t, full(st), kh, k0, b);
     }
     return;
   }
@@ -2771,14 +2866,17 @@ cudaError_t join_side(cudaStream_t stream, SideStream* side) {
 
 // The dK/dV kernel on `stream`: dkdv_mla_kernel at MLA's (192, 128), one
 // block a key tile; else dkdv_tc_kernel in clusters of 2 blocks a key tile
-// where one would give fewer than two blocks an SM.
+// where one would give fewer than two blocks an SM (at D 96 one block two
+// key tiles, no cluster). `t` holds the tail maps
+// of q, k, v and dO (read at D 96).
 template <int D, int DV>
 cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
                         const CUtensorMap& tv, const CUtensorMap& tdo,
-                        const float* lse2, const float* delta, void* dk,
-                        void* dv, int batch, int sq, int sk, int sq_pad,
-                        int heads, int kv_heads, int causal, int window,
-                        Scaling sc, float scale, cudaStream_t stream) {
+                        const CUtensorMap (&t)[4], const float* lse2,
+                        const float* delta, void* dk, void* dv, int batch,
+                        int sq, int sk, int sq_pad, int heads,
+                        int kv_heads, int causal, int window, Scaling sc,
+                        float scale, cudaStream_t stream) {
   const int k_tiles = (sk + kTile - 1) / kTile;
   __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
@@ -2812,11 +2910,16 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
     const long long kv_blocks =
         static_cast<long long>(kv_heads) * batch * k_tiles;
     int ranks = 1;
-    while (ranks < kMaxCluster && kv_blocks * ranks < 2LL * sms) ranks *= 2;
+    while (!Tiles::kSplitKeys && ranks < kMaxCluster &&
+           kv_blocks * ranks < 2LL * sms) {
+      ranks *= 2;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(kv_heads * ranks),
                        static_cast<unsigned>(batch),
-                       static_cast<unsigned>(k_tiles));
+                       static_cast<unsigned>(Tiles::kSplitKeys
+                                                 ? (k_tiles + 1) / 2
+                                                 : k_tiles));
     cfg.blockDim = dim3(kTcThreads);
     cfg.dynamicSmemBytes = Tiles::kKvSmem;
     cfg.stream = stream;
@@ -2828,8 +2931,9 @@ cudaError_t launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
     cfg.attrs = &cluster;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, dkdv_tc_kernel<D, DV>, tq, tk, tv, tdo,
-                             lse2, delta, dk_, dv_, sq, sk, sq_pad, heads,
-                             kv_heads, causal, window, sc, scale);
+                             t[0], t[1], t[2], t[3], lse2, delta, dk_, dv_,
+                             sq, sk, sq_pad, heads, kv_heads, causal, window,
+                             sc, scale);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
@@ -2852,17 +2956,35 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
       kv_heads > 65535 / kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch.
+  // Contiguous tensors: strides of D (or DV) a head, then a row, a batch;
+  // boxes of 64 rows by 64 columns (128-byte swizzle), and at D 96 the tail
+  // maps' boxes of the last 32 (64-byte swizzle).
   const auto map = [&](CUtensorMap* m, const void* p, int seq, int nh,
-                       int d) {
+                       int d, int cols) {
     return encode_4d(m, p, batch, seq, nh, d, d,
                      static_cast<long long>(d) * nh,
-                     static_cast<long long>(d) * nh * seq, kTile);
+                     static_cast<long long>(d) * nh * seq, kTile, cols,
+                     swizzle_of(cols));
   };
-  CUtensorMap tq, tk, tv, tdo;
-  if (!map(&tq, q, sq, heads, D) || !map(&tk, k, sk, kv_heads, D) ||
-      !map(&tv, v, sk, kv_heads, DV) || !map(&tdo, dout, sq, heads, DV)) {
+  CUtensorMap tq, tk, tv, tdo, t[4];
+  if (!map(&tq, q, sq, heads, D, kBoxCols) ||
+      !map(&tk, k, sk, kv_heads, D, kBoxCols) ||
+      !map(&tv, v, sk, kv_heads, DV, kBoxCols) ||
+      !map(&tdo, dout, sq, heads, DV, kBoxCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (Tiles::kTail > 0) {
+    if (!map(&t[0], q, sq, heads, D, Tiles::kTail) ||
+        !map(&t[1], k, sk, kv_heads, D, Tiles::kTail) ||
+        !map(&t[2], v, sk, kv_heads, DV, Tiles::kVTail) ||
+        !map(&t[3], dout, sq, heads, DV, Tiles::kVTail)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    t[0] = tq;
+    t[1] = tk;
+    t[2] = tv;
+    t[3] = tdo;
   }
   lse_kernel<<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
       lse, lse2, delta, rows, sq, sq_pad);
@@ -2888,8 +3010,9 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
                    Tiles::kQSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<D, DV, true><<<q_grid, kTcThreads, Tiles::kQSmem, stream>>>(
-      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, sc, scale);
+      tq, tk, tv, tdo, t[0], t[1], t[2], t[3], lse2, delta,
+      static_cast<__nv_bfloat16*>(dq), sq, sk, sq_pad, heads, kv_heads,
+      causal, window, sc, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // The dQ kernel runs on a side stream beside the dK/dV kernel (both read
@@ -2898,7 +3021,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   SideStream* side = nullptr;
   err = fork_side(stream, &side);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_dkdv<D, DV>(tq, tk, tv, tdo, lse2, delta, dk, dv, batch, sq,
+  err = launch_dkdv<D, DV>(tq, tk, tv, tdo, t, lse2, delta, dk, dv, batch, sq,
                            sk, sq_pad, heads, kv_heads, causal, window,
                            sc, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -2908,8 +3031,9 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<D, DV, false><<<q_grid, kTcThreads, Tiles::kQSmem,
                                side->stream>>>(
-      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), sq, sk,
-      sq_pad, heads, kv_heads, causal, window, sc, scale);
+      tq, tk, tv, tdo, t[0], t[1], t[2], t[3], lse2, delta,
+      static_cast<__nv_bfloat16*>(dq), sq, sk, sq_pad, heads, kv_heads,
+      causal, window, sc, scale);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = join_side(stream, side);
   return static_cast<int>(err);

@@ -16,6 +16,9 @@
 // a k16 step is 16 rows (2,048 bytes) down, the next 64 columns are the next
 // box (the leading byte offset, R * 128); stride byte offset 1,024.
 //
+// A head of 96 is a box of 64 columns and a box of its last 32 (the
+// narrow layout below), each loaded through a tensor map of its own width.
+//
 // Narrow heads (the flash kernels' D and DV of 16 to 32) take boxes as wide
 // as the head instead: 16 columns (32-byte rows, 32-byte swizzle, atoms of
 // 8 rows = 256 bytes) or 32 columns (64-byte rows, 64-byte swizzle, atoms of
@@ -114,6 +117,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 // 32 columns at 17 to 32 (zero-filled past 24) and 16 at 16.
 __host__ __device__ constexpr int box_cols(int d) {
   return d > 32 ? kBoxCols : d > 16 ? 32 : 16;
+}
+
+// The columns of the last box of a head of d wider than a box but not a
+// multiple of one (32 at phi-3-vision's 96: 64-byte rows, 64-byte swizzle),
+// so that no box is zero-filled past the head; 0 where every box is full.
+__host__ __device__ constexpr int tail_cols(int d) {
+  return d > kBoxCols ? d % kBoxCols : 0;
 }
 
 // Descriptors of k16 step kk of a tile at `t` whose rows are kRow bytes

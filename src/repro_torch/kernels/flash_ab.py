@@ -31,8 +31,10 @@ the scratch is sized for the largest need, :func:`bwd_scratch_floats`) at
 :data:`BWD_SHAPES`: each build's dQ, dK and dV are first held against
 :func:`flash_attention_backward_plain` (within 3e-2 in bf16, 2e-4 in fp32,
 of the largest reference entry) on the plain forward's output and
-log-sum-exp and compared bit for bit with the first build's, then timed in
-turns beside SDPA's backward (``torch.autograd.grad`` of
+log-sum-exp (also their mean distance, ``mean_rel_err_dq_dk_dv``, for
+builds whose sums run in another order) and compared bit for bit with the
+first build's, then timed in turns beside SDPA's backward
+(``torch.autograd.grad`` of
 ``scaled_dot_product_attention``; where SDPA refuses the shape, its error
 is printed instead), with 2 * (3 D + 2 DV) operations per visible pair
 (S, dO V^T, dV, dQ, dK).
@@ -88,10 +90,12 @@ SHAPES = {
 #: (B, S, H, KV, D, DV, causal) of the backward: qwen2.5-3b's training
 #: batch, a long causal sequence, deepseek-v2-236b's training batch (its
 #: 128 MLA heads of 192 over 128), then gemma3-12b's (heads of 256), then
-#: :data:`NARROW`.
+#: phi-3-vision-4.2b's (heads of 96; a row is 576 patches and 512
+#: tokens), then :data:`NARROW`.
 BWD_SHAPES = [(4, 512, 16, 2, 128, 128, 1), (1, 2048, 16, 2, 128, 128, 1),
               (4, 512, 128, 128, 192, 128, 1),
-              (2, 2048, 16, 8, 256, 256, 1)] + NARROW
+              (2, 2048, 16, 8, 256, 256, 1),
+              (4, 1088, 32, 32, 96, 96, 1)] + NARROW
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 _BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
@@ -249,8 +253,12 @@ def backward(args, dtype) -> None:
             rel = [float((x.float() - y.float()).abs().max())
                    / max(float(y.float().abs().max()), 1e-30)
                    for x, y in zip(got, want)]
+            mean_rel = [float((x.float() - y.float()).abs().mean())
+                        / max(float(y.float().abs().max()), 1e-30)
+                        for x, y in zip(got, want)]
             outs.append(got)
             checks.append({"rc": err, "rel_err_dq_dk_dv": rel,
+                           "mean_rel_err_dq_dk_dv": mean_rel,
                            "within_tol": max(rel) <= _BWD_TOL[dtype],
                            "bit_identical_to_first": all(
                                torch.equal(x, y)

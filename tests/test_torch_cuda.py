@@ -598,6 +598,16 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
     (2, 300, 8, 8, 96, 96, False, None),
     (1, 777, 8, 4, 96, 96, True, 100),
     (2, (64, 300), 8, 8, 96, 96, False, None),
+    # The 96 tiles' edges: S not a multiple of 64 or 128, Sq != Sk both
+    # ways, a window across tile edges, G 4, rows with no visible key
+    # (from 95 on: the window ends before them).
+    (1, 97, 4, 4, 96, 96, True, None),
+    (2, 333, 8, 8, 96, 96, True, None),
+    (1, (300, 64), 8, 8, 96, 96, True, None),
+    (1, (97, 333), 4, 4, 96, 96, True, None),
+    (2, 333, 8, 8, 96, 96, True, 64),
+    (1, 333, 32, 8, 96, 96, True, None),
+    (1, (300, 64), 8, 8, 96, 96, True, 32),
     (1, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's MLA prefill
     (2, 333, 16, 16, 192, 128, True, None),    # 3 query tiles of 128
     (1, 640, 16, 16, 192, 128, True, None),    # 5 query tiles of 128
@@ -607,7 +617,8 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, b, s, h, kv, d,
 ])
 def test_cuda_flash_attention_other_head_dims_match_plain(
         cuda, dtype, tol, b, s, h, kv, d, dv, causal, window):
-    """Head dim 96 (zero-filled past 96 in the tensor-core tiles) and
+    """Head dim 96 (a box of 64 columns and one of 32 in the tensor-core
+    tiles) and
     query/key heads of 192 over value heads of 128 (MLA), against the
     plain version, with the launch counted under its shape."""
     from repro_torch.kernels.flash_attention import (
@@ -753,6 +764,8 @@ def test_cuda_flash_attention_narrow_heads_match_plain(cuda, dtype, tol,
 FLASH_CAP_CASES = [
     ((64, 64, 2, 300, 8, 2, True, None), 1),
     ((96, 96, 1, 333, 8, 8, True, 100), 1),
+    ((96, 96, 1, (97, 333), 32, 8, True, 64), 1),
+    ((96, 96, 2, (300, 64), 8, 8, True, 32), 8),   # rows without keys
     ((128, 128, 2, 512, 16, 2, True, None), 8),
     ((128, 128, 1, (64, 300), 8, 2, False, None), 1),
     ((256, 256, 1, 777, 8, 4, True, 100), 1),
@@ -1088,6 +1101,17 @@ FLASH_BWD_CASES = [
     (2, 256, 32, 32, 96, 96, True, None),     # phi-3-vision's heads, G 1
     (2, 256, 16, 16, 64, 64, True, None),     # seamless's heads, G 1
     (2, (200, 512), 16, 16, 64, 64, False, None),  # its cross-attention
+    # The 96 tiles' edges: S 97 and 333, Sq != Sk both ways, a window
+    # across tile edges, G 4, rows with no visible key, and phi-3-vision's
+    # training batch (576 patches and 512 tokens a row).
+    (1, 97, 4, 4, 96, 96, True, None),
+    (2, 333, 8, 8, 96, 96, True, None),
+    (1, (300, 97), 8, 8, 96, 96, True, None),
+    (1, (97, 300), 8, 8, 96, 96, False, None),
+    (2, 333, 8, 8, 96, 96, True, 64),
+    (1, 333, 32, 8, 96, 96, True, None),
+    (1, (300, 64), 8, 8, 96, 96, True, 32),
+    (4, 1088, 32, 32, 96, 96, True, None),
     (1, 128, 128, 128, 192, 128, True, None),  # deepseek-v2's 128 MLA heads
     (4, 512, 128, 128, 192, 128, True, None),  # deepseek-v2's training batch
     (2, 300, 8, 8, 192, 128, True, 100),       # MLA, a window across tiles
@@ -1126,6 +1150,8 @@ FLASH_BWD_CAP_CASES = [
     (2, 255, 8, 2, 32, 32, True, None),
     (2, 128, 16, 2, 128, 128, True, None),
     (1, 130, 4, 4, 96, 96, True, 100),
+    (1, (300, 97), 32, 8, 96, 96, True, 32),   # G 4, rows without keys
+    (2, 333, 8, 8, 96, 96, False, None),
     (2, 100, 4, 2, 64, 64, False, 16),
     (1, 256, 4, 2, 256, 256, True, None),
     (2, 200, 4, 4, 256, 256, True, 64),

@@ -61,18 +61,27 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("h,kv,d,window", [
+    pytest.param(4, 4, 128, None, id="4-4"),
+    pytest.param(4, 2, 128, None, id="4-2"),
+    (4, 4, 96, None),       # phi-3-vision's heads of 96, G 1
+    (8, 2, 96, None),       # G 4
+    (4, 4, 96, 48),         # a window across the Pallas blocks
+])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_plain_matches_pallas(dtype, h, kv, causal):
-    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(0, 2, 256, h, kv, 128), dtype)
-    want = jflash(jq, jk, jv, causal=causal, q_block=128, kv_block=128, **I)
-    got = flash_attention(tq, tk, tv, causal=causal)
+def test_flash_plain_matches_pallas(dtype, h, kv, d, window, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(0, 2, 256, h, kv, d), dtype)
+    want = jflash(jq, jk, jv, causal=causal, window=window, q_block=128,
+                  kv_block=128, **I)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     tol = DT[dtype][2]
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
     np.testing.assert_allclose(
-        _np(tref.flash_attention_ref(tq, tk, tv, causal=causal)),
-        _np(jref.flash_attention_ref(jq, jk, jv, causal=causal)),
+        _np(tref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                     window=window)),
+        _np(jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                     window=window)),
         rtol=tol, atol=tol)
 
 

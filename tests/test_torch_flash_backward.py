@@ -55,6 +55,9 @@ CASES = [
     (1, (20, 36), 4, 4, 192, 128, True, None),  # MLA, G 1: Sq < Sk
     (2, 28, 4, 4, 192, 128, False, None),       # MLA, not causal
     (1, 40, 4, 4, 192, 128, True, 8),           # MLA, windowed
+    (1, 36, 4, 4, 96, 96, True, 8),             # 96, windowed
+    (1, (20, 36), 8, 2, 96, 96, True, None),    # 96, G 4: Sq < Sk
+    (1, (36, 20), 4, 4, 96, 96, False, 24),     # 96: Sq > Sk, windowed
 ]
 
 

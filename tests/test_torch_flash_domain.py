@@ -58,10 +58,10 @@ from repro_torch.tree import flatten  # noqa: E402
 
 DT = {"float32": (jnp.float32, torch.float32, 2e-5),
       "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
-#: The reduced configs' (D, DV) pairs, and 128 for the cap at a published
-#: width.
+#: The reduced configs' (D, DV) pairs, and 128 and phi-3-vision's 96 for
+#: the cap at a published width.
 NARROW = [(16, 16), (24, 24), (24, 16), (32, 32)]
-PAIRS = NARROW + [(128, 128)]
+PAIRS = NARROW + [(128, 128), (96, 96)]
 CAPS = [None, 50.0, 5.0]
 #: H, KV, causal, window.
 MASKS = [(4, 2, True, None), (2, 2, False, 16), (4, 2, True, 24)]
