@@ -30,6 +30,7 @@ encoder-decoder ``cross_prefix`` / ``cross_slots`` of ``CrossCache``.
 from __future__ import annotations
 
 import functools
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import torch
@@ -42,6 +43,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import shardlib
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import region
 from repro_torch.tree import leaves
 from .attention import (
     _tensor_parallel,
@@ -249,8 +251,12 @@ def _remat(fn, cfg: ModelConfig):
     def under_mesh(*args):
         # The recompute runs on autograd's thread for the card, which has
         # no thread mesh of its own: it takes the forward's (expert
-        # parallelism and its collectives read it).
-        with shardlib.use_mesh(mesh, rules):
+        # parallelism and its collectives read it). Inside a backward
+        # (a graph task is running) this call is the recompute.
+        recompute = (torch.autograd._profiler_enabled()
+                     and torch._C._current_graph_task_id() != -1)
+        with shardlib.use_mesh(mesh, rules), \
+                region("model.recompute") if recompute else nullcontext():
             return fn(*args)
     return functools.partial(checkpoint, under_mesh, use_reentrant=False,
                              preserve_rng_state=False, **kwargs)

@@ -16,15 +16,27 @@ Design constraints (DESIGN.md §8):
   microseconds; simulator events pass explicit cycle timestamps with
   ``clock="cycle"`` and are rendered on separate tracks (1 cycle == 1 µs
   in the exported timeline).
+
+:func:`region` names a stretch of the program (the train step's phases)
+in ``torch.profiler``'s own trace, on the profiler's clock, so device
+operations can be laid against it; with the profiler off it is a shared
+null context. It enters ``_RecordFunctionFast`` rather than
+``record_function``, which is a dispatched op: a checkpointed period's
+selective recompute that meets one the forward did not (the profiler
+started between them, or a region opened only in the recompute) makes
+the backward raise. The :class:`Tracer`'s events stay on ``monotonic``
+and cannot be laid onto a device trace.
 """
 from __future__ import annotations
 
 import time
 import zlib
 from collections import deque
-from contextlib import contextmanager
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
 
 monotonic = time.monotonic
 """The one clock used for every wall-time measurement in the runtime.
@@ -37,6 +49,18 @@ process, which is all the probe and tracer need.
 
 def monotonic_us() -> float:
     return monotonic() * 1e6
+
+
+_OFF = nullcontext()
+
+
+def region(name: str):
+    """``with region("train.forward"): ...``: a host span ``name`` in the
+    profiler's trace while ``torch.profiler`` records, else the one shared
+    null context (no object built, no clock read)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @dataclass
@@ -156,15 +180,6 @@ class Tracer:
             ts = self.now_us()
         self.emit(TraceEvent(name=name, ph="f", ts=ts, track=track, id=id,
                              args=args))
-
-    @contextmanager
-    def span(self, name: str, track: str, **args):
-        """``with tracer.span("drain", "dma0", n=8): ...`` — wall clock."""
-        t0 = self.now_us()
-        try:
-            yield
-        finally:
-            self.complete(name, track, t0, self.now_us() - t0, **args)
 
     def next_flow_id(self) -> int:
         """Fresh process-unique id for one flow arrow (s -> t -> f)."""

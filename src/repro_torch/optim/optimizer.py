@@ -21,6 +21,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.obs.trace import region
 from repro_torch.tree import leaves, tree_map
 
 
@@ -104,31 +105,32 @@ def apply(cfg: AdamWConfig, params, grads, state: AdamWState, *,
     the parameters and moments being the objects passed in. ``gnorm`` is
     the gradients' global norm when ``grads`` are a rank's blocks of
     them (the sharded step); by default, theirs."""
-    if gnorm is None:
-        gnorm = global_norm(grads)
-    if cfg.grad_clip:
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-    else:
-        scale = torch.ones((), device=gnorm.device)
-    step = state.step + 1
-    lr = learning_rate(cfg, step)
-    b1c = 1 - torch.pow(cfg.b1, step.float())
-    b2c = 1 - torch.pow(cfg.b2, step.float())
+    with region("optim.adamw"):
+        if gnorm is None:
+            gnorm = global_norm(grads)
+        if cfg.grad_clip:
+            scale = torch.clamp(
+                cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        else:
+            scale = torch.ones((), device=gnorm.device)
+        step = state.step + 1
+        lr = learning_rate(cfg, step)
+        b1c = 1 - torch.pow(cfg.b1, step.float())
+        b2c = 1 - torch.pow(cfg.b2, step.float())
 
-    for leaf in zip(leaves(params), leaves(grads), leaves(state.m),
-                    leaves(state.v)):
-        for p, g, m, v in _chunks(*leaf):
-            g = g.float() * scale
-            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square_())
-            del g
-            delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
-            if cfg.weight_decay:
-                delta.add_(cfg.weight_decay * p.float())
-            if p.dtype == torch.float32:
-                p.sub_(lr * delta)
-            else:
-                p.copy_((p.float() - lr * delta).to(p.dtype))
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, AdamWState(step, state.m, state.v), metrics
+        for leaf in zip(leaves(params), leaves(grads), leaves(state.m),
+                        leaves(state.v)):
+            for p, g, m, v in _chunks(*leaf):
+                g = g.float() * scale
+                m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+                v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square_())
+                del g
+                delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+                if cfg.weight_decay:
+                    delta.add_(cfg.weight_decay * p.float())
+                if p.dtype == torch.float32:
+                    p.sub_(lr * delta)
+                else:
+                    p.copy_((p.float() - lr * delta).to(p.dtype))
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        return params, AdamWState(step, state.m, state.v), metrics

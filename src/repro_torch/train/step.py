@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import shardlib
 from repro_torch.distributed import sharding as sh
 from repro_torch.models.model import loss_fn, param_shapes
+from repro_torch.obs.trace import region
 from repro_torch.tree import flatten, map_with_path, tree_map
 
 
@@ -85,11 +86,13 @@ def _value_and_grad(params, batch, cfg: ModelConfig, cast_bf16: bool,
     the loss does not reach)."""
     with torch.enable_grad():
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        p_in = _cast_params(leaves, cfg.cdtype) if cast_bf16 else leaves
-        loss, metrics = loss_fn(p_in, batch, cfg, denom=denom)
+        with region("train.forward"):
+            p_in = _cast_params(leaves, cfg.cdtype) if cast_bf16 else leaves
+            loss, metrics = loss_fn(p_in, batch, cfg, denom=denom)
         flat = flatten(leaves)
-        grads = torch.autograd.grad(loss, list(flat.values()),
-                                    allow_unused=True)
+        with region("train.backward"):
+            grads = torch.autograd.grad(loss, list(flat.values()),
+                                        allow_unused=True)
     by_path = {k: torch.zeros_like(p) if g is None else g
                for (k, p), g in zip(flat.items(), grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -106,16 +109,19 @@ def grads_and_metrics(params, batch, cfg: ModelConfig, microbatches: int,
         loss, metrics, grads = _value_and_grad(params, batch, cfg, cast_bf16)
         return grads, dict(metrics, loss=loss)
     mb = _split_microbatches(batch, microbatches)
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params)
+    with region("train.accumulate"):
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
     loss_sum = None
     for i in range(microbatches):
         loss, _, grads = _value_and_grad(
             params, {k: v[i] for k, v in mb.items()}, cfg, cast_bf16)
-        acc = tree_map(torch.add, acc, grads)
+        with region("train.accumulate"):
+            acc = tree_map(torch.add, acc, grads)
         del grads
         loss_sum = loss if loss_sum is None else loss_sum + loss
-    grads = tree_map(lambda g: g / microbatches, acc)
+    with region("train.accumulate"):
+        grads = tree_map(lambda g: g / microbatches, acc)
     return grads, {"loss": loss_sum / microbatches}
 
 
@@ -271,10 +277,13 @@ def _sharded_grads(full, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh,
              "loss": parts[0] + aux}
         if n == 1:
             return grads, m
-        acc = tree_map(lambda g: g.float(), grads) if acc is None else \
-            tree_map(torch.add, acc, grads)
+        with region("train.accumulate"):
+            acc = tree_map(lambda g: g.float(), grads) if acc is None \
+                else tree_map(torch.add, acc, grads)
         metrics = m["loss"] if metrics is None else metrics + m["loss"]
-    return tree_map(lambda g: g / n, acc), {"loss": metrics / n}
+    with region("train.accumulate"):
+        grads = tree_map(lambda g: g / n, acc)
+    return grads, {"loss": metrics / n}
 
 
 def _onto_block(g, spec, axes, mesh):
