@@ -218,7 +218,9 @@ Phases:
    leaf's gradient at cosine >= 0.999; the worst leaf printed); 8
    ``train_step``s through ``make_train_step`` on that batch (the losses
    finite, the last below the first, the lr on its schedule; 72 flash
-   forwards and 36 backwards a step, checked), with the median step ms,
+   forwards and 36 backwards a step, and AdamW's ``adamw_update`` once a
+   leaf and ``sum_squares`` once a leaf plus once, checked), with the
+   median step ms,
    tokens/s, peak memory, and one profiled step's busy share and device
    time by kernel group. Then the ``Trainer`` at those widths cut to 1
    layer: 4 steps with a checkpoint every 2 (keep 1) into a directory
@@ -258,7 +260,8 @@ Phases:
    >= 0.999; the worst leaf printed; seamless-m4t-medium's in fp32
    compute, see TRAIN_FAMILIES); then, except for deepseek and jamba, 4
    ``train_step``s on that batch in bf16 compute (losses finite, the last
-   below the first), with the median step ms, tokens/s and peak memory,
+   below the first; the step's launches, AdamW's as in (p), checked),
+   with the median step ms, tokens/s and peak memory,
    and one profiled step's device time by kernel group.
 12. (r) Every step (j), (l), (p) and (q) timed, and (o)'s dense family's
    prefills, read against the dry
@@ -349,9 +352,18 @@ Phases:
    launcher's batch and at S 2,048, and gemma3-12b's prefill and training
    shapes with the cap beside without, each beside its bound, the plain
    version and SDPA.
-15. The most active descriptors one copy call received on each path
+15. (u) AdamW's kernels at dbrx-132b's expert leaf (16 x 6,144 x 10,752,
+   bf16 parameters and gradients) and qwen2.5-3b's embedding (151,936 x
+   2,048, fp32): ``adamw_update`` against its plain body (p, m and v bit
+   for bit), ``sum_squares`` within 1e-5 of a float64 sum and the same
+   bits twice, one launch and two counted; then the wrapper, the bare
+   launch and the plain version of each timed beside the bound of its
+   bytes (22 B an element in bf16, 28 B in fp32, and 2 or 4 B for the
+   sum, at 3.35 TB/s), and the sum beside ``torch._foreach_norm`` and
+   ``torch.linalg.vector_norm`` in fp32.
+16. The most active descriptors one copy call received on each path
    (main, (k), (m), (n)) and the paths whose calls were cut into several
-   launches; a ``kernels`` JSON line (each of the ten kernels' launches
+   launches; a ``kernels`` JSON line (each of the twelve kernels' launches
    summed over the main path, (k), (j), (l), (m), (n), (o), (p), (q),
    every rank of (s) and (t), and per path; flash's phase (o) and (t)
    launches by shape, the latter with and without a cap, and its times at
@@ -2064,6 +2076,18 @@ def expect_launches(label: str, launches: dict, want: dict) -> None:
         if n != want.get(name, 0):
             raise AssertionError(f"phase {label}: {name} launched {n} "
                                  f"times, expected {want.get(name, 0)}")
+
+
+ADAMW_KERNELS = ("adamw_update", "sum_squares")
+
+
+def adamw_launches(params, steps: int) -> dict:
+    """AdamW's launches in ``steps`` train steps of ``params``: the
+    update once a non-empty leaf, the sum of squares once a leaf and once
+    more for the tree's norm."""
+    from repro_torch.tree import leaves
+    n = sum(1 for x in leaves(params) if x.numel())
+    return {"adamw_update": n * steps, "sum_squares": (n + 1) * steps}
 
 
 def prefill_path(torch, np, dev, rng, seed: int) -> tuple:
@@ -3897,7 +3921,8 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     expect_launches("p", launches,
                     {"flash_attention": 2 * layers * TRAIN_STEPS,
-                     "flash_attention_bwd": layers * TRAIN_STEPS})
+                     "flash_attention_bwd": layers * TRAIN_STEPS,
+                     **adamw_launches(state.params, TRAIN_STEPS)})
     if designs != {"tensor_core": layers * TRAIN_STEPS}:
         raise AssertionError(f"phase p: backward launches by design "
                              f"{designs}, want {layers} tensor_core a step")
@@ -3918,7 +3943,9 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
          "flash_bwd_launches_per_step":
              launches["flash_attention_bwd"] / TRAIN_STEPS,
          "flash_bwd_launches_by_design_per_step":
-             {k: n / TRAIN_STEPS for k, n in designs.items()}})
+             {k: n / TRAIN_STEPS for k, n in designs.items()},
+         "adamw_launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                     for k in ADAMW_KERNELS}})
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"phase p: losses {losses}: not all finite, or "
                              "the last not below the first")
@@ -3947,7 +3974,8 @@ def train_path(torch, np, dev, rng, seed: int) -> dict:
                      for us, k, n in rows_g[:14]]})
     del state, held, batch
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+    return {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")
+            + ADAMW_KERNELS}
 
 
 def trainer_path(torch, np, dev, seed: int) -> dict:
@@ -4464,7 +4492,8 @@ def train_family_run(torch, np, dev, rng, seed: int,
         steps = build.launch_counts()         # ... and ends here
         peak = torch.cuda.max_memory_allocated()
         expect_launches(f"q {spec.arch} steps", steps,
-                        {k: n * spec.steps for k, n in want.items()})
+                        {**{k: n * spec.steps for k, n in want.items()},
+                         **adamw_launches(state.params, spec.steps)})
         launches = {k: launches[k] + steps[k] for k in launches}
         median = statistics.median(step_ms)
         READINGS[f"q_{label}"] = StepReading(
@@ -6019,6 +6048,139 @@ def domain_path(torch, np, dev, rng, seed: int, smi: str) -> tuple:
     return dict(total), dict(shapes), {"max_abs_err": worst, "timed": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase (u): AdamW's kernels at the trained configurations' largest leaves
+# ---------------------------------------------------------------------------
+
+#: (label, shape, parameter dtype, gradient dtype): dbrx-132b's expert
+#: leaf (16 experts' w_up, bf16) and qwen2.5-3b's embedding (fp32), the
+#: largest leaf of each configuration the benchmark trains.
+ADAMW_LEAVES = (("dbrx-132b expert leaf", (16, 6144, 10752), "bfloat16",
+                 "bfloat16"),
+                ("qwen2.5-3b embedding", (151936, 2048), "float32",
+                 "float32"))
+#: The sum of squares against a float64 sum of the same leaf: fp32 tree
+#: sums over up to 1.06 B elements.
+SUMSQ_RTOL = 1e-5
+#: fp32 operations an element of the update (17) and of the sum (2).
+ADAMW_OPS, SUMSQ_OPS = 17, 2
+
+
+def check_adamw(torch, np, dev, rng) -> dict:
+    """(u) Both AdamW kernels at each of ADAMW_LEAVES: one update against
+    the plain body (p, m and v with ``torch.equal``), the sum of squares
+    within SUMSQ_RTOL of a float64 sum and the same bits on a second call,
+    each wrapper's launches counted; then the wrapper, the bare launch and
+    the plain version of each timed beside the bound of its bytes, and
+    for the sum two library norms in fp32 (their bits over two calls and
+    their squares against the float64 sum printed). Returns both kernels'
+    rows, timed at the first leaf, each leaf's in ``leaves``."""
+    from repro_torch import optim
+    from repro_torch.kernels import adamw, build
+    from repro_torch.kernels.descriptor_copy import stream_of
+
+    ocfg = optim.AdamWConfig()
+    consts = {"b1": ocfg.b1, "b2": ocfg.b2, "eps": ocfg.eps,
+              "weight_decay": ocfg.weight_decay}
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    stream = stream_of(dev)
+    rows = {k: [] for k in ADAMW_KERNELS}
+    for label, shape, p_name, g_name in ADAMW_LEAVES:
+        p_dtype, g_dtype = getattr(torch, p_name), getattr(torch, g_name)
+
+        def draw(dtype, std):
+            return torch.empty(shape, dtype=dtype, device=dev).normal_(
+                0.0, std, generator=g)
+        p, gr = draw(p_dtype, 0.02), draw(g_dtype, 1e-3)
+        m, v = draw(torch.float32, 1e-4), draw(torch.float32, 1e-4).square_()
+        # The clip's scale, lr and the bias corrections at step 3.
+        scalars = tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                        for x in (0.5, 3.3e-5, 1 - ocfg.b1 ** 3,
+                                  1 - ocfg.b2 ** 3))
+        n = p.numel()
+        want = [t.clone() for t in (p, m, v)]
+        adamw.adamw_update_plain(want[0], gr, want[1], want[2], *scalars,
+                                 **consts)
+        before = build.launch_counts()
+        adamw.adamw_update(p, gr, m, v, *scalars, **consts)
+        total, again = adamw.sum_squares([gr]), adamw.sum_squares([gr])
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in build.launch_counts().items()
+                    if c != before[k]}
+        equal = {k: torch.equal(a, b) for k, a, b in zip("pmv", (p, m, v),
+                                                         want)}
+        del want
+        flat = gr.reshape(-1)
+        exact = sum(float(flat[i:i + (1 << 26)].double().square().sum())
+                    for i in range(0, n, 1 << 26))
+        rel = abs(float(total) - exact) / exact
+        library = {
+            "_foreach_norm": lambda: torch._foreach_norm(
+                [gr], 2, dtype=torch.float32)[0],
+            "vector_norm": lambda: torch.linalg.vector_norm(
+                gr, dtype=torch.float32)}
+        lib_out = {k: (f(), f()) for k, f in library.items()}
+        log({"check": "u_adamw", "leaf": label, "shape": list(shape),
+             "elements": n, "dtypes": [p_name, g_name],
+             "update_equal": equal, "sum_squares_rel_err": rel,
+             "tolerance": SUMSQ_RTOL,
+             "sum_squares_same_bits_twice": torch.equal(total, again),
+             "launches": launched,
+             "library_norm_squared_rel_err": {
+                 k: abs(float(a) ** 2 - exact) / exact
+                 for k, (a, _) in lib_out.items()},
+             "library_same_bits_twice": {
+                 k: torch.equal(a, b) for k, (a, b) in lib_out.items()}})
+        if not all(equal.values()) or rel > SUMSQ_RTOL \
+                or not torch.equal(total, again) \
+                or launched != {"adamw_update": 1, "sum_squares": 4}:
+            raise AssertionError(f"phase u {label}: the AdamW kernels "
+                                 "disagree with their plain versions or "
+                                 f"launched {launched}")
+        del lib_out
+
+        codes = (adamw._DTYPE_CODE[p_dtype], adamw._DTYPE_CODE[g_dtype])
+        partial = torch.empty(adamw.blocks(n), dtype=torch.float32,
+                              device=dev)
+        u_bytes = n * (2 * p.element_size() + gr.element_size() + 16)
+        u_bound, u_by = bound_ms(u_bytes, ADAMW_OPS * n)
+        update = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: adamw.adamw_update(
+                p, gr, m, v, *scalars, **consts)),
+            "kernel_ms": time_ms(torch, lambda: build.launch(
+                "adamw_update", p.data_ptr(), gr.data_ptr(), m.data_ptr(),
+                v.data_ptr(), n, *codes, *(x.data_ptr() for x in scalars),
+                *consts.values(), stream)),
+            "plain_ms": time_ms(torch, lambda: adamw.adamw_update_plain(
+                p, gr, m, v, *scalars, **consts)),
+            "library_ms": None, "bound_ms": u_bound, "bound_by": u_by,
+            "bytes": u_bytes}
+        s_bytes = n * gr.element_size()
+        s_bound, s_by = bound_ms(s_bytes, SUMSQ_OPS * n)
+        lib_ms = {k: time_ms(torch, f) for k, f in library.items()}
+        sumsq = {
+            "max_abs_err": abs(float(total) - exact),
+            "ms": time_ms(torch, lambda: adamw.sum_squares([gr])),
+            "kernel_ms": time_ms(torch, lambda: build.launch(
+                "sum_squares", gr.data_ptr(), n, codes[1], 1,
+                partial.data_ptr(), adamw.blocks(n), stream)),
+            "plain_ms": time_ms(torch, lambda: adamw.sum_squares_plain(
+                [gr])),
+            "library_ms": min(lib_ms.values()), "library_ms_each": lib_ms,
+            "bound_ms": s_bound, "bound_by": s_by, "bytes": s_bytes}
+        for name, t in (("adamw_update", update), ("sum_squares", sumsq)):
+            t = {"leaf": label, "shape": list(shape),
+                 "dtypes": [p_name, g_name], **t,
+                 "share_of_bound": t["bound_ms"] / t["ms"],
+                 "kernel_share_of_bound": t["bound_ms"] / t["kernel_ms"]}
+            log({"time": name, **t})
+            rows[name].append(t)
+        del p, gr, m, v, flat, partial, scalars, total, again
+        torch.cuda.empty_cache()
+    return {k: {**r[0], "leaves": r} for k, r in rows.items()}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6128,6 +6290,9 @@ def main() -> int:
     by_path["t_flash_domain"], t_shapes, t_flash = domain_path(
         torch, np, dev, rng, args.seed, smi)
     log({"phase": "t", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    timing.update(check_adamw(torch, np, dev, rng))
+    log({"phase": "u", "seconds": time.perf_counter() - t0})
     from repro_torch.kernels.descriptor_copy import MAX_TABLE
     log({"largest_descriptors_per_call": tables, "max_table": MAX_TABLE,
          "paths_cut_into_several_launches": sorted(
@@ -6158,7 +6323,13 @@ def main() -> int:
            "moe_gather_bwd": ("moe_gather_bwd", "moe_dispatch",
                               "src/repro/kernels/moe_dispatch.py:26"),
            "moe_combine_bwd": ("moe_combine_bwd", "moe_dispatch",
-                               "src/repro/kernels/moe_dispatch.py:57")}
+                               "src/repro/kernels/moe_dispatch.py:57"),
+           "adamw_update": ("adamw_update", "adamw",
+                            "none: src/repro/optim/optimizer.py:64 apply, "
+                            "a tree map of plain jnp"),
+           "sum_squares": ("sum_squares", "adamw",
+                           "none: src/repro/optim/optimizer.py:59 "
+                           "global_norm, plain jnp")}
     kernels = []
     for name, (counter, lib, replaces) in src.items():
         t = timing[counter]
@@ -6186,6 +6357,8 @@ def main() -> int:
             extra = {"derivative_of": "moe_combine, which the reference's "
                      "training path differentiates as jnp indexing and an "
                      "einsum (src/repro/models/moe.py:249)"}
+        elif name in ADAMW_KERNELS:
+            extra = {"leaves": t["leaves"]}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{lib}.cu",
                         "replaces": replaces, "launches": launches[counter],

@@ -10,6 +10,12 @@ from .ops import (  # noqa: F401
     prefetched_chain_copy_op,
     quantize_copy_op,
 )
+from .adamw import (  # noqa: F401
+    adamw_update,
+    adamw_update_plain,
+    sum_squares,
+    sum_squares_plain,
+)
 from .descriptor_copy import (  # noqa: F401
     descriptor_copy_bucketed,
     descriptor_copy_plain,

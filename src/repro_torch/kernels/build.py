@@ -67,6 +67,14 @@ _SYMBOLS = {
     "moe_combine_bwd": ("moe_dispatch", "moe_combine_bwd_launch",
                         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4
                         + [ctypes.c_int, ctypes.c_void_p]),
+    "adamw_update": ("adamw", "adamw_update_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                     + [ctypes.c_double] * 4 + [ctypes.c_void_p]),
+    "sum_squares": ("adamw", "sum_squares_launch",
+                    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p]),
 }
 #: The libraries, one per source.
 LIBRARIES = sorted({lib for lib, _, _ in _SYMBOLS.values()})

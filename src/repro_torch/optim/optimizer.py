@@ -10,8 +10,10 @@ reference (ROADMAP Queue C). The clipping scale and the learning rate are
 ``apply`` updates the parameters, ``m`` and ``v`` in place and returns
 them, where the reference returns new trees (its jitted step donates the
 old ones): at qwen2.5-3b's size a second copy of the parameters and both
-moments would not fit beside the gradients on one card. A leaf over
-``CHUNK`` elements is updated a piece at a time, with the same bits.
+moments would not fit beside the gradients on one card. On the card each
+leaf is updated whole by one launch of the fused update kernel, with the
+eager body's bits, and the global norm is a sum-of-squares kernel
+(:mod:`repro_torch.kernels.adamw`); CPU tensors take the eager body.
 """
 from __future__ import annotations
 
@@ -21,13 +23,9 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.adamw import adamw_update, sum_squares
 from repro_torch.obs.trace import region
 from repro_torch.tree import leaves, tree_map
-
-
-#: Elements a pass of the update takes at once (fp32 temporaries of a
-#: few times 256 MiB, whatever the leaf's size).
-CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -80,22 +78,7 @@ def init(params) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, on the device."""
-    sq = [torch.dot(x.reshape(-1).float(), x.reshape(-1).float())
-          for x in leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
-
-
-def _chunks(p, g, m, v):
-    """A leaf's (p, g, m, v) in pieces of at most CHUNK elements (views;
-    the whole leaf when it is smaller or not contiguous). The update is
-    elementwise, so pieces give the same bits, and a piece bounds its fp32
-    temporaries to a few times CHUNK * 4 bytes."""
-    if p.numel() <= CHUNK or not all(x.is_contiguous() for x in (p, m, v)):
-        yield p, g, m, v
-        return
-    flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
-    for i in range(0, p.numel(), CHUNK):
-        yield tuple(x[i:i + CHUNK] for x in flat)
+    return sum_squares(leaves(tree)).sqrt()
 
 
 def apply(cfg: AdamWConfig, params, grads, state: AdamWState, *,
@@ -118,19 +101,10 @@ def apply(cfg: AdamWConfig, params, grads, state: AdamWState, *,
         b1c = 1 - torch.pow(cfg.b1, step.float())
         b2c = 1 - torch.pow(cfg.b2, step.float())
 
-        for leaf in zip(leaves(params), leaves(grads), leaves(state.m),
-                        leaves(state.v)):
-            for p, g, m, v in _chunks(*leaf):
-                g = g.float() * scale
-                m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-                v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square_())
-                del g
-                delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
-                if cfg.weight_decay:
-                    delta.add_(cfg.weight_decay * p.float())
-                if p.dtype == torch.float32:
-                    p.sub_(lr * delta)
-                else:
-                    p.copy_((p.float() - lr * delta).to(p.dtype))
+        for p, g, m, v in zip(leaves(params), leaves(grads),
+                              leaves(state.m), leaves(state.v)):
+            adamw_update(p, g, m, v, scale, lr, b1c, b2c, b1=cfg.b1,
+                         b2=cfg.b2, eps=cfg.eps,
+                         weight_decay=cfg.weight_decay)
         metrics = {"grad_norm": gnorm, "lr": lr}
         return params, AdamWState(step, state.m, state.v), metrics

@@ -10,8 +10,10 @@ toolkit:
 The copies and the MoE gather and combine must be bit-identical to their
 plain versions, and so must the gather's backward and the combine's
 expert-row gradient (its weight gradient within 1e-5 of its largest
-entry); the attention kernels agree within rtol = atol = 2e-5 in float32
-and 2e-2 in bfloat16 (the sums run in another order).
+entry), and AdamW's update; the attention kernels agree within rtol =
+atol = 2e-5 in float32 and 2e-2 in bfloat16 (the sums run in another
+order), and the sum of squares within a relative 1e-5 of a float64 sum
+(fp32 sums in a tree over up to 1.1 B elements).
 """
 import dataclasses
 
@@ -20,7 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.kernels import adamw, build  # noqa: E402
 from repro_torch.kernels.descriptor_copy import (  # noqa: E402
     descriptor_copy,
     descriptor_copy_bucketed,
@@ -1416,3 +1419,177 @@ def test_cuda_kernels_without_a_backward_refuse_grad(cuda):
     assert type(gathered.grad_fn).__name__ == "MoEGatherFnBackward"
     assert type(combined.grad_fn).__name__ == "MoECombineFnBackward"
     torch.cuda.synchronize()
+
+# ---------------------------------------------------------------------------
+# AdamW: the fused update and the sum of squares (csrc/adamw.cu)
+# ---------------------------------------------------------------------------
+
+ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8)
+
+
+def _adamw_leaf(device, n, p_dtype, g_dtype, offset, seed):
+    """(p, g, m, v) of n elements, each a view ``offset`` elements into its
+    buffer, with the state of a few steps in: m of either sign, v >= 0."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def draw(dtype, scale, positive=False):
+        x = torch.randn(n + offset, generator=gen, device=device) * scale
+        x = x.square() if positive else x
+        return x.to(dtype)[offset:]
+    return (draw(p_dtype, 0.05), draw(g_dtype, 0.3), draw(torch.float32, 0.01),
+            draw(torch.float32, 0.03, positive=True))
+
+
+def _adamw_scalars(device, clip):
+    """scale, lr, b1c, b2c as ``optim.apply`` makes them at step 3."""
+    step = torch.tensor(3, dtype=torch.int32, device=device).float()
+    scale = (torch.tensor(0.37, device=device) if clip
+             else torch.ones((), device=device))
+    return (scale, torch.tensor(3e-4, device=device),
+            1 - torch.pow(ADAMW["b1"], step), 1 - torch.pow(ADAMW["b2"], step))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip,wd", [(False, 0.0), (False, 0.1), (True, 0.0),
+                                     (True, 0.1)])
+@pytest.mark.parametrize("offset", [0, 1])      # 1: unaligned, scalar path
+@pytest.mark.parametrize("n", [1, 7, 4097, (1 << 26) + 5])
+@pytest.mark.parametrize("p_dtype,g_dtype", adamw.UPDATE_PAIRS,
+                         ids=["f32-f32", "bf16-bf16", "bf16-f32"])
+def test_cuda_adamw_update_matches_plain(cuda, p_dtype, g_dtype, n, offset,
+                                         clip, wd):
+    p, g, m, v = _adamw_leaf(cuda, n, p_dtype, g_dtype, offset, 40)
+    scalars = _adamw_scalars(cuda, clip)
+    want = [t.clone() for t in (p, m, v)]
+    adamw.adamw_update_plain(want[0], g, want[1], want[2], *scalars, **ADAMW,
+                             weight_decay=wd)
+    before = build.launch_counts()["adamw_update"]
+    adamw.adamw_update(p, g, m, v, *scalars, **ADAMW, weight_decay=wd)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["adamw_update"] == before + 1
+    for got, ref in zip((p, m, v), want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,offset", [
+    (torch.float32, (1,), 0),
+    (torch.bfloat16, (7,), 1),
+    (torch.float32, (4097,), 1),
+    (torch.bfloat16, ((1 << 26) + 5,), 0),
+    (torch.bfloat16, (16, 6144, 10752), 0),     # dbrx-132b's expert leaf
+    (torch.float32, (151936, 2048), 0),         # qwen2.5-3b's embedding
+])
+def test_cuda_sum_squares_repeats_and_matches_fp64(cuda, dtype, shape, offset):
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, dtype=dtype, device=cuda)
+    x.normal_(0.0, 0.02, generator=torch.Generator(cuda).manual_seed(41))
+    x = x[offset:].view(shape)
+    before = build.launch_counts()["sum_squares"]
+    got = adamw.sum_squares([x])
+    again = adamw.sum_squares([x])
+    flat = x.reshape(-1)
+    want = sum(float(flat[i:i + (1 << 26)].double().square().sum())
+               for i in range(0, n, 1 << 26))
+    torch.cuda.synchronize()
+    assert build.launch_counts()["sum_squares"] == before + 4
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert torch.equal(got, again)
+    assert abs(float(got) - want) <= 1e-5 * want
+
+
+@pytest.mark.cuda
+def test_cuda_sum_squares_over_many_tensors(cuda):
+    xs = [_rows(s, dt, cuda, i) for i, (s, dt) in enumerate([
+        ((33, 64), torch.bfloat16), ((0,), torch.float32),
+        ((4097,), torch.float32), (((1 << 20) + 3,), torch.bfloat16)])]
+    xs[2] = xs[2][1:]                                # unaligned
+    before = build.launch_counts()["sum_squares"]
+    got = adamw.sum_squares(xs)
+    want = sum(float(x.double().square().sum()) for x in xs)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["sum_squares"] == before + 3 + 1
+    assert torch.equal(got, adamw.sum_squares(xs))
+    assert abs(float(got) - want) <= 1e-5 * want
+    assert float(got) == pytest.approx(float(adamw.sum_squares_plain(xs)),
+                                       rel=1e-5)
+
+
+def _mixed_tree(device, seed, grads=False):
+    """A tree of bf16 and fp32 leaves at odd sizes; as gradients, one bf16
+    leaf's in fp32 (a microbatch sum's)."""
+    shapes = {"embed": ((33, 64), torch.bfloat16, torch.bfloat16),
+              "w": ((64, 48), torch.float32, torch.float32),
+              "b": ((7,), torch.float32, torch.float32),
+              "norm": ((4097,), torch.bfloat16, torch.bfloat16),
+              "experts": ((3, 40, 24), torch.bfloat16, torch.float32)}
+    return {k: _rows(s, gd if grads else pd, device, seed + i) / 50
+            for i, (k, (s, pd, gd)) in enumerate(shapes.items())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pass_gnorm", [True, False])
+def test_cuda_apply_matches_plain_apply(cuda, monkeypatch, pass_gnorm):
+    """Three AdamW steps with clipping and weight decay on the card, the
+    kernels against the plain bodies (on the card too): bit-identical
+    given the same ``gnorm``; without it the norms agree within a
+    relative 1e-5, and so does the state (a parameter in bf16 within one
+    of its ulps)."""
+    import repro_torch.optim.optimizer as optimizer
+    cfg = optim.AdamWConfig(lr=1e-3, weight_decay=0.1, grad_clip=0.5,
+                            warmup_steps=2, total_steps=10)
+    mine = _mixed_tree(cuda, 50)
+    plain = {k: v.clone() for k, v in mine.items()}
+    s_mine, s_plain = optim.init(mine), optim.init(plain)
+    n = len(mine)
+    for step in range(3):
+        g = _mixed_tree(cuda, 60 + 10 * step, grads=True)
+        gnorm = optim.global_norm(g) if pass_gnorm else None
+        before = build.launch_counts()
+        _, s_mine, m_mine = optim.apply(cfg, mine, g, s_mine, gnorm=gnorm)
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        assert after["adamw_update"] - before["adamw_update"] == n
+        assert after["sum_squares"] - before["sum_squares"] == \
+            (0 if pass_gnorm else n + 1)
+        with monkeypatch.context() as mp:
+            mp.setattr(optimizer, "adamw_update", adamw.adamw_update_plain)
+            mp.setattr(optimizer, "sum_squares", adamw.sum_squares_plain)
+            _, s_plain, m_plain = optim.apply(cfg, plain, g, s_plain,
+                                              gnorm=gnorm)
+        assert build.launch_counts() == after
+        assert float(m_mine["grad_norm"]) == pytest.approx(
+            float(m_plain["grad_norm"]), rel=0 if pass_gnorm else 1e-5)
+        for tree_m, tree_p in ((mine, plain), (s_mine.m, s_plain.m),
+                               (s_mine.v, s_plain.v)):
+            for k in tree_m:
+                a, b = tree_m[k], tree_p[k]
+                if pass_gnorm:
+                    assert torch.equal(a, b), k
+                else:
+                    rtol = 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-5
+                    torch.testing.assert_close(
+                        a.float(), b.float(), rtol=rtol,
+                        atol=1e-5 * float(b.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["p_strided", "m_strided", "v_strided",
+                                  "fp16", "bf16_fp16"])
+def test_cuda_adamw_update_raises_outside_its_domain(cuda, case):
+    p, g, m, v = _adamw_leaf(cuda, 64 * 32, torch.float32, torch.float32, 0,
+                             42)
+    p, g, m, v = (t.view(64, 32) for t in (p, g, m, v))
+    if case.endswith("_strided"):          # the same shape, column-major
+        p, m, v = (x.t().contiguous().t() if name == case[0] else x
+                   for name, x in (("p", p), ("m", m), ("v", v)))
+        match = "not contiguous"
+    else:
+        p = p.to(torch.float16 if case == "fp16" else torch.bfloat16)
+        g = g.to(torch.float16)
+        match = "not supported"
+    before = build.launch_counts()
+    with pytest.raises((TypeError, ValueError), match=match):
+        adamw.adamw_update(p, g, m, v, *_adamw_scalars(cuda, True), **ADAMW,
+                           weight_decay=0.1)
+    assert build.launch_counts() == before

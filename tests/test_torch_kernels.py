@@ -229,6 +229,12 @@ def test_cpu_tensors_never_launch_a_kernel():
     moe_combine(slots, torch.ones((1, 2)), rows)
     moe_gather_backward(slots, rows)
     moe_combine_backward(slots, torch.ones((1, 2)), rows, f[:1])
+    from repro_torch.kernels.adamw import adamw_update, sum_squares
+    one = torch.ones(())
+    adamw_update(f.clone(), f, torch.zeros_like(f), torch.zeros_like(f),
+                 one, one, one, one, b1=0.9, b2=0.95, eps=1e-8,
+                 weight_decay=0.1)
+    sum_squares([f, rows])
     assert build.launch_counts() == {"descriptor_copy": 0,
                                      "quantize_copy": 0,
                                      "prefetch_pipeline": 0,
@@ -238,7 +244,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "moe_gather": 0,
                                      "moe_combine": 0,
                                      "moe_gather_bwd": 0,
-                                     "moe_combine_bwd": 0}
+                                     "moe_combine_bwd": 0,
+                                     "adamw_update": 0,
+                                     "sum_squares": 0}
 
 
 # ---------------------------------------------------------------------------

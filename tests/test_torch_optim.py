@@ -129,3 +129,225 @@ def test_global_norm_matches_reference():
     got = optim.global_norm(jax.tree.map(torch.from_numpy, t))
     assert got.dtype == torch.float32 and got.ndim == 0
     assert float(got) == pytest.approx(want, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The fused kernels' host side (kernels/adamw.py); the kernels themselves run
+# on the card only (tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+import ctypes  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from repro_torch.kernels import adamw, build  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def _mixed(rng, grads=False):
+    """bf16 and fp32 leaves at odd sizes; as gradients, one bf16 leaf's in
+    fp32 (a microbatch sum's)."""
+    spec = {"embed": ((9, 16), torch.bfloat16, torch.bfloat16),
+            "w": ((16, 12), torch.float32, torch.float32),
+            "b": ((7,), torch.float32, torch.float32),
+            "experts": ((3, 5, 8), torch.bfloat16, torch.float32)}
+    return {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(gd if grads else pd) for k, (s, pd, gd) in spec.items()}
+
+
+def test_apply_on_cpu_takes_the_plain_body(monkeypatch):
+    calls = {"update": 0, "sum": 0}
+    update, total = adamw.adamw_update_plain, adamw.sum_squares_plain
+
+    def counted_update(*a, **k):
+        calls["update"] += 1
+        return update(*a, **k)
+
+    def counted_total(xs):
+        calls["sum"] += 1
+        return total(xs)
+    monkeypatch.setattr(adamw, "adamw_update_plain", counted_update)
+    monkeypatch.setattr(adamw, "sum_squares_plain", counted_total)
+    rng = np.random.default_rng(3)
+    params = _mixed(rng)
+    state = optim.init(params)
+    before = build.launch_counts()
+    for _ in range(2):
+        _, state, _ = optim.apply(optim.AdamWConfig(), params,
+                                  _mixed(rng, grads=True), state)
+    assert build.launch_counts() == before
+    assert calls == {"update": 2 * len(params), "sum": 2}
+
+
+def test_adamw_module_imports_without_nvcc(tmp_path):
+    """Importing the wrapper and naming its library builds nothing and
+    needs no CUDA toolkit."""
+    code = ("import repro_torch.kernels.adamw, repro_torch.optim\n"
+            "from repro_torch.kernels import build\n"
+            "print(build._SYMBOLS['adamw_update'][0], "
+            "build._SYMBOLS['sum_squares'][0], build._target('adamw').name)")
+    env = dict(os.environ, PYTHONPATH=SRC, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME=str(tmp_path / "no_cuda"),
+               REPRO_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lib, lib2, target = out.stdout.split()
+    assert lib == lib2 == "adamw" and target.startswith("libadamw_")
+    assert not (tmp_path / "build").exists()
+
+
+def _leaf(p_dtype=torch.float32, g_dtype=torch.float32, n=24):
+    p, g, m, v = (torch.ones(4, n // 4, dtype=d)
+                  for d in (p_dtype, g_dtype, torch.float32, torch.float32))
+    return p, g, m, v
+
+
+_SCALARS = tuple(torch.ones(()) for _ in range(4))
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("fp16", TypeError, "not supported"),
+    ("bf16_fp16", TypeError, "not supported"),
+    ("fp32_bf16", TypeError, "not supported"),
+    ("bf16_m", TypeError, "moments"),
+    ("p_strided", ValueError, "p is not contiguous"),
+    ("m_strided", ValueError, "m is not contiguous"),
+    ("v_strided", ValueError, "v is not contiguous"),
+    ("shape", ValueError, "do not match"),
+    ("fp64_lr", TypeError, "float32"),
+])
+def test_update_kernel_refuses_what_it_does_not_take(case, error, match):
+    pairs = {"fp16": (torch.float16, torch.float16),
+             "bf16_fp16": (torch.bfloat16, torch.float16),
+             "fp32_bf16": (torch.float32, torch.bfloat16)}
+    p, g, m, v = _leaf(*pairs.get(case, ()))
+    scalars = list(_SCALARS)
+    if case == "bf16_m":
+        m = m.bfloat16()
+    elif case.endswith("_strided"):
+        t = {"p": p, "m": m, "v": v}[case[0]]
+        bad = t.t().contiguous().t()
+        p, m, v = (bad if x is t else x for x in (p, m, v))
+    elif case == "shape":
+        v = v.view(-1)
+    elif case == "fp64_lr":
+        scalars[1] = scalars[1].double()
+    with pytest.raises(error, match=match):
+        adamw.check_update(p, g, m, v, *scalars)
+
+
+@pytest.mark.parametrize("pair", adamw.UPDATE_PAIRS)
+def test_update_kernel_takes_its_pairs_and_any_gradient_layout(pair):
+    p, g, m, v = _leaf(*pair)
+    adamw.check_update(p, g.t(), m, v, *_SCALARS)
+
+
+def test_sum_squares_blocks():
+    assert [adamw.blocks(n) for n in (0, 1, 2048, 2049, 1056 * 2048,
+                                      1056 * 2048 + 1, 16 * 6144 * 10752)] \
+        == [1, 1, 1, 2, 1056, 1056, 1056]
+
+
+# The card's kernels emulated over the host memory of CPU tensors, in numpy
+# float32 (one rounding an operation, as each __f*_rn is): the wrappers'
+# pointers, counts, dtype codes, offsets and constants are what the kernels
+# read, and the update's order of operations gives the plain body's bits.
+
+def _at(ptr, n, code):
+    ctype = ctypes.c_float if code == 0 else ctypes.c_uint16
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr)) if n else \
+        np.zeros(0, np.float32 if code == 0 else np.uint16)
+
+
+def _to_f32(x, code):
+    return x if code == 0 else (x.astype(np.uint32) << 16).view(np.float32)
+
+
+def _store(dst, x, code):
+    if code == 0:
+        dst[:] = x
+    else:                                   # round to nearest, ties to even
+        u = x.view(np.uint32)
+        dst[:] = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _emulate(calls, name, *args):
+    calls.append((name, args))
+    f32 = np.float32
+    if name == "adamw_update":
+        p_, g_, m_, v_, n, pc, gc, s_, lr_, b1c_, b2c_, b1, b2, eps, wd = args
+        p, g, m, v = (_at(p_, n, pc), _at(g_, n, gc), _at(m_, n, 0),
+                      _at(v_, n, 0))
+        scale, lr, b1c, b2c = (_at(x, 1, 0)[0] for x in (s_, lr_, b1c_, b2c_))
+        p32, g32 = _to_f32(p, pc), _to_f32(g, gc) * scale
+        m[:] = m * f32(b1) + f32(1.0 - b1) * g32
+        v[:] = v * f32(b2) + f32(1.0 - b2) * (g32 * g32)
+        delta = (m / b1c) / (np.sqrt(v / b2c) + f32(eps))
+        if wd != 0.0:
+            delta = delta + f32(wd) * p32
+        _store(p, p32 - lr * delta, pc)
+    else:
+        x_, n, code, square, out_, nb = args
+        x = _to_f32(_at(x_, n, code), code).astype(np.float64)
+        parts = [np.sum(c * c if square else c) for c in
+                 np.array_split(x, nb)]
+        _at(out_, nb, 0)[:] = np.array(parts, np.float32)
+
+
+@pytest.mark.parametrize("gnorm", [False, True])
+def test_card_route_hands_the_kernels_what_they_read(monkeypatch, gnorm):
+    """``apply`` through the card's route (its kernels emulated): one
+    update launch a leaf and one sum-of-squares launch a leaf plus one for
+    the tree, each with its leaf's pointers, size and dtypes, the partial
+    sums laid end to end; the state the plain body's, bit for bit."""
+    calls = []
+    monkeypatch.setattr(adamw, "plain_device", lambda t: False)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(adamw, "stream_of", lambda d: 0)
+    monkeypatch.setattr(adamw, "launch",
+                        lambda name, *a: _emulate(calls, name, *a[:-1]))
+    rng = np.random.default_rng(5)
+    cfg = optim.AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=0.5,
+                            warmup_steps=2, total_steps=10)
+    mine = _mixed(rng)
+    plain = {k: v.clone() for k, v in mine.items()}
+    s_mine, s_plain = optim.init(mine), optim.init(plain)
+    sizes = [p.numel() for p in leaves(mine)]
+    for _ in range(3):
+        g = _mixed(rng, grads=True)
+        norm = optim.global_norm(g) if gnorm else None
+        del calls[:]
+        _, s_mine, m_mine = optim.apply(cfg, mine, g, s_mine, gnorm=norm)
+        with monkeypatch.context() as mp:
+            mp.setattr(adamw, "plain_device", lambda t: True)
+            _, s_plain, m_plain = optim.apply(cfg, plain, g, s_plain,
+                                              gnorm=norm)
+        names = [c[0] for c in calls]
+        sums = [] if gnorm else calls[:len(sizes) + 1]
+        assert names == ["sum_squares"] * len(sums) + \
+            ["adamw_update"] * len(sizes)
+        if sums:
+            at = sums[0][1][4]
+            for (_, (_, n, code, square, out, nb)), x in zip(sums, leaves(g)):
+                assert (n, code, square, out, nb) == (
+                    x.numel(), 0 if x.dtype == torch.float32 else 1, 1, at,
+                    adamw.blocks(x.numel()))
+                at += 4 * nb
+            assert sums[-1][1][1:4] == (len(sizes), 0, 0)
+        assert float(m_mine["grad_norm"]) == pytest.approx(
+            float(m_plain["grad_norm"]), rel=1e-6)
+        for (_, args), p in zip(calls[len(sums):], leaves(mine)):
+            assert args[4] == p.numel() and args[11:] == (
+                cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+        if gnorm:
+            for a, b in ((mine, plain), (s_mine.m, s_plain.m),
+                         (s_mine.v, s_plain.v)):
+                for k in a:
+                    assert torch.equal(a[k], b[k]), k
