@@ -1,6 +1,7 @@
 """Flash attention's share of its roofline in the traced steps: the
 least time its calls need (per call the larger of operations over the
-bf16 peak and bytes over HBM's rate, from the cell's shapes; forward
+bf16 peak and bytes over HBM's rate, from the cell's shapes, the value
+head dim ``v_head_dim`` where the architecture has one; forward
 calls counted by the forward kernel's launches, backward calls by the
 dK/dV kernel's) over the device time of every flash kernel."""
 from portbench.counts import kernels, peaks
@@ -23,8 +24,8 @@ def read(run):
         return None
     a, mix = run.arch, run.mix
     shape = (mix["rows"] // mix["microbatches"], mix["seq_len"],
-             a["num_heads"], a["num_kv_heads"], a["head_dim"], a["head_dim"],
-             2)
+             a["num_heads"], a["num_kv_heads"], a["head_dim"],
+             a.get("v_head_dim", a["head_dim"]), 2)
     bound = 0.0
     for n, work in ((len(fwd), kernels.flash_forward(*shape)),
                     (n_bwd, kernels.flash_backward(*shape))):

@@ -1,5 +1,10 @@
 """A configuration file's published keys, read into one plain dict of the
-sizes the reference needs. Each ``model_type`` has its reader."""
+sizes the reference needs. Each ``model_type`` has its reader.
+
+An architecture is found by its ``model_type``: what a new one needs
+beyond the shared code it brings as modules of its own, named
+``<stem>_<model_type>`` (:func:`added`), and the shared code serves every
+``model_type`` that brings none."""
 from __future__ import annotations
 
 import importlib
@@ -35,13 +40,38 @@ def _dbrx(c: dict) -> dict:
 READERS = {"qwen2": _qwen2, "dbrx": _dbrx}
 
 
+def added(package: str, stem: str, model_type: str):
+    """The module ``<package>.<stem>_<model_type>`` that an architecture
+    adds, or None where it adds none."""
+    name = f"{package}.{stem}_{model_type}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        return None
+
+
 def _reader(model_type: str):
     """The reader of a ``model_type``: one here, or ``read`` in the module
     ``arch_<model_type>`` beside this one."""
     if model_type in READERS:
         return READERS[model_type]
-    return importlib.import_module(
-        f"{__package__}.arch_{model_type}").read
+    mod = added(__package__, "arch", model_type)
+    if mod is None:
+        raise KeyError(f"no reader for model_type {model_type!r}: add "
+                       f"{__package__}.arch_{model_type}")
+    return mod.read
+
+
+def reference_model(arch: dict):
+    """The reference's ``Model`` class for ``arch``: ``Model`` of an added
+    ``model_<model_type>`` beside this module, else the shared one of
+    ``model.py`` (attention blocks with a gated MLP or routed experts)."""
+    mod = added(__package__, "model", arch["model_type"])
+    if mod is None:
+        from . import model as mod
+    return mod.Model
 
 
 def from_config(c: dict) -> dict:
@@ -49,8 +79,9 @@ def from_config(c: dict) -> dict:
     and the numbers its ``semantics`` states."""
     arch = _reader(c["model_type"])(c)
     sem = c["semantics"]
-    arch.update(head_dim=sem["head_dim"], qkv_bias=sem["qkv_bias"],
-                norm_eps=sem["norm_eps"], param_dtype=sem["param_dtype"],
+    arch.update(model_type=c["model_type"], head_dim=sem["head_dim"],
+                qkv_bias=sem["qkv_bias"], norm_eps=sem["norm_eps"],
+                param_dtype=sem["param_dtype"],
                 compute_dtype=sem["compute_dtype"],
                 z_loss_weight=sem["z_loss_weight"],
                 vocab_pad_multiple=sem["vocab_pad_multiple"])

@@ -10,7 +10,7 @@ from typing import Callable, Dict, List
 
 import torch
 
-from .model import Model
+from .arch import reference_model
 
 #: Elements an update takes at once.
 CHUNK = 1 << 26
@@ -34,7 +34,7 @@ def grads(arch: dict, P: Dict[str, torch.Tensor], batches: List[dict],
     of each one's loss and gradients, G fp32 by path."""
     G = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
          for k, v in P.items()}
-    model = Model(arch, P, G, prec)
+    model = reference_model(arch)(arch, P, G, prec)
     n = len(batches)
     total = 0.0
     for b in batches:
